@@ -1,0 +1,148 @@
+"""Embedding extraction (counterpart of :mod:`bvc_tpu.evalbench.extract`).
+
+Load a VideoMAE checkpoint (or build a random one), run the pooled
+embedding over a dataset of ``(clip, fname)`` samples, and write
+``embeddings_{run_id}.csv`` under the reference's CSV contract: sorted by
+fname, deduplicated, the test split under ``savedir/test/``.
+
+Checkpoints are the torch ``model_{run_id}.pth.tar`` files in the HF layout
+that ``bvc_tpu/cli/export_torch.py`` writes (``model_state_dict``); Orbax
+checkpoints need JAX and are not read here.  Extraction runs in one process
+on one device.  The JEPA and SimCLR families, the dataset readers and the
+``compute_embeddings`` CLI come with later slices (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+from pathlib import Path
+from typing import Callable
+
+import numpy as np
+import pandas as pd
+import torch
+
+from bvc_tpu_torch.models.convert import videomae_from_hf_state_dict
+from bvc_tpu_torch.models.videomae import VideoMAEEncoder
+from bvc_tpu_torch.utils.config import ModelConfig
+from bvc_tpu_torch.utils.device import resolve_device
+
+
+def drop_none_collate(samples: list[tuple]) -> tuple[np.ndarray, list[str]]:
+    """Stack ``(clip, fname)`` pairs, dropping failed decodes (clip None)."""
+    kept = [(c, f) for c, f in samples if c is not None]
+    if not kept:
+        return np.zeros((0,)), []
+    return np.stack([c for c, _ in kept]), [f for _, f in kept]
+
+
+def _require_videomae(family: str) -> None:
+    if family != "videomae":
+        raise NotImplementedError(
+            f"family {family!r} is not ported yet: JEPA extraction comes with "
+            "ROADMAP slice 4, SimCLR with slice 6")
+
+
+def _embed_fn(model: VideoMAEEncoder, device: torch.device) -> Callable:
+    """``fn(video_batch) -> [B, D]`` f32 numpy; ``fn.model`` is the module,
+    ``fn.feature_dim`` the embedding width."""
+    model = model.to(device).eval()
+
+    @torch.inference_mode()
+    def fn(video) -> np.ndarray:
+        x = torch.as_tensor(np.asarray(video)).to(device)
+        return model.embed(x).cpu().numpy()
+
+    fn.model = model
+    fn.feature_dim = model.cfg.hidden_size
+    return fn
+
+
+def make_embed_fn(family: str, ckpt_path: str, cfg: ModelConfig,
+                  device: str | torch.device | None = None) -> Callable:
+    """Load ``model_state_dict`` from a ``.pth.tar`` checkpoint (HF names)
+    and return the embedding function on ``device`` (``cuda`` when None)."""
+    _require_videomae(family)
+    device = resolve_device(device)
+    ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    model = VideoMAEEncoder(cfg)
+    model.load_state_dict(videomae_from_hf_state_dict(ckpt["model_state_dict"], cfg))
+    return _embed_fn(model, device)
+
+
+def untrained_embed_fn(family: str, cfg: ModelConfig, seed: int = 0,
+                       device: str | torch.device | None = None) -> Callable:
+    """Random-init model from ``seed``: the stage-0 untrained baseline."""
+    _require_videomae(family)
+    device = resolve_device(device)
+    return _embed_fn(VideoMAEEncoder(cfg, seed=seed), device)
+
+
+def save_results(fnames: list[str], embeddings: np.ndarray, phase: str,
+                 run_id: str, savedir: str) -> str:
+    """CSV contract of the reference ``save_results``."""
+    hdim = embeddings.shape[1]
+    cols = [f"dim{i}" for i in range(hdim)]
+    df = pd.DataFrame(embeddings, columns=cols)
+    df["fnames"] = fnames
+    df = df[["fnames"] + cols].sort_values("fnames")
+    df = df.drop_duplicates(subset="fnames", ignore_index=True)
+    out_dir = Path(savedir) / ("test" if phase == "test" else "")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"embeddings_{run_id}.csv"
+    df.to_csv(path, sep=",", float_format="%.6f", index=False)
+    return str(path)
+
+
+def extract_embeddings(embed_fn: Callable, dataset, batch_size: int = 64,
+                       num_workers: int = 6) -> tuple[list[str], np.ndarray]:
+    """Run ``embed_fn`` over the whole dataset in batches of ``batch_size``.
+
+    Samples are read by a thread pool; unreadable ones (clip None) are
+    dropped.  The short last batch runs as it is: the JAX package pads it
+    only to a multiple of the device count, which is one here.
+    """
+    fnames: list[str] = []
+    embs: list[np.ndarray] = []
+    n = len(dataset)
+    with cf.ThreadPoolExecutor(max_workers=num_workers) as pool:
+        for start in range(0, n, batch_size):
+            chunk = range(start, min(start + batch_size, n))
+            clips, names = drop_none_collate(list(pool.map(lambda i: dataset[i], chunk)))
+            if not names:
+                continue
+            fnames += names
+            embs.append(np.asarray(embed_fn(clips), dtype=np.float32))
+    local = {
+        "fnames": fnames,
+        "embeddings": np.concatenate(embs) if embs
+        else np.zeros((0, getattr(embed_fn, "feature_dim", 1)), np.float32),
+    }
+    return merge_gathered([local])
+
+
+def merge_gathered(gathered) -> tuple[list[str], np.ndarray]:
+    """Merge per-process ``{'fnames', 'embeddings'}`` dicts; empty blocks
+    (whose placeholder width may differ) are dropped when any process has
+    rows, and otherwise the widest placeholder width is kept."""
+    all_names: list[str] = []
+    all_embs: list[np.ndarray] = []
+    for d in gathered:
+        all_names += list(d["fnames"])
+        all_embs.append(np.asarray(d["embeddings"]))
+    non_empty = [e for e in all_embs if e.shape[0]]
+    if non_empty:
+        return all_names, np.concatenate(non_empty)
+    dim = max((e.shape[1] for e in all_embs), default=1)
+    return all_names, np.zeros((0, dim), np.float32)
+
+
+def run_id_from_checkpoint(fp: str) -> str:
+    """``model_{run_id}.pth.tar`` -> ``run_id``."""
+    name = Path(fp).name
+    if name.startswith("model_"):
+        name = name[len("model_"):]
+    for suf in (".pth.tar", ".ckpt"):
+        if name.endswith(suf):
+            name = name[: -len(suf)]
+    return name

@@ -1,0 +1,104 @@
+"""The port stands alone: no JAX and nothing of ``bvc_tpu`` is imported,
+entry points never fall back to the CPU on their own, and ``chip_smoke.py``
+refuses to run without a card or outside a checkout."""
+
+import ast
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import bvc_tpu_torch
+from bvc_tpu_torch.evalbench import extract
+from bvc_tpu_torch.ops import _build
+from bvc_tpu_torch.utils.config import ModelConfig
+from bvc_tpu_torch.utils.device import resolve_device
+
+REPO = Path(__file__).resolve().parent.parent
+PACKAGE = Path(bvc_tpu_torch.__file__).parent
+PY_FILES = sorted(PACKAGE.rglob("*.py"))
+
+
+def test_import_pulls_in_no_jax_and_no_bvc_tpu():
+    code = (
+        "import importlib, pkgutil, sys, bvc_tpu_torch\n"
+        "for m in pkgutil.walk_packages(bvc_tpu_torch.__path__, 'bvc_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "       or k == 'bvc_tpu' or k.startswith('bvc_tpu.')]\n"
+        "print(len([k for k in sys.modules if k.startswith('bvc_tpu_torch.')]), bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300, check=True).stdout.split(maxsplit=1)
+    assert int(out[0]) >= len(PY_FILES) - 1  # every module but the package itself
+    assert out[1].strip() == "[]"
+
+
+@pytest.mark.parametrize("path", PY_FILES, ids=lambda p: str(p.relative_to(PACKAGE)))
+def test_source_imports_neither_jax_nor_bvc_tpu(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "bvc_tpu", "flax", "optax"), (path, name)
+
+
+def test_no_silent_cpu_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ModelConfig(image_size=32, patch_size=8, num_frames=4, hidden_size=16,
+                      depth=1, num_heads=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract.untrained_embed_fn("videomae", cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract.make_embed_fn("videomae", "model_x.pth.tar", cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_build_is_keyed_by_source_hash():
+    path = _build.library_path("flash_fwd")
+    assert path.parent == PACKAGE / "_build"
+    assert path.name.startswith("libflash_fwd-") and path.suffix == ".so"
+    assert path == _build.library_path("flash_fwd")
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    ignored = (REPO / ".gitignore").read_text().split()
+    assert "bvc_tpu_torch/_build/" in ignored
+
+
+def test_nvcc_missing_raises(monkeypatch):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(shutil, "which", lambda _: None)
+    monkeypatch.setattr(_build.os, "access", lambda *_: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
+
+
+def _run_chip_smoke(cwd: Path, script: Path):
+    return subprocess.run([sys.executable, str(script)], cwd=cwd, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py runs for real there")
+    proc = _run_chip_smoke(REPO, REPO / "chip_smoke.py")
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    assert "torch.cuda.is_available() is False" in proc.stderr
+
+
+def test_chip_smoke_fails_outside_a_checkout(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run_chip_smoke(tmp_path, tmp_path / "chip_smoke.py")
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    assert "no bvc_tpu_torch package" in proc.stderr
