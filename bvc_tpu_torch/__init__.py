@@ -2,8 +2,10 @@
 
 The JAX package ``bvc_tpu`` stays beside this one, unchanged, as the
 reference: every slice of the port is tested against it.  So far the port
-serves VideoMAE embeddings (``evalbench.extract``) through a hand-written
-CUDA forward flash-attention kernel (``csrc/flash_fwd.cu``).
+serves VideoMAE embeddings (``evalbench.extract``) and takes VideoMAE
+pretraining steps (``training.steps``), through hand-written CUDA
+flash-attention kernels: the forward (``csrc/flash_fwd.cu``) and the
+backward pair (``csrc/flash_bwd.cu``).
 
 Ground rules:
 

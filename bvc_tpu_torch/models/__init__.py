@@ -1,1 +1,1 @@
-"""VideoMAE encoder, transformer core, initialisation and weight conversion."""
+"""VideoMAE encoder and pretraining model, transformer core, initialisation and weight conversion."""

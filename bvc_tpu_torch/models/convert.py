@@ -1,16 +1,19 @@
-"""Weights carried into the port's :class:`VideoMAEEncoder`.
-
-Two sources, both returning the encoder's state dict (f32 tensors):
+"""Weights carried into the port's VideoMAE modules (f32 state dicts).
 
 - :func:`videomae_from_jax_params`: the JAX package's parameter tree as
-  numpy arrays (block leaves stacked ``[depth, ...]``, kernels ``[in, out]``);
+  numpy arrays (block leaves stacked ``[depth, ...]``, kernels ``[in, out]``)
+  -> the state dict of :class:`VideoMAEEncoder` (``patch_embed.*``,
+  ``blocks.layers.{i}.*``).
+- :func:`videomae_pretrain_from_jax_params`: the same tree -> the state
+  dict of :class:`VideoMAEPretrain`: the encoder's entries under
+  ``encoder.``, and from the tree's decoder side ``enc_to_dec.weight``,
+  ``mask_token``, ``decoder.layers.{i}.{ln1,qkv,proj,ln2,fc1,fc2}.*``,
+  ``decoder_norm.{weight,bias}`` and ``decoder_head.{weight,bias}``.
 - :func:`videomae_from_hf_state_dict`: HF ``VideoMAEForPreTraining`` names,
   as ``bvc_tpu/cli/export_torch.py`` writes them into
-  ``model_{run_id}.pth.tar``.  HF has no k bias, so the fused qkv bias gets
-  zeros in its k third.
-
-Decoder entries in either source are ignored: the port embeds with the
-encoder only.
+  ``model_{run_id}.pth.tar`` -> the encoder's state dict.  HF has no k bias,
+  so the fused qkv bias gets zeros in its k third.  The HF decoder entries
+  are not read yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -29,23 +32,45 @@ def _f32(x: Any) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(x, dtype=np.float32)))
 
 
+def _linear(p: dict, prefix: str) -> dict[str, torch.Tensor]:
+    """A JAX ``{kernel [in, out], bias?}`` leaf -> ``nn.Linear`` entries."""
+    sd = {prefix + "weight": _f32(p["kernel"]).T.contiguous()}
+    if "bias" in p:
+        sd[prefix + "bias"] = _f32(p["bias"])
+    return sd
+
+
+def _blocks(stacked: dict, depth: int, prefix: str) -> dict[str, torch.Tensor]:
+    """Stacked JAX block leaves ``[depth, ...]`` -> ``Blocks`` entries."""
+    linears = (("qkv", stacked["attn"]["qkv"]), ("proj", stacked["attn"]["proj"]),
+               ("fc1", stacked["mlp"]["fc1"]), ("fc2", stacked["mlp"]["fc2"]))
+    sd = {}
+    for i in range(depth):
+        pre = f"{prefix}layers.{i}."
+        for name in ("ln1", "ln2"):
+            sd[pre + name + ".weight"] = _f32(stacked[name]["scale"][i])
+            sd[pre + name + ".bias"] = _f32(stacked[name]["bias"][i])
+        for name, p in linears:
+            sd.update(_linear({k: x[i] for k, x in p.items()}, pre + name + "."))
+    return sd
+
+
 def videomae_from_jax_params(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """JAX ``videomae.init_params``-shaped tree -> encoder state dict."""
-    pe = tree["patch_embed"]
-    sd = {"patch_embed.weight": _f32(pe["kernel"]).T.contiguous(),
-          "patch_embed.bias": _f32(pe["bias"])}
-    enc = tree["encoder"]
-    linears = (("qkv", enc["attn"]["qkv"]), ("proj", enc["attn"]["proj"]),
-               ("fc1", enc["mlp"]["fc1"]), ("fc2", enc["mlp"]["fc2"]))
-    for i in range(cfg.depth):
-        pre = f"blocks.layers.{i}."
-        for name in ("ln1", "ln2"):
-            sd[pre + name + ".weight"] = _f32(enc[name]["scale"][i])
-            sd[pre + name + ".bias"] = _f32(enc[name]["bias"][i])
-        for name, p in linears:
-            sd[pre + name + ".weight"] = _f32(p["kernel"][i]).T.contiguous()
-            if "bias" in p:
-                sd[pre + name + ".bias"] = _f32(p["bias"][i])
+    return {**_linear(tree["patch_embed"], "patch_embed."),
+            **_blocks(tree["encoder"], cfg.depth, "blocks.")}
+
+
+def videomae_pretrain_from_jax_params(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """JAX ``videomae.init_params``-shaped tree -> pretraining-model state
+    dict (encoder and decoder)."""
+    sd = {"encoder." + k: x for k, x in videomae_from_jax_params(tree, cfg).items()}
+    sd.update(_linear(tree["enc_to_dec"], "enc_to_dec."))
+    sd["mask_token"] = _f32(tree["mask_token"])
+    sd.update(_blocks(tree["decoder"], cfg.decoder_depth, "decoder."))
+    sd["decoder_norm.weight"] = _f32(tree["decoder_norm"]["scale"])
+    sd["decoder_norm.bias"] = _f32(tree["decoder_norm"]["bias"])
+    sd.update(_linear(tree["decoder_head"], "decoder_head."))
     return sd
 
 

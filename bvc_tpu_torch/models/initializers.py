@@ -1,7 +1,8 @@
 """Weight initialisation (counterpart of :mod:`bvc_tpu.models.initializers`).
 
 Linear weights ~ normal truncated at +-2 sigma, times ``std`` (0.02 by
-default); biases zero; LayerNorm scale 1 and bias 0.  Draws come from a
+default), and so is VideoMAE's mask token (:func:`trunc_normal_`); biases
+zero; LayerNorm scale 1 and bias 0 (``vit.LayerNorm``).  Draws come from a
 ``torch.Generator``, so the port's random weights differ from the JAX
 package's for the same seed: tests that compare the two carry the JAX
 weights across (:mod:`bvc_tpu_torch.models.convert`).

@@ -7,7 +7,8 @@ LayerNorm statistics and softmax in f32.
 
 Linear layers use ``F.linear`` with the bias fused, where the JAX package
 adds the bias after the product: in bf16 the two round at different places.
-Drop-path and activation checkpointing come with the training slice.
+Drop-path and activation checkpointing (off in every reference config)
+come with the training loop (ROADMAP slice 3).
 """
 
 from __future__ import annotations

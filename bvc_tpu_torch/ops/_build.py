@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into
 ``_build/lib<name>-<hash>.so``, a library with a plain C interface that the
-kernel wrappers load with :mod:`ctypes`.  The hash covers the source and the
-flags, so an edited source builds anew and an unchanged one is reused.
+kernel wrappers load with :mod:`ctypes`.  The hash covers the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header builds anew and an unchanged one is reused.
 ``_build/`` is listed in ``.gitignore``: a fresh checkout builds from its own
 sources and nothing else.  ``ptxas -v`` output (registers, shared memory,
 spills) is kept beside each library as ``.log``.
@@ -43,6 +44,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -5,8 +5,8 @@ v of shape ``[B, N, h, d]``.  Two implementations:
 
 - :func:`plain_attention`, the counterpart of ``_xla_attention``: the
   attention written out in PyTorch, with the same dtype steps;
-- :func:`bvc_tpu_torch.ops.flash_attention.flash_attention`: the CUDA kernel
-  (its plain version for CPU tensors).
+- :func:`bvc_tpu_torch.ops.flash_attention.flash_attention`: the CUDA
+  kernels, forward and backward (their plain versions for CPU tensors).
 """
 
 from __future__ import annotations
@@ -16,10 +16,11 @@ import torch
 from bvc_tpu_torch.ops.flash_attention import flash_attention
 
 # 'auto' sends an unmasked bf16 CUDA attention of at least this many tokens
-# to the flash kernel.  Set from the H100 timing of the kernel against
-# plain_attention at [8, N, 12, 64], N in {160, 392, 784, 1568}
-# (chip_smoke.py, PERF.md): the kernel won at every N measured, so the
-# threshold is the smallest of them; shorter sequences stay unmeasured.
+# to the flash kernels.  Set from the H100 timing of the kernels against
+# plain_attention at [8, N, 12, 64], N in {160, 392, 784, 1568}, forward
+# alone and forward plus backward (chip_smoke.py, PERF.md): the kernels won
+# at every N measured, so the threshold is the smallest of them; shorter
+# sequences stay unmeasured.
 FLASH_MIN_TOKENS = 160
 
 
@@ -43,10 +44,11 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Scaled dot-product attention over ``[B, N, h, d]`` tensors.
 
     ``impl``: ``'auto'`` | ``'xla'`` (the plain math, under the JAX
-    package's name) | ``'flash'``.  ``'flash'`` launches the kernel for CUDA
-    tensors and runs its plain version for CPU tensors; it raises for a key
-    mask (the key-bias kernels come with JEPA, ROADMAP slice 4) and, on
-    CUDA, for anything but bf16 with head width 64.
+    package's name) | ``'flash'``.  Both are differentiable.  ``'flash'``
+    launches the kernels for CUDA tensors (the backward kernels when a
+    gradient is taken) and runs their plain versions for CPU tensors; it
+    raises for a key mask (the key-bias kernels come with JEPA, ROADMAP
+    slice 4) and, on CUDA, for anything but bf16 with head width 64.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5

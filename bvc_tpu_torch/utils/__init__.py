@@ -1,1 +1,1 @@
-"""Model configuration and device choice."""
+"""Model, mask and optimizer configuration, and device choice."""

@@ -1,9 +1,12 @@
-"""Model configuration (counterpart of ``bvc_tpu.utils.config.ModelConfig``).
+"""Configuration (counterpart of ``ModelConfig``, ``MaskConfig`` and
+``OptimConfig`` of ``bvc_tpu.utils.config``).
 
 The same field names and defaults as the JAX package, so one set of flags or
 one yaml drives both; ``bvc_tpu.utils`` imports JAX, so the port keeps its
-own copy.  The defaults are VideoMAE-B: 224 px, 16 frames, tubelet 2,
-patch 16, 768 wide, 12 layers, 12 heads, bf16 activations.
+own copy.  The model defaults are VideoMAE-B: 224 px, 16 frames, tubelet 2,
+patch 16, 768 wide, 12 layers, 12 heads, a 384-wide 4-layer decoder, bf16
+activations; the mask defaults are tube masking at 0.9; the optimizer
+defaults are SGD with Nesterov momentum 0.9 at lr 0.1.
 """
 
 from __future__ import annotations
@@ -58,3 +61,58 @@ class ModelConfig:
     @property
     def seq_len(self) -> int:
         return self.num_time_steps * self.tokens_per_frame
+
+
+@dataclass
+class MaskConfig:
+    """Masking knobs for both mask families."""
+
+    # VideoMAE tube / random masking
+    sampler: str = "tube"  # 'tube' | 'random'
+    mask_ratio: float = 0.9
+    # JEPA multi-block collator: read by no port code yet, kept for the
+    # JEPA slice
+    enc_mask_scale: tuple[float, float] = (0.85, 1.0)
+    pred_mask_scale: tuple[float, float] = (0.15, 0.2)
+    aspect_ratio: tuple[float, float] = (0.75, 1.5)
+    num_enc_masks: int = 1
+    num_pred_masks: int = 4
+    min_keep: int = 10
+    allow_overlap: bool = False
+
+
+@dataclass
+class OptimConfig:
+    """Optimizer knobs (see :mod:`bvc_tpu_torch.training.optim`)."""
+
+    name: str = "sgd"  # 'sgd' | 'adamw' | 'adam'
+    lr: float = 0.1
+    weight_decay: float = 0.0
+    momentum: float = 0.9
+    nesterov: bool = True
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    # weight decay only on tensors with ndim >= 2 (JEPA's biases and norms
+    # go without)
+    exclude_bias_and_norm_from_wd: bool = False
+    # JEPA target-encoder EMA ramp and SimCLR options: read by no port code
+    # yet, kept for the JEPA and SimCLR slices
+    ema: tuple[float, float] = (0.996, 1.0)
+    ema_fallback: float = 0.998
+    contrastive_negatives: str = "global"
+    bn_stats: str = "global"
+    # 'none' keeps lr constant; 'warmup_cosine' warms start_lr -> lr over
+    # warmup_epochs, then decays lr -> final_lr by a cosine
+    schedule: str = "none"  # 'none' | 'warmup_cosine'
+    start_lr: float = 0.0
+    final_lr: float = 0.0
+    # cosine weight-decay schedule weight_decay -> final_wd; None: constant
+    final_wd: float | None = None
+    # Read by the trainer (slice 3), not yet by the port: it turns
+    # warmup_epochs and ipe_scale into make_optimizer's (warmup, total)
+    # steps, and passes grad_accum_steps to make_videomae_train_step's
+    # grad_accum (>1: average the gradients of that many microbatches
+    # before the one optimizer step).  Until then the caller passes both.
+    warmup_epochs: float = 0.0
+    ipe_scale: float = 1.25
+    grad_accum_steps: int = 1

@@ -4,26 +4,45 @@
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
 
     python3 chip_smoke.py            # build, check, time; one card
-    python3 chip_smoke.py --profile [FILE]  # also a torch.profiler breakdown of one
-                                            # embed call, written to FILE if given
+    python3 chip_smoke.py --profile [FILE]  # also torch.profiler breakdowns of one
+                                            # embed call and one training step,
+                                            # written to FILE and profile_train.txt
 
 1. Build every CUDA kernel of the port from ``bvc_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print the card, its power
-   limit, the versions and the build time.
-2. Kernel against plain: the flash forward kernel against its plain PyTorch
-   version on the card, at the extraction shape ``[8, 1568, 12, 64]``, an odd
-   N and the decoder shape ``[8, 1568, 6, 64]``; O within 2e-2 (bf16 output,
-   accumulation in another order), LSE within 1e-3 (f32).  Times of the
-   kernel, the plain version and ``F.scaled_dot_product_attention`` (a
+   limit, the versions, the build time and each kernel's registers and
+   spills.
+2. Forward kernel against plain: the flash forward kernel against its plain
+   PyTorch version on the card, at the extraction shape ``[8, 1568, 12, 64]``,
+   the encoder's shape in training ``[8, 160, 12, 64]``, an odd N and the
+   decoder shape ``[8, 1568, 6, 64]``; O within 2e-2 (bf16
+   output, accumulation in another order), LSE within 1e-3 (f32).  Times of
+   the kernel, the plain version and ``F.scaled_dot_product_attention`` (a
    yardstick only: the port never calls it), and of the kernel against the
-   plain attention path at N in {160, 392, 784, 1568} for the routing
-   threshold.
-3. The main path at full width: VideoMAE-B extraction (224 px, 16 frames,
-   bf16) through ``untrained_embed_fn``; the launch count of the kernel in
-   one embed call must be 12, and the embeddings must agree with the plain
-   attention path on the same weights (cosine >= 0.999 per row).  Then
-   clips/s, frames/s and MFU at the largest batch in {64, 32, 16} that fits.
-4. The entry point: ``extract_embeddings`` over a small synthetic dataset,
+   plain attention path at N in {160, 392, 784, 1568}, forward alone and
+   forward plus backward, for the routing threshold.
+3. Backward kernels against plain: dQ, dK and dV of the two kernels against
+   the plain version at ``[8, 1568, 6, 64]`` (decoder), ``[8, 160, 12, 64]``
+   (encoder in training) and ``[8, 197, 12, 64]`` (odd N), each within
+   2e-2 x max|ref| (bf16 outputs, sums in another order) and within 1e-3 in
+   |err|/|ref|; each kernel's time,
+   TFLOP/s and bound, the plain version's time and SDPA's backward as the
+   yardstick.
+4. Extraction at full width: VideoMAE-B (224 px, 16 frames, bf16) through
+   ``untrained_embed_fn``; 12 launches of the forward kernel in one embed
+   call, embeddings within cosine 0.999 per row of the plain attention path
+   on the same weights; then clips/s, frames/s and MFU at the largest batch
+   in {64, 32, 16} that fits.
+5. Training at full width, the slice's main path: VideoMAE-B pretraining
+   steps (tube mask 0.9, 160 visible tokens, SGD-Nesterov) through
+   ``VideoMAEPretrain``, ``TrainState.create`` and
+   ``make_videomae_train_step``.  At B=8 one step launches each of the three
+   kernels 16 times, and agrees with a step through the plain attention path
+   from the same weights, batch and mask (loss within 1e-4 relative,
+   gradient cosine >= 0.99 for every top-level group and >= 0.9995 for
+   every parameter tensor).  Then clips/s, MFU
+   and peak memory at the largest batch in {48, 32, 16} that fits.
+6. The entry point: ``extract_embeddings`` over a small synthetic dataset,
    then ``save_results``; row count and width 768.
 
 Prints one JSON ``{"kernels": [...]}`` line and, last,
@@ -48,7 +67,13 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 O_TOL = 2e-2
 LSE_TOL = 1e-3
+BWD_TOL = 2e-2  # of max|ref|: bf16 outputs, sums in another order
+BWD_REL_TOL = 1e-3  # |err|/|ref| of dQ, dK and dV (read: 0.8-1.4e-4)
 COSINE_MIN = 0.999
+# flash vs plain attention in one training step, bf16 activations
+TRAIN_LOSS_RTOL = 1e-4  # read: 8.5e-7
+GRAD_COSINE_MIN = 0.99  # per top-level group
+TENSOR_COSINE_MIN = 0.9995  # per parameter tensor
 
 
 def fail(msg: str) -> None:
@@ -86,6 +111,35 @@ def attention_bound_ms(B: int, N: int, h: int, d: int) -> tuple[float, str]:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def bwd_bound_ms(B: int, N: int, h: int, d: int, products: int) -> tuple[float, str]:
+    """Least time of one backward kernel on the card: ``products`` N x N x d
+    tensor-core products (3 for dQ, 4 for dK/dV), 2*B*h*N^2*d operations
+    each, at the bf16 peak, against reading qs, k, v, dO (bf16), L and D
+    (f32) once and writing dQ, or dK and dV (bf16), at the HBM rate; the
+    larger one bounds."""
+    ops_ms = 2 * products * B * h * N * N * d / PEAK_BF16_FLOPS * 1e3
+    elems = B * N * h * d
+    outputs = 1 if products == 3 else 2
+    nbytes = (4 + outputs) * elems * 2 + 2 * B * h * N * 4
+    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def train_flops_per_clip(cfg, num_visible: int) -> float:
+    """Model operations of one VideoMAE pretraining step per clip: 3 x the
+    forward (the backward takes twice the forward's products).  The forward
+    is the encoder at V visible tokens, 24*V*D^2 + 4*V^2*D per layer, the
+    patch embedding at V, 2*V*(C*ts*p*p)*D, ``enc_to_dec`` 2*V*D*Dd, the
+    decoder at all N tokens, 24*N*Dd^2 + 4*N^2*Dd per layer, and the head
+    on the M = N - V masked tokens, 2*M*Dd*(C*ts*p*p)."""
+    V, N, D, Dd = num_visible, cfg.seq_len, cfg.hidden_size, cfg.decoder_hidden_size
+    patch_dim = cfg.in_channels * cfg.tubelet_size * cfg.patch_size ** 2
+    fwd = (cfg.depth * (24 * V * D * D + 4 * V * V * D) + 2 * V * patch_dim * D
+           + 2 * V * D * Dd + cfg.decoder_depth * (24 * N * Dd * Dd + 4 * N * N * Dd)
+           + 2 * (N - V) * Dd * patch_dim)
+    return 3 * fwd
+
+
 def embed_flops_per_clip(cfg) -> float:
     """Model operations of one VideoMAE embed: per layer 24*N*D^2 for the
     qkv/proj/fc1/fc2 products and 4*N^2*D for attention, plus the patch
@@ -120,6 +174,7 @@ def phase_kernel() -> dict:
 
     result = {}
     for label, (B, N, h, d) in (("extraction", (8, 1568, 12, 64)),
+                                ("encoder", (8, 160, 12, 64)),
                                 ("odd N", (8, 197, 12, 64)),
                                 ("decoder", (8, 1568, 6, 64))):
         _, qs, k, v = qkv_inputs(B, N, h, d, seed=N + h)
@@ -176,7 +231,104 @@ def phase_kernel() -> dict:
                     default=None)
     print(f"routing: flash wins from N={crossover} of those measured; "
           f"FLASH_MIN_TOKENS = {FLASH_MIN_TOKENS}", flush=True)
+
+    # The same, forward plus backward, as a training step runs them.
+    for N in (160, 392, 784, 1568):
+        q, _, k, v = qkv_inputs(8, N, 12, 64, seed=N)
+        q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+        do = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
+
+        def fwd_bwd(impl):
+            out = multi_head_attention(q, k, v, impl=impl)
+            return torch.autograd.grad(out, (q, k, v), do)
+
+        k_ms = time_ms(lambda: fwd_bwd("flash"))
+        p_ms = time_ms(lambda: fwd_bwd("xla"), iters=5)
+        print(f"routing fwd+bwd [8,{N},12,64]: flash {k_ms:.4f} ms, plain {p_ms:.4f} ms",
+              flush=True)
     check(FLASH_MIN_TOKENS <= 1568, "FLASH_MIN_TOKENS must route the 1568-token path")
+    return result
+
+
+def phase_bwd_kernel() -> dict:
+    """The dQ and dK/dV kernels against their plain version at the decoder,
+    encoder-in-training and odd-N shapes; returns their records at the
+    decoder shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from bvc_tpu_torch.ops.flash_attention import (bwd_operands, flash_attention_bwd_ref,
+                                                   flash_bwd_cuda, flash_fwd_cuda,
+                                                   launch_dkv, launch_dq)
+
+    result = {}
+    for label, (B, N, h, d) in (("decoder", (8, 1568, 6, 64)),
+                                ("encoder", (8, 160, 12, 64)),
+                                ("odd N", (8, 197, 12, 64))):
+        _, qs, k, v = qkv_inputs(B, N, h, d, seed=2 * N + h)
+        gen = torch.Generator(device="cuda").manual_seed(N)
+        do = torch.randn((B, N, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        o, lse = flash_fwd_cuda(qs, k, v)
+        grads = flash_bwd_cuda(qs, k, v, o, lse, do)
+        refs = flash_attention_bwd_ref(qs, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, x, ref in zip(("dq", "dk", "dv"), grads, refs):
+            diff = (x.float() - ref.float())
+            err, scale = diff.abs().max().item(), ref.float().abs().max().item()
+            rel = (diff.norm() / ref.float().norm()).item()
+            errs[name] = err
+            print(f"flash_bwd [{B},{N},{h},{d}] ({label}) {name}: max abs err {err:.3e} "
+                  f"(bound {BWD_TOL * scale:.3e} = {BWD_TOL} x max|ref|), "
+                  f"|err|/|ref| {rel:.3e} (bound {BWD_REL_TOL})", flush=True)
+            check(err <= BWD_TOL * scale and math.isfinite(err),
+                  f"flash_bwd {name} disagrees with the plain version at {label}: {err}")
+            check(rel <= BWD_REL_TOL,
+                  f"flash_bwd {name} at {label}: |err|/|ref| {rel} > {BWD_REL_TOL}")
+
+        operands = bwd_operands(qs, k, v, o, lse, do)
+        dq_ms = time_ms(lambda: launch_dq(*operands))
+        dkv_ms = time_ms(lambda: launch_dkv(*operands))
+        plain_ms = time_ms(lambda: flash_attention_bwd_ref(qs, k, v, o, lse, do), iters=5)
+        # yardstick only (the port never calls it): SDPA's backward, taken
+        # as its forward plus backward less its forward alone
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (qs, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt, scale=1.0)
+
+        sdpa_fb_ms = time_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot))
+        lib_ms = sdpa_fb_ms - time_ms(sdpa_fwd)
+        line = [f"flash_bwd [{B},{N},{h},{d}] ({label}):"]
+        for name, ms, products in (("dq", dq_ms, 3), ("dkv", dkv_ms, 4)):
+            bound, bound_by = bwd_bound_ms(B, N, h, d, products)
+            tflops = 2 * products * B * h * N * N * d / ms / 1e9
+            line.append(f"{name} kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s), bound "
+                        f"{bound:.4f} ms ({bound_by});")
+            if label == "decoder":
+                err = errs["dq"] if name == "dq" else max(errs["dk"], errs["dv"])
+                result[name] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by}
+        line.append(f"plain (both) {plain_ms:.4f} ms; sdpa backward {lib_ms:.4f} ms")
+        print(" ".join(line), flush=True)
+
+    # What the kernels do not take raises on the card: no plain fallback.
+    q, qs, k, v = qkv_inputs(2, 64, 2, 64, seed=0)
+    o, lse = flash_fwd_cuda(qs, k, v)
+    for what, call in (("f32", lambda: flash_bwd_cuda(qs.float(), k.float(), v.float(),
+                                                      o.float(), lse, o.float())),
+                       ("head width 32", lambda: flash_bwd_cuda(
+                           qs[..., :32], k[..., :32], v[..., :32], o[..., :32], lse,
+                           o[..., :32])),
+                       ("lse of another shape", lambda: flash_bwd_cuda(
+                           qs, k, v, o, lse[:, :1], o))):
+        try:
+            call()
+        except ValueError:
+            continue
+        fail(f"flash_bwd_cuda with {what} on CUDA ran instead of raising")
     return result
 
 
@@ -243,35 +395,46 @@ def phase_main_path(card: str, profile: str | None) -> int:
     return launches
 
 
-def profile_embed(model, x, out_file: str) -> None:
-    """torch.profiler breakdown of one embed call: device time by kernel,
-    and the device's idle share of the call's wall time; the table is also
-    written to ``out_file`` unless it is empty."""
+def profile_call(fn, what: str, out_file: str) -> float:
+    """torch.profiler breakdown of one call of ``fn`` (after one untimed
+    call): device time by kernel, and the device's idle share of the call's
+    wall time; the table is also written to ``out_file`` unless it is
+    empty.  Returns the device-busy microseconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        model.embed(x)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model.embed(x)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
     # device rows only: an operator's row repeats the time of its kernels
     busy_us = sum(e.self_device_time_total for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA)
     table = events.table(sort_by="self_device_time_total", row_limit=30)
     print(table, flush=True)
-    print(f"profile: device busy {busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms "
+    print(f"profile ({what}): device busy {busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms "
           f"wall, idle share {1 - busy_us / wall_us:.3f}", flush=True)
+    if out_file:
+        Path(out_file).parent.mkdir(parents=True, exist_ok=True)
+        Path(out_file).write_text(table)
+    return busy_us
 
-    # The table cannot tell which elementwise kernels belong to which op:
-    # time the plain-PyTorch GELU and LayerNorm alone at the block's shapes.
+
+def profile_embed(model, x, out_file: str) -> None:
+    """:func:`profile_call` of one embed call, then the plain-PyTorch GELU
+    and LayerNorm timed alone at the block's shapes (the table cannot tell
+    which elementwise kernels belong to which op)."""
+    import torch
+
     from bvc_tpu_torch.models.vit import layer_norm
     from bvc_tpu_torch.ops.gelu import gelu
 
+    with torch.inference_mode():
+        busy_us = profile_call(lambda: model.embed(x), "one embed call", out_file)
     cfg = model.cfg
     B, N, D = x.shape[0], cfg.seq_len, cfg.hidden_size
     h = torch.randn(B, N, int(D * cfg.mlp_ratio), device=x.device, dtype=torch.bfloat16)
@@ -284,9 +447,159 @@ def profile_embed(model, x, out_file: str) -> None:
     for name, (ms, calls) in per_call.items():
         print(f"profile: {name} {ms:.3f} ms x {calls} calls = {ms * calls:.1f} ms, "
               f"{ms * calls * 1e3 / busy_us:.3f} of device time", flush=True)
-    if out_file:
-        Path(out_file).parent.mkdir(parents=True, exist_ok=True)
-        Path(out_file).write_text(table)
+
+
+def profile_train(step, state, video, num_visible: int, out_file: str) -> None:
+    """:func:`profile_call` of one training step, then the plain-PyTorch
+    GELU and LayerNorm, forward plus backward, timed alone at the step's
+    shapes (encoder at the visible tokens, decoder at all of them)."""
+    import torch
+
+    from bvc_tpu_torch.models.vit import layer_norm
+    from bvc_tpu_torch.ops.gelu import gelu
+
+    B = video.shape[0]
+    busy_us = profile_call(lambda: step(state, video), f"one training step at B={B}",
+                           out_file)
+    cfg = state.model.cfg
+
+    def fwd_bwd(fn, *shape_of_x_and_params):
+        xs = [torch.randn(s, device=video.device, dtype=dt, requires_grad=True)
+              for s, dt in shape_of_x_and_params]
+        y = fn(*xs)
+        return lambda: torch.autograd.grad(fn(*xs), xs, torch.ones_like(y))
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    per_call = {}
+    for where, n, d, layers, norms in (
+            ("encoder", num_visible, cfg.hidden_size, cfg.depth, 2 * cfg.depth),
+            ("decoder", cfg.seq_len, cfg.decoder_hidden_size, cfg.decoder_depth,
+             2 * cfg.decoder_depth + 1)):
+        hidden = int(d * cfg.mlp_ratio)
+        per_call[f"gelu_poly {where}"] = (
+            time_ms(fwd_bwd(gelu, ((B, n, hidden), bf16)), iters=5), layers)
+        per_call[f"layer_norm {where}"] = (
+            time_ms(fwd_bwd(layer_norm, ((B, n, d), bf16), ((d,), f32), ((d,), f32)),
+                    iters=5), norms)
+    for name, (ms, calls) in per_call.items():
+        print(f"profile: {name} forward+backward {ms:.3f} ms x {calls} calls = "
+              f"{ms * calls:.1f} ms, {ms * calls * 1e3 / busy_us:.3f} of device time",
+              flush=True)
+
+
+def phase_train(card: str, profile: str | None) -> dict[str, int]:
+    """VideoMAE-B pretraining steps on the card through the port's entry
+    points (``VideoMAEPretrain``, ``TrainState.create``,
+    ``make_videomae_train_step``), as ``bench.py`` configures the JAX
+    flagship.  Returns each kernel's launches in one step at B=8."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from bvc_tpu_torch.models.videomae import VideoMAEPretrain
+    from bvc_tpu_torch.ops.flash_attention import flash_bwd_cuda, flash_fwd_cuda
+    from bvc_tpu_torch.training.state import TrainState
+    from bvc_tpu_torch.training.steps import make_videomae_train_step
+    from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig
+
+    cfg = ModelConfig()
+    mask_cfg = MaskConfig(sampler="tube", mask_ratio=0.9)
+    optim = OptimConfig(name="sgd", lr=0.1, momentum=0.9)
+    num_visible = cfg.num_time_steps * (cfg.tokens_per_frame
+                                        - int(mask_cfg.mask_ratio * cfg.tokens_per_frame))
+    rng = np.random.default_rng(0)
+
+    def clips(B):
+        shape = (B, cfg.num_frames, cfg.image_size, cfg.image_size, cfg.in_channels)
+        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).cuda()
+
+    # B=8: the kernels' launches in one step, and the step against the
+    # plain attention path from the same weights, batch and mask (both
+    # states draw the mask from generators of one seed).
+    video = clips(8)
+    state = TrainState.create(VideoMAEPretrain(cfg, seed=0), optim, seed=1)
+    step = make_videomae_train_step(cfg, mask_cfg)
+    flash_fwd_cuda.launches = flash_bwd_cuda.launches_dq = flash_bwd_cuda.launches_dkv = 0
+    metrics = step(state, video)
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": flash_fwd_cuda.launches,
+                "flash_bwd_dq": flash_bwd_cuda.launches_dq,
+                "flash_bwd_dkv": flash_bwd_cuda.launches_dkv}
+    print(f"train: one step at B=8 launched {launches}", flush=True)
+    layers = cfg.depth + cfg.decoder_depth
+    check(all(n == layers for n in launches.values()),
+          f"expected {layers} launches of each kernel in one step, got {launches}")
+
+    plain = TrainState.create(VideoMAEPretrain(cfg, seed=0), optim, seed=1)
+    plain_metrics = make_videomae_train_step(cfg, mask_cfg, attn_impl="xla")(plain, video)
+    loss, plain_loss = metrics["loss"].item(), plain_metrics["loss"].item()
+    rel = abs(loss - plain_loss) / abs(plain_loss)
+    print(f"train: loss {loss:.6f}, plain attention {plain_loss:.6f} (rel {rel:.2e}); "
+          f"grad_norm {metrics['grad_norm'].item():.4e} vs "
+          f"{plain_metrics['grad_norm'].item():.4e}", flush=True)
+    check(math.isfinite(loss) and rel <= TRAIN_LOSS_RTOL,
+          f"train loss {loss} vs plain {plain_loss}: rel {rel} > {TRAIN_LOSS_RTOL}")
+    groups = ("encoder.patch_embed.", "encoder.blocks.", "enc_to_dec.", "mask_token",
+              "decoder.", "decoder_norm.", "decoder_head.")
+    flash_grads = {n: p.grad.flatten() for n, p in state.model.named_parameters()}
+    plain_grads = {n: p.grad.flatten() for n, p in plain.model.named_parameters()}
+    cosine = torch.nn.functional.cosine_similarity
+    for group in groups:
+        names = [n for n in flash_grads if n.startswith(group)]
+        cos = cosine(torch.cat([flash_grads[n] for n in names]),
+                     torch.cat([plain_grads[n] for n in names]), dim=0).item()
+        print(f"train: gradient cosine to the plain path, {group:<22} {cos:.6f}", flush=True)
+        check(cos >= GRAD_COSINE_MIN, f"gradient cosine of {group} {cos} < {GRAD_COSINE_MIN}")
+    # each tensor alone, so one wrong layer cannot hide in its group
+    per_tensor = sorted((cosine(flash_grads[n], plain_grads[n], dim=0).item(), n)
+                        for n in flash_grads)
+    print(f"train: gradient cosine per tensor ({len(per_tensor)} tensors), lowest: "
+          + ", ".join(f"{n} {c:.6f}" for c, n in per_tensor[:5]), flush=True)
+    check(per_tensor[0][0] >= TENSOR_COSINE_MIN,
+          f"gradient cosine of {per_tensor[0][1]} {per_tensor[0][0]} < {TENSOR_COSINE_MIN}")
+    del state, plain, flash_grads, plain_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    flops = train_flops_per_clip(cfg, num_visible)
+    for B in (48, 32, 16):
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            state = TrainState.create(VideoMAEPretrain(cfg, seed=0), optim, seed=1)
+            video = clips(B)
+            for _ in range(3):
+                step(state, video)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses = [step(state, video)["loss"] for _ in range(10)]
+            end.record()
+            torch.cuda.synchronize()
+            fits = True
+        except torch.cuda.OutOfMemoryError:
+            fits = False
+        if not fits:  # outside the handler, whose traceback holds the step's tensors
+            print(f"train: B={B} does not fit", flush=True)
+            state = video = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        ms = start.elapsed_time(end) / 10
+        losses = torch.stack(losses).tolist()
+        check(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
+        clips_s = B / (ms / 1e3)
+        print(f"train [{card}]: B={B} step {ms:.2f} ms -> {clips_s:.1f} clips/s, "
+              f"MFU {flops * clips_s / PEAK_BF16_FLOPS:.4f} ({flops / 1e9:.1f} GFLOP/clip), "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+              f"losses {losses[0]:.4f} .. {losses[-1]:.4f}", flush=True)
+        if profile is not None:
+            profile_train(step, state, video, num_visible,
+                          str(Path(profile).with_name("profile_train.txt")) if profile else "")
+        break
+    else:
+        fail("no batch size in {48, 32, 16} fits")
+    return launches
 
 
 def phase_entry_point() -> None:
@@ -331,8 +644,9 @@ def phase_entry_point() -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", nargs="?", const="", default=None, metavar="FILE",
-                        help="print a torch.profiler breakdown of one embed call "
-                             "(and write it to FILE if given)")
+                        help="print torch.profiler breakdowns of one embed call and "
+                             "one training step (and write them to FILE and to "
+                             "profile_train.txt beside it if given)")
     args = parser.parse_args()
     if not (REPO / "bvc_tpu_torch" / "csrc").is_dir():
         fail(f"no bvc_tpu_torch package beside {Path(__file__).name}: run it from "
@@ -353,7 +667,7 @@ def main() -> None:
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}",
           flush=True)
     t0 = time.perf_counter()
-    kernels = ["flash_fwd"]
+    kernels = ["flash_fwd", "flash_bwd"]
     _build.build_all(kernels)
     print(f"built {kernels} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in kernels:
@@ -362,16 +676,30 @@ def main() -> None:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     flash = phase_kernel()
-    launches = phase_main_path(smi, args.profile)
+    bwd = phase_bwd_kernel()
+    embed_launches = phase_main_path(smi, args.profile)
+    train_launches = phase_train(smi, args.profile)
     phase_entry_point()
 
-    record = {"name": "flash_fwd", "route": "cuda",
-              "source": "bvc_tpu_torch/csrc/flash_fwd.cu",
-              "replaces": "bvc_tpu/ops/flash_attention.py:109", "launches": launches,
-              **flash}
-    check(all(math.isfinite(record[k]) for k in ("max_abs_err", "ms", "plain_ms",
-                                                  "bound_ms")), "non-finite timing")
-    print(json.dumps({"kernels": [record]}), flush=True)
+    # launches: per training step (the slice's main path) and per embed call
+    records = [
+        {"name": "flash_fwd", "route": "cuda", "source": "bvc_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "bvc_tpu/ops/flash_attention.py:109",
+         "launches": train_launches["flash_fwd"], "launches_per_embed": embed_launches,
+         "at": [8, 1568, 12, 64], **flash},
+        {"name": "flash_bwd_dq", "route": "cuda", "source": "bvc_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "bvc_tpu/ops/flash_attention.py:250",
+         "launches": train_launches["flash_bwd_dq"], "at": [8, 1568, 6, 64],
+         **bwd["dq"]},
+        {"name": "flash_bwd_dkv", "route": "cuda", "source": "bvc_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "bvc_tpu/ops/flash_attention.py:278",
+         "launches": train_launches["flash_bwd_dkv"], "at": [8, 1568, 6, 64],
+         **bwd["dkv"]},
+    ]
+    check(all(math.isfinite(r[k]) for r in records
+              for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")),
+          "non-finite timing")
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -13,8 +13,11 @@ import torch
 
 import bvc_tpu_torch
 from bvc_tpu_torch.evalbench import extract
+from bvc_tpu_torch.models.videomae import VideoMAEPretrain
 from bvc_tpu_torch.ops import _build
-from bvc_tpu_torch.utils.config import ModelConfig
+from bvc_tpu_torch.training.state import TrainState
+from bvc_tpu_torch.training.steps import make_videomae_train_step
+from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig
 from bvc_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parent.parent
@@ -62,6 +65,15 @@ def test_no_silent_cpu_default(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+    model = VideoMAEPretrain(ModelConfig(**{**cfg.__dict__, "decoder_hidden_size": 16,
+                                            "decoder_depth": 1, "decoder_num_heads": 1}))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainState.create(model, OptimConfig())
+    # the step runs where its state lives, and nowhere else
+    state = TrainState.create(model, OptimConfig(), device="cpu")
+    step = make_videomae_train_step(state.model.cfg, MaskConfig())
+    video = torch.zeros((2, 4, 32, 32, 3), dtype=torch.uint8)
+    assert all(m.device == torch.device("cpu") for m in step(state, video).values())
 
 
 def test_kernel_build_is_keyed_by_source_hash():
