@@ -2,10 +2,11 @@
 
 The JAX package ``bvc_tpu`` stays beside this one, unchanged, as the
 reference: every slice of the port is tested against it.  So far the port
-serves VideoMAE embeddings (``evalbench.extract``) and takes VideoMAE
-pretraining steps (``training.steps``), through hand-written CUDA
-flash-attention kernels: the forward (``csrc/flash_fwd.cu``) and the
-backward pair (``csrc/flash_bwd.cu``).
+serves VideoMAE and JEPA embeddings (``evalbench.extract``) and takes
+VideoMAE and V-JEPA pretraining steps (``training.steps``), through
+hand-written CUDA flash-attention kernels: the forward
+(``csrc/flash_fwd.cu``) and the backward pair (``csrc/flash_bwd.cu``),
+each without a key mask and with a per-sample key bias.
 
 Ground rules:
 

@@ -1,35 +1,44 @@
 // Tiles, copies and tensor-core products shared by the flash-attention
-// kernels of flash_fwd.cu and flash_bwd.cu (bf16, head width 64, sm_90a).
+// kernels of flash_fwd.cu and flash_bwd.cu (bf16, sm_90a), templated on the
+// head width D (64 or 32).
 //
 // Every kernel runs one CTA of 4 warps over a 64-row tile and walks the
 // other side of the attention in 64-row tiles.  Rows of the shared tiles
-// are padded from 128 to 144 bytes, which spreads the fragment loads of a
-// warp over all 32 banks.  Products run on mma.sync.m16n8k16 (bf16 in,
-// f32 accumulate); in the accumulator's register layout thread (g, t) of a
-// warp (g = lane / 4, t = lane % 4) holds rows g and g + 8 and columns
-// 2t and 2t + 1 of each 8-column block, which is also the A-operand layout
-// of a following product, so a score tile goes from accumulators to the
-// tensor cores without a trip through shared memory.
+// are padded by 8 bf16 (16 bytes): 144-byte rows at D = 64 and 80-byte rows
+// at D = 32, both of which spread the fragment loads and the ldmatrix rows
+// of a warp over all 32 banks.  Products run on mma.sync.m16n8k16 (bf16 in,
+// f32 accumulate), D / 16 k-steps over the head width; in the accumulator's
+// register layout thread (g, t) of a warp (g = lane / 4, t = lane % 4)
+// holds rows g and g + 8 and columns 2t and 2t + 1 of each 8-column block,
+// which is also the A-operand layout of a following product, so a score
+// tile goes from accumulators to the tensor cores without a trip through
+// shared memory.
+//
+// Key bias: the masked kernels add a per-sample row of f32 key biases
+// (0 for a key that may be attended, -1e30 for a masked one) to every
+// score of the key's column; add_bias does it from a shared 64-entry
+// slice, load_bias fetches that slice.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace flash {
 
-constexpr int kHeadDim = 64;
 constexpr int kBlockM = 64;  // rows of the CTA's own tile, 16 per warp
 constexpr int kBlockN = 64;  // rows of each streamed tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowStride = kHeadDim + 8;  // bf16 elements: 144-byte rows
+constexpr int kRowPad = 8;  // bf16 elements of padding per shared row
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 typedef __nv_bfloat16 bf16;
-typedef bf16 Tile[kBlockN][kRowStride];
+template <int D>
+using Tile = bf16[kBlockN][D + kRowPad];
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -59,18 +68,33 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows [row0, row0 + 64) of one (batch, head) slice into a shared tile;
-// rows at or beyond n are zero-filled.  8 threads cover one 128-byte row,
-// so each warp reads 4 whole rows.
-__device__ __forceinline__ void load_tile(Tile& dst, const bf16* base, long long row0,
+// rows at or beyond n are zero-filled.  D / 8 threads cover one row of
+// 16-byte chunks, so each warp reads 256 / D whole rows per pass.
+template <int D>
+__device__ __forceinline__ void load_tile(Tile<D>& dst, const bf16* base, long long row0,
                                           int n, long long row_stride) {
+  constexpr int kChunks = D / 8;
 #pragma unroll
-  for (int it = 0; it < kBlockN * (kHeadDim / 8) / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i >> 3;
-    const int c = (i & 7) * 8;
+  for (int it = 0; it < kBlockN * kChunks / kThreads; ++it) {
+    // unsigned, so that / and % by the power of two are a shift and a mask
+    const unsigned i = threadIdx.x + it * kThreads;
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 8;
     const long long row = row0 + r;
     const bool valid = row < n;
     cp_async_16(&dst[r][c], base + (valid ? row : 0) * row_stride + c, valid);
+  }
+}
+
+// Key biases [col0, col0 + 64) of one batch element's [n] row into shared
+// memory, one f32 per thread of the first 64; columns at or beyond n are
+// zero-filled (the caller masks them in the scores).
+__device__ __forceinline__ void load_bias(float (&dst)[kBlockN], const float* row,
+                                          long long col0, int n) {
+  if (threadIdx.x < kBlockN) {
+    const long long col = col0 + threadIdx.x;
+    const bool valid = col < n;
+    cp_async_4(&dst[threadIdx.x], row + (valid ? col : 0), valid);
   }
 }
 
@@ -104,12 +128,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // A-operand fragments of this warp's 16 rows of a shared tile, over the
 // whole head width: frag[ks] covers columns [16 ks, 16 ks + 16).
-__device__ __forceinline__ void load_a_frags(uint32_t (&frag)[kHeadDim / 16][4],
-                                             const Tile& tile, int warp, int lane) {
+template <int D>
+__device__ __forceinline__ void load_a_frags(uint32_t (&frag)[D / 16][4], const Tile<D>& tile,
+                                             int warp, int lane) {
   const int r = warp * 16 + (lane >> 2);
   const int c = 2 * (lane & 3);
 #pragma unroll
-  for (int ks = 0; ks < kHeadDim / 16; ++ks) {
+  for (int ks = 0; ks < D / 16; ++ks) {
     frag[ks][0] = ld_shared_u32(&tile[r][ks * 16 + c]);
     frag[ks][1] = ld_shared_u32(&tile[r + 8][ks * 16 + c]);
     frag[ks][2] = ld_shared_u32(&tile[r][ks * 16 + 8 + c]);
@@ -118,11 +143,12 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&frag)[kHeadDim / 16][4],
 }
 
 // acc[16 x 64] = A (this warp's 16 rows, as fragments) times B^T, where B
-// is a row-major [64 rows][64] shared tile: the score products
+// is a row-major [64 rows][D] shared tile: the score products
 // S = Qs K^T, dP = dO V^T, S^T = K Qs^T and dP^T = V dO^T.
+template <int D>
 __device__ __forceinline__ void product_abt(float (&acc)[kBlockN / 8][4],
-                                            const uint32_t (&a)[kHeadDim / 16][4],
-                                            const Tile& b, int lane) {
+                                            const uint32_t (&a)[D / 16][4],
+                                            const Tile<D>& b, int lane) {
   const int g = lane >> 2;
   const int c = 2 * (lane & 3);
 #pragma unroll
@@ -130,20 +156,21 @@ __device__ __forceinline__ void product_abt(float (&acc)[kBlockN / 8][4],
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < kHeadDim / 16; ++ks) {
+    for (int ks = 0; ks < D / 16; ++ks) {
       const bf16* br = &b[nt * 8 + g][ks * 16 + c];
       mma_16816(acc[nt], a[ks], ld_shared_u32(br), ld_shared_u32(br + 8));
     }
   }
 }
 
-// acc[16 x 64] += P B, with P the warp's [16 x 64] f32 score tile in
+// acc[16 x D] += P B, with P the warp's [16 x 64] f32 score tile in
 // accumulator registers, rounded to bf16 on the way into the A operand,
-// and B a row-major [64][64] shared tile: O += P V, dQ += dS K,
+// and B a row-major [64][D] shared tile: O += P V, dQ += dS K,
 // dV += P^T dO and dK += dS^T Qs.
-__device__ __forceinline__ void product_pb(float (&acc)[kHeadDim / 8][4],
+template <int D>
+__device__ __forceinline__ void product_pb(float (&acc)[D / 8][4],
                                            const float (&p)[kBlockN / 8][4],
-                                           const Tile& b, int lane) {
+                                           const Tile<D>& b, int lane) {
 #pragma unroll
   for (int ks = 0; ks < kBlockN / 16; ++ks) {
     const uint32_t a[4] = {
@@ -154,7 +181,7 @@ __device__ __forceinline__ void product_pb(float (&acc)[kHeadDim / 8][4],
     };
     const int row = ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
 #pragma unroll
-    for (int dp = 0; dp < kHeadDim / 16; ++dp) {
+    for (int dp = 0; dp < D / 16; ++dp) {
       uint32_t r[4];
       ldmatrix_x4_trans(r, &b[row][dp * 16 + (lane >> 4) * 8]);
       mma_16816(acc[2 * dp], a, r[0], r[1]);
@@ -177,18 +204,29 @@ __device__ __forceinline__ void fill_cols_from(float (&s)[kBlockN / 8][4], long 
   }
 }
 
-// Store this warp's [16 x 64] f32 accumulator as bf16 rows of a
-// [.., n, .., 64] tensor (row stride in elements); rows at or beyond n are
+// s += the key bias of each score's column, from a shared 64-entry slice.
+__device__ __forceinline__ void add_bias(float (&s)[kBlockN / 8][4],
+                                         const float (&bias)[kBlockN], int lane) {
+#pragma unroll
+  for (int nt = 0; nt < kBlockN / 8; ++nt) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[nt][c] += bias[nt * 8 + 2 * (lane & 3) + (c & 1)];
+  }
+}
+
+// Store this warp's [16 x D] f32 accumulator as bf16 rows of a
+// [.., n, .., D] tensor (row stride in elements); rows at or beyond n are
 // skipped.
+template <int D>
 __device__ __forceinline__ void store_rows(bf16* base, long long row_stride, long long row0,
-                                           int n, const float (&acc)[kHeadDim / 8][4],
-                                           int warp, int lane) {
+                                           int n, const float (&acc)[D / 8][4], int warp,
+                                           int lane) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const long long row = row0 + warp * 16 + (lane >> 2) + 8 * r;
     if (row >= n) continue;
 #pragma unroll
-    for (int nt = 0; nt < kHeadDim / 8; ++nt) {
+    for (int nt = 0; nt < D / 8; ++nt) {
       *reinterpret_cast<uint32_t*>(base + row * row_stride + nt * 8 + 2 * (lane & 3)) =
           pack_bf16(acc[nt][2 * r], acc[nt][2 * r + 1]);
     }

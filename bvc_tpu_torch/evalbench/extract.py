@@ -1,15 +1,21 @@
 """Embedding extraction (counterpart of :mod:`bvc_tpu.evalbench.extract`).
 
-Load a VideoMAE checkpoint (or build a random one), run the pooled
+Load a VideoMAE or JEPA checkpoint (or build a random model), run the pooled
 embedding over a dataset of ``(clip, fname)`` samples, and write
 ``embeddings_{run_id}.csv`` under the reference's CSV contract: sorted by
 fname, deduplicated, the test split under ``savedir/test/``.
 
-Checkpoints are the torch ``model_{run_id}.pth.tar`` files in the HF layout
-that ``bvc_tpu/cli/export_torch.py`` writes (``model_state_dict``); Orbax
+- VideoMAE: ``LayerNorm(mean(tokens))`` of the encoder, from a
+  ``model_{run_id}.pth.tar`` in the HF layout (``model_state_dict``);
+- JEPA: the mean over the tokens of the normed online encoder
+  (:meth:`JEPAEncoder.embed`), from the ``encoder`` entry of a
+  ``.pth.tar`` in the reference ``VisionTransformer`` layout; the EMA
+  target is not used for embeddings, as in the reference.
+
+Both layouts are what ``bvc_tpu/cli/export_torch.py`` writes; Orbax
 checkpoints need JAX and are not read here.  Extraction runs in one process
-on one device.  The JEPA and SimCLR families, the dataset readers and the
-``compute_embeddings`` CLI come with later slices (ROADMAP).
+on one device.  SimCLR, the dataset readers and the ``compute_embeddings``
+CLI come with later slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -22,7 +28,9 @@ import numpy as np
 import pandas as pd
 import torch
 
-from bvc_tpu_torch.models.convert import videomae_from_hf_state_dict
+from bvc_tpu_torch.models.convert import (jepa_encoder_from_reference_state_dict,
+                                          videomae_from_hf_state_dict)
+from bvc_tpu_torch.models.jepa import JEPAEncoder
 from bvc_tpu_torch.models.videomae import VideoMAEEncoder
 from bvc_tpu_torch.utils.config import ModelConfig
 from bvc_tpu_torch.utils.device import resolve_device
@@ -36,14 +44,18 @@ def drop_none_collate(samples: list[tuple]) -> tuple[np.ndarray, list[str]]:
     return np.stack([c for c, _ in kept]), [f for _, f in kept]
 
 
-def _require_videomae(family: str) -> None:
-    if family != "videomae":
+_ENCODERS = {"videomae": VideoMAEEncoder, "jepa": JEPAEncoder}
+
+
+def _encoder_class(family: str) -> type[torch.nn.Module]:
+    if family not in _ENCODERS:
         raise NotImplementedError(
-            f"family {family!r} is not ported yet: JEPA extraction comes with "
-            "ROADMAP slice 4, SimCLR with slice 6")
+            f"family {family!r} is not ported yet: SimCLR extraction comes with "
+            "ROADMAP slice 6")
+    return _ENCODERS[family]
 
 
-def _embed_fn(model: VideoMAEEncoder, device: torch.device) -> Callable:
+def _embed_fn(model: VideoMAEEncoder | JEPAEncoder, device: torch.device) -> Callable:
     """``fn(video_batch) -> [B, D]`` f32 numpy; ``fn.model`` is the module,
     ``fn.feature_dim`` the embedding width."""
     model = model.to(device).eval()
@@ -60,22 +72,28 @@ def _embed_fn(model: VideoMAEEncoder, device: torch.device) -> Callable:
 
 def make_embed_fn(family: str, ckpt_path: str, cfg: ModelConfig,
                   device: str | torch.device | None = None) -> Callable:
-    """Load ``model_state_dict`` from a ``.pth.tar`` checkpoint (HF names)
-    and return the embedding function on ``device`` (``cuda`` when None)."""
-    _require_videomae(family)
+    """Load the encoder of a ``.pth.tar`` checkpoint (VideoMAE:
+    ``model_state_dict`` in HF names; JEPA: ``encoder`` in the reference
+    layout) and return the embedding function on ``device`` (``cuda`` when
+    None)."""
+    encoder = _encoder_class(family)
     device = resolve_device(device)
+    model = encoder(cfg)
     ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-    model = VideoMAEEncoder(cfg)
-    model.load_state_dict(videomae_from_hf_state_dict(ckpt["model_state_dict"], cfg))
+    if family == "jepa":
+        sd = jepa_encoder_from_reference_state_dict(ckpt["encoder"], cfg)
+    else:
+        sd = videomae_from_hf_state_dict(ckpt["model_state_dict"], cfg)
+    model.load_state_dict(sd)
     return _embed_fn(model, device)
 
 
 def untrained_embed_fn(family: str, cfg: ModelConfig, seed: int = 0,
                        device: str | torch.device | None = None) -> Callable:
     """Random-init model from ``seed``: the stage-0 untrained baseline."""
-    _require_videomae(family)
+    encoder = _encoder_class(family)
     device = resolve_device(device)
-    return _embed_fn(VideoMAEEncoder(cfg, seed=seed), device)
+    return _embed_fn(encoder(cfg, seed=seed), device)
 
 
 def save_results(fnames: list[str], embeddings: np.ndarray, phase: str,

@@ -1,1 +1,2 @@
-"""VideoMAE encoder and pretraining model, transformer core, initialisation and weight conversion."""
+"""VideoMAE and JEPA models, transformer core, position tables,
+initialisation and weight conversion."""

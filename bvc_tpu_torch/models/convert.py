@@ -1,4 +1,5 @@
-"""Weights carried into the port's VideoMAE modules (f32 state dicts).
+"""Weights carried into the port's VideoMAE and JEPA modules (f32 state
+dicts).
 
 - :func:`videomae_from_jax_params`: the JAX package's parameter tree as
   numpy arrays (block leaves stacked ``[depth, ...]``, kernels ``[in, out]``)
@@ -14,6 +15,15 @@
   ``model_{run_id}.pth.tar`` -> the encoder's state dict.  HF has no k bias,
   so the fused qkv bias gets zeros in its k third.  The HF decoder entries
   are not read yet (ROADMAP).
+- :func:`jepa_from_jax_params`: the JAX package's JEPA tree
+  ``{"encoder", "predictor"}`` as numpy arrays -> the state dict of
+  :class:`~bvc_tpu_torch.models.jepa.JEPA`;
+  :func:`jepa_encoder_from_jax_params`: its ``encoder`` subtree (or an EMA
+  target) -> the state dict of :class:`JEPAEncoder`.
+- :func:`jepa_encoder_from_reference_state_dict`: the reference
+  ``VisionTransformer`` names, as ``bvc_tpu/cli/export_torch.py`` writes a
+  JEPA checkpoint's ``encoder`` into ``model_{run_id}.pth.tar`` -> the state
+  dict of :class:`JEPAEncoder` (``pos_embed`` is recomputed, not read).
 """
 
 from __future__ import annotations
@@ -95,4 +105,46 @@ def videomae_from_hf_state_dict(sd: dict, cfg: ModelConfig) -> dict[str, torch.T
                              ("fc1", "intermediate.dense"), ("fc2", "output.dense")):
             out[dst + ours + ".weight"] = g(theirs + ".weight")
             out[dst + ours + ".bias"] = g(theirs + ".bias")
+    return out
+
+
+def jepa_encoder_from_jax_params(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """JAX ``jepa.init_encoder_params``-shaped tree -> encoder state dict."""
+    return {**_linear(tree["patch_embed"], "patch_embed."),
+            **_blocks(tree["blocks"], cfg.depth, "blocks."),
+            "norm.weight": _f32(tree["norm"]["scale"]),
+            "norm.bias": _f32(tree["norm"]["bias"])}
+
+
+def jepa_from_jax_params(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """JAX ``jepa.init_params``-shaped tree -> :class:`JEPA` state dict
+    (encoder and predictor)."""
+    pred = tree["predictor"]
+    sd = {"encoder." + k: x for k, x in jepa_encoder_from_jax_params(tree["encoder"], cfg).items()}
+    sd.update({"predictor." + k: x for k, x in {
+        **_linear(pred["embed"], "embed."),
+        "mask_token": _f32(pred["mask_token"]),
+        **_blocks(pred["blocks"], cfg.pred_depth, "blocks."),
+        "norm.weight": _f32(pred["norm"]["scale"]),
+        "norm.bias": _f32(pred["norm"]["bias"]),
+        **_linear(pred["proj"], "proj."),
+    }.items()})
+    return sd
+
+
+def jepa_encoder_from_reference_state_dict(sd: dict, cfg: ModelConfig
+                                           ) -> dict[str, torch.Tensor]:
+    """Reference ``VisionTransformer.state_dict()`` (``patch_embed.proj``
+    as a Conv3d ``[D, C, ts, p, p]``, ``blocks.{i}.{norm1,attn.qkv,
+    attn.proj,norm2,mlp.fc1,mlp.fc2}``, ``norm``) -> encoder state dict."""
+    proj = _f32(sd["patch_embed.proj.weight"])
+    out = {"patch_embed.weight": proj.reshape(proj.shape[0], -1),
+           "patch_embed.bias": _f32(sd["patch_embed.proj.bias"]),
+           "norm.weight": _f32(sd["norm.weight"]), "norm.bias": _f32(sd["norm.bias"])}
+    for i in range(cfg.depth):
+        src, dst = f"blocks.{i}.", f"blocks.layers.{i}."
+        for ours, theirs in (("ln1", "norm1"), ("qkv", "attn.qkv"), ("proj", "attn.proj"),
+                             ("ln2", "norm2"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            for leaf in ("weight", "bias"):
+                out[f"{dst}{ours}.{leaf}"] = _f32(sd[f"{src}{theirs}.{leaf}"])
     return out

@@ -8,7 +8,7 @@ LayerNorm statistics and softmax in f32.
 Linear layers use ``F.linear`` with the bias fused, where the JAX package
 adds the bias after the product: in bf16 the two round at different places.
 Drop-path and activation checkpointing (off in every reference config)
-come with the training loop (ROADMAP slice 3).
+come with the training loop (ROADMAP slice 4).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from torch import nn
 
 from bvc_tpu_torch.models.initializers import init_linear
 from bvc_tpu_torch.ops.attention import multi_head_attention
+from bvc_tpu_torch.ops.flash_attention import key_bias
 from bvc_tpu_torch.ops.gelu import gelu
 
 
@@ -74,12 +75,14 @@ class Block(nn.Module):
             init_linear(layer, init_std, generator)
 
     def forward(self, x: torch.Tensor, attn_impl: str = "auto",
-                key_mask: torch.Tensor | None = None) -> torch.Tensor:
+                bias: torch.Tensor | None = None) -> torch.Tensor:
+        """``bias``: the ``[B, N]`` f32 key bias that :class:`Blocks` builds
+        from its key mask, or None."""
         B, N, D = x.shape
         h = self.ln1(x)
         qkv = _dense(h, self.qkv).reshape(B, N, 3, self.num_heads, D // self.num_heads)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        attn = multi_head_attention(q, k, v, impl=attn_impl, key_mask=key_mask)
+        attn = multi_head_attention(q, k, v, impl=attn_impl, bias=bias)
         x = x + _dense(attn.reshape(B, N, D), self.proj)
         h = gelu(_dense(self.ln2(x), self.fc1))
         return x + _dense(h, self.fc2)
@@ -98,6 +101,9 @@ class Blocks(nn.Module):
 
     def forward(self, x: torch.Tensor, attn_impl: str = "auto",
                 key_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """``key_mask`` (``[B, N]`` bool, True = attendable) becomes its f32
+        key bias once here, for every layer."""
+        bias = None if key_mask is None else key_bias(key_mask)
         for layer in self.layers:
-            x = layer(x, attn_impl, key_mask)
+            x = layer(x, attn_impl, bias)
         return x

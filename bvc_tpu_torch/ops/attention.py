@@ -4,68 +4,102 @@ Counterpart of :mod:`bvc_tpu.ops.attention`.  Callers pass projected q, k,
 v of shape ``[B, N, h, d]``.  Two implementations:
 
 - :func:`plain_attention`, the counterpart of ``_xla_attention``: the
-  attention written out in PyTorch, with the same dtype steps;
+  attention written out in PyTorch, with the same dtype steps, f32 or
+  bf16-stored logits;
 - :func:`bvc_tpu_torch.ops.flash_attention.flash_attention`: the CUDA
-  kernels, forward and backward (their plain versions for CPU tensors).
+  kernels, forward and backward, without a key mask or with a key bias
+  (their plain versions for CPU tensors).
+
+:func:`attention_route` is the rule ``'auto'`` and ``'xla_bf16'`` follow.
 """
 
 from __future__ import annotations
 
 import torch
 
-from bvc_tpu_torch.ops.flash_attention import flash_attention
+from bvc_tpu_torch.ops.flash_attention import (BIAS_HEAD_DIMS, HEAD_DIM, flash_attention,
+                                               resolve_bias)
 
-# 'auto' sends an unmasked bf16 CUDA attention of at least this many tokens
-# to the flash kernels.  Set from the H100 timing of the kernels against
-# plain_attention at [8, N, 12, 64], N in {160, 392, 784, 1568}, forward
-# alone and forward plus backward (chip_smoke.py, PERF.md): the kernels won
-# at every N measured, so the threshold is the smallest of them; shorter
-# sequences stay unmeasured.
+# The flash kernels take an attention of at least this many tokens.  Set
+# from the H100 timing of the unmasked kernels against plain_attention at
+# [8, N, 12, 64], N in {160, 392, 784, 1568}, forward alone and forward
+# plus backward (chip_smoke.py, PERF.md): the kernels won at every N
+# measured, so the threshold is the smallest of them; shorter sequences
+# stay unmeasured.  The masked shapes of JEPA (169 and 199 tokens) are at
+# or above it; their own timing against the plain path is in PERF.md.
 FLASH_MIN_TOKENS = 160
 
 
+def attention_route(device_type: str, dtype: torch.dtype, n: int, head_dim: int,
+                    masked: bool) -> str:
+    """``'flash'`` or ``'xla'`` (plain) for an attention of ``n`` tokens of
+    head width ``head_dim``: the counterpart of ``masked_auto_impl`` and the
+    JAX package's ``'auto'`` rule, re-derived for the H100.  On CUDA with
+    bf16 and ``n >= FLASH_MIN_TOKENS``, unmasked attention at the unmasked
+    kernels' width and masked attention at a key-bias kernel's width go to
+    the kernels; everything else is plain math."""
+    if device_type != "cuda" or dtype != torch.bfloat16 or n < FLASH_MIN_TOKENS:
+        return "xla"
+    widths = BIAS_HEAD_DIMS if masked else (HEAD_DIM,)
+    return "flash" if head_dim in widths else "xla"
+
+
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float, key_mask: torch.Tensor | None = None
-                    ) -> torch.Tensor:
-    """f32 logits, times ``scale``, optional key-mask bias (``[B, N]`` bool,
-    True = attendable; masked keys get -1e30), f32 softmax, probabilities
-    cast to the input dtype, then P.V in the input dtype."""
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if key_mask is not None:
-        bias = torch.where(key_mask[:, None, None, :], 0.0, -1e30)
-        logits = logits + bias
+                    scale: float, key_mask: torch.Tensor | None = None,
+                    score_dtype: torch.dtype = torch.float32,
+                    bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Logits stored in ``score_dtype`` (f32, or bf16 as
+    ``_xla_attention(score_dtype=bf16)``) then upcast to f32, times
+    ``scale``, plus the key bias of ``key_mask`` (``[B, N]`` bool, True =
+    attendable, masked keys get -1e30) or ``bias``, that mask's key bias
+    already built (see :func:`~bvc_tpu_torch.ops.flash_attention.resolve_bias`),
+    f32 softmax, probabilities cast to the input dtype, then P.V in the
+    input dtype."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    logits = logits.to(score_dtype).float() * scale
+    bias = resolve_bias(key_mask, bias)
+    if bias is not None:
+        logits = logits + bias[:, None, None, :]
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float | None = None, impl: str = "auto",
-                         key_mask: torch.Tensor | None = None) -> torch.Tensor:
+                         key_mask: torch.Tensor | None = None,
+                         bias: torch.Tensor | None = None) -> torch.Tensor:
     """Scaled dot-product attention over ``[B, N, h, d]`` tensors.
 
-    ``impl``: ``'auto'`` | ``'xla'`` (the plain math, under the JAX
-    package's name) | ``'flash'``.  Both are differentiable.  ``'flash'``
-    launches the kernels for CUDA tensors (the backward kernels when a
-    gradient is taken) and runs their plain versions for CPU tensors; it
-    raises for a key mask (the key-bias kernels come with JEPA, ROADMAP
-    slice 4) and, on CUDA, for anything but bf16 with head width 64.
+    ``impl``:
+
+    - ``'auto'``: :func:`attention_route` picks the kernels or the plain
+      math with f32 logits;
+    - ``'xla'``: the plain math with f32 logits (the JAX package's name);
+    - ``'xla_bf16'``: where :func:`attention_route` picks plain math, its
+      logits are stored in bf16 (softmax in f32), as the JAX package's
+      ``'xla_bf16'``; where it picks the kernels, they run, with f32
+      scores, as the JAX package defers ``'xla_bf16'`` to flash in its
+      flash regime;
+    - ``'flash'``: the kernels for CUDA tensors (the backward kernels when a
+      gradient is taken), their plain versions for CPU tensors; on CUDA it
+      raises for anything but bf16 at a width the kernels take.
+
+    ``key_mask``: ``[B, N]`` bool, True = attendable; or ``bias``, that
+    mask's f32 key bias already built (a stack of blocks builds it once,
+    see :func:`~bvc_tpu_torch.ops.flash_attention.resolve_bias`).  All
+    paths are differentiable.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if impl == "auto":
-        # Routing rule, like the JAX package's N < 512 rule: f32 and masked
-        # attention are plain math by design (the kernel is bf16 and has no
-        # key bias yet), and so are sequences too short for the kernel to
-        # beat the plain path on the card.
-        use_flash = (q.is_cuda and q.dtype == torch.bfloat16 and key_mask is None
-                     and q.shape[1] >= FLASH_MIN_TOKENS)
-        impl = "flash" if use_flash else "xla"
+    bias = resolve_bias(key_mask, bias)
+    score_dtype = torch.float32
+    if impl in ("auto", "xla_bf16"):
+        if impl == "xla_bf16":
+            score_dtype = torch.bfloat16
+        impl = attention_route(q.device.type, q.dtype, q.shape[1], q.shape[-1],
+                               bias is not None)
     if impl == "flash":
-        if key_mask is not None:
-            raise NotImplementedError(
-                "flash attention with a key mask: the key-bias kernels come "
-                "with JEPA (ROADMAP slice 4)")
-        return flash_attention(q, k, v, scale=scale)
+        return flash_attention(q, k, v, scale=scale, bias=bias)
     if impl == "xla":
-        return plain_attention(q, k, v, scale, key_mask)
+        return plain_attention(q, k, v, scale, score_dtype=score_dtype, bias=bias)
     raise ValueError(f"unknown attention impl {impl!r}")

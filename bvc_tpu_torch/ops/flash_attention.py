@@ -1,25 +1,38 @@
 """Flash attention: hand-written CUDA kernels and their plain versions.
 
 Counterpart of :mod:`bvc_tpu.ops.flash_attention` (``_fwd_kernel``,
-``_dq_kernel``, ``_dkv_kernel``, ``_bwd``, the ``_flash`` custom VJP and
-``flash_attention``), for non-causal attention without a key mask over
-pre-scaled queries ``qs``.
+``_dq_kernel``, ``_dkv_kernel``, their key-bias variants
+``_fwd_kernel_bias``, ``_dq_kernel_bias`` and ``_dkv_kernel_bias``, ``_bwd``,
+the ``_flash``/``_flash_b`` custom VJPs and ``flash_attention``), for
+non-causal attention over pre-scaled queries ``qs``, without a key mask or
+with a per-sample key bias.
 
 - Forward, ``csrc/flash_fwd.cu``: online softmax with f32 accumulation; O in
   the input dtype and LSE = m + log(l) in f32.
 - Backward, ``csrc/flash_bwd.cu``: a dQ kernel and a dK/dV kernel, from
   (qs, k, v, o, lse, dO) and D = rowsum(dO * O) taken in f32 outside the
   kernels, as ``_bwd`` does.
+- Key bias: ``bias`` is ``[B, N]`` f32, 0 for a key that may be attended
+  and -1e30 (:data:`NEG_INF`) for a masked one, added to every score of
+  the key's column in every head (:func:`key_bias` builds it from a bool
+  key mask; the public functions take the mask, or the bias built once by
+  name, ``bias=``).  A row whose every key is masked gets uniform weights over its
+  N keys, as plain attention gives, and LSE = +inf, so the backward gives
+  it no gradient; masked keys get dK = dV = 0 exactly.  The bias gets no
+  gradient.
 
-:func:`flash_fwd_cuda` and :func:`flash_bwd_cuda` launch the kernels for
-CUDA tensors and count their launches (``flash_fwd_cuda.launches``,
-``flash_bwd_cuda.launches_dq`` and ``.launches_dkv``).
-:func:`flash_attention_fwd_ref` and :func:`flash_attention_bwd_ref` are the
-plain PyTorch versions of the same arithmetic: the CPU tests use them, and
-``chip_smoke.py`` holds the kernels against them on the card.
-:func:`flash_attention_fwd` and :func:`flash_attention_bwd` pick between the
-two by the tensors' device only.  :func:`flash_attention` is the public
-``[B, N, h, d]`` entry, differentiable through :class:`FlashAttention`.
+The unmasked kernels take head width 64 (:data:`HEAD_DIM`), the key-bias
+kernels 64 and 32 (:data:`BIAS_HEAD_DIMS`).  :func:`flash_fwd_cuda` and
+:func:`flash_bwd_cuda` launch the kernels for CUDA tensors and count their
+launches: ``flash_fwd_cuda.launches`` and ``.launches_bias``,
+``flash_bwd_cuda.launches_dq``, ``.launches_dkv``, ``.launches_dq_bias``
+and ``.launches_dkv_bias``.  :func:`flash_attention_fwd_ref` and
+:func:`flash_attention_bwd_ref` are the plain PyTorch versions of the same
+arithmetic: the CPU tests use them, and ``chip_smoke.py`` holds the kernels
+against them on the card.  :func:`flash_attention_fwd` and
+:func:`flash_attention_bwd` pick between the two by the tensors' device
+only.  :func:`flash_attention` is the public ``[B, N, h, d]`` entry,
+differentiable through :class:`FlashAttention`.
 """
 
 from __future__ import annotations
@@ -29,7 +42,32 @@ import functools
 
 import torch
 
-HEAD_DIM = 64  # the kernel's only head width
+HEAD_DIM = 64  # the unmasked kernels' only head width
+BIAS_HEAD_DIMS = (64, 32)  # the key-bias kernels' head widths
+NEG_INF = -1e30  # the bias of a masked key
+
+
+def key_bias(key_mask: torch.Tensor) -> torch.Tensor:
+    """``[B, N]`` f32 key bias from a bool key mask (True = attendable):
+    0 where a key may be attended, :data:`NEG_INF` where it is masked.
+    Raises for a mask of any other dtype."""
+    if key_mask.dtype != torch.bool:
+        raise TypeError(f"key_mask must be a bool tensor (True = attendable), "
+                        f"got {key_mask.dtype}")
+    return torch.where(key_mask, 0.0, NEG_INF).to(torch.float32)
+
+
+def resolve_bias(key_mask: torch.Tensor | None,
+                 bias: torch.Tensor | None) -> torch.Tensor | None:
+    """The key bias of an attention called with a bool ``key_mask`` or with
+    ``bias``, a key bias already built by :func:`key_bias` (a stack of blocks
+    builds it once for all its layers); None for neither, and raises for
+    both."""
+    if key_mask is None:
+        return bias
+    if bias is not None:
+        raise ValueError("pass key_mask or bias, not both")
+    return key_bias(key_mask)
 
 
 def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -37,32 +75,44 @@ def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def flash_attention_fwd_ref(qs: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel over ``[B, N, h, d]`` tensors with
-    pre-scaled queries ``qs``: f32 scores, f32 softmax statistics, P rounded
-    to the value dtype before the P.V product with f32 accumulation.
-    Returns ``(o [B, N, h, d] in the input dtype, lse [B, h, N] f32)``."""
+def _scores(qs: torch.Tensor, k: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    """f32 ``[B, h, N, N]`` scores Qs K^T, plus the key bias if given."""
     s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
+    return s if bias is None else s + bias[:, None, None, :]
+
+
+def flash_attention_fwd_ref(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            bias: torch.Tensor | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernels over ``[B, N, h, d]`` tensors
+    with pre-scaled queries ``qs`` and an optional ``[B, N]`` key bias: f32
+    scores, f32 softmax statistics, P rounded to the value dtype before the
+    P.V product with f32 accumulation.  Returns ``(o [B, N, h, d] in the
+    input dtype, lse [B, h, N] f32)``; with a bias, a row with no attendable
+    key (max score at or below :data:`NEG_INF`) has LSE = +inf."""
+    s = _scores(qs, k, bias)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     o = acc / l.permute(0, 2, 1, 3)
     lse = (m + torch.log(l)).squeeze(-1)
+    if bias is not None:
+        lse = torch.where(m.squeeze(-1) <= NEG_INF, torch.inf, lse)
     return o.to(qs.dtype), lse
 
 
 def flash_attention_bwd_ref(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor
+                            o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                            bias: torch.Tensor | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of the backward kernels over ``[B, N, h, d]`` tensors
-    and ``lse [B, h, N]``: f32 scores, P = exp(S - lse), D = rowsum(dO * O),
-    dS = P * (dO V^T - D); P rounded to the value dtype before the dV
-    product and dS to the query dtype before the dQ and dK products, f32
-    sums.  Returns ``(dqs, dk, dv)`` in the dtypes of ``qs``, ``k``, ``v``."""
-    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
-    p = torch.exp(s - lse[..., None])
+    """Plain version of the backward kernels over ``[B, N, h, d]`` tensors,
+    ``lse [B, h, N]`` and an optional ``[B, N]`` key bias: f32 scores,
+    P = exp(S + bias - lse), D = rowsum(dO * O), dS = P * (dO V^T - D); P
+    rounded to the value dtype before the dV product and dS to the query
+    dtype before the dQ and dK products, f32 sums.  Returns ``(dqs, dk,
+    dv)`` in the dtypes of ``qs``, ``k``, ``v``."""
+    p = torch.exp(_scores(qs, k, bias) - lse[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     ds = p * (dp - _delta(o, do)[..., None])
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype).float(), do.float())
@@ -80,9 +130,8 @@ def _library(name: str) -> ctypes.CDLL:
 
     lib = load_library(name)
     signatures = {
-        "flash_fwd": {"bvc_flash_fwd_d64": (5, 15)},
-        "flash_bwd": {"bvc_flash_bwd_dq_d64": (7, 18),
-                      "bvc_flash_bwd_dkv_d64": (8, 21)},
+        "flash_fwd": {"bvc_flash_fwd": (6, 16)},
+        "flash_bwd": {"bvc_flash_bwd_dq": (8, 19), "bvc_flash_bwd_dkv": (9, 22)},
     }[name]
     for fn_name, (pointers, longs) in signatures.items():
         fn = getattr(lib, fn_name)
@@ -104,9 +153,12 @@ def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
     return x if aligned else x.clone(memory_format=torch.contiguous_format)
 
 
-def _check_kernel_inputs(caller: str, **tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a 4-D CUDA bf16 ``[B, N, h, 64]``
-    tensor of one shape on one device."""
+def _check_kernel_inputs(caller: str, bias: torch.Tensor | None,
+                         **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a 4-D CUDA bf16 ``[B, N, h, d]`` tensor
+    of one shape on one device, with d = 64 (or, with a key bias, d in
+    :data:`BIAS_HEAD_DIMS`), and ``bias``, if given, a contiguous CUDA f32
+    ``[B, N]`` tensor on that device."""
     first = next(iter(tensors.values()))
     for name, x in tensors.items():
         if not x.is_cuda or x.dtype != torch.bfloat16 or x.dim() != 4:
@@ -114,9 +166,16 @@ def _check_kernel_inputs(caller: str, **tensors: torch.Tensor) -> None:
                              f"tensor, got {x.dtype} {tuple(x.shape)} on {x.device}")
         if x.shape != first.shape or x.device != first.device:
             raise ValueError(f"{caller}: {', '.join(tensors)} differ in shape or device")
-    if first.shape[-1] != HEAD_DIM:
+    widths = (HEAD_DIM,) if bias is None else BIAS_HEAD_DIMS
+    if first.shape[-1] not in widths:
+        kind = "key-bias kernels" if bias is not None else "kernels without a key mask"
         raise ValueError(f"{caller}: head width {first.shape[-1]} is not supported "
-                         f"(the kernels are built for d={HEAD_DIM})")
+                         f"(the {kind} are built for d in {widths})")
+    if bias is not None and (bias.device != first.device or bias.dtype != torch.float32
+                             or bias.shape != first.shape[:2] or not bias.is_contiguous()):
+        raise ValueError(f"{caller}: bias must be a contiguous CUDA f32 tensor of shape "
+                         f"{tuple(first.shape[:2])} on {first.device}, got {bias.dtype} "
+                         f"{tuple(bias.shape)} on {bias.device}")
 
 
 def _launch(caller: str, device: torch.device, fn, *args) -> None:
@@ -134,78 +193,98 @@ def _strides(*tensors: torch.Tensor) -> list[int]:
     return [s for x in tensors for s in x.stride()[:3]]
 
 
-def flash_fwd_cuda(qs: torch.Tensor, k: torch.Tensor,
-                   v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flash_fwd.cu`` on CUDA bf16 ``[B, N, h, 64]`` tensors
-    (``qs`` pre-scaled) on the current stream; returns ``(o, lse)`` like
-    :func:`flash_attention_fwd_ref`.  Raises on anything the kernel does not
-    take, and if the launch fails."""
-    _check_kernel_inputs("flash_fwd_cuda", qs=qs, k=k, v=v)
+def _ptr(x: torch.Tensor | None) -> int | None:
+    return None if x is None else x.data_ptr()
+
+
+def flash_fwd_cuda(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   bias: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/flash_fwd.cu`` on CUDA bf16 ``[B, N, h, d]`` tensors
+    (``qs`` pre-scaled; d = 64, or 64 or 32 with a key ``bias``) on the
+    current stream; returns ``(o, lse)`` like :func:`flash_attention_fwd_ref`.
+    Raises on anything the kernels do not take, and if the launch fails.
+    Counts launches of the unmasked kernel in ``.launches`` and of the
+    key-bias kernel in ``.launches_bias``."""
+    _check_kernel_inputs("flash_fwd_cuda", bias, qs=qs, k=k, v=v)
     B, N, h, d = qs.shape
     o = torch.empty((B, N, h, d), dtype=qs.dtype, device=qs.device)
     lse = torch.empty((B, h, N), dtype=torch.float32, device=qs.device)
     if o.numel() == 0:
         return o, lse
     qs, k, v = _kernel_layout(qs), _kernel_layout(k), _kernel_layout(v)
-    _launch("flash_fwd_cuda", qs.device, _library("flash_fwd").bvc_flash_fwd_d64,
-            qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            B, N, h, *_strides(qs, k, v, o))
-    flash_fwd_cuda.launches += 1
+    _launch("flash_fwd_cuda", qs.device, _library("flash_fwd").bvc_flash_fwd,
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), o.data_ptr(),
+            lse.data_ptr(), B, N, h, d, *_strides(qs, k, v, o))
+    if bias is None:
+        flash_fwd_cuda.launches += 1
+    else:
+        flash_fwd_cuda.launches_bias += 1
     return o, lse
 
 
 flash_fwd_cuda.launches = 0
+flash_fwd_cuda.launches_bias = 0
 
 
 def bwd_operands(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-                 lse: torch.Tensor, do: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """The operands ``(qs, k, v, do, lse, delta)`` of the backward kernels:
-    inputs checked, q/k/v/dO in a layout the kernels read (copied only where
-    needed), D = rowsum(dO * O) in f32."""
-    _check_kernel_inputs("flash_bwd_cuda", qs=qs, k=k, v=v, o=o, do=do)
+                 lse: torch.Tensor, do: torch.Tensor, bias: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor | None, ...]:
+    """The operands ``(qs, k, v, do, lse, delta, bias)`` of the backward
+    kernels: inputs checked, q/k/v/dO in a layout the kernels read (copied
+    only where needed), D = rowsum(dO * O) in f32."""
+    _check_kernel_inputs("flash_bwd_cuda", bias, qs=qs, k=k, v=v, o=o, do=do)
     B, N, h, _ = qs.shape
     if (not lse.is_cuda or lse.dtype != torch.float32 or lse.shape != (B, h, N)
             or not lse.is_contiguous()):
         raise ValueError(f"flash_bwd_cuda: lse must be a contiguous CUDA f32 "
                          f"tensor of shape {(B, h, N)}, got {lse.dtype} "
                          f"{tuple(lse.shape)} on {lse.device}")
-    return (*(_kernel_layout(x) for x in (qs, k, v, do)), lse, _delta(o, do))
+    return (*(_kernel_layout(x) for x in (qs, k, v, do)), lse, _delta(o, do), bias)
 
 
-def launch_dq(qs, k, v, do, lse, delta) -> torch.Tensor:
+def launch_dq(qs, k, v, do, lse, delta, bias=None) -> torch.Tensor:
     """dQs from :func:`bwd_operands`: one launch of the dQ kernel."""
     B, N, h, d = qs.shape
     dq = torch.empty((B, N, h, d), dtype=qs.dtype, device=qs.device)
-    _launch("flash_bwd_cuda", qs.device, _library("flash_bwd").bvc_flash_bwd_dq_d64,
+    _launch("flash_bwd_cuda", qs.device, _library("flash_bwd").bvc_flash_bwd_dq,
             qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), B, N, h, *_strides(qs, k, v, do, dq))
-    flash_bwd_cuda.launches_dq += 1
+            delta.data_ptr(), _ptr(bias), dq.data_ptr(), B, N, h, d,
+            *_strides(qs, k, v, do, dq))
+    if bias is None:
+        flash_bwd_cuda.launches_dq += 1
+    else:
+        flash_bwd_cuda.launches_dq_bias += 1
     return dq
 
 
-def launch_dkv(qs, k, v, do, lse, delta) -> tuple[torch.Tensor, torch.Tensor]:
+def launch_dkv(qs, k, v, do, lse, delta, bias=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) from :func:`bwd_operands`: one launch of the dK/dV kernel."""
     B, N, h, d = qs.shape
     dk, dv = (torch.empty((B, N, h, d), dtype=qs.dtype, device=qs.device) for _ in range(2))
-    _launch("flash_bwd_cuda", qs.device, _library("flash_bwd").bvc_flash_bwd_dkv_d64,
+    _launch("flash_bwd_cuda", qs.device, _library("flash_bwd").bvc_flash_bwd_dkv,
             qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, h,
+            delta.data_ptr(), _ptr(bias), dk.data_ptr(), dv.data_ptr(), B, N, h, d,
             *_strides(qs, k, v, do, dk, dv))
-    flash_bwd_cuda.launches_dkv += 1
+    if bias is None:
+        flash_bwd_cuda.launches_dkv += 1
+    else:
+        flash_bwd_cuda.launches_dkv_bias += 1
     return dk, dv
 
 
 def flash_bwd_cuda(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-                   lse: torch.Tensor, do: torch.Tensor
+                   lse: torch.Tensor, do: torch.Tensor, bias: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the two kernels of ``csrc/flash_bwd.cu`` on CUDA bf16
-    ``[B, N, h, 64]`` tensors and ``lse [B, h, N]`` f32 on the current
-    stream; returns ``(dqs, dk, dv)`` like :func:`flash_attention_bwd_ref`.
-    qs/k/v and dO are read through their strides, copied only where their
-    layout needs it; O enters only through D.  Raises on anything the
-    kernels do not take, and if a launch fails.  Counts the launches of each
-    kernel in ``.launches_dq`` and ``.launches_dkv``."""
-    operands = bwd_operands(qs, k, v, o, lse, do)
+    ``[B, N, h, d]`` tensors, ``lse [B, h, N]`` f32 and an optional key
+    ``bias`` on the current stream; returns ``(dqs, dk, dv)`` like
+    :func:`flash_attention_bwd_ref`.  qs/k/v and dO are read through their
+    strides, copied only where their layout needs it; O enters only through
+    D.  Raises on anything the kernels do not take, and if a launch fails.
+    Counts the launches of each kernel in ``.launches_dq`` and
+    ``.launches_dkv`` (unmasked) or ``.launches_dq_bias`` and
+    ``.launches_dkv_bias`` (key bias)."""
+    operands = bwd_operands(qs, k, v, o, lse, do, bias)
     if qs.numel() == 0:
         return tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
                      for x in (qs, k, v))
@@ -214,58 +293,72 @@ def flash_bwd_cuda(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.
 
 flash_bwd_cuda.launches_dq = 0
 flash_bwd_cuda.launches_dkv = 0
+flash_bwd_cuda.launches_dq_bias = 0
+flash_bwd_cuda.launches_dkv_bias = 0
 
 
-def flash_attention_fwd(qs: torch.Tensor, k: torch.Tensor,
-                        v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def flash_attention_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(o, lse)`` of pre-scaled attention: the kernel for CUDA tensors,
     the plain version for CPU tensors."""
     if qs.is_cuda:
-        return flash_fwd_cuda(qs, k, v)
+        return flash_fwd_cuda(qs, k, v, bias)
     if qs.device.type != "cpu":
         raise ValueError(f"flash attention runs on cuda or cpu, not {qs.device}")
-    return flash_attention_fwd_ref(qs, k, v)
+    return flash_attention_fwd_ref(qs, k, v, bias)
 
 
 def flash_attention_bwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        bias: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dqs, dk, dv)``: the kernels for CUDA tensors, the plain version
     for CPU tensors."""
     if qs.is_cuda:
-        return flash_bwd_cuda(qs, k, v, o, lse, do)
+        return flash_bwd_cuda(qs, k, v, o, lse, do, bias)
     if qs.device.type != "cpu":
         raise ValueError(f"flash attention runs on cuda or cpu, not {qs.device}")
-    return flash_attention_bwd_ref(qs, k, v, o, lse, do)
+    return flash_attention_bwd_ref(qs, k, v, o, lse, do, bias)
 
 
 class FlashAttention(torch.autograd.Function):
-    """O of pre-scaled attention, with the backward kernels as its
-    gradient (the JAX package's ``_flash`` custom VJP): the forward saves
-    ``(qs, k, v, o, lse)``."""
+    """O of pre-scaled attention with an optional key bias, with the
+    backward kernels as its gradient (the JAX package's ``_flash`` and
+    ``_flash_b`` custom VJPs): the forward saves ``(qs, k, v, o, lse,
+    bias)``; the bias gets no gradient."""
 
     @staticmethod
-    def forward(ctx, qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        o, lse = flash_attention_fwd(qs, k, v)
-        ctx.save_for_backward(qs, k, v, o, lse)
+    def forward(ctx, qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                bias: torch.Tensor | None = None) -> torch.Tensor:
+        o, lse = flash_attention_fwd(qs, k, v, bias)
+        ctx.save_for_backward(qs, k, v, o, lse, bias)
         return o
 
     @staticmethod
     def backward(ctx, do: torch.Tensor):
-        return flash_attention_bwd(*ctx.saved_tensors, do)
+        qs, k, v, o, lse, bias = ctx.saved_tensors
+        return (*flash_attention_bwd(qs, k, v, o, lse, do, bias), None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None,
+                    key_mask: torch.Tensor | None = None,
+                    bias: torch.Tensor | None = None) -> torch.Tensor:
     """Attention over ``[B, N, h, d]`` q/k/v, differentiable.
 
     The scale is folded into the queries outside the kernels, as the JAX
     package does: ``qs = (q * scale).to(q.dtype)``, so autograd carries it
-    into dQ and dK gets none.  Key masks go to the key-bias kernels, which
-    come with JEPA (ROADMAP slice 4); callers with a mask use
-    :func:`bvc_tpu_torch.ops.attention.plain_attention`.
+    into dQ and dK gets none.  ``key_mask`` (``[B, N]`` bool, True =
+    attendable) selects the key-bias kernels, as
+    ``flash_attention(..., key_mask=)`` does in the JAX package; ``bias``
+    is that mask's :func:`key_bias` already built (see
+    :func:`resolve_bias`).
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
     qs = (q * scale).to(q.dtype)
-    return FlashAttention.apply(qs, k, v)
+    bias = resolve_bias(key_mask, bias)
+    if bias is not None:
+        bias = bias.to(q.device, torch.float32).contiguous()
+    return FlashAttention.apply(qs, k, v, bias)

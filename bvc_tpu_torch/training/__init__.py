@@ -1,1 +1,2 @@
-"""VideoMAE pretraining: optimizer, train state, step and gradient probes."""
+"""VideoMAE and JEPA pretraining: optimizer, train state, steps and
+gradient probes."""

@@ -2,8 +2,9 @@
 
 The JAX state is an immutable pytree threaded through a jitted step; here
 it is one object that the step updates in place: the count of steps taken,
-the model, its optimizer and the ``torch.Generator`` the masks are drawn
-from, all on one device.
+the model, its optimizer, the ``torch.Generator`` the masks are drawn from
+and, for JEPA, the EMA target encoder (``target``, no gradients), all on
+one device.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ class TrainState:
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
+    target: torch.nn.Module | None = None
 
     @property
     def device(self) -> torch.device:
@@ -31,13 +33,19 @@ class TrainState:
     @staticmethod
     def create(model: torch.nn.Module, optim_cfg: OptimConfig, seed: int = 1,
                device: str | torch.device | None = None,
-               steps: tuple[int, int] | None = None) -> "TrainState":
+               steps: tuple[int, int] | None = None,
+               target: torch.nn.Module | None = None) -> "TrainState":
         """Move ``model`` to ``device`` (``cuda`` when None; raises when
         there is none, see :func:`resolve_device`), build its optimizer
         (``steps`` as :func:`make_optimizer` takes them) and a mask
-        generator seeded with ``seed`` on the same device."""
+        generator seeded with ``seed`` on the same device.  ``target`` (the
+        JEPA EMA encoder, e.g. a deep copy of ``model.encoder``) moves to
+        the device with its gradients off."""
         device = resolve_device(device)
         model = model.to(device)
+        if target is not None:
+            target = target.to(device).requires_grad_(False)
         return TrainState(step=0, model=model,
                           optimizer=make_optimizer(optim_cfg, model.named_parameters(), steps),
-                          generator=torch.Generator(device=device).manual_seed(seed))
+                          generator=torch.Generator(device=device).manual_seed(seed),
+                          target=target)

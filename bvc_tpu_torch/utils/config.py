@@ -46,7 +46,8 @@ class ModelConfig:
     dtype: str = "bfloat16"  # activation/compute dtype
     remat: bool = False  # activation checkpointing of each block
     # bf16-stored attention logits for the JEPA target encoder and gradient
-    # paths (JEPA slice); kept so the two packages share one field set
+    # paths where their attention runs plain ('xla_bf16', see
+    # make_jepa_train_step); the flash kernels keep f32 scores
     target_score_bf16: bool = True
     autocast_scores: bool = True
 
@@ -70,8 +71,7 @@ class MaskConfig:
     # VideoMAE tube / random masking
     sampler: str = "tube"  # 'tube' | 'random'
     mask_ratio: float = 0.9
-    # JEPA multi-block collator: read by no port code yet, kept for the
-    # JEPA slice
+    # JEPA multi-block collator, read by masks.multiblock.mask_collate
     enc_mask_scale: tuple[float, float] = (0.85, 1.0)
     pred_mask_scale: tuple[float, float] = (0.15, 0.2)
     aspect_ratio: tuple[float, float] = (0.75, 1.5)
@@ -95,8 +95,9 @@ class OptimConfig:
     # weight decay only on tensors with ndim >= 2 (JEPA's biases and norms
     # go without)
     exclude_bias_and_norm_from_wd: bool = False
-    # JEPA target-encoder EMA ramp and SimCLR options: read by no port code
-    # yet, kept for the JEPA and SimCLR slices
+    # JEPA target-encoder EMA ramp: what the caller passes as
+    # make_jepa_train_step's ema and ema_fallback.  The SimCLR options below
+    # are read by no port code yet, kept for the SimCLR slice
     ema: tuple[float, float] = (0.996, 1.0)
     ema_fallback: float = 0.998
     contrastive_negatives: str = "global"
@@ -108,7 +109,7 @@ class OptimConfig:
     final_lr: float = 0.0
     # cosine weight-decay schedule weight_decay -> final_wd; None: constant
     final_wd: float | None = None
-    # Read by the trainer (slice 3), not yet by the port: it turns
+    # Read by the trainer (slice 4), not yet by the port: it turns
     # warmup_epochs and ipe_scale into make_optimizer's (warmup, total)
     # steps, and passes grad_accum_steps to make_videomae_train_step's
     # grad_accum (>1: average the gradients of that many microbatches

@@ -5,8 +5,9 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
 
     python3 chip_smoke.py            # build, check, time; one card
     python3 chip_smoke.py --profile [FILE]  # also torch.profiler breakdowns of one
-                                            # embed call and one training step,
-                                            # written to FILE and profile_train.txt
+                                            # embed call and one VideoMAE and one
+                                            # JEPA training step, written to FILE,
+                                            # profile_train.txt and profile_jepa.txt
 
 1. Build every CUDA kernel of the port from ``bvc_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print the card, its power
@@ -14,7 +15,8 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    spills.
 2. Forward kernel against plain: the flash forward kernel against its plain
    PyTorch version on the card, at the extraction shape ``[8, 1568, 12, 64]``,
-   the encoder's shape in training ``[8, 160, 12, 64]``, an odd N and the
+   the encoder's shape in training ``[8, 160, 12, 64]``, the V-JEPA target
+   encoder's and extraction shape ``[8, 392, 12, 64]``, an odd N and the
    decoder shape ``[8, 1568, 6, 64]``; O within 2e-2 (bf16
    output, accumulation in another order), LSE within 1e-3 (f32).  Times of
    the kernel, the plain version and ``F.scaled_dot_product_attention`` (a
@@ -28,21 +30,41 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    |err|/|ref|; each kernel's time,
    TFLOP/s and bound, the plain version's time and SDPA's backward as the
    yardstick.
-4. Extraction at full width: VideoMAE-B (224 px, 16 frames, bf16) through
+4. Key-bias kernels against plain: the forward, dQ and dK/dV kernels with a
+   per-sample key bias at JEPA's context shape ``[8, 169, 12, 64]`` and
+   predictor shape ``[32, 199, 12, 32]`` (collator masks), an odd N with 40%
+   of the keys masked, and one batch element with every key masked at both
+   head widths: the limits of 2 and 3, LSE +inf exactly on rows with no
+   key, and dK = dV = 0 exactly at masked keys; times at the two JEPA
+   shapes against the bound, the plain version and SDPA with the bias as
+   its mask.
+5. Extraction at full width: VideoMAE-B (224 px, 16 frames, bf16) through
    ``untrained_embed_fn``; 12 launches of the forward kernel in one embed
    call, embeddings within cosine 0.999 per row of the plain attention path
    on the same weights; then clips/s, frames/s and MFU at the largest batch
    in {64, 32, 16} that fits.
-5. Training at full width, the slice's main path: VideoMAE-B pretraining
+6. Training at full width: VideoMAE-B pretraining
    steps (tube mask 0.9, 160 visible tokens, SGD-Nesterov) through
    ``VideoMAEPretrain``, ``TrainState.create`` and
    ``make_videomae_train_step``.  At B=8 one step launches each of the three
-   kernels 16 times, and agrees with a step through the plain attention path
-   from the same weights, batch and mask (loss within 1e-4 relative,
-   gradient cosine >= 0.99 for every top-level group and >= 0.9995 for
-   every parameter tensor).  Then clips/s, MFU
+   unmasked kernels 16 times, and agrees with a step through the plain
+   attention path from the same weights, batch and mask (loss within 1e-4
+   relative, gradient cosine >= 0.99 for every top-level group and >= 0.9995
+   for every parameter tensor).  Then clips/s, MFU
    and peak memory at the largest batch in {48, 32, 16} that fits.
-6. The entry point: ``extract_embeddings`` over a small synthetic dataset,
+7. JEPA extraction: V-JEPA ViT-B (224 px, 2 frames) through
+   ``untrained_embed_fn("jepa", ...)``, 12 launches of the forward kernel,
+   cosine 0.999 to the plain attention path, clips/s at B=64.
+8. JEPA training at full width, this slice's path: V-JEPA ViT-B steps
+   through ``JEPA``, ``mask_collate``, ``TrainState.create`` with the EMA
+   target and ``make_jepa_train_step``.  At B=8 one step launches each
+   key-bias kernel 18 times and the unmasked forward kernel 12 times, agrees
+   with the plain-attention step (loss within 1e-4 relative, gradient
+   cosine >= 0.9995 per parameter tensor) and moves the EMA target.  Then
+   clips/s, MFU and peak memory at the largest batch in {64, 32, 16} that
+   fits, and the masked attention's forward plus backward, kernels against
+   plain, at that batch's two masked shapes.
+9. The entry point: ``extract_embeddings`` over a small synthetic dataset,
    then ``save_results``; row count and width 768.
 
 Prints one JSON ``{"kernels": [...]}`` line and, last,
@@ -74,6 +96,10 @@ COSINE_MIN = 0.999
 TRAIN_LOSS_RTOL = 1e-4  # read: 8.5e-7
 GRAD_COSINE_MIN = 0.99  # per top-level group
 TENSOR_COSINE_MIN = 0.9995  # per parameter tensor
+# the same for one JEPA step (key-bias kernels against plain masked attention)
+JEPA_LOSS_RTOL = 1e-4  # read: 2.16e-6
+JEPA_TENSOR_COSINE_MIN = 0.9995  # read: lowest 0.999937
+JEPA_TOTAL_STEPS = 10000  # the EMA ramp's horizon, as the JAX JEPA benchmark
 
 
 def fail(msg: str) -> None:
@@ -102,25 +128,29 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(B: int, N: int, h: int, d: int) -> tuple[float, str]:
+def attention_bound_ms(B: int, N: int, h: int, d: int,
+                       bias: bool = False) -> tuple[float, str]:
     """Least time of the forward on the card: 4*B*h*N^2*d tensor-core
-    operations at the bf16 peak against q/k/v/o (bf16) and LSE (f32) bytes
-    at the HBM rate; the larger one bounds."""
+    operations at the bf16 peak against q/k/v/o (bf16), LSE (f32) and, with
+    a key bias, the [B, N] f32 bias bytes at the HBM rate; the larger one
+    bounds."""
     ops_ms = 4 * B * h * N * N * d / PEAK_BF16_FLOPS * 1e3
-    bytes_ms = (4 * B * N * h * d * 2 + B * h * N * 4) / PEAK_HBM_BYTES * 1e3
+    nbytes = 4 * B * N * h * d * 2 + B * h * N * 4 + (B * N * 4 if bias else 0)
+    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def bwd_bound_ms(B: int, N: int, h: int, d: int, products: int) -> tuple[float, str]:
+def bwd_bound_ms(B: int, N: int, h: int, d: int, products: int,
+                 bias: bool = False) -> tuple[float, str]:
     """Least time of one backward kernel on the card: ``products`` N x N x d
     tensor-core products (3 for dQ, 4 for dK/dV), 2*B*h*N^2*d operations
     each, at the bf16 peak, against reading qs, k, v, dO (bf16), L and D
-    (f32) once and writing dQ, or dK and dV (bf16), at the HBM rate; the
-    larger one bounds."""
+    (f32) and, with a key bias, the [B, N] f32 bias once and writing dQ, or
+    dK and dV (bf16), at the HBM rate; the larger one bounds."""
     ops_ms = 2 * products * B * h * N * N * d / PEAK_BF16_FLOPS * 1e3
     elems = B * N * h * d
     outputs = 1 if products == 3 else 2
-    nbytes = (4 + outputs) * elems * 2 + 2 * B * h * N * 4
+    nbytes = (4 + outputs) * elems * 2 + 2 * B * h * N * 4 + (B * N * 4 if bias else 0)
     bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -175,6 +205,7 @@ def phase_kernel() -> dict:
     result = {}
     for label, (B, N, h, d) in (("extraction", (8, 1568, 12, 64)),
                                 ("encoder", (8, 160, 12, 64)),
+                                ("jepa target", (8, 392, 12, 64)),
                                 ("odd N", (8, 197, 12, 64)),
                                 ("decoder", (8, 1568, 6, 64))):
         _, qs, k, v = qkv_inputs(B, N, h, d, seed=N + h)
@@ -207,8 +238,9 @@ def phase_kernel() -> dict:
     mask = torch.ones(2, 64, dtype=torch.bool, device="cuda")
     for what, call in (("f32", lambda: multi_head_attention(q.float(), k.float(), v.float(),
                                                             impl="flash")),
-                       ("key mask", lambda: multi_head_attention(q, k, v, impl="flash",
-                                                                 key_mask=mask)),
+                       ("key mask at head width 48", lambda: multi_head_attention(
+                           q[..., :48], k[..., :48], v[..., :48], impl="flash",
+                           key_mask=mask)),
                        ("head width 32", lambda: flash_fwd_cuda(q[..., :32], k[..., :32],
                                                                 v[..., :32]))):
         try:
@@ -339,7 +371,6 @@ def phase_main_path(card: str, profile: str | None) -> int:
     import torch
 
     from bvc_tpu_torch.evalbench.extract import untrained_embed_fn
-    from bvc_tpu_torch.ops.flash_attention import flash_fwd_cuda
     from bvc_tpu_torch.utils.config import ModelConfig
 
     cfg = ModelConfig()
@@ -348,12 +379,13 @@ def phase_main_path(card: str, profile: str | None) -> int:
     clips = rng.integers(0, 256, (8, cfg.num_frames, cfg.image_size, cfg.image_size,
                                   cfg.in_channels), dtype=np.uint8)
 
-    flash_fwd_cuda.launches = 0
+    reset_launches()
     emb = fn(clips)
-    launches = flash_fwd_cuda.launches
-    print(f"main path: one embed call at B=8 launched flash_fwd {launches} times",
-          flush=True)
-    check(launches == cfg.depth, f"expected {cfg.depth} flash_fwd launches, got {launches}")
+    counts = read_launches()
+    launches = counts["flash_fwd"]
+    print(f"main path: one embed call at B=8 launched {counts}", flush=True)
+    check(counts == {**{k: 0 for k in counts}, "flash_fwd": cfg.depth},
+          f"expected {cfg.depth} flash_fwd launches and no other, got {counts}")
     check(emb.shape == (8, cfg.hidden_size) and bool(np.isfinite(emb).all()),
           f"embeddings of shape {emb.shape} or not finite")
 
@@ -449,6 +481,17 @@ def profile_embed(model, x, out_file: str) -> None:
               f"{ms * calls * 1e3 / busy_us:.3f} of device time", flush=True)
 
 
+def fwd_bwd(fn, *shape_of_x_and_params):
+    """A call of ``fn`` on random CUDA inputs of the given (shape, dtype)s,
+    forward plus backward into every input, for :func:`time_ms`."""
+    import torch
+
+    xs = [torch.randn(s, device="cuda", dtype=dt, requires_grad=True)
+          for s, dt in shape_of_x_and_params]
+    y = fn(*xs)
+    return lambda: torch.autograd.grad(fn(*xs), xs, torch.ones_like(y))
+
+
 def profile_train(step, state, video, num_visible: int, out_file: str) -> None:
     """:func:`profile_call` of one training step, then the plain-PyTorch
     GELU and LayerNorm, forward plus backward, timed alone at the step's
@@ -462,13 +505,6 @@ def profile_train(step, state, video, num_visible: int, out_file: str) -> None:
     busy_us = profile_call(lambda: step(state, video), f"one training step at B={B}",
                            out_file)
     cfg = state.model.cfg
-
-    def fwd_bwd(fn, *shape_of_x_and_params):
-        xs = [torch.randn(s, device=video.device, dtype=dt, requires_grad=True)
-              for s, dt in shape_of_x_and_params]
-        y = fn(*xs)
-        return lambda: torch.autograd.grad(fn(*xs), xs, torch.ones_like(y))
-
     bf16, f32 = torch.bfloat16, torch.float32
     per_call = {}
     for where, n, d, layers, norms in (
@@ -487,6 +523,47 @@ def profile_train(step, state, video, num_visible: int, out_file: str) -> None:
               flush=True)
 
 
+def profile_jepa(step, state, batch, enc_cap: int, pred_cap: int, npred: int,
+                 out_file: str) -> None:
+    """:func:`profile_call` of one JEPA training step, then the
+    plain-PyTorch GELU and LayerNorm timed alone at the step's shapes: the
+    target encoder's forward at all N tokens, forward plus backward in the
+    context encoder at ``enc_cap`` tokens and in the predictor at
+    ``enc_cap + pred_cap`` tokens for each of ``npred`` masks."""
+    import torch
+
+    from bvc_tpu_torch.models.vit import layer_norm
+    from bvc_tpu_torch.ops.gelu import gelu
+
+    B = batch["video"].shape[0]
+    busy_us = profile_call(lambda: step(state, batch), f"one JEPA step at B={B}", out_file)
+    cfg = state.model.cfg
+    D, Dp = cfg.hidden_size, cfg.pred_emb_dim
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = (("target", (B, cfg.seq_len), D, cfg.depth, 2 * cfg.depth + 2, False),
+            ("context", (B, enc_cap), D, cfg.depth, 2 * cfg.depth + 1, True),
+            ("predictor", (npred * B, enc_cap + pred_cap), Dp, cfg.pred_depth,
+             2 * cfg.pred_depth + 1, True))
+    for where, lead, d, layers, norms, grad in rows:
+        hidden = int(d * cfg.mlp_ratio)
+        if grad:
+            gelu_ms = time_ms(fwd_bwd(gelu, ((*lead, hidden), bf16)), iters=5)
+            ln_ms = time_ms(fwd_bwd(layer_norm, ((*lead, d), bf16), ((d,), f32),
+                                    ((d,), f32)), iters=5)
+        else:
+            h = torch.randn((*lead, hidden), device="cuda", dtype=bf16)
+            x = torch.randn((*lead, d), device="cuda", dtype=bf16)
+            w, b = torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")
+            with torch.no_grad():
+                gelu_ms = time_ms(lambda: gelu(h), iters=5)
+                ln_ms = time_ms(lambda: layer_norm(x, w, b), iters=5)
+        what = "forward+backward" if grad else "forward"
+        for name, ms, calls in (("gelu_poly", gelu_ms, layers), ("layer_norm", ln_ms, norms)):
+            print(f"profile: {name} {where} [{','.join(map(str, lead))}] {what} {ms:.3f} ms "
+                  f"x {calls} calls = {ms * calls:.1f} ms, "
+                  f"{ms * calls * 1e3 / busy_us:.3f} of device time", flush=True)
+
+
 def phase_train(card: str, profile: str | None) -> dict[str, int]:
     """VideoMAE-B pretraining steps on the card through the port's entry
     points (``VideoMAEPretrain``, ``TrainState.create``,
@@ -498,7 +575,6 @@ def phase_train(card: str, profile: str | None) -> dict[str, int]:
     import torch
 
     from bvc_tpu_torch.models.videomae import VideoMAEPretrain
-    from bvc_tpu_torch.ops.flash_attention import flash_bwd_cuda, flash_fwd_cuda
     from bvc_tpu_torch.training.state import TrainState
     from bvc_tpu_torch.training.steps import make_videomae_train_step
     from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig
@@ -520,16 +596,15 @@ def phase_train(card: str, profile: str | None) -> dict[str, int]:
     video = clips(8)
     state = TrainState.create(VideoMAEPretrain(cfg, seed=0), optim, seed=1)
     step = make_videomae_train_step(cfg, mask_cfg)
-    flash_fwd_cuda.launches = flash_bwd_cuda.launches_dq = flash_bwd_cuda.launches_dkv = 0
+    reset_launches()
     metrics = step(state, video)
     torch.cuda.synchronize()
-    launches = {"flash_fwd": flash_fwd_cuda.launches,
-                "flash_bwd_dq": flash_bwd_cuda.launches_dq,
-                "flash_bwd_dkv": flash_bwd_cuda.launches_dkv}
+    launches = read_launches()
     print(f"train: one step at B=8 launched {launches}", flush=True)
     layers = cfg.depth + cfg.decoder_depth
-    check(all(n == layers for n in launches.values()),
-          f"expected {layers} launches of each kernel in one step, got {launches}")
+    expected = {**{k: 0 for k in launches}, "flash_fwd": layers, "flash_bwd_dq": layers,
+                "flash_bwd_dkv": layers}
+    check(launches == expected, f"expected {expected} in one step, got {launches}")
 
     plain = TrainState.create(VideoMAEPretrain(cfg, seed=0), optim, seed=1)
     plain_metrics = make_videomae_train_step(cfg, mask_cfg, attn_impl="xla")(plain, video)
@@ -599,6 +674,391 @@ def phase_train(card: str, profile: str | None) -> dict[str, int]:
         break
     else:
         fail("no batch size in {48, 32, 16} fits")
+    return launches
+
+
+def jepa_config():
+    """The slice's V-JEPA configuration, as the JEPA CLI's defaults build it
+    (``bvc_tpu/cli/pretrain_jepa.py``): ViT-B at 224 px, 2 frames, tubelet 1
+    (392 tokens) and a 384-wide 6-layer predictor with 12 heads; the
+    multi-block collator with enc_mask_scale (0.85, 1.0), pred_mask_scale
+    (0.1, 0.15) and 4 prediction masks (caps 169 and 30); SGD-Nesterov at
+    lr 0.03 without weight decay on biases and norms, EMA (0.996, 1.0)."""
+    from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig
+
+    cfg = ModelConfig(family="jepa", num_frames=2, tubelet_size=1)
+    mask_cfg = MaskConfig(enc_mask_scale=(0.85, 1.0), pred_mask_scale=(0.1, 0.15))
+    optim = OptimConfig(name="sgd", lr=0.03, momentum=0.9, nesterov=True,
+                        exclude_bias_and_norm_from_wd=True)
+    return cfg, mask_cfg, optim
+
+
+def jepa_key_masks(batch: dict):
+    """The key masks of a collated JEPA batch on the card, as the modules
+    build them: the context encoder's ``[B, Ke]`` and the predictor's
+    ``[M*B, Ke + Kp]`` (context rows tiled m-major, then each mask's
+    prediction rows)."""
+    import torch
+
+    enc = torch.as_tensor(batch["enc_idx"], device="cuda") >= 0
+    pred = torch.as_tensor(batch["pred_idx"], device="cuda") >= 0  # [B, M, Kp]
+    B, M, Kp = pred.shape
+    tiled = enc[None].expand(M, -1, -1).reshape(M * B, -1)
+    return enc, torch.cat([tiled, pred.transpose(0, 1).reshape(M * B, Kp)], dim=1)
+
+
+def jepa_train_flops_per_clip(cfg, enc_cap: int, pred_cap: int, npred: int) -> float:
+    """Model operations of one JEPA pretraining step per clip, over the
+    tokens the step computes, padding included: the target encoder's
+    forward at all N tokens, 24*N*D^2 + 4*N^2*D per layer plus the patch
+    embedding 2*N*(C*ts*p*p)*D; 3 x the context encoder's forward at the
+    Ke = ``enc_cap`` gathered tokens (its patch embedding runs at all N
+    before the gather); 3 x the predictor's forward: the embedding
+    2*Ke*D*Dp, then for each of the ``npred`` masks its blocks at
+    L = Ke + Kp (Kp = ``pred_cap``), 24*L*Dp^2 + 4*L^2*Dp per layer, and the
+    projection 2*Kp*Dp*D."""
+    N, D, Dp = cfg.seq_len, cfg.hidden_size, cfg.pred_emb_dim
+    Ke, Kp = enc_cap, pred_cap
+    L = Ke + Kp
+    patch = 2 * N * cfg.in_channels * cfg.tubelet_size * cfg.patch_size ** 2 * D
+    target = cfg.depth * (24 * N * D * D + 4 * N * N * D) + patch
+    context = cfg.depth * (24 * Ke * D * D + 4 * Ke * Ke * D) + patch
+    predictor = 2 * Ke * D * Dp + npred * (
+        cfg.pred_depth * (24 * L * Dp * Dp + 4 * L * L * Dp) + 2 * Kp * Dp * D)
+    return target + 3 * (context + predictor)
+
+
+def phase_bias_kernel() -> dict:
+    """The key-bias forward, dQ and dK/dV kernels against their plain
+    versions at JEPA's context shape ``[8, 169, 12, 64]`` (collator mask),
+    its predictor shape ``[32, 199, 12, 32]`` (concatenated mask), an odd
+    ``[8, 197, 12, 64]`` with about 40% of the keys masked, and at both
+    widths with one batch element whose every key is masked: O within 2e-2,
+    LSE within 1e-3 (+inf exactly where a row has no key), dQ/dK/dV within
+    2e-2 x max|ref| and 1e-3 in |err|/|ref|, and dK = dV = 0 exactly at
+    masked keys.  Returns each kernel's record at the context shape, with
+    the predictor shape's numbers under ``"predictor"``."""
+    import torch
+    import torch.nn.functional as F
+
+    from bvc_tpu_torch.masks.multiblock import mask_collate
+    from bvc_tpu_torch.ops.flash_attention import (bwd_operands, flash_attention_bwd_ref,
+                                                   flash_attention_fwd_ref, flash_bwd_cuda,
+                                                   flash_fwd_cuda, key_bias, launch_dkv,
+                                                   launch_dq)
+
+    cfg, mask_cfg, _ = jepa_config()
+    enc_mask, pred_mask = jepa_key_masks(mask_collate(cfg, mask_cfg, seed=0)(8, step=0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def random_mask(B, N, keep, dead=None):
+        mask = torch.rand((B, N), generator=gen, device="cuda") < keep
+        if dead is not None:
+            mask[dead] = False
+        return mask
+
+    cases = (("context", (8, 169, 12, 64), enc_mask),
+             ("predictor", (32, 199, 12, 32), pred_mask),
+             ("odd N", (8, 197, 12, 64), random_mask(8, 197, 0.6)),
+             ("all masked d64", (4, 169, 12, 64), random_mask(4, 169, 0.5, dead=1)),
+             ("all masked d32", (4, 199, 12, 32), random_mask(4, 199, 0.5, dead=2)))
+    result = {}
+    for label, (B, N, h, d), mask in cases:
+        _, qs, k, v = qkv_inputs(B, N, h, d, seed=3 * N + d)
+        bias = key_bias(mask)
+        do = torch.randn((B, N, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        o, lse = flash_fwd_cuda(qs, k, v, bias)
+        o_ref, lse_ref = flash_attention_fwd_ref(qs, k, v, bias)
+        grads = flash_bwd_cuda(qs, k, v, o, lse, do, bias)
+        refs = flash_attention_bwd_ref(qs, k, v, o, lse, do, bias)
+        torch.cuda.synchronize()
+        shape = f"[{B},{N},{h},{d}] ({label}, {(~mask).float().mean().item():.2f} masked)"
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        no_key = torch.isinf(lse_ref)
+        err_lse = (lse[~no_key] - lse_ref[~no_key]).abs().max().item()
+        print(f"flash_fwd_bias {shape}: max|dO| {err_o:.3e} max|dLSE| {err_lse:.3e}, "
+              f"{int(no_key.sum())} rows with no key", flush=True)
+        check(torch.allclose(o.float(), o_ref.float(), atol=O_TOL, rtol=O_TOL),
+              f"flash_fwd_bias O disagrees with the plain version at {label}: {err_o}")
+        check(torch.equal(torch.isinf(lse), no_key) and bool((lse[no_key] > 0).all())
+              and torch.allclose(lse[~no_key], lse_ref[~no_key], atol=LSE_TOL, rtol=LSE_TOL),
+              f"flash_fwd_bias LSE disagrees with the plain version at {label}: {err_lse}")
+        errs = {}
+        for name, x, ref in zip(("dq", "dk", "dv"), grads, refs):
+            diff = x.float() - ref.float()
+            err, scale = diff.abs().max().item(), ref.float().abs().max().item()
+            rel = (diff.norm() / ref.float().norm()).item()
+            errs[name] = err
+            at_masked = (x[~mask].abs().max().item()
+                         if name != "dq" and bool((~mask).any()) else 0.0)
+            print(f"flash_bwd_bias {shape} {name}: max abs err {err:.3e} (bound "
+                  f"{BWD_TOL * scale:.3e}), |err|/|ref| {rel:.3e} (bound {BWD_REL_TOL})"
+                  + (f", max|{name}| at masked keys {at_masked}" if name != "dq" else ""),
+                  flush=True)
+            check(err <= BWD_TOL * scale and rel <= BWD_REL_TOL,
+                  f"flash_bwd_bias {name} disagrees with the plain version at {label}: "
+                  f"{err}, rel {rel}")
+            check(at_masked == 0, f"flash_bwd_bias {name} at {label}: masked keys get "
+                                  f"{at_masked}, not 0")
+        if "all masked" in label:
+            dead = ~mask.any(dim=1)
+            check(grads[0][dead].abs().max().item() == 0 and bool(o[dead].isfinite().all()),
+                  f"flash_bias at {label}: a row with no key got a gradient or a NaN")
+        if label not in ("context", "predictor"):
+            continue
+
+        fwd_ms = time_ms(lambda: flash_fwd_cuda(qs, k, v, bias))
+        operands = bwd_operands(qs, k, v, o, lse, do, bias)
+        dq_ms = time_ms(lambda: launch_dq(*operands))
+        dkv_ms = time_ms(lambda: launch_dkv(*operands))
+        plain_fwd_ms = time_ms(lambda: flash_attention_fwd_ref(qs, k, v, bias), iters=5)
+        plain_bwd_ms = time_ms(lambda: flash_attention_bwd_ref(qs, k, v, o, lse, do, bias),
+                               iters=5)
+        # yardstick only (the port never calls it): SDPA with the bias as
+        # its additive mask; its backward as forward plus backward less the
+        # forward
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (qs, k, v))
+        amask = bias.to(torch.bfloat16)[:, None, None, :]
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask, scale=1.0)
+
+        with torch.no_grad():
+            lib_fwd_ms = time_ms(sdpa_fwd)
+        lib_bwd_ms = (time_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot))
+                      - time_ms(sdpa_fwd))
+        records = {}
+        for name, ms, plain_ms, lib_ms, bound, err in (
+                ("fwd", fwd_ms, plain_fwd_ms, lib_fwd_ms,
+                 attention_bound_ms(B, N, h, d, bias=True), err_o),
+                ("dq", dq_ms, plain_bwd_ms, lib_bwd_ms,
+                 bwd_bound_ms(B, N, h, d, 3, bias=True), errs["dq"]),
+                ("dkv", dkv_ms, plain_bwd_ms, lib_bwd_ms,
+                 bwd_bound_ms(B, N, h, d, 4, bias=True), max(errs["dk"], errs["dv"]))):
+            records[name] = {"at": [B, N, h, d], "max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms, "library_ms": lib_ms,
+                             "bound_ms": bound[0], "bound_by": bound[1]}
+            products = {"fwd": 2, "dq": 3, "dkv": 4}[name]
+            tflops = 2 * products * B * h * N * N * d / ms / 1e9
+            print(f"flash_bias {name} [{B},{N},{h},{d}] ({label}): kernel {ms:.4f} ms "
+                  f"({tflops:.1f} TFLOP/s), bound {bound[0]:.4f} ms ({bound[1]}, "
+                  f"{bound[0] / ms:.3f} of it), plain {plain_ms:.4f} ms"
+                  f"{' (dq and dkv together)' if name != 'fwd' else ''}, sdpa "
+                  f"{'backward ' if name != 'fwd' else ''}{lib_ms:.4f} ms", flush=True)
+        for name, rec in records.items():
+            if label == "context":
+                result[name] = rec
+            else:
+                result[name]["predictor"] = rec
+    return result
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for fn, attr in _launch_counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_launches() -> dict[str, int]:
+    return {name: getattr(fn, attr) for name, (fn, attr) in _launch_counters().items()}
+
+
+def _launch_counters() -> dict:
+    from bvc_tpu_torch.ops.flash_attention import flash_bwd_cuda, flash_fwd_cuda
+
+    return {"flash_fwd": (flash_fwd_cuda, "launches"),
+            "flash_bwd_dq": (flash_bwd_cuda, "launches_dq"),
+            "flash_bwd_dkv": (flash_bwd_cuda, "launches_dkv"),
+            "flash_fwd_bias": (flash_fwd_cuda, "launches_bias"),
+            "flash_bwd_dq_bias": (flash_bwd_cuda, "launches_dq_bias"),
+            "flash_bwd_dkv_bias": (flash_bwd_cuda, "launches_dkv_bias")}
+
+
+def phase_jepa_embed(card: str) -> int:
+    """V-JEPA ViT-B extraction on the card through
+    ``untrained_embed_fn("jepa", ...)``: 12 launches of the forward kernel
+    (and no other) in one embed call, embeddings within cosine 0.999 per
+    row of the plain attention path on the same weights, then clips/s at
+    B=64.  Returns the forward kernel's launches in one call."""
+    import numpy as np
+    import torch
+
+    from bvc_tpu_torch.evalbench.extract import untrained_embed_fn
+
+    cfg, _, _ = jepa_config()
+    fn = untrained_embed_fn("jepa", cfg, seed=0)
+    rng = np.random.default_rng(1)
+    clips = rng.integers(0, 256, (8, cfg.num_frames, cfg.image_size, cfg.image_size,
+                                  cfg.in_channels), dtype=np.uint8)
+    reset_launches()
+    emb = fn(clips)
+    launches = read_launches()
+    print(f"jepa embed: one embed call at B=8 launched {launches}", flush=True)
+    check(launches == {**{k: 0 for k in launches}, "flash_fwd": cfg.depth},
+          f"expected {cfg.depth} flash_fwd launches and no other, got {launches}")
+    check(emb.shape == (8, cfg.hidden_size) and bool(np.isfinite(emb).all()),
+          f"JEPA embeddings of shape {emb.shape} or not finite")
+    with torch.inference_mode():
+        ref = fn.model.embed(torch.from_numpy(clips).cuda(), attn_impl="xla").cpu().numpy()
+    cos = (emb * ref).sum(1) / (np.linalg.norm(emb, axis=1) * np.linalg.norm(ref, axis=1))
+    print(f"jepa embed: cosine to the plain-attention path min {cos.min():.6f}, "
+          f"max|diff| {np.abs(emb - ref).max():.4e}", flush=True)
+    check(bool(cos.min() >= COSINE_MIN), f"JEPA embed cosine {cos.min()} < {COSINE_MIN}")
+    x = torch.from_numpy(rng.integers(0, 256, (64,) + clips.shape[1:], dtype=np.uint8)).cuda()
+    with torch.inference_mode():
+        ms = time_ms(lambda: fn.model.embed(x), iters=5, warmup=2)
+    print(f"jepa embed [{card}]: B=64 embed {ms:.2f} ms on device -> "
+          f"{64 / (ms / 1e3):.1f} clips/s", flush=True)
+    return launches["flash_fwd"]
+
+
+def phase_jepa_train(card: str, profile: str | None) -> dict[str, int]:
+    """V-JEPA ViT-B pretraining steps on the card through the port's entry
+    points (``JEPA``, ``mask_collate``, ``TrainState.create`` with the EMA
+    target, ``make_jepa_train_step``).  At B=8 one step launches each
+    key-bias kernel 18 times (12 context-encoder and 6 predictor layers) and
+    the unmasked forward kernel 12 times (the target encoder), agrees with a
+    step through the plain attention path from the same weights, batch and
+    masks, and moves the EMA target.  Then clips/s, MFU and peak memory at
+    the largest batch in {64, 32, 16} that fits, and the masked attention's
+    forward plus backward, kernels against plain, at that batch's two masked
+    shapes.  Returns each kernel's launches in one step at B=8."""
+    import copy
+    import gc
+
+    import numpy as np
+    import torch
+
+    from bvc_tpu_torch.masks.multiblock import mask_collate
+    from bvc_tpu_torch.models.jepa import JEPA
+    from bvc_tpu_torch.ops.attention import multi_head_attention
+    from bvc_tpu_torch.training.state import TrainState
+    from bvc_tpu_torch.training.steps import make_jepa_train_step
+
+    cfg, mask_cfg, optim = jepa_config()
+    collate = mask_collate(cfg, mask_cfg, seed=0)
+    rng = np.random.default_rng(0)
+
+    def batch_of(B, step):
+        video = rng.integers(0, 256, (B, cfg.num_frames, cfg.image_size, cfg.image_size,
+                                      cfg.in_channels), dtype=np.uint8)
+        return {k: torch.from_numpy(x).cuda()
+                for k, x in {"video": video, **collate(B, step)}.items()}
+
+    def new_state():
+        model = JEPA(cfg, seed=0)
+        return TrainState.create(model, optim, seed=1, target=copy.deepcopy(model.encoder))
+
+    def make_step(attn_impl="auto"):
+        return make_jepa_train_step(cfg, JEPA_TOTAL_STEPS, optim.ema, optim.ema_fallback,
+                                    attn_impl=attn_impl)
+
+    batch = batch_of(8, 0)
+    state = new_state()
+    target0 = [p.clone() for p in state.target.parameters()]
+    step = make_step()
+    reset_launches()
+    metrics = step(state, batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"jepa train: one step at B=8 launched {launches}", flush=True)
+    masked_layers = cfg.depth + cfg.pred_depth
+    expected = {"flash_fwd": cfg.depth, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                "flash_fwd_bias": masked_layers, "flash_bwd_dq_bias": masked_layers,
+                "flash_bwd_dkv_bias": masked_layers}
+    check(launches == expected, f"expected {expected} in one JEPA step, got {launches}")
+
+    plain = new_state()
+    plain_metrics = make_step("xla")(plain, batch)
+    loss, plain_loss = metrics["loss"].item(), plain_metrics["loss"].item()
+    rel = abs(loss - plain_loss) / abs(plain_loss)
+    print(f"jepa train: loss {loss:.6f}, plain attention {plain_loss:.6f} (rel {rel:.2e}); "
+          f"grad_norm {metrics['grad_norm'].item():.4e} vs "
+          f"{plain_metrics['grad_norm'].item():.4e}; mask_a {metrics['mask_a'].item()}, "
+          f"mask_b {metrics['mask_b'].item()}, ema_m {metrics['ema_m'].item():.6f}",
+          flush=True)
+    check(math.isfinite(loss) and rel <= JEPA_LOSS_RTOL,
+          f"JEPA loss {loss} vs plain {plain_loss}: rel {rel} > {JEPA_LOSS_RTOL}")
+    flash_grads = {n: p.grad.flatten() for n, p in state.model.named_parameters()}
+    plain_grads = {n: p.grad.flatten() for n, p in plain.model.named_parameters()}
+    cosine = torch.nn.functional.cosine_similarity
+    per_tensor = sorted((cosine(flash_grads[n], plain_grads[n], dim=0).item(), n)
+                        for n in flash_grads)
+    print(f"jepa train: gradient cosine per tensor ({len(per_tensor)} tensors), lowest: "
+          + ", ".join(f"{n} {c:.6f}" for c, n in per_tensor[:5]), flush=True)
+    check(per_tensor[0][0] >= JEPA_TENSOR_COSINE_MIN,
+          f"JEPA gradient cosine of {per_tensor[0][1]} {per_tensor[0][0]} "
+          f"< {JEPA_TENSOR_COSINE_MIN}")
+    moved = max((p - p0).abs().max().item() for p, p0 in zip(state.target.parameters(),
+                                                              target0))
+    print(f"jepa train: the EMA target moved by up to {moved:.3e}", flush=True)
+    check(moved > 0 and abs(metrics["ema_m"].item() - optim.ema[0]) < 1e-6,
+          f"the EMA target did not move ({moved}) or ema_m {metrics['ema_m'].item()}")
+    del state, plain, flash_grads, plain_grads, target0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    coll = collate.collator
+    flops = jepa_train_flops_per_clip(cfg, coll.enc_cap, coll.pred_cap, coll.npred)
+    for B in (64, 32, 16):
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            state = new_state()
+            batches = [batch_of(B, i) for i in range(13)]
+            for b in batches[:3]:
+                step(state, b)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses = [step(state, b)["loss"] for b in batches[3:]]
+            end.record()
+            torch.cuda.synchronize()
+            fits = True
+        except torch.cuda.OutOfMemoryError:
+            fits = False
+        if not fits:  # outside the handler, whose traceback holds the step's tensors
+            print(f"jepa train: B={B} does not fit", flush=True)
+            state = batches = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        ms = start.elapsed_time(end) / 10
+        losses = torch.stack(losses).tolist()
+        check(all(math.isfinite(x) for x in losses), f"non-finite JEPA loss: {losses}")
+        clips_s = B / (ms / 1e3)
+        print(f"jepa train [{card}]: B={B} step {ms:.2f} ms -> {clips_s:.1f} clips/s, "
+              f"MFU {flops * clips_s / PEAK_BF16_FLOPS:.4f} ({flops / 1e9:.1f} GFLOP/clip, "
+              f"padding included), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+              f"losses {losses[0]:.4f} .. {losses[-1]:.4f}", flush=True)
+        if profile is not None:
+            profile_jepa(step, state, batches[3], coll.enc_cap, coll.pred_cap, coll.npred,
+                         str(Path(profile).with_name("profile_jepa.txt")) if profile else "")
+        # the masked attention of the step, kernels against plain, forward
+        # plus backward, for a routing rule from this card's numbers
+        enc_mask, pred_mask = jepa_key_masks(batches[3])
+        del state, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        for label, mask, h, d in (("context", enc_mask, cfg.num_heads, 64),
+                                  ("predictor", pred_mask, cfg.num_heads, 32)):
+            Bm, N = mask.shape
+            q, _, k, v = qkv_inputs(Bm, N, h, d, seed=N)
+            q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+            do = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
+
+            def fwd_bwd(impl):
+                out = multi_head_attention(q, k, v, impl=impl, key_mask=mask)
+                return torch.autograd.grad(out, (q, k, v), do)
+
+            k_ms = time_ms(lambda: fwd_bwd("flash"))
+            p_ms = time_ms(lambda: fwd_bwd("xla"), iters=5)
+            print(f"routing masked fwd+bwd [{Bm},{N},{h},{d}] ({label}): flash "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms", flush=True)
+        break
+    else:
+        fail("no batch size in {64, 32, 16} fits")
     return launches
 
 
@@ -677,24 +1137,40 @@ def main() -> None:
 
     flash = phase_kernel()
     bwd = phase_bwd_kernel()
+    bias = phase_bias_kernel()
     embed_launches = phase_main_path(smi, args.profile)
     train_launches = phase_train(smi, args.profile)
+    jepa_embed_launches = phase_jepa_embed(smi)
+    jepa_launches = phase_jepa_train(smi, args.profile)
     phase_entry_point()
 
-    # launches: per training step (the slice's main path) and per embed call
+    # launches: per step of the path that runs the kernel most (VideoMAE
+    # training for the unmasked kernels, JEPA training for the key-bias
+    # ones), with the other paths' counts beside them
+    fwd_src = "bvc_tpu_torch/csrc/flash_fwd.cu"
+    bwd_src = "bvc_tpu_torch/csrc/flash_bwd.cu"
+    replaces = "bvc_tpu/ops/flash_attention.py"
     records = [
-        {"name": "flash_fwd", "route": "cuda", "source": "bvc_tpu_torch/csrc/flash_fwd.cu",
-         "replaces": "bvc_tpu/ops/flash_attention.py:109",
-         "launches": train_launches["flash_fwd"], "launches_per_embed": embed_launches,
-         "at": [8, 1568, 12, 64], **flash},
-        {"name": "flash_bwd_dq", "route": "cuda", "source": "bvc_tpu_torch/csrc/flash_bwd.cu",
-         "replaces": "bvc_tpu/ops/flash_attention.py:250",
-         "launches": train_launches["flash_bwd_dq"], "at": [8, 1568, 6, 64],
-         **bwd["dq"]},
-        {"name": "flash_bwd_dkv", "route": "cuda", "source": "bvc_tpu_torch/csrc/flash_bwd.cu",
-         "replaces": "bvc_tpu/ops/flash_attention.py:278",
-         "launches": train_launches["flash_bwd_dkv"], "at": [8, 1568, 6, 64],
-         **bwd["dkv"]},
+        {"name": "flash_fwd", "route": "cuda", "source": fwd_src,
+         "replaces": f"{replaces}:109", "launches": train_launches["flash_fwd"],
+         "launches_per_embed": embed_launches,
+         "launches_per_jepa_step": jepa_launches["flash_fwd"],
+         "launches_per_jepa_embed": jepa_embed_launches, "at": [8, 1568, 12, 64], **flash},
+        {"name": "flash_bwd_dq", "route": "cuda", "source": bwd_src,
+         "replaces": f"{replaces}:250", "launches": train_launches["flash_bwd_dq"],
+         "at": [8, 1568, 6, 64], **bwd["dq"]},
+        {"name": "flash_bwd_dkv", "route": "cuda", "source": bwd_src,
+         "replaces": f"{replaces}:278", "launches": train_launches["flash_bwd_dkv"],
+         "at": [8, 1568, 6, 64], **bwd["dkv"]},
+        {"name": "flash_fwd_bias", "route": "cuda", "source": fwd_src,
+         "replaces": f"{replaces}:74", "launches": jepa_launches["flash_fwd_bias"],
+         **bias["fwd"]},
+        {"name": "flash_bwd_dq_bias", "route": "cuda", "source": bwd_src,
+         "replaces": f"{replaces}:187", "launches": jepa_launches["flash_bwd_dq_bias"],
+         **bias["dq"]},
+        {"name": "flash_bwd_dkv_bias", "route": "cuda", "source": bwd_src,
+         "replaces": f"{replaces}:212", "launches": jepa_launches["flash_bwd_dkv_bias"],
+         **bias["dkv"]},
     ]
     check(all(math.isfinite(r[k]) for r in records
               for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")),

@@ -133,9 +133,11 @@ def test_routing():
     assert torch.equal(multi_head_attention(q, k, v, impl="xla"), plain)
     torch.testing.assert_close(multi_head_attention(q, k, v, impl="flash"), plain,
                                rtol=TOL, atol=TOL)
+    # a key mask takes the key-bias kernels' plain version on the CPU
     mask = torch.ones(1, 24, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        multi_head_attention(q, k, v, impl="flash", key_mask=mask)
+    mask[0, 5] = False
+    torch.testing.assert_close(multi_head_attention(q, k, v, impl="flash", key_mask=mask),
+                               plain_attention(q, k, v, 8 ** -0.5, mask), rtol=TOL, atol=TOL)
     with pytest.raises(ValueError, match="unknown attention impl"):
         multi_head_attention(q, k, v, impl="ring:seq")
 

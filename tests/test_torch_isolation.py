@@ -3,6 +3,7 @@ entry points never fall back to the CPU on their own, and ``chip_smoke.py``
 refuses to run without a card or outside a checkout."""
 
 import ast
+import copy
 import shutil
 import subprocess
 import sys
@@ -13,10 +14,12 @@ import torch
 
 import bvc_tpu_torch
 from bvc_tpu_torch.evalbench import extract
+from bvc_tpu_torch.masks.multiblock import mask_collate
+from bvc_tpu_torch.models.jepa import JEPA
 from bvc_tpu_torch.models.videomae import VideoMAEPretrain
 from bvc_tpu_torch.ops import _build
 from bvc_tpu_torch.training.state import TrainState
-from bvc_tpu_torch.training.steps import make_videomae_train_step
+from bvc_tpu_torch.training.steps import make_jepa_train_step, make_videomae_train_step
 from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig
 from bvc_tpu_torch.utils.device import resolve_device
 
@@ -74,6 +77,27 @@ def test_no_silent_cpu_default(monkeypatch):
     step = make_videomae_train_step(state.model.cfg, MaskConfig())
     video = torch.zeros((2, 4, 32, 32, 3), dtype=torch.uint8)
     assert all(m.device == torch.device("cpu") for m in step(state, video).values())
+
+
+def test_no_silent_cpu_default_jepa(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ModelConfig(family="jepa", image_size=32, patch_size=8, num_frames=2,
+                      tubelet_size=1, hidden_size=16, depth=1, num_heads=1, pred_depth=1,
+                      pred_emb_dim=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract.untrained_embed_fn("jepa", cfg)
+    model = JEPA(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainState.create(model, OptimConfig(), target=copy.deepcopy(model.encoder))
+    state = TrainState.create(model, OptimConfig(), device="cpu",
+                              target=copy.deepcopy(model.encoder))
+    batch = {"video": torch.zeros((2, 2, 32, 32, 3), dtype=torch.uint8),
+             **{k: torch.from_numpy(v) for k, v in
+                mask_collate(cfg, MaskConfig(pred_mask_scale=(0.2, 0.25), min_keep=2))(
+                    2, step=0).items()}}
+    metrics = make_jepa_train_step(cfg, total_steps=10)(state, batch)
+    assert all(m.device == torch.device("cpu") for m in metrics.values())
+    assert state.target.patch_embed.weight.device == torch.device("cpu")
 
 
 def test_kernel_build_is_keyed_by_source_hash():
