@@ -14,8 +14,12 @@ fname, deduplicated, the test split under ``savedir/test/``.
 
 Both layouts are what ``bvc_tpu/cli/export_torch.py`` writes; Orbax
 checkpoints need JAX and are not read here.  Extraction runs in one process
-on one device.  SimCLR, the dataset readers and the ``compute_embeddings``
-CLI come with later slices (ROADMAP).
+on one device.  ``quantize="int8"`` takes the W8A8 path of either family
+(:mod:`bvc_tpu_torch.ops.quant`: the blocks' qkv and fc1 quantized after
+the weights load, their products on the s8 kernel of ``csrc/gemm.cu``).
+Still to come (ROADMAP): SimCLR extraction, the sequence-parallel mesh
+(and with it ``_check_quantize``'s mesh rejection), the dataset readers and
+the ``compute_embeddings`` CLI.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from bvc_tpu_torch.models.convert import (jepa_encoder_from_reference_state_dict
                                           videomae_from_hf_state_dict)
 from bvc_tpu_torch.models.jepa import JEPAEncoder
 from bvc_tpu_torch.models.videomae import VideoMAEEncoder
+from bvc_tpu_torch.ops.quant import quantize_encoder
 from bvc_tpu_torch.utils.config import ModelConfig
 from bvc_tpu_torch.utils.device import resolve_device
 
@@ -55,6 +60,22 @@ def _encoder_class(family: str) -> type[torch.nn.Module]:
     return _ENCODERS[family]
 
 
+def _check_quantize(family: str, quantize: str | None) -> bool:
+    """Validate the ``quantize`` option; True for the int8 path.  ``"none"``,
+    ``""`` and None mean off; SimCLR's conv trunk is refused rather than run
+    unquantized."""
+    if quantize in ("none", "", None):
+        return False
+    if quantize != "int8":
+        raise ValueError(f"unknown quantize mode {quantize!r} "
+                         "(expected 'none' or 'int8')")
+    if family == "simclr":
+        raise ValueError("quantize='int8' covers the ViT families "
+                         "(videomae, jepa); the resnet conv trunk is "
+                         "not quantized")
+    return True
+
+
 def _embed_fn(model: VideoMAEEncoder | JEPAEncoder, device: torch.device) -> Callable:
     """``fn(video_batch) -> [B, D]`` f32 numpy; ``fn.model`` is the module,
     ``fn.feature_dim`` the embedding width."""
@@ -71,11 +92,14 @@ def _embed_fn(model: VideoMAEEncoder | JEPAEncoder, device: torch.device) -> Cal
 
 
 def make_embed_fn(family: str, ckpt_path: str, cfg: ModelConfig,
-                  device: str | torch.device | None = None) -> Callable:
+                  device: str | torch.device | None = None,
+                  quantize: str | None = "none") -> Callable:
     """Load the encoder of a ``.pth.tar`` checkpoint (VideoMAE:
     ``model_state_dict`` in HF names; JEPA: ``encoder`` in the reference
     layout) and return the embedding function on ``device`` (``cuda`` when
-    None)."""
+    None); ``quantize="int8"`` quantizes the loaded blocks (see
+    :func:`_check_quantize`)."""
+    q = _check_quantize(family, quantize)
     encoder = _encoder_class(family)
     device = resolve_device(device)
     model = encoder(cfg)
@@ -85,15 +109,19 @@ def make_embed_fn(family: str, ckpt_path: str, cfg: ModelConfig,
     else:
         sd = videomae_from_hf_state_dict(ckpt["model_state_dict"], cfg)
     model.load_state_dict(sd)
-    return _embed_fn(model, device)
+    return _embed_fn(quantize_encoder(model) if q else model, device)
 
 
 def untrained_embed_fn(family: str, cfg: ModelConfig, seed: int = 0,
-                       device: str | torch.device | None = None) -> Callable:
-    """Random-init model from ``seed``: the stage-0 untrained baseline."""
+                       device: str | torch.device | None = None,
+                       quantize: str | None = "none") -> Callable:
+    """Random-init model from ``seed``: the stage-0 untrained baseline;
+    ``quantize="int8"`` quantizes its blocks."""
+    q = _check_quantize(family, quantize)
     encoder = _encoder_class(family)
     device = resolve_device(device)
-    return _embed_fn(encoder(cfg, seed=seed), device)
+    model = encoder(cfg, seed=seed)
+    return _embed_fn(quantize_encoder(model) if q else model, device)
 
 
 def save_results(fnames: list[str], embeddings: np.ndarray, phase: str,

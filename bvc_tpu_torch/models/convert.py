@@ -4,7 +4,11 @@ dicts).
 - :func:`videomae_from_jax_params`: the JAX package's parameter tree as
   numpy arrays (block leaves stacked ``[depth, ...]``, kernels ``[in, out]``)
   -> the state dict of :class:`VideoMAEEncoder` (``patch_embed.*``,
-  ``blocks.layers.{i}.*``).
+  ``blocks.layers.{i}.*``).  A block tree quantized by JAX's
+  ``quantize_encoder_tree`` (linears with ``kernel_q [L, in, out]`` int8
+  and ``scale [L, out]``) gives ``weight_q``/``scale`` entries, which load
+  into an encoder quantized by :func:`bvc_tpu_torch.ops.quant.quantize_encoder`;
+  the same holds for :func:`jepa_encoder_from_jax_params`.
 - :func:`videomae_pretrain_from_jax_params`: the same tree -> the state
   dict of :class:`VideoMAEPretrain`: the encoder's entries under
   ``encoder.``, and from the tree's decoder side ``enc_to_dec.weight``,
@@ -43,8 +47,15 @@ def _f32(x: Any) -> torch.Tensor:
 
 
 def _linear(p: dict, prefix: str) -> dict[str, torch.Tensor]:
-    """A JAX ``{kernel [in, out], bias?}`` leaf -> ``nn.Linear`` entries."""
-    sd = {prefix + "weight": _f32(p["kernel"]).T.contiguous()}
+    """A JAX ``{kernel [in, out], bias?}`` leaf -> ``nn.Linear`` entries; a
+    quantized ``{kernel_q [in, out] int8, scale [out], bias?}`` leaf ->
+    :class:`~bvc_tpu_torch.ops.quant.QuantLinear` entries (``weight_q``
+    ``[out, in]`` int8, ``scale``)."""
+    if "kernel_q" in p:
+        kq = np.ascontiguousarray(np.asarray(p["kernel_q"], dtype=np.int8).T)
+        sd = {prefix + "weight_q": torch.from_numpy(kq), prefix + "scale": _f32(p["scale"])}
+    else:
+        sd = {prefix + "weight": _f32(p["kernel"]).T.contiguous()}
     if "bias" in p:
         sd[prefix + "bias"] = _f32(p["bias"])
     return sd

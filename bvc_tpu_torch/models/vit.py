@@ -7,6 +7,12 @@ LayerNorm statistics and softmax in f32.
 
 Linear layers use ``F.linear`` with the bias fused, where the JAX package
 adds the bias after the product: in bf16 the two round at different places.
+A block's ``qkv``, ``proj``, ``fc1`` and ``fc2`` may be a
+:class:`~bvc_tpu_torch.ops.quant.QuantLinear` (the W8A8 extraction path,
+:func:`~bvc_tpu_torch.ops.quant.quantize_encoder`), which runs
+:func:`~bvc_tpu_torch.ops.quant.qdense` with the bias added in f32, as the
+JAX package's ``qdense`` does.
+
 Drop-path and activation checkpointing (off in every reference config)
 come with the training loop (ROADMAP slice 4).
 """
@@ -21,6 +27,7 @@ from bvc_tpu_torch.models.initializers import init_linear
 from bvc_tpu_torch.ops.attention import multi_head_attention
 from bvc_tpu_torch.ops.flash_attention import key_bias
 from bvc_tpu_torch.ops.gelu import gelu
+from bvc_tpu_torch.ops.quant import QuantLinear, qdense
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor | None,
@@ -49,7 +56,9 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
-def _dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+def _dense(x: torch.Tensor, layer: nn.Linear | QuantLinear) -> torch.Tensor:
+    if isinstance(layer, QuantLinear):  # the W8A8 extraction path (ops/quant.py)
+        return qdense(x, layer, x.dtype)
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
     return F.linear(x, layer.weight.to(x.dtype), bias)
 

@@ -1,1 +1,1 @@
-"""Attention, GELU and patchify ops, and the CUDA kernel wrappers and build."""
+"""Attention, GELU, patchify and W8A8 ops, and the CUDA kernel wrappers and build."""

@@ -8,6 +8,10 @@ header builds anew and an unchanged one is reused.
 ``_build/`` is listed in ``.gitignore``: a fresh checkout builds from its own
 sources and nothing else.  ``ptxas -v`` output (registers, shared memory,
 spills) is kept beside each library as ``.log``.
+
+Each kernel module types its own entry points (:func:`load_library` with
+its signature table), brings its tensors into a layout the kernels read
+(:func:`kernel_layout`) and calls them through :func:`launch`.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -81,6 +87,36 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and load it."""
-    return ctypes.CDLL(str(build_all([name])[name]))
+def load_library(name: str, signatures: dict[str, tuple[int, int]]) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed, load it, and type each entry
+    point of ``signatures`` (``{fn_name: (pointers, longs)}``): ``pointers``
+    arguments as ``void*``, then ``longs`` as ``long long``, then the stream
+    as ``void*``; every entry point returns its ``cudaError_t`` as an int."""
+    lib = ctypes.CDLL(str(build_all([name])[name]))
+    for fn_name, (pointers, longs) in signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_longlong] * longs
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch(caller: str, device: torch.device, fn, *args) -> None:
+    """Call a kernel's C entry point with ``args`` and the current stream of
+    ``device``; raise if the launch failed."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{caller}: kernel launch failed with CUDA error {rc}")
+
+
+def kernel_layout(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the kernels read it, through its strides: unchanged where the
+    last dimension is contiguous and every row starts on 16 bytes (so the
+    strided q/k/v slices of a fused qkv tensor go in without a copy), else
+    copied into a fresh (aligned) contiguous tensor; ``contiguous()`` alone
+    would keep a contiguous view that starts off the 16-byte grid."""
+    aligned = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+               and all(s * x.element_size() % 16 == 0 for s in x.stride()[:-1]))
+    return x if aligned else x.clone(memory_format=torch.contiguous_format)

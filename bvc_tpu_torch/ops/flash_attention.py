@@ -42,6 +42,8 @@ import functools
 
 import torch
 
+from bvc_tpu_torch.ops._build import kernel_layout, launch, load_library
+
 HEAD_DIM = 64  # the unmasked kernels' only head width
 BIAS_HEAD_DIMS = (64, 32)  # the key-bias kernels' head widths
 NEG_INF = -1e30  # the bias of a masked key
@@ -122,35 +124,16 @@ def flash_attention_bwd_ref(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(qs.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+_SIGNATURES = {  # (void* arguments, long long arguments) of each entry point
+    "flash_fwd": {"bvc_flash_fwd": (6, 16)},
+    "flash_bwd": {"bvc_flash_bwd_dq": (8, 19), "bvc_flash_bwd_dkv": (9, 22)},
+}
+
+
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
-    """``csrc/<name>.cu``, built if needed, with its entry points typed:
-    pointers and the stream as ``void*``, sizes and strides as ``long long``."""
-    from bvc_tpu_torch.ops._build import load_library
-
-    lib = load_library(name)
-    signatures = {
-        "flash_fwd": {"bvc_flash_fwd": (6, 16)},
-        "flash_bwd": {"bvc_flash_bwd_dq": (8, 19), "bvc_flash_bwd_dkv": (9, 22)},
-    }[name]
-    for fn_name, (pointers, longs) in signatures.items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_longlong] * longs
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
-    """The kernel reads ``[B, N, h, d]`` through its strides (so the
-    strided q/k/v slices of a fused qkv tensor go in without a copy) as long
-    as the head width is contiguous and every row starts on 16 bytes; any
-    other layout is copied into a fresh (aligned) contiguous tensor first —
-    ``contiguous()`` alone would keep a contiguous view that starts off the
-    16-byte grid."""
-    aligned = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-               and all(s % 8 == 0 for s in x.stride()[:-1]))
-    return x if aligned else x.clone(memory_format=torch.contiguous_format)
+    """``csrc/<name>.cu``, built if needed, with its entry points typed."""
+    return load_library(name, _SIGNATURES[name])
 
 
 def _check_kernel_inputs(caller: str, bias: torch.Tensor | None,
@@ -178,16 +161,6 @@ def _check_kernel_inputs(caller: str, bias: torch.Tensor | None,
                          f"{tuple(bias.shape)} on {bias.device}")
 
 
-def _launch(caller: str, device: torch.device, fn, *args) -> None:
-    """Call a kernel's C entry point on the current stream of ``device``;
-    raise if the launch failed."""
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{caller}: kernel launch failed with CUDA error {rc}")
-
-
 def _strides(*tensors: torch.Tensor) -> list[int]:
     """(batch, token, head) strides of each ``[B, N, h, d]`` tensor."""
     return [s for x in tensors for s in x.stride()[:3]]
@@ -211,10 +184,10 @@ def flash_fwd_cuda(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((B, h, N), dtype=torch.float32, device=qs.device)
     if o.numel() == 0:
         return o, lse
-    qs, k, v = _kernel_layout(qs), _kernel_layout(k), _kernel_layout(v)
-    _launch("flash_fwd_cuda", qs.device, _library("flash_fwd").bvc_flash_fwd,
-            qs.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), o.data_ptr(),
-            lse.data_ptr(), B, N, h, d, *_strides(qs, k, v, o))
+    qs, k, v = kernel_layout(qs), kernel_layout(k), kernel_layout(v)
+    launch("flash_fwd_cuda", qs.device, _library("flash_fwd").bvc_flash_fwd,
+           qs.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), o.data_ptr(),
+           lse.data_ptr(), B, N, h, d, *_strides(qs, k, v, o))
     if bias is None:
         flash_fwd_cuda.launches += 1
     else:
@@ -239,17 +212,17 @@ def bwd_operands(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Te
         raise ValueError(f"flash_bwd_cuda: lse must be a contiguous CUDA f32 "
                          f"tensor of shape {(B, h, N)}, got {lse.dtype} "
                          f"{tuple(lse.shape)} on {lse.device}")
-    return (*(_kernel_layout(x) for x in (qs, k, v, do)), lse, _delta(o, do), bias)
+    return (*(kernel_layout(x) for x in (qs, k, v, do)), lse, _delta(o, do), bias)
 
 
 def launch_dq(qs, k, v, do, lse, delta, bias=None) -> torch.Tensor:
     """dQs from :func:`bwd_operands`: one launch of the dQ kernel."""
     B, N, h, d = qs.shape
     dq = torch.empty((B, N, h, d), dtype=qs.dtype, device=qs.device)
-    _launch("flash_bwd_cuda", qs.device, _library("flash_bwd").bvc_flash_bwd_dq,
-            qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), _ptr(bias), dq.data_ptr(), B, N, h, d,
-            *_strides(qs, k, v, do, dq))
+    launch("flash_bwd_cuda", qs.device, _library("flash_bwd").bvc_flash_bwd_dq,
+           qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+           delta.data_ptr(), _ptr(bias), dq.data_ptr(), B, N, h, d,
+           *_strides(qs, k, v, do, dq))
     if bias is None:
         flash_bwd_cuda.launches_dq += 1
     else:
@@ -261,10 +234,10 @@ def launch_dkv(qs, k, v, do, lse, delta, bias=None) -> tuple[torch.Tensor, torch
     """(dK, dV) from :func:`bwd_operands`: one launch of the dK/dV kernel."""
     B, N, h, d = qs.shape
     dk, dv = (torch.empty((B, N, h, d), dtype=qs.dtype, device=qs.device) for _ in range(2))
-    _launch("flash_bwd_cuda", qs.device, _library("flash_bwd").bvc_flash_bwd_dkv,
-            qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), _ptr(bias), dk.data_ptr(), dv.data_ptr(), B, N, h, d,
-            *_strides(qs, k, v, do, dk, dv))
+    launch("flash_bwd_cuda", qs.device, _library("flash_bwd").bvc_flash_bwd_dkv,
+           qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+           delta.data_ptr(), _ptr(bias), dk.data_ptr(), dv.data_ptr(), B, N, h, d,
+           *_strides(qs, k, v, do, dk, dv))
     if bias is None:
         flash_bwd_cuda.launches_dkv += 1
     else:

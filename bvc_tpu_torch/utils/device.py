@@ -1,4 +1,4 @@
-"""Device choice for the port's entry points."""
+"""Device choice for the port's entry points, and timing on the card."""
 
 from __future__ import annotations
 
@@ -15,3 +15,18 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run bvc_tpu_torch on the CPU")
     return torch.device("cuda")
+
+
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` over ``iters`` calls after ``warmup``
+    untimed ones, by CUDA events on the current stream."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters

@@ -5,8 +5,9 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
 
     python3 chip_smoke.py            # build, check, time; one card
     python3 chip_smoke.py --profile [FILE]  # also torch.profiler breakdowns of one
-                                            # embed call and one VideoMAE and one
-                                            # JEPA training step, written to FILE,
+                                            # bf16 and one W8A8 embed call and one
+                                            # VideoMAE and one JEPA training step,
+                                            # written to FILE, profile_w8a8.txt,
                                             # profile_train.txt and profile_jepa.txt
 
 1. Build every CUDA kernel of the port from ``bvc_tpu_torch/csrc`` (one
@@ -38,12 +39,38 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    key, and dK = dV = 0 exactly at masked keys; times at the two JEPA
    shapes against the bound, the plain version and SDPA with the bias as
    its mask.
-5. Extraction at full width: VideoMAE-B (224 px, 16 frames, bf16) through
+5. GEMM kernels against plain (``csrc/gemm.cu``): the s8 kernel's raw
+   int32 product exactly equal to the plain one at 1024^3,
+   ``[8192,1024] x [1024,1024]``, ``[1001,768] x [2300,768]`` and, with a
+   partial last K stage, ``[1001,784] x [2300,784]``; its dequant epilogue
+   through ``qdense`` within one bf16 ulp / 1e-6 relative of ``qdense_ref``
+   at the W8A8 path's qkv and fc1 shapes for B=8; the bf16 kernel exact on
+   integer-valued inputs (at the probe's shape and at K = 784) and within
+   1e-3 of max|ref| on normal ones; times against the bound, the plain version and, as
+   yardsticks, ``torch._int_mm`` and a bf16 ``torch.matmul``.
+6. The softmax probe kernel against plain (``csrc/softmax_probe.cu``) at
+   ``[64,12,512,64]``, ``[64,12,392,64]`` and ``[48,6,1568,64]`` with f32
+   and bf16 scores: O within 3e-3 of the plain version in the same score
+   dtype, equal to it at 99% of the entries or more, and the kernel's two
+   outputs apart at 99% or more of the entries where the plain ones differ,
+   so that a kernel which ignored the score dtype would fail; times against the bound, the plain
+   version and SDPA's forward; the probe's readout max|O_bf16 - O_f32|.
+7. The two probes as their own paths (``python -m
+   bvc_tpu_torch.probes.int8_dot`` and ``.softmax_dtype``): launch counts
+   set to 0, the probe run, its kernels and no other launched.
+8. Extraction at full width: VideoMAE-B (224 px, 16 frames, bf16) through
    ``untrained_embed_fn``; 12 launches of the forward kernel in one embed
    call, embeddings within cosine 0.999 per row of the plain attention path
    on the same weights; then clips/s, frames/s and MFU at the largest batch
    in {64, 32, 16} that fits.
-6. Training at full width: VideoMAE-B pretraining
+9. W8A8 extraction at full width: VideoMAE-B and V-JEPA ViT-B through
+   ``untrained_embed_fn(..., quantize="int8")``; at B=8 one embed call
+   launches ``gemm_s8`` 24 times and ``flash_fwd`` 12 times and nothing
+   else, cosine >= 0.995 per row to the bf16 path on the same weights; then
+   clips/s, frames/s and peak memory at the largest batch that fits (V-JEPA
+   at B=64) beside the bf16 path's clips/s, and ``qdense`` against bf16
+   ``F.linear`` for qkv, proj, fc1 and fc2 at ``[64*1568, Din]``.
+10. Training at full width: VideoMAE-B pretraining
    steps (tube mask 0.9, 160 visible tokens, SGD-Nesterov) through
    ``VideoMAEPretrain``, ``TrainState.create`` and
    ``make_videomae_train_step``.  At B=8 one step launches each of the three
@@ -52,10 +79,10 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    relative, gradient cosine >= 0.99 for every top-level group and >= 0.9995
    for every parameter tensor).  Then clips/s, MFU
    and peak memory at the largest batch in {48, 32, 16} that fits.
-7. JEPA extraction: V-JEPA ViT-B (224 px, 2 frames) through
+11. JEPA extraction: V-JEPA ViT-B (224 px, 2 frames) through
    ``untrained_embed_fn("jepa", ...)``, 12 launches of the forward kernel,
    cosine 0.999 to the plain attention path, clips/s at B=64.
-8. JEPA training at full width, this slice's path: V-JEPA ViT-B steps
+12. JEPA training at full width: V-JEPA ViT-B steps
    through ``JEPA``, ``mask_collate``, ``TrainState.create`` with the EMA
    target and ``make_jepa_train_step``.  At B=8 one step launches each
    key-bias kernel 18 times and the unmasked forward kernel 12 times, agrees
@@ -64,9 +91,12 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    clips/s, MFU and peak memory at the largest batch in {64, 32, 16} that
    fits, and the masked attention's forward plus backward, kernels against
    plain, at that batch's two masked shapes.
-9. The entry point: ``extract_embeddings`` over a small synthetic dataset,
-   then ``save_results``; row count and width 768.
+13. The entry point: ``extract_embeddings`` over a small synthetic dataset,
+   then ``save_results``, with a bf16 and with an int8 embed function; row
+   count and width 768.
 
+Every path runs with every launch count set to 0 just before it and read
+just after, and fails if a kernel other than its own launched.
 Prints one JSON ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that last line,
 when there is no CUDA device, when run outside a checkout, or when any phase
@@ -86,6 +116,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 O_TOL = 2e-2
 LSE_TOL = 1e-3
@@ -100,6 +131,16 @@ TENSOR_COSINE_MIN = 0.9995  # per parameter tensor
 JEPA_LOSS_RTOL = 1e-4  # read: 2.16e-6
 JEPA_TENSOR_COSINE_MIN = 0.9995  # read: lowest 0.999937
 JEPA_TOTAL_STEPS = 10000  # the EMA ramp's horizon, as the JAX JEPA benchmark
+GEMM_BF16_TOL = 1e-3  # of max|ref|: bf16 GEMM on normal inputs, f32 sums in another order
+# the softmax probe kernel against its plain version in the same score dtype:
+# the largest |dO| (read: 0.98-2.2e-3; the two score dtypes differ by
+# 5.9-7.8e-3), and the share of entries equal to the plain version's, and of
+# the entries where the plain f32 and bf16 outputs differ, the share where the
+# kernel's differ too (both 0.9993 or more in a CPU emulation of the kernel's
+# sum order; the other score dtype's plain version is equal at 0.33)
+PROBE_O_TOL = 3e-3
+PROBE_MATCH_MIN = 0.99
+W8A8_COSINE_MIN = 0.995  # W8A8 against the unquantized embedding (tests/test_quant.py)
 
 
 def fail(msg: str) -> None:
@@ -114,18 +155,9 @@ def check(cond: bool, msg: str) -> None:
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn()`` over ``iters`` calls, by CUDA events."""
-    import torch
+    from bvc_tpu_torch.utils.device import cuda_time_ms
 
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return cuda_time_ms(fn, iters, warmup)
 
 
 def attention_bound_ms(B: int, N: int, h: int, d: int,
@@ -151,6 +183,18 @@ def bwd_bound_ms(B: int, N: int, h: int, d: int, products: int,
     elems = B * N * h * d
     outputs = 1 if products == 3 else 2
     nbytes = (4 + outputs) * elems * 2 + 2 * B * h * N * 4 + (B * N * 4 if bias else 0)
+    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def gemm_bound_ms(M: int, N: int, K: int, in_bytes: int, out_bytes: int, peak: float,
+                  vector_bytes: int = 0) -> tuple[float, str]:
+    """Least time of ``C [M, N] = A [M, K] B [N, K]^T`` on the card: 2MKN
+    operations at ``peak`` against reading A and B once (``in_bytes`` an
+    entry), writing C once (``out_bytes`` an entry) and ``vector_bytes`` of
+    scales and bias, at the HBM rate; the larger one bounds."""
+    ops_ms = 2 * M * N * K / peak * 1e3
+    nbytes = (M * K + N * K) * in_bytes + M * N * out_bytes + vector_bytes
     bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -854,6 +898,364 @@ def phase_bias_kernel() -> dict:
     return result
 
 
+def bf16_ulp(x):
+    """The spacing of bf16 numbers at |x| (8 significant bits), elementwise."""
+    import torch
+
+    mag = x.float().abs().clamp(min=torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def int8_operands(M: int, N: int, K: int, seed: int):
+    """int8 ``a [M, K]`` and ``b [N, K]`` over the full range, on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randint(-128, 128, shape, generator=gen, device="cuda",
+                               dtype=torch.int8) for shape in ((M, K), (N, K)))
+
+
+def int_mm_ms(a, b) -> float | None:
+    """``torch._int_mm`` (cuBLASLt int8 -> int32) on ``a @ b.T``, a
+    yardstick only: the port never calls it.  None where it refuses the
+    shape."""
+    import torch
+
+    try:
+        return time_ms(lambda: torch._int_mm(a, b.T))
+    except RuntimeError as e:
+        print(f"  torch._int_mm refused [{a.shape[0]},{a.shape[1]}]x[{b.shape[1]},"
+              f"{b.shape[0]}]: {str(e).splitlines()[0]}", flush=True)
+        return None
+
+
+def phase_gemm_kernel() -> dict:
+    """The s8 and bf16 kernels of ``csrc/gemm.cu`` against their plain
+    versions: s8 raw exactly equal to the int32 product at 1024^3, at the
+    probe's ``[8192,1024] x [1024,1024]``, at an odd ``[1001,768] x
+    [2300,768]`` and at ``[1001,784] x [2300,784]``, whose K is no multiple
+    of the 128-byte stage; the dequant epilogue through ``qdense`` within one
+    bf16 ulp (bf16 out) or 1e-6 relative (f32 out) of ``qdense_ref`` at the
+    path's qkv and fc1 shapes for B=8; the bf16 kernel exactly equal to the
+    int32 product on integer-valued inputs at the probe's shape and at K =
+    784, and within 1e-3 of max|ref| on normal ones.  Times against the
+    bound, the plain version and, as yardsticks, ``torch._int_mm`` and a bf16 ``torch.matmul``, at the
+    path's qkv and fc1 shapes for B=64 and at the probe's shape.  Returns
+    the records of ``gemm_s8`` (qkv at B=64, the others under ``"fc1"`` and
+    ``"probe_raw"``) and ``gemm_bf16`` (the probe's shape)."""
+    import torch
+
+    from bvc_tpu_torch.ops.gemm import (bf16_matmul_cuda, bf16_matmul_ref, int8_matmul_cuda,
+                                        int8_matmul_ref)
+    from bvc_tpu_torch.ops.quant import qdense, qdense_ref, quantize_linear, quantize_tokens
+
+    # K = 784 leaves a partial last stage: 16 bytes of s8, 32 of bf16
+    for M, N, K in ((1024, 1024, 1024), (8192, 1024, 1024), (1001, 2300, 768),
+                    (1001, 2300, 784)):
+        a, b = int8_operands(M, N, K, seed=M + N)
+        got, want = int8_matmul_cuda(a, b), int8_matmul_ref(a, b)
+        torch.cuda.synchronize()
+        diff = int((got != want).sum().item())
+        print(f"gemm_s8 raw [{M},{K}]x[{N},{K}]: {diff} entries differ from the exact "
+              f"int32 product", flush=True)
+        check(diff == 0, f"gemm_s8 raw is not exact at [{M},{K}]x[{N},{K}]: {diff} entries")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B8 = 8 * 1568
+    for name, N in (("qkv", 2304), ("fc1", 3072)):
+        layer = torch.nn.Linear(768, N).cuda()
+        torch.nn.init.normal_(layer.weight, std=0.02, generator=gen)
+        torch.nn.init.normal_(layer.bias, std=0.02, generator=gen)
+        q = quantize_linear(layer)
+        x = torch.randn((B8, 768), generator=gen, device="cuda").to(torch.bfloat16)
+        for dtype in (torch.bfloat16, torch.float32):
+            got, want = qdense(x, q, dtype), qdense_ref(x, q, dtype)
+            err = (got.float() - want.float()).abs()
+            if dtype == torch.bfloat16:
+                ok, limit = bool((err <= bf16_ulp(want)).all()), "one bf16 ulp"
+            else:
+                ok = bool((err <= 1e-6 * want.abs()).all())
+                limit = "1e-6 relative"
+            print(f"gemm_s8 dequant ({name}, [{B8},768]x[{N},768], {dtype}): max abs err "
+                  f"{err.max().item():.3e} (limit {limit})", flush=True)
+            check(ok, f"gemm_s8 dequant disagrees with qdense_ref at {name} {dtype}")
+
+    # integer-valued bf16 inputs in [-127, 127]: every partial sum is exact in f32;
+    # the probe's shape last, as its operands are timed below
+    for M, N, K in ((1001, 2300, 784), (8192, 1024, 1024)):
+        a, b = int8_operands(M, N, K, seed=1)
+        a.clamp_(min=-127)
+        b.clamp_(min=-127)
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        got = bf16_matmul_cuda(a16, b16)
+        exact = torch.equal(got, int8_matmul_ref(a, b).float())
+        print(f"gemm_bf16 [{M},{K}]x[{N},{K}]: integer-valued inputs exact: {exact}",
+              flush=True)
+        check(exact, f"gemm_bf16 is not exact on integer-valued inputs at [{M},{K}]x[{N},{K}]")
+    gn = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    hn = torch.randn((N, K), generator=gen, device="cuda").to(torch.bfloat16)
+    ref_n = bf16_matmul_ref(gn, hn)
+    err_n = (bf16_matmul_cuda(gn, hn) - ref_n).abs().max().item()
+    scale_n = ref_n.abs().max().item()
+    print(f"gemm_bf16 [{M},{K}]x[{N},{K}]: normal inputs max abs err {err_n:.3e} (limit "
+          f"{GEMM_BF16_TOL * scale_n:.3e})", flush=True)
+    check(err_n <= GEMM_BF16_TOL * scale_n, f"gemm_bf16 disagrees with plain: {err_n}")
+
+    # times: the probe's shape, raw int8 and bf16
+    bound8 = gemm_bound_ms(M, N, K, 1, 4, PEAK_INT8_OPS)
+    ms8 = time_ms(lambda: int8_matmul_cuda(a, b))
+    plain8 = time_ms(lambda: int8_matmul_ref(a, b), iters=5)
+    lib8 = int_mm_ms(a, b)
+    bound16 = gemm_bound_ms(M, N, K, 2, 4, PEAK_BF16_FLOPS)
+    ms16 = time_ms(lambda: bf16_matmul_cuda(a16, b16))
+    plain16 = time_ms(lambda: bf16_matmul_ref(a16, b16), iters=5)
+    lib16 = time_ms(lambda: torch.matmul(a16, b16.T))
+    ops = 2 * M * N * K
+    for what, ms, plain, lib, bound in (("gemm_s8 raw", ms8, plain8, lib8, bound8),
+                                        ("gemm_bf16", ms16, plain16, lib16, bound16)):
+        print(f"{what} [{M},{K}]x[{N},{K}]: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} "
+              f"T(FL)OP/s), bound {bound[0]:.4f} ms ({bound[1]}, {bound[0] / ms:.3f} of "
+              f"it), plain {plain:.4f} ms, library "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'}", flush=True)
+    records = {"gemm_bf16": {"at": [M, N, K], "max_abs_err": err_n, "ms": ms16,
+                             "plain_ms": plain16, "library_ms": lib16,
+                             "bound_ms": bound16[0], "bound_by": bound16[1]}}
+    probe_raw = {"at": [M, N, K], "max_abs_err": 0.0, "ms": ms8, "plain_ms": plain8,
+                 "library_ms": lib8, "bound_ms": bound8[0], "bound_by": bound8[1]}
+    del a, b, a16, b16, gn, hn, got, ref_n
+
+    # times: the path's products at B=64, dequant epilogue, bf16 out
+    M = 64 * 1568
+    x = torch.randn((M, 768), generator=gen, device="cuda").to(torch.bfloat16)
+    xq, xscale = quantize_tokens(x)
+    xscale = xscale.reshape(-1)
+    path = {}
+    for name, N in (("qkv", 2304), ("fc1", 3072)):
+        layer = torch.nn.Linear(768, N).cuda()
+        torch.nn.init.normal_(layer.weight, std=0.02, generator=gen)
+        q = quantize_linear(layer)
+        args = (xq, q.weight_q, xscale, q.scale, q.bias, torch.bfloat16)
+        got, want = int8_matmul_cuda(*args), int8_matmul_ref(*args)
+        err = (got.float() - want.float()).abs().max().item()
+        del got, want
+        ms = time_ms(lambda: int8_matmul_cuda(*args))
+        plain = time_ms(lambda: int8_matmul_ref(*args), iters=3, warmup=1)
+        lib = int_mm_ms(xq, q.weight_q)
+        bound = gemm_bound_ms(M, N, 768, 1, 2, PEAK_INT8_OPS, vector_bytes=4 * M + 8 * N)
+        print(f"gemm_s8 dequant ({name}, B=64) [{M},768]x[{N},768] -> bf16: kernel "
+              f"{ms:.4f} ms ({2 * M * N * 768 / ms / 1e9:.1f} TOP/s), bound {bound[0]:.4f} "
+              f"ms ({bound[1]}, {bound[0] / ms:.3f} of it), plain {plain:.4f} ms, "
+              f"torch._int_mm (int32 out, no dequant) "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'}; max abs err {err:.3e}",
+              flush=True)
+        path[name] = {"at": [M, N, 768], "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                      "library_ms": lib, "bound_ms": bound[0], "bound_by": bound[1]}
+    records["gemm_s8"] = {**path["qkv"], "fc1": path["fc1"], "probe_raw": probe_raw}
+    return records
+
+
+def phase_softmax_probe_kernel() -> dict:
+    """The softmax-dtype probe's kernel against its plain version at
+    ``[64,12,512,64]`` (the JEPA target as the TPU padded it),
+    ``[64,12,392,64]`` (its real N) and ``[48,6,1568,64]`` (the VideoMAE
+    decoder), with f32 and bf16 scores: O within ``PROBE_O_TOL`` of the
+    plain version in the same score dtype and equal to it at a share of
+    ``PROBE_MATCH_MIN`` of the entries or more, and the kernel's f32 and
+    bf16 outputs apart at that share of the entries where the plain ones
+    differ; the probe's readout max|O_bf16 - O_f32|; times against the bound, the plain version
+    and SDPA's forward; the plain ``xla_attn`` with f32 against bf16 logits
+    at ``[64,12,392,64]``.  Returns the record at ``[48,6,1568,64]`` with
+    the other shapes under their labels."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from bvc_tpu_torch.probes.softmax_dtype import (probe_inputs, softmax_probe_fwd_cuda,
+                                                    softmax_probe_fwd_ref, xla_attn)
+
+    rng = np.random.default_rng(0)
+    f32, bf16 = torch.float32, torch.bfloat16
+    records = {}
+    for label, shape in (("padded", (64, 12, 512, 64)), ("jepa_target", (64, 12, 392, 64)),
+                         ("decoder", (48, 6, 1568, 64))):
+        B, h, N, d = shape
+        q, k, v = probe_inputs(shape, rng, torch.device("cuda"))
+        outs, refs, rec = {}, {}, {"at": list(shape)}
+        for sd, tag in ((f32, ""), (bf16, "_bf16_scores")):
+            o, ref = softmax_probe_fwd_cuda(q, k, v, sd), softmax_probe_fwd_ref(q, k, v, sd)
+            err = (o.float() - ref.float()).abs().max().item()
+            outs[sd], refs[sd] = o, ref
+            rec["max_abs_err" + tag] = err
+            rec["ms" + tag] = time_ms(lambda: softmax_probe_fwd_cuda(q, k, v, sd))
+            rec["plain_ms" + tag] = time_ms(lambda: softmax_probe_fwd_ref(q, k, v, sd),
+                                            iters=3, warmup=1)
+        # each output against the plain version in its own score dtype and,
+        # to show that the check tells the two apart, in the other one
+        for sd, other, tag in ((f32, bf16, ""), (bf16, f32, "_bf16_scores")):
+            err = rec["max_abs_err" + tag]
+            own = (outs[sd] == refs[sd]).float().mean().item()
+            cross = (outs[sd] == refs[other]).float().mean().item()
+            rec["equal_share" + tag] = own
+            print(f"softmax_probe_fwd {list(shape)} ({label}, {sd} scores): max|dO| {err:.3e} "
+                  f"(limit {PROBE_O_TOL}); equal to plain at {own:.5f} of entries (limit "
+                  f"{PROBE_MATCH_MIN}), to plain with {other} scores at {cross:.5f}", flush=True)
+            check(err <= PROBE_O_TOL and own >= PROBE_MATCH_MIN,
+                  f"softmax_probe_fwd disagrees with plain at {label} {sd}: max|dO| {err}, "
+                  f"equal at {own}")
+        plain_apart = refs[f32] != refs[bf16]
+        follows = (outs[f32] != outs[bf16])[plain_apart].float().mean().item()
+        rec["apart_where_plain_apart"] = follows
+        print(f"softmax_probe_fwd {list(shape)} ({label}): the plain f32 and bf16 outputs "
+              f"differ at {plain_apart.float().mean().item():.5f} of entries; the kernel's "
+              f"differ at {follows:.5f} of those (limit {PROBE_MATCH_MIN})", flush=True)
+        check(follows >= PROBE_MATCH_MIN,
+              f"softmax_probe_fwd's score dtype does not follow plain's at {label}: {follows}")
+        del refs, plain_apart
+        readout = (outs[f32].float() - outs[bf16].float()).abs().max().item()
+        # yardstick only (the port never calls it): SDPA's forward
+        rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+        # the function's 4*B*h*N^2*d operations against q, k, v and o (no LSE)
+        ops_ms = 4 * B * h * N * N * d / PEAK_BF16_FLOPS * 1e3
+        bytes_ms = 4 * B * h * N * d * 2 / PEAK_HBM_BYTES * 1e3
+        rec["bound_ms"], rec["bound_by"] = ((ops_ms, "operations") if ops_ms >= bytes_ms
+                                            else (bytes_ms, "bytes"))
+        rec["max_abs_err_bf16_vs_f32"] = readout
+        print(f"softmax_probe_fwd {list(shape)} ({label}): kernel f32 scores "
+              f"{rec['ms']:.4f} ms, bf16 scores {rec['ms_bf16_scores']:.4f} ms; bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); plain {rec['plain_ms']:.4f} / "
+              f"{rec['plain_ms_bf16_scores']:.4f} ms; sdpa {rec['library_ms']:.4f} ms; "
+              f"probe readout max|O_bf16 - O_f32| {readout:.5f}", flush=True)
+        records[label] = rec
+        del q, k, v, outs
+    q, k, v = probe_inputs((64, 12, 392, 64), rng, torch.device("cuda"))
+    times = {sd: time_ms(lambda: xla_attn(q, k, v, sd), iters=3, warmup=1) for sd in (f32, bf16)}
+    err = (xla_attn(q, k, v, f32).float() - xla_attn(q, k, v, bf16).float()).abs().max().item()
+    print(f"xla_attn [64,12,392,64]: f32 logits {times[f32]:.4f} ms, bf16 logits "
+          f"{times[bf16]:.4f} ms, max|O_bf16 - O_f32| {err:.5f}", flush=True)
+    main = records.pop("decoder")
+    return {**main, **records, "xla_attn_ms": times[f32], "xla_attn_ms_bf16_logits": times[bf16]}
+
+
+def probe_path(name: str, run, expected: set) -> dict[str, int]:
+    """A probe's entry point as its own path: every launch count set to 0,
+    ``run()``, then the counts read: only the kernels in ``expected`` may
+    have launched, each at least once.  Prints the probe's readings and
+    returns the counts."""
+    reset_launches()
+    lines = run()
+    counts = read_launches()
+    for line in lines if isinstance(lines, list) else [lines]:
+        print(f"{name} probe: {json.dumps(line)}", flush=True)
+    print(f"{name} probe launched {counts}", flush=True)
+    check(all(counts[k] > 0 for k in expected)
+          and all(n == 0 for k, n in counts.items() if k not in expected),
+          f"the {name} probe launched {counts}, expected only {sorted(expected)}")
+    return counts
+
+
+def phase_w8a8(card: str, profile: str | None) -> dict:
+    """W8A8 extraction at full width, this slice's path: VideoMAE-B (224 px,
+    16 frames, bf16) through ``untrained_embed_fn(..., quantize="int8")``.
+    At B=8 one embed call launches the s8 GEMM 24 times (qkv and fc1 of 12
+    layers) and the flash forward 12 times, and nothing else; embeddings
+    finite, per-row cosine >= 0.995 to the unquantized path on the same
+    weights.  Then clips/s, frames/s and peak memory at the largest B in
+    {64, 32, 16} that fits, beside the unquantized extraction's clips/s
+    from the same run.  The same for V-JEPA ViT-B at B=8 and B=64.  Then
+    ``qdense`` (quantisation pass plus kernel) against the bf16 ``F.linear``
+    the unquantized path runs, for each block matmul at ``[64*1568, Din]``.
+    Returns each family's launches in one embed call at B=8."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from bvc_tpu_torch.evalbench.extract import untrained_embed_fn
+    from bvc_tpu_torch.ops.gemm import int8_matmul_cuda
+    from bvc_tpu_torch.ops.quant import qdense, quantize_linear, quantize_tokens
+    from bvc_tpu_torch.utils.config import ModelConfig
+
+    rng = np.random.default_rng(2)
+    launches = {}
+    for family, cfg, batches in (("videomae", ModelConfig(), (64, 32, 16)),
+                                 ("jepa", jepa_config()[0], (64,))):
+        fn = untrained_embed_fn(family, cfg, seed=0, quantize="int8")
+        plain = untrained_embed_fn(family, cfg, seed=0)
+        shape = (cfg.num_frames, cfg.image_size, cfg.image_size, cfg.in_channels)
+        clips = rng.integers(0, 256, (8,) + shape, dtype=np.uint8)
+        reset_launches()
+        emb = fn(clips)
+        counts = read_launches()
+        launches[family] = counts
+        print(f"w8a8 {family}: one embed call at B=8 launched {counts}", flush=True)
+        expected = {**{k: 0 for k in counts}, "gemm_s8": 2 * cfg.depth, "flash_fwd": cfg.depth}
+        check(counts == expected, f"expected {expected} in one W8A8 embed call, got {counts}")
+        check(emb.shape == (8, cfg.hidden_size) and bool(np.isfinite(emb).all()),
+              f"W8A8 {family} embeddings of shape {emb.shape} or not finite")
+        ref = plain(clips)
+        cos = (emb * ref).sum(1) / (np.linalg.norm(emb, axis=1) * np.linalg.norm(ref, axis=1))
+        print(f"w8a8 {family}: cosine to the unquantized bf16 path min {cos.min():.6f}, "
+              f"max|diff| {np.abs(emb - ref).max():.4e}", flush=True)
+        check(bool(cos.min() >= W8A8_COSINE_MIN),
+              f"W8A8 {family} cosine {cos.min()} < {W8A8_COSINE_MIN}")
+        for B in batches:
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                x = torch.from_numpy(rng.integers(0, 256, (B,) + shape, dtype=np.uint8)).cuda()
+                with torch.inference_mode():
+                    q_ms = time_ms(lambda: fn.model.embed(x), iters=5, warmup=2)
+                    peak = torch.cuda.max_memory_allocated() / 2**30
+                    p_ms = time_ms(lambda: plain.model.embed(x), iters=5, warmup=2)
+                fits = True
+            except torch.cuda.OutOfMemoryError:
+                fits = False
+            if not fits:  # outside the handler, whose traceback holds the tensors
+                print(f"w8a8 {family}: B={B} does not fit", flush=True)
+                x = None
+                gc.collect()
+                torch.cuda.empty_cache()
+                continue
+            print(f"w8a8 {family} [{card}]: B={B} W8A8 embed {q_ms:.2f} ms on device -> "
+                  f"{B / q_ms * 1e3:.1f} clips/s, {B / q_ms * 1e3 * cfg.num_frames:.1f} "
+                  f"frames/s, peak memory {peak:.1f} GiB; unquantized bf16 embed "
+                  f"{p_ms:.2f} ms -> {B / p_ms * 1e3:.1f} clips/s (W8A8 / bf16 time "
+                  f"{q_ms / p_ms:.3f})", flush=True)
+            if profile is not None and family == "videomae":
+                out = str(Path(profile).with_name("profile_w8a8.txt")) if profile else ""
+                profile_embed(fn.model, x, out)
+            break
+        else:
+            fail(f"no W8A8 {family} batch size in {batches} fits")
+        del fn, plain, x
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # per block matmul at [64*1568, Din]: W8A8 against the bf16 dense
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    M = 64 * 1568
+    for name, din, dout in (("qkv", 768, 2304), ("proj", 768, 768), ("fc1", 768, 3072),
+                            ("fc2", 3072, 768)):
+        layer = torch.nn.Linear(din, dout).cuda()
+        torch.nn.init.normal_(layer.weight, std=0.02, generator=gen)
+        q = quantize_linear(layer)
+        x = torch.randn((M, din), generator=gen, device="cuda").to(torch.bfloat16)
+        w, b = layer.weight.to(torch.bfloat16), layer.bias.to(torch.bfloat16)
+        xq, xscale = quantize_tokens(x)
+        xscale = xscale.reshape(-1)
+        with torch.inference_mode():
+            q_ms = time_ms(lambda: qdense(x, q, torch.bfloat16), iters=10)
+            quant_ms = time_ms(lambda: quantize_tokens(x), iters=10)
+            kern_ms = time_ms(lambda: int8_matmul_cuda(xq, q.weight_q, xscale, q.scale, q.bias,
+                                                       torch.bfloat16), iters=10)
+            bf_ms = time_ms(lambda: F.linear(x, w, b), iters=10)
+        print(f"w8a8 per matmul {name} [{M},{din}] -> {dout}: qdense {q_ms:.3f} ms "
+              f"(quantisation pass {quant_ms:.3f}, kernel {kern_ms:.3f}) against bf16 "
+              f"F.linear {bf_ms:.3f} ms: {bf_ms / q_ms:.2f}x", flush=True)
+        del layer, q, x, xq, w, b
+    return launches
+
+
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     for fn, attr in _launch_counters().values():
@@ -866,13 +1268,18 @@ def read_launches() -> dict[str, int]:
 
 def _launch_counters() -> dict:
     from bvc_tpu_torch.ops.flash_attention import flash_bwd_cuda, flash_fwd_cuda
+    from bvc_tpu_torch.ops.gemm import bf16_matmul_cuda, int8_matmul_cuda
+    from bvc_tpu_torch.probes.softmax_dtype import softmax_probe_fwd_cuda
 
     return {"flash_fwd": (flash_fwd_cuda, "launches"),
             "flash_bwd_dq": (flash_bwd_cuda, "launches_dq"),
             "flash_bwd_dkv": (flash_bwd_cuda, "launches_dkv"),
             "flash_fwd_bias": (flash_fwd_cuda, "launches_bias"),
             "flash_bwd_dq_bias": (flash_bwd_cuda, "launches_dq_bias"),
-            "flash_bwd_dkv_bias": (flash_bwd_cuda, "launches_dkv_bias")}
+            "flash_bwd_dkv_bias": (flash_bwd_cuda, "launches_dkv_bias"),
+            "gemm_s8": (int8_matmul_cuda, "launches"),
+            "gemm_bf16": (bf16_matmul_cuda, "launches"),
+            "softmax_probe_fwd": (softmax_probe_fwd_cuda, "launches")}
 
 
 def phase_jepa_embed(card: str) -> int:
@@ -964,7 +1371,7 @@ def phase_jepa_train(card: str, profile: str | None) -> dict[str, int]:
     launches = read_launches()
     print(f"jepa train: one step at B=8 launched {launches}", flush=True)
     masked_layers = cfg.depth + cfg.pred_depth
-    expected = {"flash_fwd": cfg.depth, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    expected = {**{k: 0 for k in launches}, "flash_fwd": cfg.depth,
                 "flash_fwd_bias": masked_layers, "flash_bwd_dq_bias": masked_layers,
                 "flash_bwd_dkv_bias": masked_layers}
     check(launches == expected, f"expected {expected} in one JEPA step, got {launches}")
@@ -1063,7 +1470,8 @@ def phase_jepa_train(card: str, profile: str | None) -> dict[str, int]:
 
 
 def phase_entry_point() -> None:
-    """extract_embeddings over a synthetic dataset, then save_results."""
+    """extract_embeddings over a synthetic dataset, then save_results, with
+    a bf16 and with an int8 (W8A8) embed function."""
     import numpy as np
     import pandas as pd
 
@@ -1086,27 +1494,29 @@ def phase_entry_point() -> None:
             shape = (cfg.num_frames, cfg.image_size, cfg.image_size, cfg.in_channels)
             return rng.integers(0, 256, shape, dtype=np.uint8), f"clip_{i:02d}"
 
-    fn = untrained_embed_fn("videomae", cfg, seed=1)
-    names, embs = extract_embeddings(fn, SyntheticClips(), batch_size=4, num_workers=2)
-    check(len(names) == 10 and embs.shape == (10, cfg.hidden_size),
-          f"extract_embeddings gave {len(names)} names and {embs.shape}")
-    check(bool(np.isfinite(embs).all()), "extracted embeddings not finite")
-    with tempfile.TemporaryDirectory() as d:
-        path = save_results(names, embs, "test", "untrained_0", d)
-        df = pd.read_csv(path)
-        check(Path(path).parent.name == "test", f"test split written to {path}")
-        check(df.shape == (10, cfg.hidden_size + 1), f"CSV of shape {df.shape}")
-        check(list(df["fnames"]) == sorted(names), "CSV rows not sorted by fname")
-    print(f"entry point: extract_embeddings -> save_results wrote {df.shape[0]} rows "
-          f"of width {df.shape[1] - 1}", flush=True)
+    for quantize in ("none", "int8"):
+        fn = untrained_embed_fn("videomae", cfg, seed=1, quantize=quantize)
+        names, embs = extract_embeddings(fn, SyntheticClips(), batch_size=4, num_workers=2)
+        check(len(names) == 10 and embs.shape == (10, cfg.hidden_size),
+              f"extract_embeddings ({quantize}) gave {len(names)} names and {embs.shape}")
+        check(bool(np.isfinite(embs).all()), f"extracted embeddings ({quantize}) not finite")
+        with tempfile.TemporaryDirectory() as d:
+            path = save_results(names, embs, "test", "untrained_0", d)
+            df = pd.read_csv(path)
+            check(Path(path).parent.name == "test", f"test split written to {path}")
+            check(df.shape == (10, cfg.hidden_size + 1), f"CSV of shape {df.shape}")
+            check(list(df["fnames"]) == sorted(names), "CSV rows not sorted by fname")
+        print(f"entry point (quantize={quantize}): extract_embeddings -> save_results wrote "
+              f"{df.shape[0]} rows of width {df.shape[1] - 1}", flush=True)
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", nargs="?", const="", default=None, metavar="FILE",
-                        help="print torch.profiler breakdowns of one embed call and "
-                             "one training step (and write them to FILE and to "
-                             "profile_train.txt beside it if given)")
+                        help="print torch.profiler breakdowns of one bf16 and one W8A8 "
+                             "embed call and one VideoMAE and one JEPA training step "
+                             "(and write them to FILE and to profile_w8a8.txt, "
+                             "profile_train.txt and profile_jepa.txt beside it if given)")
     args = parser.parse_args()
     if not (REPO / "bvc_tpu_torch" / "csrc").is_dir():
         fail(f"no bvc_tpu_torch package beside {Path(__file__).name}: run it from "
@@ -1127,7 +1537,7 @@ def main() -> None:
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}",
           flush=True)
     t0 = time.perf_counter()
-    kernels = ["flash_fwd", "flash_bwd"]
+    kernels = ["flash_fwd", "flash_bwd", "gemm", "softmax_probe"]
     _build.build_all(kernels)
     print(f"built {kernels} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in kernels:
@@ -1135,10 +1545,17 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
+    from bvc_tpu_torch.probes import int8_dot, softmax_dtype
+
     flash = phase_kernel()
     bwd = phase_bwd_kernel()
     bias = phase_bias_kernel()
+    gemm = phase_gemm_kernel()
+    probe = phase_softmax_probe_kernel()
+    int8_probe = probe_path("int8 dot", int8_dot.run, {"gemm_s8", "gemm_bf16"})
+    softmax_probe = probe_path("softmax dtype", softmax_dtype.run, {"softmax_probe_fwd"})
     embed_launches = phase_main_path(smi, args.profile)
+    w8a8_launches = phase_w8a8(smi, args.profile)
     train_launches = phase_train(smi, args.profile)
     jepa_embed_launches = phase_jepa_embed(smi)
     jepa_launches = phase_jepa_train(smi, args.profile)
@@ -1146,7 +1563,9 @@ def main() -> None:
 
     # launches: per step of the path that runs the kernel most (VideoMAE
     # training for the unmasked kernels, JEPA training for the key-bias
-    # ones), with the other paths' counts beside them
+    # ones, W8A8 VideoMAE extraction for the s8 GEMM, the probes' own runs
+    # for the bf16 GEMM and the softmax probe kernel), with the other paths'
+    # counts beside them
     fwd_src = "bvc_tpu_torch/csrc/flash_fwd.cu"
     bwd_src = "bvc_tpu_torch/csrc/flash_bwd.cu"
     replaces = "bvc_tpu/ops/flash_attention.py"
@@ -1154,6 +1573,7 @@ def main() -> None:
         {"name": "flash_fwd", "route": "cuda", "source": fwd_src,
          "replaces": f"{replaces}:109", "launches": train_launches["flash_fwd"],
          "launches_per_embed": embed_launches,
+         "launches_per_w8a8_embed": w8a8_launches["videomae"]["flash_fwd"],
          "launches_per_jepa_step": jepa_launches["flash_fwd"],
          "launches_per_jepa_embed": jepa_embed_launches, "at": [8, 1568, 12, 64], **flash},
         {"name": "flash_bwd_dq", "route": "cuda", "source": bwd_src,
@@ -1171,9 +1591,22 @@ def main() -> None:
         {"name": "flash_bwd_dkv_bias", "route": "cuda", "source": bwd_src,
          "replaces": f"{replaces}:212", "launches": jepa_launches["flash_bwd_dkv_bias"],
          **bias["dkv"]},
+        {"name": "gemm_s8", "route": "cuda", "source": "bvc_tpu_torch/csrc/gemm.cu",
+         "replaces": "tools/probe_pallas_int8.py:37",
+         "launches": w8a8_launches["videomae"]["gemm_s8"],
+         "launches_per_jepa_w8a8_embed": w8a8_launches["jepa"]["gemm_s8"],
+         "launches_in_int8_probe": int8_probe["gemm_s8"], **gemm["gemm_s8"]},
+        {"name": "gemm_bf16", "route": "cuda", "source": "bvc_tpu_torch/csrc/gemm.cu",
+         "replaces": "tools/probe_pallas_int8.py:42", "launches": int8_probe["gemm_bf16"],
+         **gemm["gemm_bf16"]},
+        {"name": "softmax_probe_fwd", "route": "cuda",
+         "source": "bvc_tpu_torch/csrc/softmax_probe.cu",
+         "replaces": "tools/probe_softmax_dtype.py:45",
+         "launches": softmax_probe["softmax_probe_fwd"], **probe},
     ]
     check(all(math.isfinite(r[k]) for r in records
-              for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")),
+              for k in ("max_abs_err", "ms", "plain_ms", "bound_ms"))
+          and all(r["library_ms"] is None or math.isfinite(r["library_ms"]) for r in records),
           "non-finite timing")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,9 +12,9 @@ import torch
 
 from bvc_tpu.ops.attention import _xla_attention
 from bvc_tpu.ops.flash_attention import flash_attention as jax_flash
+from bvc_tpu_torch.ops._build import kernel_layout
 from bvc_tpu_torch.ops.attention import multi_head_attention, plain_attention
 from bvc_tpu_torch.ops.flash_attention import (
-    _kernel_layout,
     flash_attention,
     flash_attention_fwd,
     flash_attention_fwd_ref,
@@ -104,12 +104,12 @@ def test_kernel_reads_qkv_slices_without_a_copy():
     qkv = torch.zeros(2, 40, 3, 4, 64, dtype=torch.bfloat16)
     for i in range(3):
         x = qkv[:, :, i]
-        assert _kernel_layout(x) is x
+        assert kernel_layout(x) is x
     # a transposed head width or a row off the 16-byte grid is copied
     t = torch.zeros(2, 40, 64, 4, dtype=torch.bfloat16).transpose(-1, -2)
-    assert _kernel_layout(t).is_contiguous() and _kernel_layout(t) is not t
+    assert kernel_layout(t).is_contiguous() and kernel_layout(t) is not t
     odd = torch.zeros(2 * 40 * 4 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 40, 4, 64)
-    assert _kernel_layout(odd) is not odd and _kernel_layout(odd).data_ptr() % 16 == 0
+    assert kernel_layout(odd) is not odd and kernel_layout(odd).data_ptr() % 16 == 0
 
 
 def test_flash_refuses_gradients():
