@@ -7,7 +7,11 @@ of the int8 product inside :func:`bvc_tpu.ops.quant.qdense`.  Every
 product here is ``C = A B^T`` with A ``[M, K]`` and B ``[N, K]``, both
 K-contiguous: B is an ``nn.Linear`` weight (the probe's ``[K, N]`` B enters
 transposed).  ``csrc/gemm.cu`` holds the kernel, one template instantiated
-for int8 and for bf16.
+for int8 and for bf16: persistent CTAs, one per SM, in which a producer
+warp streams A and B through a TMA ring and two consumer warpgroups take
+128 x 128 output tiles in turns on ``wgmma``, each running its epilogue
+(the dequant, then TMA stores of the staged tile) while the other one
+multiplies.
 
 - :func:`int8_matmul_cuda` ``(a, b)``: the exact int32 product (the raw
   epilogue, ``kern_i8``'s function); with ``xscale [M]`` and ``wscale

@@ -41,13 +41,18 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    its mask.
 5. GEMM kernels against plain (``csrc/gemm.cu``): the s8 kernel's raw
    int32 product exactly equal to the plain one at 1024^3,
-   ``[8192,1024] x [1024,1024]``, ``[1001,768] x [2300,768]`` and, with a
-   partial last K stage, ``[1001,784] x [2300,784]``; its dequant epilogue
-   through ``qdense`` within one bf16 ulp / 1e-6 relative of ``qdense_ref``
-   at the W8A8 path's qkv and fc1 shapes for B=8; the bf16 kernel exact on
-   integer-valued inputs (at the probe's shape and at K = 784) and within
-   1e-3 of max|ref| on normal ones; times against the bound, the plain version and, as
-   yardsticks, ``torch._int_mm`` and a bf16 ``torch.matmul``.
+   ``[8192,1024] x [1024,1024]``, ``[1001,768] x [2300,768]``, with a
+   partial last K stage ``[1001,784] x [2300,784]``, and with int32 rows
+   of no multiple of 16 bytes ``[1001,768] x [2302,768]``; its dequant
+   epilogue within one bf16 ulp / 1e-6 relative of the plain version at
+   the W8A8 path's qkv and fc1 shapes for B=8 and B=64 and at the ragged
+   ``[1001,768] x [2300,768]`` (both of the epilogue's store paths); the
+   bf16 kernel exact on integer-valued inputs (at the probe's shape and at
+   K = 784) and within 1e-3 of max|ref| on normal ones; times against the
+   bound, the plain version and, as yardsticks, ``torch._int_mm`` and a
+   bf16 ``torch.matmul``, with the wrappers' host time per call and, at the
+   probe's shape, times in a CUDA graph, the bf16 ones at K = 1024, 2048
+   and 4096 too, split into a time per 1024 of K and a fixed part.
 6. The softmax probe kernel against plain (``csrc/softmax_probe.cu``) at
    ``[64,12,512,64]``, ``[64,12,392,64]`` and ``[48,6,1568,64]`` with f32
    and bf16 scores: O within 3e-3 of the plain version in the same score
@@ -929,20 +934,80 @@ def int_mm_ms(a, b) -> float | None:
         return None
 
 
+def host_ms(fn, iters: int = 200) -> float:
+    """Host time per call of ``fn()`` over back-to-back calls, no sync
+    between them: the pace at which the host can launch it."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time per call of ``fn()``, ``calls`` of them captured in one
+    CUDA graph and replayed: the kernel's time without the host's launch
+    pace."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    return time_ms(graph.replay, iters=replays, warmup=1) / calls
+
+
+def check_dequant(what: str, got, want, dtype) -> float:
+    """The dequant epilogue's output against the plain version's: within
+    one bf16 ulp (bf16 out) or 1e-6 relative (f32 out); returns max|err|."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.bfloat16:
+        ok, limit = bool((err <= bf16_ulp(want)).all()), "one bf16 ulp"
+    else:
+        ok, limit = bool((err <= 1e-6 * want.float().abs()).all()), "1e-6 relative"
+    print(f"gemm_s8 dequant ({what}, {dtype}): max abs err {err.max().item():.3e} "
+          f"(limit {limit})", flush=True)
+    check(ok, f"gemm_s8 dequant disagrees with the plain version at {what} {dtype}")
+    return err.max().item()
+
+
 def phase_gemm_kernel() -> dict:
     """The s8 and bf16 kernels of ``csrc/gemm.cu`` against their plain
     versions: s8 raw exactly equal to the int32 product at 1024^3, at the
     probe's ``[8192,1024] x [1024,1024]``, at an odd ``[1001,768] x
-    [2300,768]`` and at ``[1001,784] x [2300,784]``, whose K is no multiple
-    of the 128-byte stage; the dequant epilogue through ``qdense`` within one
-    bf16 ulp (bf16 out) or 1e-6 relative (f32 out) of ``qdense_ref`` at the
-    path's qkv and fc1 shapes for B=8; the bf16 kernel exactly equal to the
-    int32 product on integer-valued inputs at the probe's shape and at K =
-    784, and within 1e-3 of max|ref| on normal ones.  Times against the
-    bound, the plain version and, as yardsticks, ``torch._int_mm`` and a bf16 ``torch.matmul``, at the
-    path's qkv and fc1 shapes for B=64 and at the probe's shape.  Returns
-    the records of ``gemm_s8`` (qkv at B=64, the others under ``"fc1"`` and
+    [2300,768]``, at ``[1001,784] x [2300,784]``, whose K is no multiple of
+    the 128-byte stage, and at ``[1001,768] x [2302,768]``, whose int32 rows
+    are no multiple of 16 bytes (the epilogue's plain stores, not TMA's); the
+    dequant epilogue through ``qdense`` within one bf16 ulp (bf16 out) or
+    1e-6 relative (f32 out) of ``qdense_ref`` at the path's qkv and fc1
+    shapes for B=8 and at the ragged ``[1001,768] x [2300,768]`` (bf16 rows
+    of 4600 bytes take the plain stores, f32 ones TMA's), and of
+    ``int8_matmul_ref`` at the qkv and fc1 shapes for B=64, where every CTA
+    walks about 100 tiles; the bf16 kernel exactly equal to the int32
+    product on integer-valued inputs at the probe's shape and at K = 784,
+    and within 1e-3 of max|ref| on normal ones.  Times against the bound,
+    the plain version and, as yardsticks, ``torch._int_mm`` and a bf16
+    ``torch.matmul``, at the path's B=64 shapes and at the probe's shape,
+    each beside the wrapper's host time per call; at the probe's shape also
+    in a CUDA graph, which the host's launch pace cannot slow, and the bf16
+    product (kernel and ``torch.matmul``) at K = 1024, 2048 and 4096, split
+    into a time per 1024 of K and a part that does not grow with K.  Returns the
+    records of ``gemm_s8`` (qkv at B=64, the others under ``"fc1"`` and
     ``"probe_raw"``) and ``gemm_bf16`` (the probe's shape)."""
+    import numpy as np
     import torch
 
     from bvc_tpu_torch.ops.gemm import (bf16_matmul_cuda, bf16_matmul_ref, int8_matmul_cuda,
@@ -951,7 +1016,7 @@ def phase_gemm_kernel() -> dict:
 
     # K = 784 leaves a partial last stage: 16 bytes of s8, 32 of bf16
     for M, N, K in ((1024, 1024, 1024), (8192, 1024, 1024), (1001, 2300, 768),
-                    (1001, 2300, 784)):
+                    (1001, 2300, 784), (1001, 2302, 768)):
         a, b = int8_operands(M, N, K, seed=M + N)
         got, want = int8_matmul_cuda(a, b), int8_matmul_ref(a, b)
         torch.cuda.synchronize()
@@ -961,24 +1026,16 @@ def phase_gemm_kernel() -> dict:
         check(diff == 0, f"gemm_s8 raw is not exact at [{M},{K}]x[{N},{K}]: {diff} entries")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    B8 = 8 * 1568
-    for name, N in (("qkv", 2304), ("fc1", 3072)):
+    for name, M, N in (("qkv", 8 * 1568, 2304), ("fc1", 8 * 1568, 3072),
+                       ("ragged", 1001, 2300)):
         layer = torch.nn.Linear(768, N).cuda()
         torch.nn.init.normal_(layer.weight, std=0.02, generator=gen)
         torch.nn.init.normal_(layer.bias, std=0.02, generator=gen)
         q = quantize_linear(layer)
-        x = torch.randn((B8, 768), generator=gen, device="cuda").to(torch.bfloat16)
+        x = torch.randn((M, 768), generator=gen, device="cuda").to(torch.bfloat16)
         for dtype in (torch.bfloat16, torch.float32):
-            got, want = qdense(x, q, dtype), qdense_ref(x, q, dtype)
-            err = (got.float() - want.float()).abs()
-            if dtype == torch.bfloat16:
-                ok, limit = bool((err <= bf16_ulp(want)).all()), "one bf16 ulp"
-            else:
-                ok = bool((err <= 1e-6 * want.abs()).all())
-                limit = "1e-6 relative"
-            print(f"gemm_s8 dequant ({name}, [{B8},768]x[{N},768], {dtype}): max abs err "
-                  f"{err.max().item():.3e} (limit {limit})", flush=True)
-            check(ok, f"gemm_s8 dequant disagrees with qdense_ref at {name} {dtype}")
+            check_dequant(f"{name}, [{M},768]x[{N},768]", qdense(x, q, dtype),
+                          qdense_ref(x, q, dtype), dtype)
 
     # integer-valued bf16 inputs in [-127, 127]: every partial sum is exact in f32;
     # the probe's shape last, as its operands are timed below
@@ -1001,30 +1058,51 @@ def phase_gemm_kernel() -> dict:
           f"{GEMM_BF16_TOL * scale_n:.3e})", flush=True)
     check(err_n <= GEMM_BF16_TOL * scale_n, f"gemm_bf16 disagrees with plain: {err_n}")
 
-    # times: the probe's shape, raw int8 and bf16
-    bound8 = gemm_bound_ms(M, N, K, 1, 4, PEAK_INT8_OPS)
-    ms8 = time_ms(lambda: int8_matmul_cuda(a, b))
-    plain8 = time_ms(lambda: int8_matmul_ref(a, b), iters=5)
-    lib8 = int_mm_ms(a, b)
-    bound16 = gemm_bound_ms(M, N, K, 2, 4, PEAK_BF16_FLOPS)
-    ms16 = time_ms(lambda: bf16_matmul_cuda(a16, b16))
-    plain16 = time_ms(lambda: bf16_matmul_ref(a16, b16), iters=5)
-    lib16 = time_ms(lambda: torch.matmul(a16, b16.T))
+    # times: the probe's shape, raw int8 and bf16; the kernels take about as
+    # long as the host's launch, so also in a CUDA graph (kernel and library)
     ops = 2 * M * N * K
-    for what, ms, plain, lib, bound in (("gemm_s8 raw", ms8, plain8, lib8, bound8),
-                                        ("gemm_bf16", ms16, plain16, lib16, bound16)):
-        print(f"{what} [{M},{K}]x[{N},{K}]: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} "
-              f"T(FL)OP/s), bound {bound[0]:.4f} ms ({bound[1]}, {bound[0] / ms:.3f} of "
-              f"it), plain {plain:.4f} ms, library "
-              f"{'n/a' if lib is None else f'{lib:.4f} ms'}", flush=True)
-    records = {"gemm_bf16": {"at": [M, N, K], "max_abs_err": err_n, "ms": ms16,
-                             "plain_ms": plain16, "library_ms": lib16,
-                             "bound_ms": bound16[0], "bound_by": bound16[1]}}
-    probe_raw = {"at": [M, N, K], "max_abs_err": 0.0, "ms": ms8, "plain_ms": plain8,
-                 "library_ms": lib8, "bound_ms": bound8[0], "bound_by": bound8[1]}
+    records = {}
+    for name, kernel, plain, lib, bound in (
+            ("probe_raw", lambda: int8_matmul_cuda(a, b), lambda: int8_matmul_ref(a, b),
+             lambda: torch._int_mm(a, b.T), gemm_bound_ms(M, N, K, 1, 4, PEAK_INT8_OPS)),
+            ("gemm_bf16", lambda: bf16_matmul_cuda(a16, b16), lambda: bf16_matmul_ref(a16, b16),
+             lambda: torch.matmul(a16, b16.T), gemm_bound_ms(M, N, K, 2, 4, PEAK_BF16_FLOPS))):
+        rec = {"at": [M, N, K], "max_abs_err": 0.0 if name == "probe_raw" else err_n,
+               "ms": time_ms(kernel), "host_ms": host_ms(kernel), "graph_ms": graph_ms(kernel),
+               "plain_ms": time_ms(plain, iters=5), "library_ms": time_ms(lib),
+               "library_graph_ms": graph_ms(lib), "bound_ms": bound[0], "bound_by": bound[1]}
+        print(f"{'gemm_s8 raw' if name == 'probe_raw' else name} [{M},{K}]x[{N},{K}]: kernel "
+              f"{rec['ms']:.4f} ms (host {rec['host_ms']:.4f} ms per call), in a CUDA graph "
+              f"{rec['graph_ms']:.4f} ms ({ops / rec['graph_ms'] / 1e9:.1f} T(FL)OP/s), bound "
+              f"{bound[0]:.4f} ms ({bound[1]}, {bound[0] / rec['graph_ms']:.3f} of it), plain "
+              f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms (in a graph "
+              f"{rec['library_graph_ms']:.4f} ms)", flush=True)
+        records[name] = rec
     del a, b, a16, b16, gn, hn, got, ref_n
 
-    # times: the path's products at B=64, dequant epilogue, bf16 out
+    # the probe's bf16 product at K = 1024, 2048 and 4096 in a CUDA graph, and
+    # a line through the three times: its slope is the products' time per
+    # 1024 of K, its intercept what does not grow with K (the f32 output's
+    # 32 MB store, the ring's fill, the last epilogue)
+    sweep = {}
+    for k in (1024, 2048, 4096):
+        gk = torch.randn((M, k), generator=gen, device="cuda").to(torch.bfloat16)
+        hk = torch.randn((N, k), generator=gen, device="cuda").to(torch.bfloat16)
+        sweep[k] = (graph_ms(lambda: bf16_matmul_cuda(gk, hk)),
+                    graph_ms(lambda: torch.matmul(gk, hk.T)))
+    del gk, hk
+    for i, who in enumerate(("gemm_bf16", "torch.matmul")):
+        times = [sweep[k][i] for k in sweep]
+        slope, fixed = np.polyfit(np.array(list(sweep)) / 1024, times, 1)
+        records["gemm_bf16"][f"k_sweep_{'kernel' if i == 0 else 'library'}"] = {
+            "graph_ms": dict(zip(map(str, sweep), times)), "ms_per_1024_k": slope,
+            "fixed_ms": fixed}
+        print(f"{who} [{M},K]x[{N},K] -> f32 in a CUDA graph at K = "
+              f"{', '.join(f'{k}: {t:.4f}' for k, t in zip(sweep, times))} ms; a line through "
+              f"them: {slope:.4f} ms per 1024 of K ({2 * M * N * 1024 / slope / 1e9:.1f} "
+              f"TFLOP/s) and {fixed:.4f} ms that does not grow with K", flush=True)
+
+    # the path's products at B=64, dequant epilogue, bf16 out
     M = 64 * 1568
     x = torch.randn((M, 768), generator=gen, device="cuda").to(torch.bfloat16)
     xq, xscale = quantize_tokens(x)
@@ -1035,23 +1113,23 @@ def phase_gemm_kernel() -> dict:
         torch.nn.init.normal_(layer.weight, std=0.02, generator=gen)
         q = quantize_linear(layer)
         args = (xq, q.weight_q, xscale, q.scale, q.bias, torch.bfloat16)
-        got, want = int8_matmul_cuda(*args), int8_matmul_ref(*args)
-        err = (got.float() - want.float()).abs().max().item()
-        del got, want
+        err = check_dequant(f"{name} at B=64, [{M},768]x[{N},768]", int8_matmul_cuda(*args),
+                            int8_matmul_ref(*args), torch.bfloat16)
         ms = time_ms(lambda: int8_matmul_cuda(*args))
+        host = host_ms(lambda: int8_matmul_cuda(*args), iters=50)
         plain = time_ms(lambda: int8_matmul_ref(*args), iters=3, warmup=1)
         lib = int_mm_ms(xq, q.weight_q)
         bound = gemm_bound_ms(M, N, 768, 1, 2, PEAK_INT8_OPS, vector_bytes=4 * M + 8 * N)
         print(f"gemm_s8 dequant ({name}, B=64) [{M},768]x[{N},768] -> bf16: kernel "
-              f"{ms:.4f} ms ({2 * M * N * 768 / ms / 1e9:.1f} TOP/s), bound {bound[0]:.4f} "
-              f"ms ({bound[1]}, {bound[0] / ms:.3f} of it), plain {plain:.4f} ms, "
-              f"torch._int_mm (int32 out, no dequant) "
-              f"{'n/a' if lib is None else f'{lib:.4f} ms'}; max abs err {err:.3e}",
-              flush=True)
-        path[name] = {"at": [M, N, 768], "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                      "library_ms": lib, "bound_ms": bound[0], "bound_by": bound[1]}
-    records["gemm_s8"] = {**path["qkv"], "fc1": path["fc1"], "probe_raw": probe_raw}
-    return records
+              f"{ms:.4f} ms ({2 * M * N * 768 / ms / 1e9:.1f} TOP/s; host {host:.4f} ms per "
+              f"call), bound {bound[0]:.4f} ms ({bound[1]}, {bound[0] / ms:.3f} of it), plain "
+              f"{plain:.4f} ms, torch._int_mm (int32 out, no dequant) "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'}", flush=True)
+        path[name] = {"at": [M, N, 768], "max_abs_err": err, "ms": ms, "host_ms": host,
+                      "plain_ms": plain, "library_ms": lib, "bound_ms": bound[0],
+                      "bound_by": bound[1]}
+    return {"gemm_s8": {**path["qkv"], "fc1": path["fc1"], "probe_raw": records["probe_raw"]},
+            "gemm_bf16": records["gemm_bf16"]}
 
 
 def phase_softmax_probe_kernel() -> dict:
