@@ -1,13 +1,20 @@
-// Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tile loads,
-// warpgroup matrix products (wgmma) on shared-memory operands, and register
-// rebalancing between warpgroups.  Used by gemm.cu.
+// Hopper (sm_90a) building blocks in raw PTX: mbarriers, named barriers,
+// TMA tile loads and stores (2-D and 4-D), warpgroup matrix products (wgmma)
+// on shared-memory operands or with A in registers, and register
+// rebalancing between warpgroups.  Used by gemm.cu and, through
+// attn_sm90.cuh, by flash_fwd.cu and softmax_probe.cu.
 //
-// Shared-memory operands are K-major tiles of 128-byte rows written by TMA
-// with the 128-byte swizzle: 8-row atoms of 1024 bytes, so every tile must
-// start on a 1024-byte boundary.  A wgmma k-step reads 32 bytes of each row
-// (k32 for 8-bit types, k16 for bf16): the descriptor of k-step ks is the
-// tile's descriptor with 2 ks added to its address field (32 bytes in units
-// of 16), as the hardware applies the swizzle to the address it computes.
+// Shared-memory operands are tiles of 128-byte rows written by TMA with the
+// 128-byte swizzle: 8-row atoms of 1024 bytes, so every tile must start on a
+// 1024-byte boundary.  A K-major operand (K along the row): a wgmma k-step
+// reads 32 bytes of each row (k32 for 8-bit types, k16 for bf16), and the
+// descriptor of k-step ks is the tile's descriptor with 2 ks added to its
+// address field (32 bytes in units of 16), as the hardware applies the
+// swizzle to the address it computes.  An MN-major operand (N along the
+// row, K down the rows, as V is in O += P V): the same descriptor, whose
+// stride byte offset (1024) now steps between 8-row groups along K, and a
+// k16 step is 16 rows, 2048 bytes further; its leading byte offset would
+// step between 64-wide swizzle atoms along N and is unused at N = 64.
 
 #pragma once
 
@@ -98,6 +105,33 @@ __device__ __forceinline__ void tma_store_2d_if(const CUtensorMap* map, const vo
       : "memory");
 }
 
+// The box of a 4-D tensor map at (c0, c1, c2, c3), innermost first, into
+// shared memory, as tma_load_2d.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A box of shared memory to a 4-D tensor map at (c0, c1, c2, c3), as
+// tma_store_2d_if.
+__device__ __forceinline__ void tma_store_4d_if(const CUtensorMap* map, const void* src, int c0,
+                                                int c1, int c2, int c3, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.u32 p, %6, 0;\n"
+      "@p cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      "}\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3), "r"(static_cast<uint32_t>(pred))
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -118,6 +152,29 @@ __device__ __forceinline__ void bulk_wait_all() {
 // async-proxy (TMA, bulk copy) reads of it.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- named barriers --------------------------------------------------------
+
+// Waits at barrier `id` until `kCount` threads have reached it (this one
+// included), counting those that only arrive.
+template <int kCount>
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(kCount) : "memory");
+}
+
+// Counts towards barrier `id` without waiting, for the threads whose
+// `pred` is true (predicated inside the asm, with no branch around it).
+template <int kCount>
+__device__ __forceinline__ void bar_arrive_if(int id, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.u32 p, %2, 0;\n"
+      "@p bar.arrive %0, %1;\n"
+      "}\n"
+      :: "r"(id), "n"(kCount), "r"(static_cast<uint32_t>(pred))
+      : "memory");
 }
 
 // ---- register rebalancing ------------------------------------------------
@@ -157,6 +214,19 @@ __device__ __forceinline__ void fence_operands(int (&d)[64]) {
 __device__ __forceinline__ void fence_operands(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for an m64n64 accumulator, and for A fragments held in
+// registers: fenced after a wgmma_wait, they stay live (and unclobbered)
+// until the products that read them have retired.
+__device__ __forceinline__ void fence_operands(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 __device__ __forceinline__ void wgmma_commit() {
@@ -199,8 +269,10 @@ __device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t a, uint6
 }
 
 // The same for bf16 operands (16 elements of K per step), f32 accumulators;
-// both operands K-major (no transpose), unit scales.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
+// both operands K-major (no transpose), unit scales.  accumulate = false
+// overwrites d with the product (the first k-step of a fresh sum).
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b,
+                                                 bool accumulate = true) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -209,13 +281,39 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
       ", %64, %65, p, 1, 1, 0, 0;\n"
       "}\n"
       : HOPPER_D64(HOPPER_F32)
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(static_cast<uint32_t>(accumulate)));
+}
+
+#define HOPPER_D32(C) HOPPER_D8(C, 0), HOPPER_D8(C, 8), HOPPER_D8(C, 16), HOPPER_D8(C, 24)
+#define HOPPER_D32_OPERANDS                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+  "%28, %29, %30, %31}"
+
+// D [64 x 64] += A [64 x 16] B [16 x 64], bf16 operands, f32 accumulators,
+// with A in registers and B an MN-major (transposed) shared-memory tile:
+// thread t of warp w holds A's rows 16 w + t / 4 (+ 8) and columns
+// 2 (t % 4) (+ 1) and (+ 8) as mma.sync.m16n8k16 does, packed in a0..a3,
+// which is the layout of two adjacent 8-column blocks of an accumulator.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                   uint32_t a2, uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_OPERANDS
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : HOPPER_D32(HOPPER_F32)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
 }
 
 #undef HOPPER_D8
+#undef HOPPER_D32
 #undef HOPPER_D64
 #undef HOPPER_S32
 #undef HOPPER_F32
+#undef HOPPER_D32_OPERANDS
 #undef HOPPER_D64_OPERANDS
 
 }  // namespace hopper

@@ -96,7 +96,7 @@ def make_embed_fn(family: str, ckpt_path: str, cfg: ModelConfig,
                   quantize: str | None = "none") -> Callable:
     """Load the encoder of a ``.pth.tar`` checkpoint (VideoMAE:
     ``model_state_dict`` in HF names; JEPA: ``encoder`` in the reference
-    layout) and return the embedding function on ``device`` (``cuda`` when
+    layout, else ``target_encoder``) and return the embedding function on ``device`` (``cuda`` when
     None); ``quantize="int8"`` quantizes the loaded blocks (see
     :func:`_check_quantize`)."""
     q = _check_quantize(family, quantize)
@@ -105,7 +105,9 @@ def make_embed_fn(family: str, ckpt_path: str, cfg: ModelConfig,
     model = encoder(cfg)
     ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
     if family == "jepa":
-        sd = jepa_encoder_from_reference_state_dict(ckpt["encoder"], cfg)
+        # as the JAX package reads it: the EMA target where no online encoder was kept
+        enc = ckpt["encoder"] if "encoder" in ckpt else ckpt["target_encoder"]
+        sd = jepa_encoder_from_reference_state_dict(enc, cfg)
     else:
         sd = videomae_from_hf_state_dict(ckpt["model_state_dict"], cfg)
     model.load_state_dict(sd)

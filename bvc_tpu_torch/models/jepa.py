@@ -41,7 +41,7 @@ from torch import nn
 from bvc_tpu_torch.models.initializers import init_linear, trunc_normal_
 from bvc_tpu_torch.models.posenc import positional_encoding_3d
 from bvc_tpu_torch.models.videomae import _DTYPES, normalize_on_device
-from bvc_tpu_torch.models.vit import Blocks, LayerNorm, layer_norm
+from bvc_tpu_torch.models.vit import Blocks, LayerNorm, layer_norm, no_remat
 from bvc_tpu_torch.ops.patchify import tubelet_patchify
 from bvc_tpu_torch.utils.config import ModelConfig
 
@@ -51,7 +51,9 @@ def _grid(cfg: ModelConfig) -> tuple[int, int, int]:
     return (cfg.num_frames // cfg.tubelet_size, g, g)
 
 
-def _no_drop_path(cfg: ModelConfig) -> None:
+def _unported_options(cfg: ModelConfig) -> None:
+    """Raise for drop-path and remat, which come with the training loop."""
+    no_remat(cfg)
     if cfg.drop_path_rate > 0:
         raise NotImplementedError(
             f"drop_path_rate={cfg.drop_path_rate}: drop-path comes with the "
@@ -75,7 +77,7 @@ class JEPAEncoder(nn.Module):
         """Random weights drawn from ``generator``, or from a fresh one
         seeded with ``seed`` when it is None."""
         super().__init__()
-        _no_drop_path(cfg)
+        _unported_options(cfg)
         self.cfg = cfg
         gen = generator if generator is not None else torch.Generator().manual_seed(seed)
         patch_dim = cfg.in_channels * cfg.tubelet_size * cfg.patch_size ** 2
@@ -130,7 +132,7 @@ class JEPAPredictor(nn.Module):
     def __init__(self, cfg: ModelConfig, seed: int = 0,
                  generator: torch.Generator | None = None):
         super().__init__()
-        _no_drop_path(cfg)
+        _unported_options(cfg)
         self.cfg = cfg
         gen = generator if generator is not None else torch.Generator().manual_seed(seed)
         d_enc, d_pred = cfg.hidden_size, cfg.pred_emb_dim
@@ -181,6 +183,7 @@ class JEPA(nn.Module):
         encoder's first (the same as ``JEPAEncoder(cfg, seed)``), then the
         predictor's."""
         super().__init__()
+        _unported_options(cfg)
         self.cfg = cfg
         gen = torch.Generator().manual_seed(seed)
         self.encoder = JEPAEncoder(cfg, generator=gen)

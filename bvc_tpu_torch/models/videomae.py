@@ -37,7 +37,7 @@ from torch import nn
 from bvc_tpu_torch.masks.tube import mask_partition
 from bvc_tpu_torch.models.initializers import init_linear, trunc_normal_
 from bvc_tpu_torch.models.posenc import sinusoid_table_1d
-from bvc_tpu_torch.models.vit import Blocks, LayerNorm, layer_norm
+from bvc_tpu_torch.models.vit import Blocks, LayerNorm, layer_norm, no_remat
 from bvc_tpu_torch.ops.patchify import patchify_pixels
 from bvc_tpu_torch.utils.config import ModelConfig
 
@@ -64,6 +64,7 @@ class VideoMAEEncoder(nn.Module):
         """Random weights drawn from ``generator``, or from a fresh one
         seeded with ``seed`` when it is None."""
         super().__init__()
+        no_remat(cfg)
         if cfg.architecture != "base":
             raise ValueError(
                 f"videomae architecture {cfg.architecture!r} is not defined; "
@@ -144,6 +145,7 @@ class VideoMAEPretrain(nn.Module):
         encoder's first (the same as ``VideoMAEEncoder(cfg, seed)``), then
         the decoder's."""
         super().__init__()
+        no_remat(cfg)
         self.cfg = cfg
         gen = torch.Generator().manual_seed(seed)
         self.encoder = VideoMAEEncoder(cfg, generator=gen)

@@ -14,7 +14,8 @@ A block's ``qkv``, ``proj``, ``fc1`` and ``fc2`` may be a
 JAX package's ``qdense`` does.
 
 Drop-path and activation checkpointing (off in every reference config)
-come with the training loop (ROADMAP slice 4).
+come with the training loop (ROADMAP slice 4); until then the models raise
+for a config that asks for either (:func:`no_remat`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,17 @@ from bvc_tpu_torch.ops.attention import multi_head_attention
 from bvc_tpu_torch.ops.flash_attention import key_bias
 from bvc_tpu_torch.ops.gelu import gelu
 from bvc_tpu_torch.ops.quant import QuantLinear, qdense
+from bvc_tpu_torch.utils.config import ModelConfig
+
+
+def no_remat(cfg: ModelConfig) -> None:
+    """Raise for ``cfg.remat``: the JAX package checkpoints each block's
+    activations then (``run_blocks(..., remat)``), and a model built here
+    would silently keep them all."""
+    if cfg.remat:
+        raise NotImplementedError(
+            "remat=True: activation checkpointing of each block comes with the "
+            "training loop (ROADMAP slice 4)")
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor | None,

@@ -31,7 +31,8 @@ and ``.launches_dkv_bias``.  :func:`flash_attention_fwd_ref` and
 arithmetic: the CPU tests use them, and ``chip_smoke.py`` holds the kernels
 against them on the card.  :func:`flash_attention_fwd` and
 :func:`flash_attention_bwd` pick between the two by the tensors' device
-only.  :func:`flash_attention` is the public ``[B, N, h, d]`` entry,
+only.  :func:`attention_tile_check` runs the unmasked forward's two Hopper
+products on one tile, a first check on a new card.  :func:`flash_attention` is the public ``[B, N, h, d]`` entry,
 differentiable through :class:`FlashAttention`.
 """
 
@@ -125,7 +126,7 @@ def flash_attention_bwd_ref(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 _SIGNATURES = {  # (void* arguments, long long arguments) of each entry point
-    "flash_fwd": {"bvc_flash_fwd": (6, 16)},
+    "flash_fwd": {"bvc_flash_fwd": (6, 16), "bvc_attn_tile_check": (5, 0)},
     "flash_bwd": {"bvc_flash_bwd_dq": (8, 19), "bvc_flash_bwd_dkv": (9, 22)},
 }
 
@@ -197,6 +198,26 @@ def flash_fwd_cuda(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.launches_bias = 0
+
+
+def attention_tile_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The unmasked forward kernel's two products on one tile, on the card:
+    ``q [64, 64]``, ``k`` and ``v [128, 64]`` bf16 in, ``(s, o)`` f32 out
+    with ``s = q k^T`` and ``o = bf16(s) v``, through the same TMA loads and
+    wgmma as the kernel.  A first check on a new card or toolkit, before
+    anything runs on those products."""
+    shapes = {"q": (64, 64), "k": (128, 64), "v": (128, 64)}
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_cuda or x.dtype != torch.bfloat16 or tuple(x.shape) != shapes[name]:
+            raise ValueError(f"attention_tile_check: {name} must be a CUDA bf16 tensor of "
+                             f"shape {shapes[name]}, got {x.dtype} {tuple(x.shape)}")
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    s = torch.empty((64, 128), dtype=torch.float32, device=q.device)
+    o = torch.empty((64, 64), dtype=torch.float32, device=q.device)
+    launch("attention_tile_check", q.device, _library("flash_fwd").bvc_attn_tile_check,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr())
+    return s, o
 
 
 def bwd_operands(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,

@@ -44,7 +44,7 @@ class ModelConfig:
     drop_path_rate: float = 0.0
     # compute
     dtype: str = "bfloat16"  # activation/compute dtype
-    remat: bool = False  # activation checkpointing of each block
+    remat: bool = False  # activation checkpointing of each block; the models raise for True
     # bf16-stored attention logits for the JEPA target encoder and gradient
     # paths where their attention runs plain ('xla_bf16', see
     # make_jepa_train_step); the flash kernels keep f32 scores

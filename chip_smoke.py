@@ -12,18 +12,23 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
 
 1. Build every CUDA kernel of the port from ``bvc_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print the card, its power
-   limit, the versions, the build time and each kernel's registers and
-   spills.
+   limit, its highest SM clock, the versions, the build time and each
+   kernel's registers and spills.  Then the unmasked forward's two products
+   on one tile (S = q k^T, O = bf16(S) v) against f32 products, before
+   anything runs on them.
 2. Forward kernel against plain: the flash forward kernel against its plain
    PyTorch version on the card, at the extraction shape ``[8, 1568, 12, 64]``,
    the encoder's shape in training ``[8, 160, 12, 64]``, the V-JEPA target
-   encoder's and extraction shape ``[8, 392, 12, 64]``, an odd N and the
-   decoder shape ``[8, 1568, 6, 64]``; O within 2e-2 (bf16
-   output, accumulation in another order), LSE within 1e-3 (f32).  Times of
-   the kernel, the plain version and ``F.scaled_dot_product_attention`` (a
-   yardstick only: the port never calls it), and of the kernel against the
-   plain attention path at N in {160, 392, 784, 1568}, forward alone and
-   forward plus backward, for the routing threshold.
+   encoder's and extraction shape ``[8, 392, 12, 64]``, an odd N, the
+   decoder shape ``[8, 1568, 6, 64]`` and extraction's launch at B=64
+   ``[64, 1568, 12, 64]``; O within 2e-2 (bf16 output, accumulation in
+   another order), LSE within 1e-3 (f32).  Times of the kernel, by events
+   and in a CUDA graph (the short shapes are launch-bound), the plain
+   version and ``F.scaled_dot_product_attention`` (a yardstick only: the
+   port never calls it), beside the tensor-core or byte bound and the
+   exponential roof; and of the kernel against the plain attention path at
+   N in {160, 392, 784, 1568}, forward alone and forward plus backward, for
+   the routing threshold.
 3. Backward kernels against plain: dQ, dK and dV of the two kernels against
    the plain version at ``[8, 1568, 6, 64]`` (decoder), ``[8, 160, 12, 64]``
    (encoder in training) and ``[8, 197, 12, 64]`` (odd N), each within
@@ -58,8 +63,9 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    and bf16 scores: O within 3e-3 of the plain version in the same score
    dtype, equal to it at 99% of the entries or more, and the kernel's two
    outputs apart at 99% or more of the entries where the plain ones differ,
-   so that a kernel which ignored the score dtype would fail; times against the bound, the plain
-   version and SDPA's forward; the probe's readout max|O_bf16 - O_f32|.
+   so that a kernel which ignored the score dtype would fail; times by
+   events and in a CUDA graph against the bound, the exponential roof, the
+   plain version and SDPA's forward; the probe's readout max|O_bf16 - O_f32|.
 7. The two probes as their own paths (``python -m
    bvc_tpu_torch.probes.int8_dot`` and ``.softmax_dtype``): launch counts
    set to 0, the probe run, its kernels and no other launched.
@@ -123,11 +129,13 @@ REPO = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+EXP_PER_CLOCK = 16  # MUFU.EX2 results per clock on each SM (Hopper's SFUs)
 O_TOL = 2e-2
 LSE_TOL = 1e-3
 BWD_TOL = 2e-2  # of max|ref|: bf16 outputs, sums in another order
 BWD_REL_TOL = 1e-3  # |err|/|ref| of dQ, dK and dV (read: 0.8-1.4e-4)
 COSINE_MIN = 0.999
+TILE_TOL = 1e-4  # of max|ref|: one tile's S and P V against f32 products
 # flash vs plain attention in one training step, bf16 activations
 TRAIN_LOSS_RTOL = 1e-4  # read: 8.5e-7
 GRAD_COSINE_MIN = 0.99  # per top-level group
@@ -158,6 +166,33 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+SASS_OPS = ("HGMMA", "MUFU", "FFMA", "FADD", "FMUL", "FMNMX", "F2F", "F2FP")
+
+
+def sass_census(name: str, kernel: str) -> dict[str, int]:
+    """Opcode counts in the SASS of the kernel whose mangled name holds
+    ``kernel``, in the built library of ``csrc/<name>.cu`` (``cuobjdump
+    -sass``), with ``"all"`` the instruction count; empty where the toolkit
+    has no cuobjdump."""
+    import re
+    from collections import Counter
+
+    from bvc_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts = Counter()
+    for block in sass.split("Function : ")[1:]:
+        if kernel in block.split("\n", 1)[0]:
+            for op in re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", block):
+                counts[op] += 1
+                counts["all"] += 1
+    return dict(counts)
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn()`` over ``iters`` calls, by CUDA events."""
     from bvc_tpu_torch.utils.device import cuda_time_ms
@@ -175,6 +210,29 @@ def attention_bound_ms(B: int, N: int, h: int, d: int,
     nbytes = 4 * B * N * h * d * 2 + B * h * N * 4 + (B * N * 4 if bias else 0)
     bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def exp_bound_ms(exps: int, clock_mhz: float, sms: int) -> float:
+    """The second roof of an attention forward: ``exps`` exponentials (one
+    per score, B*h*N^2) at EXP_PER_CLOCK a clock on each of ``sms`` SMs at
+    ``clock_mhz`` (the card's ``clocks.max.sm``)."""
+    return exps / (EXP_PER_CLOCK * sms * clock_mhz * 1e6) * 1e3
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock, MHz, as ``nvidia-smi`` reads it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout
+    return float(out.splitlines()[0])
+
+
+def exp_roof(B: int, N: int, h: int) -> float:
+    """:func:`exp_bound_ms` of a forward over ``[B, N, h, .]`` on this card."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return exp_bound_ms(B * h * N * N, sm_clock_mhz(), sms)
 
 
 def bwd_bound_ms(B: int, N: int, h: int, d: int, products: int,
@@ -240,9 +298,34 @@ def qkv_inputs(B: int, N: int, h: int, d: int, seed: int):
     return q, (q * d ** -0.5).to(q.dtype), k, v
 
 
+def phase_attn_tile() -> None:
+    """The unmasked forward kernel's two products on one tile, before
+    anything runs on them (``attention_tile_check``): S = q k^T and
+    O = bf16(S) v, each within 1e-4 x max|ref| of the f32 product on the
+    card (the reference for O takes the kernel's own S, so that each product
+    is checked alone)."""
+    import torch
+
+    from bvc_tpu_torch.ops.flash_attention import attention_tile_check
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+               for shape in ((64, 64), (128, 64), (128, 64)))
+    s, o = attention_tile_check(q, k, v)
+    s_ref = q.float() @ k.float().T
+    o_ref = s.to(torch.bfloat16).float() @ v.float()
+    torch.cuda.synchronize()
+    for name, x, ref in (("S = q k^T", s, s_ref), ("O = bf16(S) v", o, o_ref)):
+        err, scale = (x - ref).abs().max().item(), ref.abs().max().item()
+        print(f"attention tile check: {name} max abs err {err:.3e} (limit "
+              f"{TILE_TOL * scale:.3e} = {TILE_TOL} x max|ref|)", flush=True)
+        check(err <= TILE_TOL * scale, f"attention tile check: {name} is wrong, max err {err}")
+
+
 def phase_kernel() -> dict:
-    """Flash forward kernel against its plain version; returns its timings
-    at the extraction shape."""
+    """Flash forward kernel against its plain version; returns its record
+    at the extraction shape, with every shape's times under ``"shapes"``."""
     import torch
     import torch.nn.functional as F
 
@@ -251,13 +334,14 @@ def phase_kernel() -> dict:
     from bvc_tpu_torch.ops.flash_attention import (flash_attention_fwd_ref,
                                                    flash_fwd_cuda)
 
-    result = {}
+    result, shapes = {}, {}
     for label, (B, N, h, d) in (("extraction", (8, 1568, 12, 64)),
                                 ("encoder", (8, 160, 12, 64)),
                                 ("jepa target", (8, 392, 12, 64)),
                                 ("odd N", (8, 197, 12, 64)),
-                                ("decoder", (8, 1568, 6, 64))):
-        _, qs, k, v = qkv_inputs(B, N, h, d, seed=N + h)
+                                ("decoder", (8, 1568, 6, 64)),
+                                ("extraction B=64", (64, 1568, 12, 64))):
+        _, qs, k, v = qkv_inputs(B, N, h, d, seed=N + h + B - 8)
         o, lse = flash_fwd_cuda(qs, k, v)
         o_ref, lse_ref = flash_attention_fwd_ref(qs, k, v)
         torch.cuda.synchronize()
@@ -265,22 +349,34 @@ def phase_kernel() -> dict:
         err_lse = (lse - lse_ref).abs().max().item()
         ok_o = torch.allclose(o.float(), o_ref.float(), atol=O_TOL, rtol=O_TOL)
         ok_lse = torch.allclose(lse, lse_ref, atol=LSE_TOL, rtol=LSE_TOL)
+        del o, lse, o_ref, lse_ref
         ms = time_ms(lambda: flash_fwd_cuda(qs, k, v))
-        plain_ms = time_ms(lambda: flash_attention_fwd_ref(qs, k, v), iters=5)
+        g_ms = graph_ms(lambda: flash_fwd_cuda(qs, k, v))
+        plain_ms = time_ms(lambda: flash_attention_fwd_ref(qs, k, v), iters=3, warmup=1)
         qt, kt, vt = (x.transpose(1, 2) for x in (qs, k, v))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=1.0))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, scale=1.0)
+
+        lib_ms, lib_g_ms = time_ms(sdpa), graph_ms(sdpa)
         bound, bound_by = attention_bound_ms(B, N, h, d)
+        exp_ms = exp_roof(B, N, h)
         print(f"flash_fwd [{B},{N},{h},{d}] ({label}): max|dO| {err_o:.3e} "
-              f"max|dLSE| {err_lse:.3e}; kernel {ms:.4f} ms "
-              f"({ms / B * 1e3:.2f} us/clip), plain {plain_ms:.4f} ms, "
-              f"sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms "
-              f"({bound / B * 1e3:.2f} us/clip, {bound_by}); "
-              f"{4 * B * h * N * N * d / ms / 1e9:.1f} TFLOP/s", flush=True)
+              f"max|dLSE| {err_lse:.3e}; kernel {ms:.4f} ms, in a CUDA graph {g_ms:.4f} ms "
+              f"({g_ms / B * 1e3:.2f} us/clip, {4 * B * h * N * N * d / g_ms / 1e9:.1f} "
+              f"TFLOP/s), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (graph "
+              f"{lib_g_ms:.4f}); bound {bound:.4f} ms ({bound_by}, {bound / g_ms:.3f} of it), "
+              f"exponential roof {exp_ms:.4f} ms", flush=True)
         check(ok_o, f"flash_fwd O disagrees with the plain version at {label}: {err_o}")
         check(ok_lse, f"flash_fwd LSE disagrees with the plain version at {label}: {err_lse}")
+        shapes[label] = {"at": [B, N, h, d], "max_abs_err": err_o, "max_abs_err_lse": err_lse,
+                         "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "library_graph_ms": lib_g_ms, "bound_ms": bound, "bound_by": bound_by,
+                         "exp_bound_ms": exp_ms}
         if label == "extraction":
-            result = {"max_abs_err": err_o, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by}
+            result = {k: x for k, x in shapes[label].items() if k != "at"}
+        del qs, k, v, qt, kt, vt
+    result["shapes"] = shapes
 
     # What the kernel does not take raises on the card: no plain fallback.
     q, _, k, v = qkv_inputs(2, 64, 2, 64, seed=0)
@@ -1141,7 +1237,8 @@ def phase_softmax_probe_kernel() -> dict:
     ``PROBE_MATCH_MIN`` of the entries or more, and the kernel's f32 and
     bf16 outputs apart at that share of the entries where the plain ones
     differ; the probe's readout max|O_bf16 - O_f32|; times against the bound, the plain version
-    and SDPA's forward; the plain ``xla_attn`` with f32 against bf16 logits
+    and SDPA's forward, by events and in a CUDA graph, beside the
+    exponential roof; the plain ``xla_attn`` with f32 against bf16 logits
     at ``[64,12,392,64]``.  Returns the record at ``[48,6,1568,64]`` with
     the other shapes under their labels."""
     import numpy as np
@@ -1165,6 +1262,7 @@ def phase_softmax_probe_kernel() -> dict:
             outs[sd], refs[sd] = o, ref
             rec["max_abs_err" + tag] = err
             rec["ms" + tag] = time_ms(lambda: softmax_probe_fwd_cuda(q, k, v, sd))
+            rec["graph_ms" + tag] = graph_ms(lambda: softmax_probe_fwd_cuda(q, k, v, sd))
             rec["plain_ms" + tag] = time_ms(lambda: softmax_probe_fwd_ref(q, k, v, sd),
                                             iters=3, warmup=1)
         # each output against the plain version in its own score dtype and,
@@ -1191,7 +1289,11 @@ def phase_softmax_probe_kernel() -> dict:
         del refs, plain_apart
         readout = (outs[f32].float() - outs[bf16].float()).abs().max().item()
         # yardstick only (the port never calls it): SDPA's forward
-        rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, scale=1.0)
+
+        rec["library_ms"], rec["library_graph_ms"] = time_ms(sdpa), graph_ms(sdpa)
+        rec["exp_bound_ms"] = exp_roof(B, N, h)
         # the function's 4*B*h*N^2*d operations against q, k, v and o (no LSE)
         ops_ms = 4 * B * h * N * N * d / PEAK_BF16_FLOPS * 1e3
         bytes_ms = 4 * B * h * N * d * 2 / PEAK_HBM_BYTES * 1e3
@@ -1199,9 +1301,12 @@ def phase_softmax_probe_kernel() -> dict:
                                             else (bytes_ms, "bytes"))
         rec["max_abs_err_bf16_vs_f32"] = readout
         print(f"softmax_probe_fwd {list(shape)} ({label}): kernel f32 scores "
-              f"{rec['ms']:.4f} ms, bf16 scores {rec['ms_bf16_scores']:.4f} ms; bound "
-              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); plain {rec['plain_ms']:.4f} / "
-              f"{rec['plain_ms_bf16_scores']:.4f} ms; sdpa {rec['library_ms']:.4f} ms; "
+              f"{rec['ms']:.4f} ms (graph {rec['graph_ms']:.4f}), bf16 scores "
+              f"{rec['ms_bf16_scores']:.4f} ms (graph {rec['graph_ms_bf16_scores']:.4f}); bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, {rec['bound_ms'] / rec['graph_ms']:.3f}"
+              f" of it), exponential roof {rec['exp_bound_ms']:.4f} ms; plain "
+              f"{rec['plain_ms']:.4f} / {rec['plain_ms_bf16_scores']:.4f} ms; sdpa "
+              f"{rec['library_ms']:.4f} ms (graph {rec['library_graph_ms']:.4f}); "
               f"probe readout max|O_bf16 - O_f32| {readout:.5f}", flush=True)
         records[label] = rec
         del q, k, v, outs
@@ -1625,6 +1730,16 @@ def main() -> None:
 
     from bvc_tpu_torch.probes import int8_dot, softmax_dtype
 
+    for name, kernel in (("flash_fwd", "flash_fwd_sm90"), ("softmax_probe", "sm90ILb0E"),
+                         ("softmax_probe", "sm90ILb1E")):
+        ops = sass_census(name, kernel)
+        fp32 = sum(ops.get(op, 0) for op in ("FFMA", "FADD", "FMUL", "FMNMX"))
+        print(f"  SASS of {kernel}: " + (", ".join(f"{op} {ops.get(op, 0)}" for op in SASS_OPS)
+              + f" of {ops['all']}; FP32 instructions per MUFU {fp32 / ops['MUFU']:.2f}"
+              if ops else "not measured (no cuobjdump)"), flush=True)
+    print(f"SM clock (clocks.max.sm) {sm_clock_mhz():.0f} MHz, "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs", flush=True)
+    phase_attn_tile()
     flash = phase_kernel()
     bwd = phase_bwd_kernel()
     bias = phase_bias_kernel()

@@ -200,6 +200,23 @@ def test_reference_layout_round_trip(tmp_path):
     np.testing.assert_allclose(out, np.asarray(ref), rtol=TOL, atol=TOL)
 
 
+def test_checkpoint_without_encoder_reads_target_encoder(tmp_path):
+    # as bvc_tpu.evalbench.extract reads it: the EMA target where the
+    # checkpoint kept no online encoder
+    jcfg, tree, model, _, _ = _setup()
+    ref_sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+              for k, v in jepa_encoder_to_reference(tree["encoder"], jcfg).items()}
+    clips = np.random.default_rng(3).integers(0, 256, (2, 2, 32, 32, 3), dtype=np.uint8)
+    outs = {}
+    for key in ("encoder", "target_encoder"):
+        path = tmp_path / f"{key}.pth.tar"
+        torch.save({key: ref_sd, "predictor": {}}, path)
+        outs[key] = make_embed_fn("jepa", str(path), model.cfg, device="cpu")(clips)
+    np.testing.assert_array_equal(outs["target_encoder"], outs["encoder"])
+    ref = jax_jepa.embed(tree["encoder"], jnp.asarray(clips), jcfg)
+    np.testing.assert_allclose(outs["target_encoder"], np.asarray(ref), rtol=TOL, atol=TOL)
+
+
 def test_untrained_embed_fn_and_unported_options():
     cfg = ModelConfig(**TINY)
     fn = untrained_embed_fn("jepa", cfg, seed=0, device="cpu")
