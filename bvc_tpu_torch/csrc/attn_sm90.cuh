@@ -1,7 +1,9 @@
 // The Hopper (sm_90a) attention mainloop's pieces, shared by the unmasked
 // flash forward (flash_fwd.cu) and the softmax probe's forward
 // (softmax_probe.cu): bf16 pre-scaled queries, keys and values at head
-// width 64, read through 4-D TMA tensor maps, products on wgmma.
+// width 64, read through 4-D TMA tensor maps, products on wgmma.  The
+// unmasked backward (flash_bwd_sm90.cu) takes its tensor maps, helpers and
+// accumulator layout from here, with a loop of its own.
 //
 // Persistent CTAs of a producer and kConsumers consumer warpgroups
 // (Cta<kConsumers>), one CTA per SM, each walking query tiles of 64

@@ -1,46 +1,38 @@
-// Backward flash attention for Hopper (sm_90a): bf16 pre-scaled queries Qs,
-// keys K, values V and output gradient dO, with the forward's f32
-// log-sum-exp L and D = rowsum(dO * O) in f32 (computed by the caller, as
-// _bwd does); without a key mask at head width 64, and with a per-sample
-// key bias at head widths 64 and 32.  Two kernels, no atomics,
-// deterministic:
+// Backward flash attention with a per-sample key bias for Hopper (sm_90a),
+// head widths 64 and 32: bf16 pre-scaled queries Qs, keys K, values V and
+// output gradient dO, with the forward's f32 log-sum-exp L, D = rowsum(dO *
+// O) in f32 (computed by the caller, as _bwd does) and a [B, N] f32 key
+// bias.  Two kernels, no atomics, deterministic:
 //
-//   flash_bwd_dq_kernel  replaces bvc_tpu/ops/flash_attention.py::_dq_kernel
-//                        and (key bias) ::_dq_kernel_bias
+//   flash_bwd_dq_kernel  replaces bvc_tpu/ops/flash_attention.py::_dq_kernel_bias
 //       dQs_i = sum_j dS_ij K_j
-//   flash_bwd_dkv_kernel replaces bvc_tpu/ops/flash_attention.py::_dkv_kernel
-//                        and (key bias) ::_dkv_kernel_bias
+//   flash_bwd_dkv_kernel replaces bvc_tpu/ops/flash_attention.py::_dkv_kernel_bias
 //       dV_j = sum_i P_ij^T dO_i,   dK_j = sum_i dS_ij^T Qs_i
 //
 // with P = exp(Qs K^T + bias - L) and dS = P * (dO V^T - D).  The same
 // arithmetic as the TPU kernels: f32 scores, P rounded to bf16 before the dV
 // product, dS rounded to bf16 before the dQ and dK products, f32 sums, bf16
 // outputs.  No scale appears: Qs carries it, and autograd takes it through
-// qs = q * scale into dQ (dK gets none).  Without a mask, key columns at or
-// beyond N get -1e30 before the exp, as _kmask does; with the key bias they
-// get -inf.  A masked key's P is exp(-1e30 - L) = 0, so its dK and dV rows
-// are exactly 0; a row with no attendable key has L = +inf (flash_fwd.cu),
-// so its P is 0 too.  The bias gets no gradient (the TPU's
-// _flash_b_bwd_rule returns zeros for it).
+// qs = q * scale into dQ (dK gets none).  Key columns at or beyond N get
+// -inf.  A masked key's P is exp(-1e30 - L) = 0, so its dK and dV rows are
+// exactly 0; a row with no attendable key has L = +inf (flash_fwd.cu), so
+// its P is 0 too.  The bias gets no gradient (the TPU's _flash_b_bwd_rule
+// returns zeros for it).  The unmasked backward is flash_bwd_sm90.cu.
 //
 // Bound.  Per (batch, head) the dQ kernel does three N x N x d products
 // (6 N^2 d operations) and the dK/dV kernel four (8 N^2 d), against some
-// 5 and 6 N d bf16 tensors of traffic.  At the decoder shape
-// [B, 1568, 6, 64] that is 5.7 and 7.6 GFLOP per clip (5.7 and 7.6 us at
-// 989 TFLOP/s) against about 6 MB of bytes (1.8 us at 3.35 TB/s): bound by
-// operations.  At 160-200 tokens (VideoMAE's encoder in training, JEPA's
-// context encoder and predictor) the products shrink with N^2 and the
-// kernels are bound by bytes.
+// 5 and 6 N d bf16 tensors of traffic.  At 160-200 tokens (JEPA's context
+// encoder and predictor) the products are small and the kernels are bound
+// by bytes.
 //
 // Design.  Blocks run in parallel on Hopper, so the TPU's sequential grid
-// (which keeps all of K/V in VMEM, 784-row blocks) becomes a loop inside
-// each CTA over 64-row tiles, double-buffered with cp.async.
+// (which keeps all of K/V in VMEM) becomes a loop inside each CTA over
+// 64-row tiles, double-buffered with cp.async.
 // - dQ: one CTA of 4 warps per (64-query tile, head, batch element).  Qs and
-//   dO of its rows go to registers once; for each K/V tile (and its 64 key
-//   biases) S = Qs K^T + bias, P = exp(S - L), dP = dO V^T, dS = P (dP - D),
-//   dQ += dS K.  The flash_fwd.cu structure plus one product; dS goes from
-//   the accumulator registers straight into the A operand, as P does in the
-//   forward.
+//   dO of its rows go to registers once; for each K/V tile and its 64 key
+//   biases S = Qs K^T + bias, P = exp(S - L), dP = dO V^T, dS = P (dP - D),
+//   dQ += dS K.  dS goes from the accumulator registers straight into the
+//   A operand, as P does in the forward.
 // - dK/dV: one CTA per (64-key tile, head, batch element).  K and V of its
 //   rows go to registers once, and so do the biases of its keys, which are
 //   fixed for the CTA; it walks the queries in 64-row tiles (Qs, dO, L, D)
@@ -53,17 +45,13 @@
 // Each kernel's tiles (two resident, four double-buffered, 55 KB at
 // D = 64) exceed the 48 KB static limit, so they live in dynamic shared
 // memory, raised with cudaFuncSetAttribute.  flash_common.cuh holds the
-// tiles and products, templated on the head width.  wgmma, TMA and a fused
-// dQ with atomics are left for later work.
+// tiles and products, templated on the head width.
 //
 // The library has a plain C interface, loaded with ctypes (as flash_fwd.cu):
 // pointers and the stream as void*, sizes and strides in elements as long
-// long; a null bias selects the unmasked kernels.  The head-width stride
-// must be 1 and rows must start on 16 bytes.  L and D are contiguous
-// [B, h, N] f32, the bias contiguous [B, N] f32.  Each entry point returns
-// a CUDA error code, 0 on success.
-
-#include <type_traits>
+// long.  The head-width stride must be 1 and rows must start on 16 bytes.
+// L and D are contiguous [B, h, N] f32, the bias contiguous [B, N] f32.
+// Each entry point returns a CUDA error code, 0 on success.
 
 #include "flash_common.cuh"
 
@@ -77,12 +65,8 @@ struct __align__(16) DqTiles {
   Tile<D> dout;
   Tile<D> k[2];
   Tile<D> v[2];
-};  // D = 64: 6 * 64 * 72 * 2 = 55296 bytes
-
-template <int D>
-struct __align__(16) DqBiasTiles : DqTiles<D> {
   float bias[2][kBlockN];
-};  // plus 512 bytes
+};  // D = 64: 6 * 64 * 72 * 2 + 512 = 55808 bytes
 
 template <int D>
 struct __align__(16) DkvTiles {
@@ -98,16 +82,15 @@ struct Strides {
   long long b, n, h;
 };
 
-template <int D, bool kKeyBias>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const float* __restrict__ bias, bf16* __restrict__ dq, int n, int heads,
                     Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs) {
-  using Smem = std::conditional_t<kKeyBias, DqBiasTiles<D>, DqTiles<D>>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  DqTiles<D>& sm = *reinterpret_cast<DqTiles<D>*>(smem_raw);
 
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
@@ -119,13 +102,13 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + batch * ks.b + head * ks.h;
   const bf16* vb = v + batch * vs.b + head * vs.h;
   const bf16* dob = dout + batch * dos.b + head * dos.h;
-  const float* bias_row = kKeyBias ? bias + static_cast<long long>(batch) * n : nullptr;
+  const float* bias_row = bias + static_cast<long long>(batch) * n;
 
   load_tile<D>(sm.q, qb, row0, n, qs.n);
   load_tile<D>(sm.dout, dob, row0, n, dos.n);
   load_tile<D>(sm.k[0], kb, 0, n, ks.n);
   load_tile<D>(sm.v[0], vb, 0, n, vs.n);
-  if constexpr (kKeyBias) load_bias(sm.bias[0], bias_row, 0, n);
+  load_bias(sm.bias[0], bias_row, 0, n);
   cp_async_commit();
 
   // L (times log2 e) and D of this thread's rows g and g + 8; rows at or
@@ -155,7 +138,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const long long next = static_cast<long long>(j + 1) * kBlockN;
       load_tile<D>(sm.k[buf ^ 1], kb, next, n, ks.n);
       load_tile<D>(sm.v[buf ^ 1], vb, next, n, vs.n);
-      if constexpr (kKeyBias) load_bias(sm.bias[buf ^ 1], bias_row, next, n);
+      load_bias(sm.bias[buf ^ 1], bias_row, next, n);
     }
     cp_async_commit();
     cp_async_wait<1>();  // everything but the tile just requested has landed
@@ -166,16 +149,11 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_a_frags<D>(df, sm.dout, warp, lane);
     }
 
-    // P = exp(Qs K^T (+ bias) - L), with key columns at or beyond n masked out.
+    // P = exp(Qs K^T + bias - L), with key columns at or beyond n masked out.
     float s[kBlockN / 8][4];
     product_abt<D>(s, qf, sm.k[buf], lane);
-    const long long col0 = static_cast<long long>(j) * kBlockN;
-    if constexpr (kKeyBias) {
-      add_bias(s, sm.bias[buf], lane);
-      fill_cols_from(s, col0, n, lane, -INFINITY);
-    } else {
-      fill_cols_from(s, col0, n, lane, kNegInf);
-    }
+    add_bias(s, sm.bias[buf], lane);
+    fill_cols_from(s, static_cast<long long>(j) * kBlockN, n, lane, -INFINITY);
 #pragma unroll
     for (int nt = 0; nt < kBlockN / 8; ++nt) {
 #pragma unroll
@@ -216,7 +194,7 @@ __device__ __forceinline__ void load_stats(float (&l_dst)[kBlockM], float (&d_ds
   }
 }
 
-template <int D, bool kKeyBias>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -251,13 +229,11 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // The key biases of this thread's key rows g and g + 8 (rows of S^T);
   // keys at or beyond n are never stored.
-  float kbias[2] = {0.f, 0.f};
-  if constexpr (kKeyBias) {
+  float kbias[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const long long key = key0 + warp * 16 + (lane >> 2) + 8 * r;
-      kbias[r] = key < n ? bias[static_cast<long long>(batch) * n + key] : 0.f;
-    }
+  for (int r = 0; r < 2; ++r) {
+    const long long key = key0 + warp * 16 + (lane >> 2) + 8 * r;
+    kbias[r] = key < n ? bias[static_cast<long long>(batch) * n + key] : 0.f;
   }
 
   uint32_t kf[D / 16][4], vf[D / 16][4];
@@ -286,7 +262,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_a_frags<D>(vf, sm.v, warp, lane);
     }
 
-    // P^T = exp(K Qs^T (+ bias[key]) - L[query]): rows are this warp's 16
+    // P^T = exp(K Qs^T + bias[key] - L[query]): rows are this warp's 16
     // keys, columns the tile's 64 queries; query columns at or beyond n
     // are set to 0.
     float s[kBlockM / 8][4];
@@ -295,7 +271,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int nt = 0; nt < kBlockM / 8; ++nt) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        if constexpr (kKeyBias) s[nt][c] += kbias[c >> 1];
+        s[nt][c] += kbias[c >> 1];
         const float l2 = sm.lse[buf][nt * 8 + 2 * t + (c & 1)] * kLog2e;
         s[nt][c] = exp2f(fmaf(s[nt][c], kLog2e, -l2));
       }
@@ -327,12 +303,11 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int D, bool kKeyBias>
+template <int D>
 cudaError_t launch_dq(const void* const (&p)[8], long long batch, long long n,
                       long long heads, const long long (&s)[15], cudaStream_t stream) {
-  using Smem = std::conditional_t<kKeyBias, DqBiasTiles<D>, DqTiles<D>>;
-  const int smem = static_cast<int>(sizeof(Smem));
-  const auto kernel = flash_bwd_dq_kernel<D, kKeyBias>;
+  const int smem = static_cast<int>(sizeof(DqTiles<D>));
+  const auto kernel = flash_bwd_dq_kernel<D>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>((n + kBlockM - 1) / kBlockM),
@@ -348,11 +323,11 @@ cudaError_t launch_dq(const void* const (&p)[8], long long batch, long long n,
   return cudaGetLastError();
 }
 
-template <int D, bool kKeyBias>
+template <int D>
 cudaError_t launch_dkv(const void* const (&p)[9], long long batch, long long n,
                        long long heads, const long long (&s)[18], cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(DkvTiles<D>));
-  const auto kernel = flash_bwd_dkv_kernel<D, kKeyBias>;
+  const auto kernel = flash_bwd_dkv_kernel<D>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>((n + kBlockN - 1) / kBlockN),
@@ -371,9 +346,8 @@ cudaError_t launch_dkv(const void* const (&p)[9], long long batch, long long n,
 
 }  // namespace
 
-// bias == nullptr: the unmasked kernel (head_dim 64); otherwise the
-// key-bias kernel (head_dim 64 or 32).  Any other width is refused with
-// cudaErrorInvalidValue before anything launches.
+// The key-bias kernels at head_dim 64 or 32.  A null bias or any other
+// width is refused with cudaErrorInvalidValue before anything launches.
 extern "C" int bvc_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* delta,
                                 const void* bias, void* dq, long long batch, long long n,
@@ -389,12 +363,10 @@ extern "C" int bvc_flash_bwd_dq(const void* q, const void* k, const void* v,
                            v_sh, do_sb, do_sn, do_sh, dq_sb, dq_sn, dq_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (bias == nullptr && head_dim == 64) {
-    err = launch_dq<64, false>(p, batch, n, heads, s, st);
-  } else if (bias != nullptr && head_dim == 64) {
-    err = launch_dq<64, true>(p, batch, n, heads, s, st);
+  if (bias != nullptr && head_dim == 64) {
+    err = launch_dq<64>(p, batch, n, heads, s, st);
   } else if (bias != nullptr && head_dim == 32) {
-    err = launch_dq<32, true>(p, batch, n, heads, s, st);
+    err = launch_dq<32>(p, batch, n, heads, s, st);
   }
   return static_cast<int>(err);
 }
@@ -415,12 +387,10 @@ extern "C" int bvc_flash_bwd_dkv(const void* q, const void* k, const void* v,
                            do_sb, do_sn, do_sh, dk_sb, dk_sn, dk_sh, dv_sb, dv_sn, dv_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (bias == nullptr && head_dim == 64) {
-    err = launch_dkv<64, false>(p, batch, n, heads, s, st);
-  } else if (bias != nullptr && head_dim == 64) {
-    err = launch_dkv<64, true>(p, batch, n, heads, s, st);
+  if (bias != nullptr && head_dim == 64) {
+    err = launch_dkv<64>(p, batch, n, heads, s, st);
   } else if (bias != nullptr && head_dim == 32) {
-    err = launch_dkv<32, true>(p, batch, n, heads, s, st);
+    err = launch_dkv<32>(p, batch, n, heads, s, st);
   }
   return static_cast<int>(err);
 }

@@ -2,7 +2,7 @@
 // TMA tile loads and stores (2-D and 4-D), warpgroup matrix products (wgmma)
 // on shared-memory operands or with A in registers, and register
 // rebalancing between warpgroups.  Used by gemm.cu and, through
-// attn_sm90.cuh, by flash_fwd.cu and softmax_probe.cu.
+// attn_sm90.cuh, by flash_fwd.cu, flash_bwd_sm90.cu and softmax_probe.cu.
 //
 // Shared-memory operands are tiles of 128-byte rows written by TMA with the
 // 128-byte swizzle: 8-row atoms of 1024 bytes, so every tile must start on a
@@ -14,7 +14,9 @@
 // row, K down the rows, as V is in O += P V): the same descriptor, whose
 // stride byte offset (1024) now steps between 8-row groups along K, and a
 // k16 step is 16 rows, 2048 bytes further; its leading byte offset would
-// step between 64-wide swizzle atoms along N and is unused at N = 64.
+// step between 64-wide swizzle atoms along N and is unused at N <= 64.  An
+// MN-major operand narrower than the atom (N = 32, half of a 128-byte row)
+// starts at its byte offset within the row, as a K-major k-step does.
 
 #pragma once
 
@@ -132,6 +134,24 @@ __device__ __forceinline__ void tma_store_4d_if(const CUtensorMap* map, const vo
       : "memory");
 }
 
+// A box of shared memory added element-wise into a 2-D tensor map at
+// (inner, outer) (a TMA reduction, done in L2), issued by the threads whose
+// `pred` is true into their current bulk group.  Parts of the box outside
+// the tensor are not written.
+__device__ __forceinline__ void tma_reduce_add_2d_if(const CUtensorMap* map, const void* src,
+                                                     int inner, int outer, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.u32 p, %4, 0;\n"
+      "@p cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.tile.bulk_group"
+      " [%0, {%2, %3}], [%1];\n"
+      "}\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(inner), "r"(outer),
+         "r"(static_cast<uint32_t>(pred))
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -229,6 +249,17 @@ __device__ __forceinline__ void fence_operands(uint32_t (&a)[32]) {
   for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
+// The same for an m64n32 accumulator and for 16 A fragments (four k-steps).
+__device__ __forceinline__ void fence_operands(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
@@ -308,6 +339,44 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
 }
 
+// D [64 x 64] (+)= A [64 x 16] B [64 x 16]^T, bf16 operands, f32
+// accumulators, with A in registers (as wgmma_m64n64k16_rs) and B K-major in
+// shared memory; accumulate = false overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_rs_kmajor(float (&d)[32], uint32_t a0,
+                                                          uint32_t a1, uint32_t a2, uint32_t a3,
+                                                          uint64_t b, bool accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_OPERANDS
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : HOPPER_D32(HOPPER_F32)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(static_cast<uint32_t>(accumulate)));
+}
+
+#define HOPPER_D16(C) HOPPER_D8(C, 0), HOPPER_D8(C, 8)
+
+// D [64 x 32] (+)= A [64 x 16] B [16 x 32], bf16 operands from shared
+// memory, both MN-major (transposed: A stored K x M, B stored K x N, as
+// the V tile is in O += P V), f32 accumulators; accumulate = false
+// overwrites d.
+__device__ __forceinline__ void wgmma_m64n32k16_tt(float (&d)[16], uint64_t a, uint64_t b,
+                                                   bool accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : HOPPER_D16(HOPPER_F32)
+      : "l"(a), "l"(b), "r"(static_cast<uint32_t>(accumulate)));
+}
+
+#undef HOPPER_D16
 #undef HOPPER_D8
 #undef HOPPER_D32
 #undef HOPPER_D64

@@ -13,8 +13,10 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
 1. Build every CUDA kernel of the port from ``bvc_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print the card, its power
    limit, its highest SM clock, the versions, the build time and each
-   kernel's registers and spills.  Then the unmasked forward's two products
-   on one tile (S = q k^T, O = bf16(S) v) against f32 products, before
+   kernel's registers and spills (failing if the unmasked backward kernel
+   spills or ptxas serialises its wgmma).  Then the unmasked forward's two
+   products on one tile (S = q k^T, O = bf16(S) v) and the unmasked
+   backward's five (S^T, dP^T, dV, dK, dQ) against f32 products, before
    anything runs on them.
 2. Forward kernel against plain: the flash forward kernel against its plain
    PyTorch version on the card, at the extraction shape ``[8, 1568, 12, 64]``,
@@ -29,13 +31,18 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    exponential roof; and of the kernel against the plain attention path at
    N in {160, 392, 784, 1568}, forward alone and forward plus backward, for
    the routing threshold.
-3. Backward kernels against plain: dQ, dK and dV of the two kernels against
-   the plain version at ``[8, 1568, 6, 64]`` (decoder), ``[8, 160, 12, 64]``
-   (encoder in training) and ``[8, 197, 12, 64]`` (odd N), each within
-   2e-2 x max|ref| (bf16 outputs, sums in another order) and within 1e-3 in
-   |err|/|ref|; each kernel's time,
-   TFLOP/s and bound, the plain version's time and SDPA's backward as the
-   yardstick.
+3. The unmasked backward against plain (``csrc/flash_bwd_sm90.cu``: a
+   pre-pass for D, the fused kernel, a post-pass for dQ): dQ, dK and dV
+   against the plain version at ``[8, 1568, 6, 64]`` (decoder),
+   ``[8, 160, 12, 64]`` (encoder in training) and ``[8, 197, 12, 64]`` (odd
+   N), each within 2e-2 x max|ref| (bf16 outputs, sums in another order) and
+   within 1e-3 in |err|/|ref|, and a second run within 1e-3 of the first
+   (dQ's f32 sum over key tiles has no fixed order); the pre-pass's D against the plain
+   one and the post-pass's dQ equal to bf16 of the accumulator.  Times of
+   the whole backward and of each kernel, by events and in a CUDA graph,
+   beside the 5-product bound, the plain version and SDPA's backward in a
+   graph with its backend pinned (flash, and cuDNN where it runs; the
+   faster is kept).
 4. Key-bias kernels against plain: the forward, dQ and dK/dV kernels with a
    per-sample key bias at JEPA's context shape ``[8, 169, 12, 64]`` and
    predictor shape ``[32, 199, 12, 32]`` (collator masks), an odd N with 40%
@@ -43,7 +50,8 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    head widths: the limits of 2 and 3, LSE +inf exactly on rows with no
    key, and dK = dV = 0 exactly at masked keys; times at the two JEPA
    shapes against the bound, the plain version and SDPA with the bias as
-   its mask.
+   its mask; the two backward kernels and SDPA's backward (memory-efficient
+   and cuDNN backends pinned, the faster kept) also in a CUDA graph.
 5. GEMM kernels against plain (``csrc/gemm.cu``): the s8 kernel's raw
    int32 product exactly equal to the plain one at 1024^3,
    ``[8192,1024] x [1024,1024]``, ``[1001,768] x [2300,768]``, with a
@@ -84,9 +92,9 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
 10. Training at full width: VideoMAE-B pretraining
    steps (tube mask 0.9, 160 visible tokens, SGD-Nesterov) through
    ``VideoMAEPretrain``, ``TrainState.create`` and
-   ``make_videomae_train_step``.  At B=8 one step launches each of the three
-   unmasked kernels 16 times, and agrees with a step through the plain
-   attention path from the same weights, batch and mask (loss within 1e-4
+   ``make_videomae_train_step``.  At B=8 one step launches the forward
+   kernel and each of the backward's three 16 times, and agrees with a step
+   through the plain attention path from the same weights, batch and mask (loss within 1e-4
    relative, gradient cosine >= 0.99 for every top-level group and >= 0.9995
    for every parameter tensor).  Then clips/s, MFU
    and peak memory at the largest batch in {48, 32, 16} that fits.
@@ -193,6 +201,29 @@ def sass_census(name: str, kernel: str) -> dict[str, int]:
     return dict(counts)
 
 
+def ms_text(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def check_no_spills_or_serialisation(name: str, kernel: str) -> None:
+    """Fail unless ``ptxas -v`` reports no spill bytes for the kernel whose
+    mangled name holds ``kernel`` in ``csrc/<name>.cu``, and no wgmma
+    serialisation warning for the source."""
+    from bvc_tpu_torch.ops import _build
+
+    log = _build.build_log(name)
+    check("serialized" not in log, f"ptxas serialises wgmma in {name}.cu")
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and kernel in line:
+            for after in lines[i + 1:i + 5]:
+                if "spill" in after:
+                    check(" 0 bytes spill stores, 0 bytes spill loads" in after,
+                          f"{kernel} spills: {after.strip()}")
+                    return
+    fail(f"no ptxas -v report for {kernel} in {name}.cu's build log")
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn()`` over ``iters`` calls, by CUDA events."""
     from bvc_tpu_torch.utils.device import cuda_time_ms
@@ -235,16 +266,17 @@ def exp_roof(B: int, N: int, h: int) -> float:
     return exp_bound_ms(B * h * N * N, sm_clock_mhz(), sms)
 
 
-def bwd_bound_ms(B: int, N: int, h: int, d: int, products: int,
+def bwd_bound_ms(B: int, N: int, h: int, d: int, products: int, outputs: int,
                  bias: bool = False) -> tuple[float, str]:
-    """Least time of one backward kernel on the card: ``products`` N x N x d
-    tensor-core products (3 for dQ, 4 for dK/dV), 2*B*h*N^2*d operations
-    each, at the bf16 peak, against reading qs, k, v, dO (bf16), L and D
-    (f32) and, with a key bias, the [B, N] f32 bias once and writing dQ, or
-    dK and dV (bf16), at the HBM rate; the larger one bounds."""
+    """Least time of a backward (or of one of its kernels) on the card:
+    ``products`` N x N x d tensor-core products (5 for the whole unmasked
+    backward; 3 for the key-bias dQ kernel, 4 for its dK/dV kernel), 2*B*h*N^2*d
+    operations each, at the bf16 peak, against reading qs, k, v, dO (bf16),
+    L and D (f32) and, with a key bias, the [B, N] f32 bias once and writing
+    ``outputs`` bf16 tensors (dQ, dK, dV: 3; dQ: 1; dK, dV: 2) at the HBM
+    rate; the larger one bounds."""
     ops_ms = 2 * products * B * h * N * N * d / PEAK_BF16_FLOPS * 1e3
     elems = B * N * h * d
-    outputs = 1 if products == 3 else 2
     nbytes = (4 + outputs) * elems * 2 + 2 * B * h * N * 4 + (B * N * 4 if bias else 0)
     bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
@@ -427,18 +459,94 @@ def phase_kernel() -> dict:
     return result
 
 
-def phase_bwd_kernel() -> dict:
-    """The dQ and dK/dV kernels against their plain version at the decoder,
-    encoder-in-training and odd-N shapes; returns their records at the
-    decoder shape."""
+def phase_bwd_tile() -> None:
+    """The unmasked backward kernel's five products on one tile, before
+    anything runs on them (``bwd_tile_check``): S^T = k qs^T, dP^T = v do^T,
+    dV = bf16(S^T) do, dK = bf16(dP^T) qs and dQ = bf16(dP^T)^T k, each
+    within 1e-4 x max|ref| of the f32 product on the card (the references
+    for the last three take the kernel's own S^T and dP^T, so that each
+    product is checked alone)."""
+    import torch
+
+    from bvc_tpu_torch.ops.flash_attention import bwd_tile_check
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    qs, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                    for shape in ((64, 64), (128, 64), (128, 64), (64, 64)))
+    st, dpt, dv, dk, dq = bwd_tile_check(qs, k, v, do)
+    p, ds = (x.to(torch.bfloat16).float() for x in (st, dpt))
+    refs = (("S^T = k qs^T", st, k.float() @ qs.float().T),
+            ("dP^T = v do^T", dpt, v.float() @ do.float().T),
+            ("dV = bf16(S^T) do", dv, p @ do.float()),
+            ("dK = bf16(dP^T) qs", dk, ds @ qs.float()),
+            ("dQ = bf16(dP^T)^T k", dq, ds.T @ k.float()))
+    torch.cuda.synchronize()
+    for name, x, ref in refs:
+        err, scale = (x - ref).abs().max().item(), ref.abs().max().item()
+        print(f"backward tile check: {name} max abs err {err:.3e} (limit "
+              f"{TILE_TOL * scale:.3e} = {TILE_TOL} x max|ref|)", flush=True)
+        check(err <= TILE_TOL * scale, f"backward tile check: {name} is wrong, max err {err}")
+
+
+def sdpa_bwd_ms(qs, k, v, do, backends, attn_mask=None) -> tuple:
+    """SDPA's backward at ``[B, N, h, d]`` inputs, a yardstick only (the
+    port never calls it): for each backend of ``backends`` (pinned with
+    ``torch.nn.attention.sdpa_kernel``) that runs here, forward plus
+    backward less the forward alone, by events and as two CUDA graphs;
+    returns ``(events ms, graph ms, backend)`` of the backend fastest in a
+    graph, with every backend's readings printed, or ``(None, None, None)``
+    where none runs."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
 
-    from bvc_tpu_torch.ops.flash_attention import (bwd_operands, flash_attention_bwd_ref,
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (qs, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn_mask, scale=1.0)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+
+    best = (None, None, None)
+    for backend in backends:
+        try:
+            with sdpa_kernel(backend):
+                ev = time_ms(fwd_bwd) - time_ms(fwd)
+                gr = graph_ms(fwd_bwd) - graph_ms(fwd)
+        except RuntimeError as exc:
+            print(f"  sdpa {backend.name}: does not run here ({str(exc).splitlines()[0][:80]})",
+                  flush=True)
+            continue
+        print(f"  sdpa {backend.name} backward: {ev:.4f} ms by events, {gr:.4f} in a graph",
+              flush=True)
+        if best[1] is None or gr < best[1]:
+            best = (ev, gr, backend.name)
+    return best
+
+
+def phase_bwd_kernel() -> dict:
+    """The unmasked backward (pre-pass, fused kernel, post-pass of
+    ``csrc/flash_bwd_sm90.cu``) against its plain version at the decoder,
+    encoder-in-training and odd-N shapes, twice (the dQ sum's order is not
+    fixed, so the runs agree within BWD_REL_TOL, not bit for bit), the
+    pre- and post-pass each against their plain versions; times by events
+    and in a CUDA graph beside the 5-product bound, the plain version and
+    SDPA's backward with its backend pinned.  Returns the three kernels'
+    records at the decoder shape, with every shape's numbers under
+    ``"shapes"``."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    from bvc_tpu_torch.ops.flash_attention import (_delta, flash_attention_bwd_ref,
                                                    flash_bwd_cuda, flash_fwd_cuda,
-                                                   launch_dkv, launch_dq)
+                                                   launch_bwd_fused, launch_bwd_post,
+                                                   launch_bwd_prep, padded_tokens,
+                                                   unmasked_bwd_operands)
 
-    result = {}
+    result, shapes = {}, {}
     for label, (B, N, h, d) in (("decoder", (8, 1568, 6, 64)),
                                 ("encoder", (8, 160, 12, 64)),
                                 ("odd N", (8, 197, 12, 64))):
@@ -447,49 +555,100 @@ def phase_bwd_kernel() -> dict:
         do = torch.randn((B, N, h, d), generator=gen, device="cuda").to(torch.bfloat16)
         o, lse = flash_fwd_cuda(qs, k, v)
         grads = flash_bwd_cuda(qs, k, v, o, lse, do)
+        again = flash_bwd_cuda(qs, k, v, o, lse, do)
         refs = flash_attention_bwd_ref(qs, k, v, o, lse, do)
         torch.cuda.synchronize()
         errs = {}
-        for name, x, ref in zip(("dq", "dk", "dv"), grads, refs):
+        for name, x, y, ref in zip(("dq", "dk", "dv"), grads, again, refs):
             diff = (x.float() - ref.float())
             err, scale = diff.abs().max().item(), ref.float().abs().max().item()
             rel = (diff.norm() / ref.float().norm()).item()
+            rerun = ((x.float() - y.float()).norm() / ref.float().norm()).item()
             errs[name] = err
             print(f"flash_bwd [{B},{N},{h},{d}] ({label}) {name}: max abs err {err:.3e} "
                   f"(bound {BWD_TOL * scale:.3e} = {BWD_TOL} x max|ref|), "
-                  f"|err|/|ref| {rel:.3e} (bound {BWD_REL_TOL})", flush=True)
+                  f"|err|/|ref| {rel:.3e} (bound {BWD_REL_TOL}); second run "
+                  f"{'bitwise equal' if torch.equal(x, y) else 'differs'}, "
+                  f"|run1 - run2|/|ref| {rerun:.3e} (bound {BWD_REL_TOL})", flush=True)
             check(err <= BWD_TOL * scale and math.isfinite(err),
                   f"flash_bwd {name} disagrees with the plain version at {label}: {err}")
             check(rel <= BWD_REL_TOL,
                   f"flash_bwd {name} at {label}: |err|/|ref| {rel} > {BWD_REL_TOL}")
+            check(rerun <= BWD_REL_TOL,
+                  f"flash_bwd {name} at {label}: two runs differ by {rerun} > {BWD_REL_TOL}")
 
-        operands = bwd_operands(qs, k, v, o, lse, do)
-        dq_ms = time_ms(lambda: launch_dq(*operands))
-        dkv_ms = time_ms(lambda: launch_dkv(*operands))
+        # the pre-pass alone: D and L log2 e against their plain versions,
+        # the dQ accumulator zeroed; the post-pass alone: dQ = bf16(acc)
+        w = unmasked_bwd_operands(qs, k, v, o, lse, do)
+        launch_bwd_prep(w)
+        n_pad = padded_tokens(N)
+        stats = w["stats"].view(B * h, 2, n_pad)
+        delta = _delta(o, do).view(B * h, N)
+        err_d = (stats[:, 1, :N] - delta).abs().max().item()
+        err_l = (stats[:, 0, :N] - lse.view(B * h, N) * math.log2(math.e)).abs().max().item()
+        pad_ok = bool((stats[:, :, N:] == 0).all()) and bool((w["dq_acc"] == 0).all())
+        launch_bwd_fused(w)
+        launch_bwd_post(w)
+        acc = w["dq_acc"].view(B, h, n_pad, d)[:, :, :N].transpose(1, 2)
+        err_post = (w["dq"].float() - acc.to(torch.bfloat16).float()).abs().max().item()
+        torch.cuda.synchronize()
+        print(f"flash_bwd_prep ({label}): max|dD| {err_d:.3e} (of max|D| "
+              f"{delta.abs().max().item():.3e}), max|d(L log2 e)| {err_l:.3e}, padding and "
+              f"accumulator zero {pad_ok}; flash_bwd_post: max|dQ - bf16(acc)| {err_post}",
+              flush=True)
+        check(err_d <= 1e-5 * max(1.0, delta.abs().max().item()) and err_l <= 1e-5 * max(
+            1.0, lse.abs().max().item()) and pad_ok,
+              f"flash_bwd_prep disagrees with the plain version at {label}")
+        check(err_post == 0, f"flash_bwd_post disagrees with bf16(acc) at {label}: {err_post}")
+
+        def whole():
+            launch_bwd_prep(w)
+            launch_bwd_fused(w)
+            launch_bwd_post(w)
+
+        ms, g_ms = time_ms(whole), graph_ms(whole)
+        parts = {}
+        for name, fn in (("prep", lambda: launch_bwd_prep(w)),
+                         ("fused", lambda: launch_bwd_fused(w)),
+                         ("post", lambda: launch_bwd_post(w))):
+            parts[name] = (time_ms(fn), graph_ms(fn))
         plain_ms = time_ms(lambda: flash_attention_bwd_ref(qs, k, v, o, lse, do), iters=5)
-        # yardstick only (the port never calls it): SDPA's backward, taken
-        # as its forward plus backward less its forward alone
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (qs, k, v))
-        dot = do.transpose(1, 2)
-
-        def sdpa_fwd():
-            return F.scaled_dot_product_attention(qt, kt, vt, scale=1.0)
-
-        sdpa_fb_ms = time_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot))
-        lib_ms = sdpa_fb_ms - time_ms(sdpa_fwd)
-        line = [f"flash_bwd [{B},{N},{h},{d}] ({label}):"]
-        for name, ms, products in (("dq", dq_ms, 3), ("dkv", dkv_ms, 4)):
-            bound, bound_by = bwd_bound_ms(B, N, h, d, products)
-            tflops = 2 * products * B * h * N * N * d / ms / 1e9
-            line.append(f"{name} kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s), bound "
-                        f"{bound:.4f} ms ({bound_by});")
-            if label == "decoder":
-                err = errs["dq"] if name == "dq" else max(errs["dk"], errs["dv"])
-                result[name] = {
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by}
-        line.append(f"plain (both) {plain_ms:.4f} ms; sdpa backward {lib_ms:.4f} ms")
-        print(" ".join(line), flush=True)
+        plain_delta_ms = time_ms(lambda: _delta(o, do))
+        lib_ms, lib_g_ms, backend = sdpa_bwd_ms(
+            qs, k, v, do, (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION))
+        bound, bound_by = bwd_bound_ms(B, N, h, d, 5, 3)
+        tflops = 10 * B * h * N * N * d / g_ms / 1e9
+        print(f"flash_bwd [{B},{N},{h},{d}] ({label}): whole backward {ms:.4f} ms, in a CUDA "
+              f"graph {g_ms:.4f} ms ({tflops:.1f} TFLOP/s); fused kernel {parts['fused'][0]:.4f} "
+              f"/ graph {parts['fused'][1]:.4f}, pre-pass {parts['prep'][0]:.4f} / "
+              f"{parts['prep'][1]:.4f}, post-pass {parts['post'][0]:.4f} / "
+              f"{parts['post'][1]:.4f}; bound {bound:.4f} ms ({bound_by}, {bound / g_ms:.3f} "
+              f"of it); plain {plain_ms:.4f} ms (its D {plain_delta_ms:.4f}); sdpa backward "
+              f"({backend}) {ms_text(lib_ms)}, graph {ms_text(lib_g_ms)}", flush=True)
+        shapes[label] = {
+            "at": [B, N, h, d], "max_abs_err": max(errs.values()), "ms": ms, "graph_ms": g_ms,
+            "fused_ms": parts["fused"][0], "fused_graph_ms": parts["fused"][1],
+            "prep_ms": parts["prep"][0], "prep_graph_ms": parts["prep"][1],
+            "post_ms": parts["post"][0], "post_graph_ms": parts["post"][1],
+            "plain_ms": plain_ms, "library_ms": lib_ms, "library_graph_ms": lib_g_ms,
+            "library_backend": backend, "bound_ms": bound, "bound_by": bound_by}
+        if label == "decoder":
+            elems, rows = B * N * h * d, B * h * n_pad
+            prep_bytes = 2 * elems * 2 + B * h * N * 4 + rows * 2 * 4 + rows * d * 4
+            post_bytes = rows * d * 4 + elems * 2
+            result = {
+                "fused": {k_: x for k_, x in shapes[label].items() if k_ != "at"},
+                "prep": {"max_abs_err": err_d, "ms": parts["prep"][0],
+                         "graph_ms": parts["prep"][1], "plain_ms": plain_delta_ms,
+                         "library_ms": None, "bound_ms": prep_bytes / PEAK_HBM_BYTES * 1e3,
+                         "bound_by": "bytes"},
+                "post": {"max_abs_err": err_post, "ms": parts["post"][0],
+                         "graph_ms": parts["post"][1],
+                         "plain_ms": time_ms(lambda: acc.to(torch.bfloat16)),
+                         "library_ms": None, "bound_ms": post_bytes / PEAK_HBM_BYTES * 1e3,
+                         "bound_by": "bytes"}}
+        del w, qs, k, v, o, lse, do, grads, again, refs
+    result["fused"]["shapes"] = shapes
 
     # What the kernels do not take raises on the card: no plain fallback.
     q, qs, k, v = qkv_inputs(2, 64, 2, 64, seed=0)
@@ -709,6 +868,91 @@ def profile_jepa(step, state, batch, enc_cap: int, pred_cap: int, npred: int,
                   f"{ms * calls * 1e3 / busy_us:.3f} of device time", flush=True)
 
 
+def time_train_steps(make_state, step, video, steps: int = 10) -> tuple:
+    """Device time of one training step (``step(state, video)``), ms, by
+    CUDA events over ``steps`` steps after 3 warm-up steps from a fresh
+    ``make_state()``, with peak memory counted from that state's creation;
+    returns ``(ms, losses, state)``."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    state = make_state()
+    for _ in range(3):
+        step(state, video)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses = [step(state, video)["loss"] for _ in range(steps)]
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps, torch.stack(losses).tolist(), state
+
+
+def phase_ab(card: str) -> None:
+    """The readings of a parent/change comparison, through entry points that
+    this tree and its parent share, so that this file, copied into the
+    parent's tree and run from its root, times the parent's kernels the same
+    way: the unmasked backward (``flash_bwd_cuda``, D included) at the
+    decoder, encoder and odd-N shapes by events and in a CUDA graph; its
+    kernels alone in a graph (this tree's pre-pass, fused kernel and
+    post-pass, or the parent's dQ and dK/dV pair); SDPA's backward with its
+    backend pinned; and VideoMAE-B training at B=48 (step ms, clips/s, peak
+    memory).  Prints one JSON line."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    from bvc_tpu_torch.models.videomae import VideoMAEPretrain
+    from bvc_tpu_torch.ops import flash_attention as fa
+    from bvc_tpu_torch.training.state import TrainState
+    from bvc_tpu_torch.training.steps import make_videomae_train_step
+    from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig
+
+    out = {"card": card, "tree": str(REPO)}
+    for label, (B, N, h, d) in (("decoder", (8, 1568, 6, 64)),
+                                ("encoder", (8, 160, 12, 64)),
+                                ("odd N", (8, 197, 12, 64))):
+        _, qs, k, v = qkv_inputs(B, N, h, d, seed=2 * N + h)
+        gen = torch.Generator(device="cuda").manual_seed(N)
+        do = torch.randn((B, N, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        o, lse = fa.flash_fwd_cuda(qs, k, v)
+        if hasattr(fa, "unmasked_bwd_operands"):
+            w = fa.unmasked_bwd_operands(qs, k, v, o, lse, do)
+
+            def kernels():
+                fa.launch_bwd_prep(w)
+                fa.launch_bwd_fused(w)
+                fa.launch_bwd_post(w)
+        else:
+            operands = fa.bwd_operands(qs, k, v, o, lse, do)
+
+            def kernels():
+                fa.launch_dq(*operands)
+                fa.launch_dkv(*operands)
+
+        def whole():
+            fa.flash_bwd_cuda(qs, k, v, o, lse, do)
+
+        lib_ms, lib_g_ms, backend = sdpa_bwd_ms(
+            qs, k, v, do, (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION))
+        out[label] = {"whole_ms": time_ms(whole), "whole_graph_ms": graph_ms(whole),
+                      "kernels_ms": time_ms(kernels), "kernels_graph_ms": graph_ms(kernels),
+                      "sdpa_ms": lib_ms, "sdpa_graph_ms": lib_g_ms, "sdpa_backend": backend,
+                      "bound_ms": bwd_bound_ms(B, N, h, d, 5, 3)[0]}
+        del qs, k, v, o, lse, do
+    cfg = ModelConfig()
+    optim = OptimConfig(name="sgd", lr=0.1, momentum=0.9)
+    step = make_videomae_train_step(cfg, MaskConfig(sampler="tube", mask_ratio=0.9))
+    shape = (48, cfg.num_frames, cfg.image_size, cfg.image_size, cfg.in_channels)
+    video = torch.randint(0, 256, shape, dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(0)).cuda()
+    ms, losses, _ = time_train_steps(
+        lambda: TrainState.create(VideoMAEPretrain(cfg, seed=0), optim, seed=1), step, video)
+    check(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
+    out["train_b48"] = {"step_ms": ms, "clips_s": 48 / (ms / 1e3),
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print("ab " + json.dumps(out), flush=True)
+
+
 def phase_train(card: str, profile: str | None) -> dict[str, int]:
     """VideoMAE-B pretraining steps on the card through the port's entry
     points (``VideoMAEPretrain``, ``TrainState.create``,
@@ -747,8 +991,8 @@ def phase_train(card: str, profile: str | None) -> dict[str, int]:
     launches = read_launches()
     print(f"train: one step at B=8 launched {launches}", flush=True)
     layers = cfg.depth + cfg.decoder_depth
-    expected = {**{k: 0 for k in launches}, "flash_fwd": layers, "flash_bwd_dq": layers,
-                "flash_bwd_dkv": layers}
+    expected = {**{k: 0 for k in launches}, "flash_fwd": layers, "flash_bwd": layers,
+                "flash_bwd_prep": layers, "flash_bwd_post": layers}
     check(launches == expected, f"expected {expected} in one step, got {launches}")
 
     plain = TrainState.create(VideoMAEPretrain(cfg, seed=0), optim, seed=1)
@@ -785,17 +1029,10 @@ def phase_train(card: str, profile: str | None) -> dict[str, int]:
     flops = train_flops_per_clip(cfg, num_visible)
     for B in (48, 32, 16):
         try:
-            torch.cuda.reset_peak_memory_stats()
-            state = TrainState.create(VideoMAEPretrain(cfg, seed=0), optim, seed=1)
             video = clips(B)
-            for _ in range(3):
-                step(state, video)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            losses = [step(state, video)["loss"] for _ in range(10)]
-            end.record()
-            torch.cuda.synchronize()
+            ms, losses, state = time_train_steps(
+                lambda: TrainState.create(VideoMAEPretrain(cfg, seed=0), optim, seed=1),
+                step, video)
             fits = True
         except torch.cuda.OutOfMemoryError:
             fits = False
@@ -805,13 +1042,11 @@ def phase_train(card: str, profile: str | None) -> dict[str, int]:
             gc.collect()
             torch.cuda.empty_cache()
             continue
-        ms = start.elapsed_time(end) / 10
-        losses = torch.stack(losses).tolist()
         check(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
         clips_s = B / (ms / 1e3)
-        print(f"train [{card}]: B={B} step {ms:.2f} ms -> {clips_s:.1f} clips/s, "
+        print(f"train [{card}]: B={B} step {ms:.3f} ms -> {clips_s:.1f} clips/s, "
               f"MFU {flops * clips_s / PEAK_BF16_FLOPS:.4f} ({flops / 1e9:.1f} GFLOP/clip), "
-              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
               f"losses {losses[0]:.4f} .. {losses[-1]:.4f}", flush=True)
         if profile is not None:
             profile_train(step, state, video, num_visible,
@@ -885,6 +1120,7 @@ def phase_bias_kernel() -> dict:
     the predictor shape's numbers under ``"predictor"``."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
 
     from bvc_tpu_torch.masks.multiblock import mask_collate
     from bvc_tpu_torch.ops.flash_attention import (bwd_operands, flash_attention_bwd_ref,
@@ -959,38 +1195,43 @@ def phase_bias_kernel() -> dict:
         plain_fwd_ms = time_ms(lambda: flash_attention_fwd_ref(qs, k, v, bias), iters=5)
         plain_bwd_ms = time_ms(lambda: flash_attention_bwd_ref(qs, k, v, o, lse, do, bias),
                                iters=5)
-        # yardstick only (the port never calls it): SDPA with the bias as
-        # its additive mask; its backward as forward plus backward less the
-        # forward
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (qs, k, v))
+        # the port's key-bias backward (both kernels) in a CUDA graph, and as
+        # a yardstick only (the port never calls it) SDPA with the bias as
+        # its additive mask: its forward, and its backward with the backend
+        # pinned, in a graph (forward plus backward less the forward)
+        bwd_g_ms = graph_ms(lambda: (launch_dq(*operands), launch_dkv(*operands)))
+        qt, kt, vt = (x.transpose(1, 2) for x in (qs, k, v))
         amask = bias.to(torch.bfloat16)[:, None, None, :]
-        dot = do.transpose(1, 2)
-
-        def sdpa_fwd():
-            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask, scale=1.0)
-
         with torch.no_grad():
-            lib_fwd_ms = time_ms(sdpa_fwd)
-        lib_bwd_ms = (time_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot))
-                      - time_ms(sdpa_fwd))
+            lib_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=amask, scale=1.0))
+        lib_bwd_ms, lib_bwd_g_ms, backend = sdpa_bwd_ms(
+            qs, k, v, do, (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION), amask)
+        print(f"flash_bias backward [{B},{N},{h},{d}] ({label}): dq + dkv in a CUDA graph "
+              f"{bwd_g_ms:.4f} ms; sdpa backward ({backend}) graph {ms_text(lib_bwd_g_ms)}",
+              flush=True)
         records = {}
         for name, ms, plain_ms, lib_ms, bound, err in (
                 ("fwd", fwd_ms, plain_fwd_ms, lib_fwd_ms,
                  attention_bound_ms(B, N, h, d, bias=True), err_o),
                 ("dq", dq_ms, plain_bwd_ms, lib_bwd_ms,
-                 bwd_bound_ms(B, N, h, d, 3, bias=True), errs["dq"]),
+                 bwd_bound_ms(B, N, h, d, 3, 1, bias=True), errs["dq"]),
                 ("dkv", dkv_ms, plain_bwd_ms, lib_bwd_ms,
-                 bwd_bound_ms(B, N, h, d, 4, bias=True), max(errs["dk"], errs["dv"]))):
+                 bwd_bound_ms(B, N, h, d, 4, 2, bias=True), max(errs["dk"], errs["dv"]))):
             records[name] = {"at": [B, N, h, d], "max_abs_err": err, "ms": ms,
                              "plain_ms": plain_ms, "library_ms": lib_ms,
                              "bound_ms": bound[0], "bound_by": bound[1]}
+            if name != "fwd":  # both kernels together, and SDPA's backward, in a graph
+                records[name].update({"bwd_graph_ms": bwd_g_ms,
+                                      "library_graph_ms": lib_bwd_g_ms,
+                                      "library_backend": backend})
             products = {"fwd": 2, "dq": 3, "dkv": 4}[name]
             tflops = 2 * products * B * h * N * N * d / ms / 1e9
             print(f"flash_bias {name} [{B},{N},{h},{d}] ({label}): kernel {ms:.4f} ms "
                   f"({tflops:.1f} TFLOP/s), bound {bound[0]:.4f} ms ({bound[1]}, "
                   f"{bound[0] / ms:.3f} of it), plain {plain_ms:.4f} ms"
                   f"{' (dq and dkv together)' if name != 'fwd' else ''}, sdpa "
-                  f"{'backward ' if name != 'fwd' else ''}{lib_ms:.4f} ms", flush=True)
+                  f"{'backward ' if name != 'fwd' else ''}{ms_text(lib_ms)}", flush=True)
         for name, rec in records.items():
             if label == "context":
                 result[name] = rec
@@ -1455,8 +1696,9 @@ def _launch_counters() -> dict:
     from bvc_tpu_torch.probes.softmax_dtype import softmax_probe_fwd_cuda
 
     return {"flash_fwd": (flash_fwd_cuda, "launches"),
-            "flash_bwd_dq": (flash_bwd_cuda, "launches_dq"),
-            "flash_bwd_dkv": (flash_bwd_cuda, "launches_dkv"),
+            "flash_bwd_prep": (flash_bwd_cuda, "launches_prep"),
+            "flash_bwd": (flash_bwd_cuda, "launches_fused"),
+            "flash_bwd_post": (flash_bwd_cuda, "launches_post"),
             "flash_fwd_bias": (flash_fwd_cuda, "launches_bias"),
             "flash_bwd_dq_bias": (flash_bwd_cuda, "launches_dq_bias"),
             "flash_bwd_dkv_bias": (flash_bwd_cuda, "launches_dkv_bias"),
@@ -1695,6 +1937,9 @@ def phase_entry_point() -> None:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--ab", action="store_true",
+                        help="only build the kernels and print the parent/change readings "
+                             "(phase_ab), one JSON line after 'ab '")
     parser.add_argument("--profile", nargs="?", const="", default=None, metavar="FILE",
                         help="print torch.profiler breakdowns of one bf16 and one W8A8 "
                              "embed call and one VideoMAE and one JEPA training step "
@@ -1719,14 +1964,18 @@ def main() -> None:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}",
           flush=True)
+    if args.ab:  # the kernels build at first use
+        phase_ab(smi)
+        return
     t0 = time.perf_counter()
-    kernels = ["flash_fwd", "flash_bwd", "gemm", "softmax_probe"]
+    kernels = ["flash_fwd", "flash_bwd", "flash_bwd_sm90", "gemm", "softmax_probe"]
     _build.build_all(kernels)
     print(f"built {kernels} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in kernels:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "serialized", "Compiling entry")):
                 print(f"  {name}: {line.strip()}", flush=True)
+    check_no_spills_or_serialisation("flash_bwd_sm90", "flash_bwd_sm90")
 
     from bvc_tpu_torch.probes import int8_dot, softmax_dtype
 
@@ -1740,6 +1989,7 @@ def main() -> None:
     print(f"SM clock (clocks.max.sm) {sm_clock_mhz():.0f} MHz, "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs", flush=True)
     phase_attn_tile()
+    phase_bwd_tile()
     flash = phase_kernel()
     bwd = phase_bwd_kernel()
     bias = phase_bias_kernel()
@@ -1761,6 +2011,7 @@ def main() -> None:
     # counts beside them
     fwd_src = "bvc_tpu_torch/csrc/flash_fwd.cu"
     bwd_src = "bvc_tpu_torch/csrc/flash_bwd.cu"
+    bwd_sm90_src = "bvc_tpu_torch/csrc/flash_bwd_sm90.cu"
     replaces = "bvc_tpu/ops/flash_attention.py"
     records = [
         {"name": "flash_fwd", "route": "cuda", "source": fwd_src,
@@ -1769,12 +2020,15 @@ def main() -> None:
          "launches_per_w8a8_embed": w8a8_launches["videomae"]["flash_fwd"],
          "launches_per_jepa_step": jepa_launches["flash_fwd"],
          "launches_per_jepa_embed": jepa_embed_launches, "at": [8, 1568, 12, 64], **flash},
-        {"name": "flash_bwd_dq", "route": "cuda", "source": bwd_src,
-         "replaces": f"{replaces}:250", "launches": train_launches["flash_bwd_dq"],
-         "at": [8, 1568, 6, 64], **bwd["dq"]},
-        {"name": "flash_bwd_dkv", "route": "cuda", "source": bwd_src,
-         "replaces": f"{replaces}:278", "launches": train_launches["flash_bwd_dkv"],
-         "at": [8, 1568, 6, 64], **bwd["dkv"]},
+        {"name": "flash_bwd", "route": "cuda", "source": bwd_sm90_src,
+         "replaces": f"{replaces}:250 and :278", "launches": train_launches["flash_bwd"],
+         "at": [8, 1568, 6, 64], **bwd["fused"]},
+        {"name": "flash_bwd_prep", "route": "cuda", "source": bwd_sm90_src,
+         "replaces": f"{replaces}:317 (D of _bwd, for :250 and :278)",
+         "launches": train_launches["flash_bwd_prep"], "at": [8, 1568, 6, 64], **bwd["prep"]},
+        {"name": "flash_bwd_post", "route": "cuda", "source": bwd_sm90_src,
+         "replaces": f"{replaces}:250 (dQ's bf16 store)",
+         "launches": train_launches["flash_bwd_post"], "at": [8, 1568, 6, 64], **bwd["post"]},
         {"name": "flash_fwd_bias", "route": "cuda", "source": fwd_src,
          "replaces": f"{replaces}:74", "launches": jepa_launches["flash_fwd_bias"],
          **bias["fwd"]},

@@ -94,10 +94,14 @@ def test_cpu_dispatch_is_the_plain_version():
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
-    # the CUDA wrapper never runs anything but the kernels
+    # the CUDA wrapper never runs anything but the kernels, with or without a
+    # key bias, and counts no launch when it refuses
     x = torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16)
     lse = torch.zeros(1, 1, 8)
-    counts = flash_bwd_cuda.launches_dq, flash_bwd_cuda.launches_dkv
-    with pytest.raises(ValueError, match="CUDA bf16"):
-        flash_bwd_cuda(x, x, x, x, lse, x)
-    assert (flash_bwd_cuda.launches_dq, flash_bwd_cuda.launches_dkv) == counts
+    counters = ("launches_prep", "launches_fused", "launches_post",
+                "launches_dq_bias", "launches_dkv_bias")
+    counts = [getattr(flash_bwd_cuda, c) for c in counters]
+    for bias in (None, torch.zeros(1, 8)):
+        with pytest.raises(ValueError, match="CUDA bf16"):
+            flash_bwd_cuda(x, x, x, x, lse, x, bias)
+    assert [getattr(flash_bwd_cuda, c) for c in counters] == counts
