@@ -39,7 +39,8 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    within 1e-3 in |err|/|ref|, and a second run within 1e-3 of the first
    (dQ's f32 sum over key tiles has no fixed order); the pre-pass's D against the plain
    one and the post-pass's dQ equal to bf16 of the accumulator.  Times of
-   the whole backward and of each kernel, by events and in a CUDA graph,
+   the whole backward (through ``flash_bwd_cuda``) and of each kernel, by
+   events and in a CUDA graph, the pre- and post-pass also with L2 flushed,
    beside the 5-product bound, the plain version and SDPA's backward in a
    graph with its backend pinned (flash, and cuDNN where it runs; the
    faster is kept).
@@ -127,6 +128,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -206,17 +208,22 @@ def ms_text(ms: float | None) -> str:
 
 
 def check_no_spills_or_serialisation(name: str, kernel: str) -> None:
-    """Fail unless ``ptxas -v`` reports no spill bytes for the kernel whose
-    mangled name holds ``kernel`` in ``csrc/<name>.cu``, and no wgmma
-    serialisation warning for the source."""
+    """Fail unless ``ptxas -v`` reports no spill bytes for the kernel named
+    ``kernel`` in ``csrc/<name>.cu``, and no wgmma serialisation warning for
+    the source.  The entry is found by the kernel's own mangled name (its
+    length, the name, then ``E`` or a template's ``I``), not by a substring:
+    the file's other kernels carry the file name in their namespace tag."""
     from bvc_tpu_torch.ops import _build
 
     log = _build.build_log(name)
     check("serialized" not in log, f"ptxas serialises wgmma in {name}.cu")
+    own = re.compile(rf"{len(kernel)}{re.escape(kernel)}[EI]")
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and kernel in line:
+        if "Compiling entry" in line and own.search(line):
             for after in lines[i + 1:i + 5]:
+                if "Compiling entry" in after:
+                    break
                 if "spill" in after:
                     check(" 0 bytes spill stores, 0 bytes spill loads" in after,
                           f"{kernel} spills: {after.strip()}")
@@ -229,6 +236,26 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     from bvc_tpu_torch.utils.device import cuda_time_ms
 
     return cuda_time_ms(fn, iters, warmup)
+
+
+def cold_ms(fn, iters: int = 20) -> float:
+    """Mean device time of one ``fn()`` by CUDA events, with the L2 cache
+    flushed before each call (256 MiB written, five times the H100's L2):
+    for a short kernel whose input a loop of back-to-back calls would find
+    in L2, where a bound at the HBM rate would not hold."""
+    import torch
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / iters
 
 
 def attention_bound_ms(B: int, N: int, h: int, d: int,
@@ -527,18 +554,55 @@ def sdpa_bwd_ms(qs, k, v, do, backends, attn_mask=None) -> tuple:
     return best
 
 
+def bwd_inputs(B: int, N: int, h: int, d: int) -> tuple:
+    """``(qs, k, v, o, lse, do)`` of a backward at ``[B, N, h, d]``: the
+    inputs of :func:`qkv_inputs`, a random dO and the flash forward's O and
+    LSE, seeded by the shape."""
+    import torch
+
+    from bvc_tpu_torch.ops.flash_attention import flash_fwd_cuda
+
+    _, qs, k, v = qkv_inputs(B, N, h, d, seed=2 * N + h)
+    gen = torch.Generator(device="cuda").manual_seed(N)
+    do = torch.randn((B, N, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    o, lse = flash_fwd_cuda(qs, k, v)
+    return qs, k, v, o, lse, do
+
+
+def bwd_entry_ms(qs, k, v, o, lse, do) -> dict:
+    """The unmasked backward through its entry point ``flash_bwd_cuda``
+    (every kernel it launches, its outputs and scratch allocated), by events
+    and in a CUDA graph, beside SDPA's backward in a graph with its backend
+    pinned.  It calls nothing but entry points the port has had since its
+    first backward kernels, so this file, copied into an earlier tree of the
+    port and run from its root, times that tree's backward the same way."""
+    from torch.nn.attention import SDPBackend
+
+    from bvc_tpu_torch.ops.flash_attention import flash_bwd_cuda
+
+    def whole():
+        flash_bwd_cuda(qs, k, v, o, lse, do)
+
+    lib_ms, lib_g_ms, backend = sdpa_bwd_ms(
+        qs, k, v, do, (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION))
+    return {"whole_ms": time_ms(whole), "whole_graph_ms": graph_ms(whole),
+            "library_ms": lib_ms, "library_graph_ms": lib_g_ms, "library_backend": backend}
+
+
 def phase_bwd_kernel() -> dict:
     """The unmasked backward (pre-pass, fused kernel, post-pass of
     ``csrc/flash_bwd_sm90.cu``) against its plain version at the decoder,
     encoder-in-training and odd-N shapes, twice (the dQ sum's order is not
     fixed, so the runs agree within BWD_REL_TOL, not bit for bit), the
     pre- and post-pass each against their plain versions; times by events
-    and in a CUDA graph beside the 5-product bound, the plain version and
-    SDPA's backward with its backend pinned.  Returns the three kernels'
-    records at the decoder shape, with every shape's numbers under
-    ``"shapes"``."""
+    and in a CUDA graph of each kernel and of the whole backward
+    (:func:`bwd_entry_ms`) beside the 5-product bound, the plain version and
+    SDPA's backward with its backend pinned, the pre- and post-pass also
+    with L2 flushed (:func:`cold_ms`).  Returns the three kernels' records
+    at the decoder shape (``ms`` and ``graph_ms`` each kernel's own, the
+    whole backward's under ``whole_ms`` and ``whole_graph_ms``), with every
+    shape's numbers under ``"shapes"``."""
     import torch
-    from torch.nn.attention import SDPBackend
 
     from bvc_tpu_torch.ops.flash_attention import (_delta, flash_attention_bwd_ref,
                                                    flash_bwd_cuda, flash_fwd_cuda,
@@ -550,10 +614,7 @@ def phase_bwd_kernel() -> dict:
     for label, (B, N, h, d) in (("decoder", (8, 1568, 6, 64)),
                                 ("encoder", (8, 160, 12, 64)),
                                 ("odd N", (8, 197, 12, 64))):
-        _, qs, k, v = qkv_inputs(B, N, h, d, seed=2 * N + h)
-        gen = torch.Generator(device="cuda").manual_seed(N)
-        do = torch.randn((B, N, h, d), generator=gen, device="cuda").to(torch.bfloat16)
-        o, lse = flash_fwd_cuda(qs, k, v)
+        qs, k, v, o, lse, do = bwd_inputs(B, N, h, d)
         grads = flash_bwd_cuda(qs, k, v, o, lse, do)
         again = flash_bwd_cuda(qs, k, v, o, lse, do)
         refs = flash_attention_bwd_ref(qs, k, v, o, lse, do)
@@ -601,52 +662,58 @@ def phase_bwd_kernel() -> dict:
               f"flash_bwd_prep disagrees with the plain version at {label}")
         check(err_post == 0, f"flash_bwd_post disagrees with bf16(acc) at {label}: {err_post}")
 
-        def whole():
-            launch_bwd_prep(w)
-            launch_bwd_fused(w)
-            launch_bwd_post(w)
-
-        ms, g_ms = time_ms(whole), graph_ms(whole)
+        entry = bwd_entry_ms(qs, k, v, o, lse, do)
         parts = {}
         for name, fn in (("prep", lambda: launch_bwd_prep(w)),
                          ("fused", lambda: launch_bwd_fused(w)),
                          ("post", lambda: launch_bwd_post(w))):
             parts[name] = (time_ms(fn), graph_ms(fn))
         plain_ms = time_ms(lambda: flash_attention_bwd_ref(qs, k, v, o, lse, do), iters=5)
-        plain_delta_ms = time_ms(lambda: _delta(o, do))
-        lib_ms, lib_g_ms, backend = sdpa_bwd_ms(
-            qs, k, v, do, (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION))
         bound, bound_by = bwd_bound_ms(B, N, h, d, 5, 3)
-        tflops = 10 * B * h * N * N * d / g_ms / 1e9
-        print(f"flash_bwd [{B},{N},{h},{d}] ({label}): whole backward {ms:.4f} ms, in a CUDA "
-              f"graph {g_ms:.4f} ms ({tflops:.1f} TFLOP/s); fused kernel {parts['fused'][0]:.4f} "
-              f"/ graph {parts['fused'][1]:.4f}, pre-pass {parts['prep'][0]:.4f} / "
-              f"{parts['prep'][1]:.4f}, post-pass {parts['post'][0]:.4f} / "
-              f"{parts['post'][1]:.4f}; bound {bound:.4f} ms ({bound_by}, {bound / g_ms:.3f} "
-              f"of it); plain {plain_ms:.4f} ms (its D {plain_delta_ms:.4f}); sdpa backward "
-              f"({backend}) {ms_text(lib_ms)}, graph {ms_text(lib_g_ms)}", flush=True)
+        g_ms = entry["whole_graph_ms"]
+        print(f"flash_bwd [{B},{N},{h},{d}] ({label}): whole backward (flash_bwd_cuda) "
+              f"{entry['whole_ms']:.4f} ms, in a CUDA graph {g_ms:.4f} ms "
+              f"({10 * B * h * N * N * d / g_ms / 1e9:.1f} TFLOP/s); fused kernel "
+              f"{parts['fused'][0]:.4f} / graph {parts['fused'][1]:.4f}, pre-pass "
+              f"{parts['prep'][0]:.4f} / {parts['prep'][1]:.4f}, post-pass "
+              f"{parts['post'][0]:.4f} / {parts['post'][1]:.4f}; bound {bound:.4f} ms "
+              f"({bound_by}, {bound / g_ms:.3f} of the whole, {bound / parts['fused'][1]:.3f} "
+              f"of the fused kernel); plain {plain_ms:.4f} ms; sdpa backward "
+              f"({entry['library_backend']}) {ms_text(entry['library_ms'])}, graph "
+              f"{ms_text(entry['library_graph_ms'])}", flush=True)
         shapes[label] = {
-            "at": [B, N, h, d], "max_abs_err": max(errs.values()), "ms": ms, "graph_ms": g_ms,
-            "fused_ms": parts["fused"][0], "fused_graph_ms": parts["fused"][1],
+            "at": [B, N, h, d], "max_abs_err": max(errs.values()),
+            "ms": parts["fused"][0], "graph_ms": parts["fused"][1], **entry,
             "prep_ms": parts["prep"][0], "prep_graph_ms": parts["prep"][1],
             "post_ms": parts["post"][0], "post_graph_ms": parts["post"][1],
-            "plain_ms": plain_ms, "library_ms": lib_ms, "library_graph_ms": lib_g_ms,
-            "library_backend": backend, "bound_ms": bound, "bound_by": bound_by}
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
         if label == "decoder":
+            # The pre- and post-pass each move a few tens of MB, which a loop
+            # of back-to-back calls finds in L2: their records are timed with
+            # L2 flushed (graph_ms stays the warm reading).  Their bounds
+            # count the bytes each must move: the pre-pass reads O, dO and L
+            # and writes the stats table and the whole zeroed accumulator;
+            # the post-pass reads the accumulator's N rows and writes dQ.
             elems, rows = B * N * h * d, B * h * n_pad
             prep_bytes = 2 * elems * 2 + B * h * N * 4 + rows * 2 * 4 + rows * d * 4
-            post_bytes = rows * d * 4 + elems * 2
+            post_bytes = elems * 4 + elems * 2
             result = {
-                "fused": {k_: x for k_, x in shapes[label].items() if k_ != "at"},
-                "prep": {"max_abs_err": err_d, "ms": parts["prep"][0],
-                         "graph_ms": parts["prep"][1], "plain_ms": plain_delta_ms,
-                         "library_ms": None, "bound_ms": prep_bytes / PEAK_HBM_BYTES * 1e3,
-                         "bound_by": "bytes"},
-                "post": {"max_abs_err": err_post, "ms": parts["post"][0],
-                         "graph_ms": parts["post"][1],
-                         "plain_ms": time_ms(lambda: acc.to(torch.bfloat16)),
-                         "library_ms": None, "bound_ms": post_bytes / PEAK_HBM_BYTES * 1e3,
-                         "bound_by": "bytes"}}
+                "fused": {k_: x for k_, x in shapes[label].items()
+                          if k_ != "at" and not k_.startswith(("prep", "post"))},
+                "prep": {"max_abs_err": err_d, "ms": cold_ms(lambda: launch_bwd_prep(w)),
+                         "graph_ms": parts["prep"][1], "l2": "flushed before each call",
+                         "plain_ms": cold_ms(lambda: _delta(o, do)), "library_ms": None,
+                         "bound_ms": prep_bytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes"},
+                "post": {"max_abs_err": err_post, "ms": cold_ms(lambda: launch_bwd_post(w)),
+                         "graph_ms": parts["post"][1], "l2": "flushed before each call",
+                         "plain_ms": cold_ms(lambda: acc.to(torch.bfloat16)),
+                         "library_ms": cold_ms(lambda: acc.to(torch.bfloat16)),
+                         "bound_ms": post_bytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes"}}
+            print(f"flash_bwd_prep with L2 flushed {result['prep']['ms']:.4f} ms (bound "
+                  f"{result['prep']['bound_ms']:.4f}, plain D {result['prep']['plain_ms']:.4f}); "
+                  f"flash_bwd_post {result['post']['ms']:.4f} ms (bound "
+                  f"{result['post']['bound_ms']:.4f}, acc.to(bfloat16) "
+                  f"{result['post']['library_ms']:.4f})", flush=True)
         del w, qs, k, v, o, lse, do, grads, again, refs
     result["fused"]["shapes"] = shapes
 
@@ -886,71 +953,6 @@ def time_train_steps(make_state, step, video, steps: int = 10) -> tuple:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / steps, torch.stack(losses).tolist(), state
-
-
-def phase_ab(card: str) -> None:
-    """The readings of a parent/change comparison, through entry points that
-    this tree and its parent share, so that this file, copied into the
-    parent's tree and run from its root, times the parent's kernels the same
-    way: the unmasked backward (``flash_bwd_cuda``, D included) at the
-    decoder, encoder and odd-N shapes by events and in a CUDA graph; its
-    kernels alone in a graph (this tree's pre-pass, fused kernel and
-    post-pass, or the parent's dQ and dK/dV pair); SDPA's backward with its
-    backend pinned; and VideoMAE-B training at B=48 (step ms, clips/s, peak
-    memory).  Prints one JSON line."""
-    import torch
-    from torch.nn.attention import SDPBackend
-
-    from bvc_tpu_torch.models.videomae import VideoMAEPretrain
-    from bvc_tpu_torch.ops import flash_attention as fa
-    from bvc_tpu_torch.training.state import TrainState
-    from bvc_tpu_torch.training.steps import make_videomae_train_step
-    from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig
-
-    out = {"card": card, "tree": str(REPO)}
-    for label, (B, N, h, d) in (("decoder", (8, 1568, 6, 64)),
-                                ("encoder", (8, 160, 12, 64)),
-                                ("odd N", (8, 197, 12, 64))):
-        _, qs, k, v = qkv_inputs(B, N, h, d, seed=2 * N + h)
-        gen = torch.Generator(device="cuda").manual_seed(N)
-        do = torch.randn((B, N, h, d), generator=gen, device="cuda").to(torch.bfloat16)
-        o, lse = fa.flash_fwd_cuda(qs, k, v)
-        if hasattr(fa, "unmasked_bwd_operands"):
-            w = fa.unmasked_bwd_operands(qs, k, v, o, lse, do)
-
-            def kernels():
-                fa.launch_bwd_prep(w)
-                fa.launch_bwd_fused(w)
-                fa.launch_bwd_post(w)
-        else:
-            operands = fa.bwd_operands(qs, k, v, o, lse, do)
-
-            def kernels():
-                fa.launch_dq(*operands)
-                fa.launch_dkv(*operands)
-
-        def whole():
-            fa.flash_bwd_cuda(qs, k, v, o, lse, do)
-
-        lib_ms, lib_g_ms, backend = sdpa_bwd_ms(
-            qs, k, v, do, (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION))
-        out[label] = {"whole_ms": time_ms(whole), "whole_graph_ms": graph_ms(whole),
-                      "kernels_ms": time_ms(kernels), "kernels_graph_ms": graph_ms(kernels),
-                      "sdpa_ms": lib_ms, "sdpa_graph_ms": lib_g_ms, "sdpa_backend": backend,
-                      "bound_ms": bwd_bound_ms(B, N, h, d, 5, 3)[0]}
-        del qs, k, v, o, lse, do
-    cfg = ModelConfig()
-    optim = OptimConfig(name="sgd", lr=0.1, momentum=0.9)
-    step = make_videomae_train_step(cfg, MaskConfig(sampler="tube", mask_ratio=0.9))
-    shape = (48, cfg.num_frames, cfg.image_size, cfg.image_size, cfg.in_channels)
-    video = torch.randint(0, 256, shape, dtype=torch.uint8,
-                          generator=torch.Generator().manual_seed(0)).cuda()
-    ms, losses, _ = time_train_steps(
-        lambda: TrainState.create(VideoMAEPretrain(cfg, seed=0), optim, seed=1), step, video)
-    check(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
-    out["train_b48"] = {"step_ms": ms, "clips_s": 48 / (ms / 1e3),
-                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    print("ab " + json.dumps(out), flush=True)
 
 
 def phase_train(card: str, profile: str | None) -> dict[str, int]:
@@ -1937,9 +1939,6 @@ def phase_entry_point() -> None:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--ab", action="store_true",
-                        help="only build the kernels and print the parent/change readings "
-                             "(phase_ab), one JSON line after 'ab '")
     parser.add_argument("--profile", nargs="?", const="", default=None, metavar="FILE",
                         help="print torch.profiler breakdowns of one bf16 and one W8A8 "
                              "embed call and one VideoMAE and one JEPA training step "
@@ -1964,9 +1963,6 @@ def main() -> None:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}",
           flush=True)
-    if args.ab:  # the kernels build at first use
-        phase_ab(smi)
-        return
     t0 = time.perf_counter()
     kernels = ["flash_fwd", "flash_bwd", "flash_bwd_sm90", "gemm", "softmax_probe"]
     _build.build_all(kernels)
