@@ -6,8 +6,8 @@ serves VideoMAE and JEPA embeddings, bf16 or W8A8 (``evalbench.extract``,
 ``ops.quant``), and takes VideoMAE and V-JEPA pretraining steps
 (``training.steps``), through hand-written CUDA kernels: the
 flash-attention forward (``csrc/flash_fwd.cu``) and backward
-(``csrc/flash_bwd_sm90.cu`` without a key mask, ``csrc/flash_bwd.cu`` with
-a per-sample key bias), and the tensor-core GEMM (``csrc/gemm.cu``) whose int8 instantiation
+(``csrc/flash_bwd_sm90.cu``), without a key mask or with a per-sample key
+bias, and the tensor-core GEMM (``csrc/gemm.cu``) whose int8 instantiation
 runs the W8A8 products.  ``probes`` holds the counterparts of the JAX
 package's two kernel probes (``csrc/gemm.cu`` in bf16,
 ``csrc/softmax_probe.cu``).

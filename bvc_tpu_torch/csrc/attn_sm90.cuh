@@ -1,8 +1,9 @@
-// The Hopper (sm_90a) attention mainloop's pieces, shared by the unmasked
-// flash forward (flash_fwd.cu) and the softmax probe's forward
-// (softmax_probe.cu): bf16 pre-scaled queries, keys and values at head
-// width 64, read through 4-D TMA tensor maps, products on wgmma.  The
-// unmasked backward (flash_bwd_sm90.cu) takes its tensor maps, helpers and
+// The Hopper (sm_90a) attention mainloop's pieces, shared by the flash
+// forwards (flash_fwd.cu: unmasked, and with a key bias) and the softmax
+// probe's forward (softmax_probe.cu): bf16 pre-scaled queries, keys and
+// values at head width 64 (and 32 for the key-bias kernels, templated on
+// the width D), read through 4-D TMA tensor maps, products on wgmma.  The
+// backward (flash_bwd_sm90.cu) takes its tensor maps, helpers and
 // accumulator layout from here, with a loop of its own.
 //
 // Persistent CTAs of a producer and kConsumers consumer warpgroups
@@ -18,10 +19,12 @@
 //   keys past N is scored while no product is in flight.
 // - The other warpgroups are consumers, 64 queries each.  S = Qs K^T is
 //   wgmma.m64n128k16 with both operands K-major in shared memory (four
-//   k-steps over d = 64); O += P V is wgmma.m64n64k16 with P taken from the
-//   S registers, rounded to bf16 (the accumulator's layout is the A
-//   operand's), and V read MN-major (transposed) from shared memory (eight
-//   k-steps over the tile's 128 keys).
+//   k-steps over d = 64, two over d = 32); O += P V is wgmma.m64n64k16
+//   (m64n32k16 at d = 32) with P taken from the S registers, rounded to
+//   bf16 (the accumulator's layout is the A operand's), and V read MN-major
+//   (transposed) from shared memory (eight k-steps over the tile's 128
+//   keys).  At d = 32 a row is 64 bytes, and tiles take the 64-byte
+//   swizzle (hopper_common.cuh).
 // - Overlap within a warpgroup: the S product of tile j and the P V product
 //   of tile j - 1 are issued together, and the softmax of tile j runs while
 //   P V of tile j - 1 is still on the tensor cores.  Between warpgroups:
@@ -34,7 +37,7 @@
 //   a TMA store, which clips the rows past N and runs on while the consumer
 //   starts its next query tile.
 //
-// Tensor maps read a [.., N, .., 64] bf16 tensor as 4-D (d, N, h, B) with
+// Tensor maps read a [.., N, .., d] bf16 tensor as 4-D (d, N, h, B) with
 // its own element strides, so one map order serves [B, N, h, d] and
 // [B, h, N, d]; rows of a box past N (or past a batch element's end) read as
 // zeros and are not written.  They are encoded on the host for each call
@@ -62,27 +65,40 @@ constexpr int kTileBytes = kBlockN * kD * 2;  // a K or V tile: 16 KB
 constexpr int kHalfBytes = kTileBytes / 2;    // one consumer's 64 rows of Q, or of O
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Sizes at head width D (64 or 32): a bf16 row is one swizzle row of
+// kRowBytes (128 or 64 bytes).
+template <int D>
+struct Width {
+  static_assert(D == 64 || D == 32, "head width 64 or 32");
+  static constexpr int kRowBytes = 2 * D;
+  static constexpr int kTileBytes = kBlockN * kRowBytes;  // a K or V tile
+  static constexpr int kHalfBytes = kTileBytes / 2;       // 64 rows of Q, O, dK or dV
+};
 // named barriers (0 is __syncthreads): kTurnBar + c lets consumer c issue
 // its products; Cta::kStoreBar + c gathers consumer c's staged O tile
 constexpr int kTurnBar = 1;
 
-// A position in a ring of kStages stages, and the parity of its lap.
-struct Ring {
+// A position in a ring of kN stages, and the parity of its lap.
+template <int kN>
+struct StageRing {
   int stage = 0;
   uint32_t phase = 0;
   __device__ __forceinline__ void advance() {
-    if (++stage == kStages) {
+    if (++stage == kN) {
       stage = 0;
       phase ^= 1;
     }
   }
 };
+using Ring = StageRing<kStages>;
 
 __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map,
                                           uint64_t* full, uint64_t* empty, const Ring& r,
-                                          int row, int head, int batch) {
+                                          int row, int head, int batch, uint32_t bytes) {
   hopper::mbar_wait(empty, r.phase ^ 1);  // passes at once on the first lap
-  hopper::mbar_arrive_expect_tx(full, kTileBytes);
+  hopper::mbar_arrive_expect_tx(full, bytes);
   hopper::tma_load_4d(dst, map, 0, row, head, batch, full);
 }
 
@@ -96,25 +112,33 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// S [64 x 128] = Q [64 x 64] K^T: this consumer's Q rows (q_addr) against a
+// S [64 x 128] = Q [64 x D] K^T: this consumer's Q rows (q_addr) against a
 // K tile, both K-major; the first k-step overwrites S.
+template <int D = kD>
 __device__ __forceinline__ void issue_s(float (&s)[64], uint32_t q_addr, uint32_t k_addr) {
+  constexpr int kRow = Width<D>::kRowBytes;
 #pragma unroll
-  for (int ks = 0; ks < kD / 16; ++ks) {
-    hopper::wgmma_m64n128k16(s, hopper::desc_sw128(q_addr + 32 * ks),
-                             hopper::desc_sw128(k_addr + 32 * ks), ks > 0);
+  for (int ks = 0; ks < D / 16; ++ks) {
+    hopper::wgmma_m64n128k16(s, hopper::desc_sw<kRow>(q_addr + 32 * ks),
+                             hopper::desc_sw<kRow>(k_addr + 32 * ks), ks > 0);
   }
 }
 
-// O [64 x 64] += P [64 x 128] V [128 x 64]: P as bf16 A fragments, p[4 ks ..
+// O [64 x D] += P [64 x 128] V [128 x D]: P as bf16 A fragments, p[4 ks ..
 // 4 ks + 3] for the keys [16 ks, 16 ks + 16); V MN-major, 16 rows (2048
-// bytes) a k-step.
-__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[32],
+// bytes at d = 64, 1024 at d = 32) a k-step.
+template <int D = kD>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[32],
                                          uint32_t v_addr) {
 #pragma unroll
   for (int ks = 0; ks < kBlockN / 16; ++ks) {
-    hopper::wgmma_m64n64k16_rs(o, p[4 * ks], p[4 * ks + 1], p[4 * ks + 2], p[4 * ks + 3],
-                               hopper::desc_sw128(v_addr + 2048 * ks));
+    if constexpr (D == 64) {
+      hopper::wgmma_m64n64k16_rs(o, p[4 * ks], p[4 * ks + 1], p[4 * ks + 2], p[4 * ks + 3],
+                                 hopper::desc_sw128(v_addr + 2048 * ks));
+    } else {
+      hopper::wgmma_m64n32k16_rs(o, p[4 * ks], p[4 * ks + 1], p[4 * ks + 2], p[4 * ks + 3],
+                                 hopper::desc_sw<64>(v_addr + 1024 * ks));
+    }
   }
 }
 
@@ -203,34 +227,40 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Element strides of a [.., N, .., 64] tensor: batch, token, head.
+// Element strides of a [.., N, .., d] tensor: batch, token, head.
 struct Strides {
   long long b, n, h;
 };
 
-// The map of a bf16 tensor of `batch` x `n` tokens x `heads` rows of 64,
-// read as (d, N, h, B), in boxes of 64 x `rows` x 1 x 1, 128-byte swizzled,
-// zero-filled out of bounds.
+// The map of a bf16 tensor of `batch` x `n` tokens x `heads` rows of `d`
+// (64, or 32), read as (d, N, h, B), in boxes of d x `rows` x 1 x 1, with
+// the 128-byte swizzle (the 64-byte one at d = 32), zero-filled out of
+// bounds.
 inline CUresult encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, long long batch,
-                           long long n, long long heads, Strides s, int rows) {
-  const cuuint64_t dims[4] = {kD, static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(batch)};
+                           long long n, long long heads, Strides s, int rows, int d = kD) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s.n * 2),
                                  static_cast<cuuint64_t>(s.h * 2),
                                  static_cast<cuuint64_t>(s.b * 2)};
-  const cuuint32_t box[4] = {kD, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(d), static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                d == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // Sizes of a CTA of one producer and kConsumers consumer warpgroups, each
-// consumer taking 64 of the CTA's kBlockM queries, and what depends on them.
-template <int kConsumers>
+// consumer taking 64 of the CTA's kBlockM queries, at head width D, and
+// what depends on them.
+template <int kConsumers, int D = kD>
 struct Cta {
   static constexpr int kBlockM = 64 * kConsumers;
   static constexpr int kThreads = (1 + kConsumers) * 128;
+  static constexpr int kRowBytes = Width<D>::kRowBytes;
+  static constexpr int kTileBytes = Width<D>::kTileBytes;
+  static constexpr int kHalfBytes = Width<D>::kHalfBytes;
   static constexpr int kQBytes = kConsumers * kHalfBytes;
   // setmaxnreg's split of an SM's 64 K registers
   static constexpr int kProducerRegs = kConsumers == 2 ? 40 : 24;
@@ -304,11 +334,11 @@ struct Cta {
         for (int i = 0; i < n_tiles; ++i) {
           const int key0 = (n_tiles - 1 - i) * kBlockN;
           load_tile(sm.k[kr.stage], map_k, &sm.k_full[kr.stage], &sm.k_empty[kr.stage], kr,
-                    key0, head, batch);
+                    key0, head, batch, kTileBytes);
           kr.advance();
           if (pass == k_passes - 1) {
             load_tile(sm.v[vr.stage], map_v, &sm.v_full[vr.stage], &sm.v_empty[vr.stage], vr,
-                      key0, head, batch);
+                      key0, head, batch, kTileBytes);
             vr.advance();
           }
         }
@@ -328,14 +358,14 @@ struct Cta {
     hopper::bar_arrive_if<256>(kTurnBar + (c + 1) % kConsumers, pred);
   }
 
-  // Stages this consumer's O [64 x 64] (f32 accumulators, already
-  // normalised) as bf16 in `stage` (128-byte rows, 16-byte chunk k of row r
-  // at chunk k ^ (r % 8), which also spreads a warp's stores over all
-  // banks), then one thread hands it to a TMA store at query row `row`,
-  // which clips the rows past N and runs on while the consumer goes on to
-  // its next tile.  The staging is rewritten once that thread's previous
-  // store has read it.
-  static __device__ __forceinline__ void store_o(unsigned char* stage, const float (&o)[32],
+  // Stages this consumer's O [64 x D] (f32 accumulators, already
+  // normalised) as bf16 in `stage` (rows of kRowBytes under their swizzle:
+  // at 128-byte rows 16-byte chunk k of row r sits at chunk k ^ (r % 8),
+  // which also spreads a warp's stores over all banks), then one thread
+  // hands it to a TMA store at query row `row`, which clips the rows past N
+  // and runs on while the consumer goes on to its next tile.  The staging
+  // is rewritten once that thread's previous store has read it.
+  static __device__ __forceinline__ void store_o(unsigned char* stage, const float (&o)[D / 2],
                                                  const CUtensorMap* map_o, int row, int head,
                                                  int batch, int c, int warp, int lane) {
     const int g = lane >> 2;
@@ -343,11 +373,13 @@ struct Cta {
     hopper::bulk_wait_read<0>();
     hopper::bar_sync<128>(kStoreBar + c);
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
       for (int x = 0; x < 2; ++x) {
         const int r = 16 * warp + g + 8 * x;
-        *reinterpret_cast<uint32_t*>(stage + r * 128 + ((j ^ g) << 4) + 4 * t) =
+        unsigned char* at = D == 64 ? stage + r * 128 + ((j ^ g) << 4)  // r % 8 = g
+                                    : stage + hopper::swizzle<kRowBytes>(r * kRowBytes + 16 * j);
+        *reinterpret_cast<uint32_t*>(at + 4 * t) =
             pack_bf16(o[4 * j + 2 * x], o[4 * j + 2 * x + 1]);
       }
     }
@@ -367,7 +399,7 @@ struct Cta {
     const void* ptrs[4] = {q, k, v, o};
     const int rows[4] = {kBlockM, kBlockN, kBlockN, 64};
     for (int i = 0; i < 4; ++i) {
-      const CUresult r = encode_map(encode, &maps[i], ptrs[i], batch, n, heads, s[i], rows[i]);
+      const CUresult r = encode_map(encode, &maps[i], ptrs[i], batch, n, heads, s[i], rows[i], D);
       if (r != CUDA_SUCCESS) return r;
     }
     return CUDA_SUCCESS;
@@ -380,18 +412,19 @@ struct Cta {
            (n + kBlockM - 1) / kBlockM * heads * batch < (1ll << 31) - 1024;
   }
 
-  // Lets `kernel` take kSmemBytes of dynamic shared memory and sets `grid`
-  // to one CTA per SM, or one per query tile where there are fewer.
+  // Lets `kernel` take `smem` bytes of dynamic shared memory (kSmemBytes
+  // unless given) and sets `grid` to one CTA per SM, or one per query tile
+  // where there are fewer.
   template <typename Kernel>
   static cudaError_t prepare(Kernel kernel, long long batch, long long n, long long heads,
-                             int* grid) {
+                             int* grid, int smem = kSmemBytes) {
     int device = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&device);
     if (err == cudaSuccess) {
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     }
     if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     }
     const long long tiles = (n + kBlockM - 1) / kBlockM * heads * batch;
     *grid = static_cast<int>(tiles < sms ? tiles : sms);

@@ -6,7 +6,9 @@
 //
 // Shared-memory operands are tiles of 128-byte rows written by TMA with the
 // 128-byte swizzle: 8-row atoms of 1024 bytes, so every tile must start on a
-// 1024-byte boundary.  A K-major operand (K along the row): a wgmma k-step
+// 1024-byte boundary.  (At head width 32 a bf16 row is 64 bytes: the same
+// rules hold with the 64-byte swizzle, 8-row atoms of 512 bytes, 16 k-rows
+// 1024 bytes apart; desc_sw<64> and swizzle<64> below.)  A K-major operand (K along the row): a wgmma k-step
 // reads 32 bytes of each row (k32 for 8-bit types, k16 for bf16), and the
 // descriptor of k-step ks is the tile's descriptor with 2 ks added to its
 // address field (32 bytes in units of 16), as the hardware applies the
@@ -219,6 +221,27 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// The same for rows of kRowBytes (128 or 64) with their own swizzle: 8-row
+// groups 8 kRowBytes apart, layout type 1 (128-byte) or 2 (64-byte).
+template <int kRowBytes>
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr) {
+  static_assert(kRowBytes == 128 || kRowBytes == 64, "128- or 64-byte rows");
+  if constexpr (kRowBytes == 128) {
+    return desc_sw128(addr);
+  } else {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+           (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+  }
+}
+
+// Where byte `offset` of a tile of kRowBytes-byte rows (128 or 64) lies
+// under the matching TMA swizzle: its 16-byte chunk index XORed with the
+// offset's bits 7 and up (row % 8 for 128-byte rows, row / 2 % 4 for 64).
+template <int kRowBytes>
+__device__ __forceinline__ int swizzle(int offset) {
+  return offset ^ (((offset >> 7) & (kRowBytes / 16 - 1)) << 4);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -258,6 +281,17 @@ __device__ __forceinline__ void fence_operands(float (&d)[16]) {
 __device__ __forceinline__ void fence_operands(uint32_t (&a)[16]) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// The same for an m64n16 accumulator and for 8 A fragments (two k-steps).
+__device__ __forceinline__ void fence_operands(float (&d)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 __device__ __forceinline__ void wgmma_commit() {
@@ -373,6 +407,40 @@ __device__ __forceinline__ void wgmma_m64n32k16_tt(float (&d)[16], uint64_t a, u
       ", %16, %17, p, 1, 1, 1, 1;\n"
       "}\n"
       : HOPPER_D16(HOPPER_F32)
+      : "l"(a), "l"(b), "r"(static_cast<uint32_t>(accumulate)));
+}
+
+// D [64 x 32] += A [64 x 16] B [16 x 32], bf16, f32 accumulators, with A
+// in registers (as wgmma_m64n64k16_rs) and B MN-major in shared memory: the
+// m64n32 counterpart of wgmma_m64n64k16_rs, for head width 32.
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], uint32_t a0, uint32_t a1,
+                                                   uint32_t a2, uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : HOPPER_D16(HOPPER_F32)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// D [64 x 16] (+)= A [64 x 16] B [16 x 16], bf16 operands from shared
+// memory, both MN-major, f32 accumulators (wgmma_m64n32k16_tt at half the
+// width); accumulate = false overwrites d.
+__device__ __forceinline__ void wgmma_m64n16k16_tt(float (&d)[8], uint64_t a, uint64_t b,
+                                                   bool accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}"
+      ", %8, %9, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : HOPPER_D8(HOPPER_F32, 0)
       : "l"(a), "l"(b), "r"(static_cast<uint32_t>(accumulate)));
 }
 

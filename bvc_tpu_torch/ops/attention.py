@@ -25,9 +25,14 @@ from bvc_tpu_torch.ops.flash_attention import (BIAS_HEAD_DIMS, HEAD_DIM, flash_a
 # [8, N, 12, 64], N in {160, 392, 784, 1568}, forward alone and forward
 # plus backward (chip_smoke.py, PERF.md): the kernels won at every N
 # measured, so the threshold is the smallest of them; shorter sequences
-# stay unmeasured.  The masked shapes of JEPA (169 and 199 tokens) are at
-# or above it; their own timing against the plain path is in PERF.md.
+# stay unmeasured.
 FLASH_MIN_TOKENS = 160
+# The same for masked attention, from the key-bias kernels' forward plus
+# backward against plain_attention at B=64, 12 heads, about 60% of the keys
+# kept, N in {128, 160, 256} at head widths 64 and 32, and at JEPA's own
+# [64, 169, 12, 64] and [256, 199, 12, 32] (chip_smoke.py, PERF.md): the
+# kernels won at every one, from 128 tokens; shorter stay unmeasured.
+FLASH_MIN_MASKED_TOKENS = 128
 
 
 def attention_route(device_type: str, dtype: torch.dtype, n: int, head_dim: int,
@@ -35,10 +40,12 @@ def attention_route(device_type: str, dtype: torch.dtype, n: int, head_dim: int,
     """``'flash'`` or ``'xla'`` (plain) for an attention of ``n`` tokens of
     head width ``head_dim``: the counterpart of ``masked_auto_impl`` and the
     JAX package's ``'auto'`` rule, re-derived for the H100.  On CUDA with
-    bf16 and ``n >= FLASH_MIN_TOKENS``, unmasked attention at the unmasked
-    kernels' width and masked attention at a key-bias kernel's width go to
-    the kernels; everything else is plain math."""
-    if device_type != "cuda" or dtype != torch.bfloat16 or n < FLASH_MIN_TOKENS:
+    bf16, unmasked attention of ``n >= FLASH_MIN_TOKENS`` at the unmasked
+    kernels' width and masked attention of ``n >= FLASH_MIN_MASKED_TOKENS``
+    at a key-bias kernel's width go to the kernels; everything else is
+    plain math."""
+    min_tokens = FLASH_MIN_MASKED_TOKENS if masked else FLASH_MIN_TOKENS
+    if device_type != "cuda" or dtype != torch.bfloat16 or n < min_tokens:
         return "xla"
     widths = BIAS_HEAD_DIMS if masked else (HEAD_DIM,)
     return "flash" if head_dim in widths else "xla"

@@ -7,16 +7,16 @@ the ``_flash``/``_flash_b`` custom VJPs and ``flash_attention``), for
 non-causal attention over pre-scaled queries ``qs``, without a key mask or
 with a per-sample key bias.
 
-- Forward, ``csrc/flash_fwd.cu``: online softmax with f32 accumulation; O in
-  the input dtype and LSE = m + log(l) in f32.
-- Backward without a key mask, ``csrc/flash_bwd_sm90.cu``: a pre-pass for
-  D = rowsum(dO * O) in f32, one kernel for the five products (dK and dV
-  stored, dQs summed over key tiles in an f32 accumulator by TMA
-  reductions, adds in L2 whose order varies from run to run) and a
-  post-pass that writes dQs in bf16.
-- Backward with a key bias, ``csrc/flash_bwd.cu``: a dQ kernel and a dK/dV
-  kernel, from (qs, k, v, o, lse, dO) and D taken in f32 outside the
-  kernels, as ``_bwd`` does.
+- Forward, ``csrc/flash_fwd.cu`` on the Hopper mainloop of
+  ``csrc/attn_sm90.cuh``: online softmax with f32 accumulation; O in the
+  input dtype and LSE = m + log(l) in f32.  With a key bias, key tiles
+  whose keys are all masked are skipped.
+- Backward, ``csrc/flash_bwd_sm90.cu``, with or without a key bias: a
+  pre-pass for D = rowsum(dO * O) in f32, one kernel for the five products
+  (dK and dV stored, dQs summed over key tiles in an f32 accumulator by TMA
+  reductions, adds in L2 whose order varies from run to run; with a bias a
+  key tile whose keys are all masked writes zero dK and dV and adds
+  nothing) and a post-pass that writes dQs in bf16.
 - Key bias: ``bias`` is ``[B, N]`` f32, 0 for a key that may be attended
   and -1e30 (:data:`NEG_INF`) for a masked one, added to every score of
   the key's column in every head (:func:`key_bias` builds it from a bool
@@ -30,16 +30,17 @@ The unmasked kernels take head width 64 (:data:`HEAD_DIM`), the key-bias
 kernels 64 and 32 (:data:`BIAS_HEAD_DIMS`).  :func:`flash_fwd_cuda` and
 :func:`flash_bwd_cuda` launch the kernels for CUDA tensors and count their
 launches: ``flash_fwd_cuda.launches`` and ``.launches_bias``,
-``flash_bwd_cuda.launches_prep``, ``.launches_fused``, ``.launches_post``,
-``.launches_dq_bias`` and ``.launches_dkv_bias``.
+``flash_bwd_cuda.launches_prep``, ``.launches_fused``, ``.launches_post``
+without a bias and ``.launches_prep_bias``, ``.launches_fused_bias``,
+``.launches_post_bias`` with one.
 :func:`flash_attention_fwd_ref` and :func:`flash_attention_bwd_ref` are the
 plain PyTorch versions of the same arithmetic: the CPU tests use them, and
 ``chip_smoke.py`` holds the kernels against them on the card.
 :func:`flash_attention_fwd` and
 :func:`flash_attention_bwd` pick between the two by the tensors' device
 only.  :func:`attention_tile_check` and :func:`bwd_tile_check` run the
-unmasked forward's two and backward's five Hopper products on one tile, a
-first check on a new card.  :func:`flash_attention` is the public
+forward's two and the backward's five Hopper products on one tile at head
+width 64 or 32, a first check on a new card.  :func:`flash_attention` is the public
 ``[B, N, h, d]`` entry, differentiable through :class:`FlashAttention`.
 """
 
@@ -133,10 +134,9 @@ def flash_attention_bwd_ref(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 _SIGNATURES = {  # (void* arguments, long long arguments) of each entry point
-    "flash_fwd": {"bvc_flash_fwd": (6, 16), "bvc_attn_tile_check": (5, 0)},
-    "flash_bwd": {"bvc_flash_bwd_dq": (8, 19), "bvc_flash_bwd_dkv": (9, 22)},
-    "flash_bwd_sm90": {"bvc_flash_bwd_prep": (5, 10), "bvc_flash_bwd_sm90": (8, 22),
-                       "bvc_flash_bwd_dq_store": (2, 7), "bvc_flash_bwd_tile_check": (9, 0)},
+    "flash_fwd": {"bvc_flash_fwd": (6, 16), "bvc_attn_tile_check": (5, 1)},
+    "flash_bwd_sm90": {"bvc_flash_bwd_prep": (5, 11), "bvc_flash_bwd_sm90": (9, 23),
+                       "bvc_flash_bwd_dq_store": (2, 8), "bvc_flash_bwd_tile_check": (9, 1)},
 }
 
 
@@ -209,23 +209,31 @@ flash_fwd_cuda.launches = 0
 flash_fwd_cuda.launches_bias = 0
 
 
-def attention_tile_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The unmasked forward kernel's two products on one tile, on the card:
-    ``q [64, 64]``, ``k`` and ``v [128, 64]`` bf16 in, ``(s, o)`` f32 out
-    with ``s = q k^T`` and ``o = bf16(s) v``, through the same TMA loads and
-    wgmma as the kernel.  A first check on a new card or toolkit, before
-    anything runs on those products."""
-    shapes = {"q": (64, 64), "k": (128, 64), "v": (128, 64)}
-    for name, x in (("q", q), ("k", k), ("v", v)):
+def _check_tile_inputs(caller: str, head_dim: int, shapes: dict[str, tuple[int, int]],
+                       **tensors: torch.Tensor) -> None:
+    if head_dim not in BIAS_HEAD_DIMS:
+        raise ValueError(f"{caller}: head_dim must be one of {BIAS_HEAD_DIMS}, got {head_dim}")
+    for name, x in tensors.items():
         if not x.is_cuda or x.dtype != torch.bfloat16 or tuple(x.shape) != shapes[name]:
-            raise ValueError(f"attention_tile_check: {name} must be a CUDA bf16 tensor of "
+            raise ValueError(f"{caller}: {name} must be a CUDA bf16 tensor of "
                              f"shape {shapes[name]}, got {x.dtype} {tuple(x.shape)}")
+
+
+def attention_tile_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         head_dim: int = HEAD_DIM) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernels' two products on one tile at ``head_dim`` (64 or
+    32), on the card: ``q [64, d]``, ``k`` and ``v [128, d]`` bf16 in,
+    ``(s, o)`` f32 out with ``s = q k^T`` and ``o = bf16(s) v``, through the
+    same TMA loads, swizzle and wgmma as the kernels.  A first check on a
+    new card or toolkit, before anything runs on those products."""
+    d = head_dim
+    _check_tile_inputs("attention_tile_check", d, {"q": (64, d), "k": (128, d), "v": (128, d)},
+                       q=q, k=k, v=v)
     q, k, v = (x.contiguous() for x in (q, k, v))
     s = torch.empty((64, 128), dtype=torch.float32, device=q.device)
-    o = torch.empty((64, 64), dtype=torch.float32, device=q.device)
+    o = torch.empty((64, d), dtype=torch.float32, device=q.device)
     launch("attention_tile_check", q.device, _library("flash_fwd").bvc_attn_tile_check,
-           q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr())
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr(), d)
     return s, o
 
 
@@ -238,157 +246,121 @@ def _check_lse(lse: torch.Tensor, B: int, h: int, N: int) -> None:
 
 
 def padded_tokens(n: int) -> int:
-    """Np: N rounded up to the unmasked backward's 64-query tile, the row
-    count of its stats table and dQ accumulator."""
+    """Np: N rounded up to the backward's 64-query tile, the row count of
+    its stats table and dQ accumulator."""
     return -(-n // 64) * 64
 
 
-def unmasked_bwd_operands(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor
-                          ) -> dict[str, torch.Tensor]:
+def bwd_operands(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                 lse: torch.Tensor, do: torch.Tensor, bias: torch.Tensor | None = None
+                 ) -> dict[str, torch.Tensor | None]:
     """Everything the three kernels of ``csrc/flash_bwd_sm90.cu`` read and
-    write: the inputs checked and in a layout the kernels read (copied only
-    where needed), the outputs ``dq``, ``dk``, ``dv``, and the scratch, a
-    ``[B h, 2, Np]`` f32 stats table (L log2 e and D) and the ``[B, h, Np,
-    64]`` f32 dQ accumulator, all allocated with ``torch.empty``."""
-    _check_kernel_inputs("flash_bwd_cuda", None, qs=qs, k=k, v=v, o=o, do=do)
+    write, without or with a key ``bias``: the inputs checked and in a
+    layout the kernels read (copied only where needed), the outputs ``dq``,
+    ``dk``, ``dv``, and the scratch, a ``[B h, 2, Np]`` f32 stats table (L
+    log2 e and D) and the ``[B, h, Np, d]`` f32 dQ accumulator, all
+    allocated with ``torch.empty``."""
+    _check_kernel_inputs("flash_bwd_cuda", bias, qs=qs, k=k, v=v, o=o, do=do)
     B, N, h, d = qs.shape
     _check_lse(lse, B, h, N)
     qs, k, v, o, do = (kernel_layout(x) for x in (qs, k, v, o, do))
     f32 = {"dtype": torch.float32, "device": qs.device}
     n_pad = padded_tokens(N)
-    return {"qs": qs, "k": k, "v": v, "o": o, "do": do, "lse": lse,
+    return {"qs": qs, "k": k, "v": v, "o": o, "do": do, "lse": lse, "bias": bias,
             "stats": torch.empty(B * h * 2 * n_pad, **f32),
             "dq_acc": torch.empty(B * h * n_pad * d, **f32),
             **{name: torch.empty((B, N, h, d), dtype=qs.dtype, device=qs.device)
                for name in ("dq", "dk", "dv")}}
 
 
-def _dims(w: dict[str, torch.Tensor]) -> tuple[int, int, int, int]:
-    B, N, h, _ = w["qs"].shape
-    return B, N, h, padded_tokens(N)
+def _dims(w: dict[str, torch.Tensor]) -> tuple[int, int, int, int, int]:
+    B, N, h, d = w["qs"].shape
+    return B, N, h, padded_tokens(N), d
 
 
-def launch_bwd_prep(w: dict[str, torch.Tensor]) -> None:
-    """The pre-pass on :func:`unmasked_bwd_operands`: D = rowsum(dO * O)
-    and L log2 e into the stats table, the dQ accumulator zeroed."""
+def _count(w: dict[str, torch.Tensor | None], counter: str) -> None:
+    if w["bias"] is not None:
+        counter += "_bias"
+    setattr(flash_bwd_cuda, counter, getattr(flash_bwd_cuda, counter) + 1)
+
+
+def launch_bwd_prep(w: dict[str, torch.Tensor | None]) -> None:
+    """The pre-pass on :func:`bwd_operands`: D = rowsum(dO * O) and L log2 e
+    into the stats table, the dQ accumulator zeroed."""
     launch("flash_bwd_cuda", w["qs"].device, _library("flash_bwd_sm90").bvc_flash_bwd_prep,
            w["o"].data_ptr(), w["do"].data_ptr(), w["lse"].data_ptr(), w["stats"].data_ptr(),
            w["dq_acc"].data_ptr(), *_dims(w), *_strides(w["o"], w["do"]))
-    flash_bwd_cuda.launches_prep += 1
+    _count(w, "launches_prep")
 
 
-def launch_bwd_fused(w: dict[str, torch.Tensor]) -> None:
+def launch_bwd_fused(w: dict[str, torch.Tensor | None]) -> None:
     """The five products: dK and dV written, dQs added into the
     accumulator (after :func:`launch_bwd_prep`)."""
     launch("flash_bwd_cuda", w["qs"].device, _library("flash_bwd_sm90").bvc_flash_bwd_sm90,
-           *(w[x].data_ptr() for x in ("qs", "k", "v", "do", "stats", "dk", "dv", "dq_acc")),
+           *(w[x].data_ptr() for x in ("qs", "k", "v", "do", "stats")), _ptr(w["bias"]),
+           *(w[x].data_ptr() for x in ("dk", "dv", "dq_acc")),
            *_dims(w), *_strides(*(w[x] for x in ("qs", "k", "v", "do", "dk", "dv"))))
-    flash_bwd_cuda.launches_fused += 1
+    _count(w, "launches_fused")
 
 
-def launch_bwd_post(w: dict[str, torch.Tensor]) -> None:
+def launch_bwd_post(w: dict[str, torch.Tensor | None]) -> None:
     """The post-pass: dQs as bf16 from the accumulator (after
     :func:`launch_bwd_fused`)."""
     launch("flash_bwd_cuda", w["qs"].device,
            _library("flash_bwd_sm90").bvc_flash_bwd_dq_store, w["dq_acc"].data_ptr(),
            w["dq"].data_ptr(), *_dims(w), *_strides(w["dq"]))
-    flash_bwd_cuda.launches_post += 1
-
-
-def bwd_operands(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-                 lse: torch.Tensor, do: torch.Tensor, bias: torch.Tensor
-                 ) -> tuple[torch.Tensor, ...]:
-    """The operands ``(qs, k, v, do, lse, delta, bias)`` of the key-bias
-    backward kernels: inputs checked, q/k/v/dO in a layout the kernels read
-    (copied only where needed), D = rowsum(dO * O) in f32."""
-    _check_kernel_inputs("flash_bwd_cuda", bias, qs=qs, k=k, v=v, o=o, do=do)
-    B, N, h, _ = qs.shape
-    _check_lse(lse, B, h, N)
-    return (*(kernel_layout(x) for x in (qs, k, v, do)), lse, _delta(o, do), bias)
-
-
-def launch_dq(qs, k, v, do, lse, delta, bias) -> torch.Tensor:
-    """dQs from :func:`bwd_operands`: one launch of the key-bias dQ kernel."""
-    B, N, h, d = qs.shape
-    dq = torch.empty((B, N, h, d), dtype=qs.dtype, device=qs.device)
-    launch("flash_bwd_cuda", qs.device, _library("flash_bwd").bvc_flash_bwd_dq,
-           qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-           delta.data_ptr(), bias.data_ptr(), dq.data_ptr(), B, N, h, d,
-           *_strides(qs, k, v, do, dq))
-    flash_bwd_cuda.launches_dq_bias += 1
-    return dq
-
-
-def launch_dkv(qs, k, v, do, lse, delta, bias) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dK, dV) from :func:`bwd_operands`: one launch of the key-bias dK/dV
-    kernel."""
-    B, N, h, d = qs.shape
-    dk, dv = (torch.empty((B, N, h, d), dtype=qs.dtype, device=qs.device) for _ in range(2))
-    launch("flash_bwd_cuda", qs.device, _library("flash_bwd").bvc_flash_bwd_dkv,
-           qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-           delta.data_ptr(), bias.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, h, d,
-           *_strides(qs, k, v, do, dk, dv))
-    flash_bwd_cuda.launches_dkv_bias += 1
-    return dk, dv
+    _count(w, "launches_post")
 
 
 def flash_bwd_cuda(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                    lse: torch.Tensor, do: torch.Tensor, bias: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward kernels on CUDA bf16 ``[B, N, h, d]`` tensors and
-    ``lse [B, h, N]`` f32, on the current stream; returns ``(dqs, dk, dv)``
-    like :func:`flash_attention_bwd_ref`.  qs/k/v, O and dO are read through
-    their strides, copied only where their layout needs it.  Raises on
-    anything the kernels do not take, and if a launch fails.
-
-    Without a bias (d = 64): the three kernels of ``csrc/flash_bwd_sm90.cu``,
-    counted in ``.launches_prep``, ``.launches_fused`` and ``.launches_post``.
-    With a key ``bias`` (d = 64 or 32): the two kernels of
-    ``csrc/flash_bwd.cu`` with D taken in f32 outside them, counted in
-    ``.launches_dq_bias`` and ``.launches_dkv_bias``."""
-    if bias is None:
-        w = unmasked_bwd_operands(qs, k, v, o, lse, do)
-        if qs.numel() == 0:
-            return w["dq"], w["dk"], w["dv"]
-        launch_bwd_prep(w)
-        launch_bwd_fused(w)
-        launch_bwd_post(w)
-        return w["dq"], w["dk"], w["dv"]
-    operands = bwd_operands(qs, k, v, o, lse, do, bias)
+    """The three backward kernels of ``csrc/flash_bwd_sm90.cu`` on CUDA bf16
+    ``[B, N, h, d]`` tensors and ``lse [B, h, N]`` f32, on the current
+    stream; returns ``(dqs, dk, dv)`` like :func:`flash_attention_bwd_ref`.
+    qs/k/v, O and dO are read through their strides, copied only where their
+    layout needs it.  Raises on anything the kernels do not take, and if a
+    launch fails.  Without a bias (d = 64) the launches count in
+    ``.launches_prep``, ``.launches_fused`` and ``.launches_post``; with a
+    key ``bias`` (d = 64 or 32) in ``.launches_prep_bias``,
+    ``.launches_fused_bias`` and ``.launches_post_bias``."""
+    w = bwd_operands(qs, k, v, o, lse, do, bias)
     if qs.numel() == 0:
-        return tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
-                     for x in (qs, k, v))
-    return (launch_dq(*operands), *launch_dkv(*operands))
+        return w["dq"], w["dk"], w["dv"]
+    launch_bwd_prep(w)
+    launch_bwd_fused(w)
+    launch_bwd_post(w)
+    return w["dq"], w["dk"], w["dv"]
 
 
 flash_bwd_cuda.launches_prep = 0
 flash_bwd_cuda.launches_fused = 0
 flash_bwd_cuda.launches_post = 0
-flash_bwd_cuda.launches_dq_bias = 0
-flash_bwd_cuda.launches_dkv_bias = 0
+flash_bwd_cuda.launches_prep_bias = 0
+flash_bwd_cuda.launches_fused_bias = 0
+flash_bwd_cuda.launches_post_bias = 0
 
 
-def bwd_tile_check(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor
-                   ) -> tuple[torch.Tensor, ...]:
-    """The unmasked backward kernel's five products on one tile, on the
-    card: ``qs``, ``do [64, 64]``, ``k``, ``v [128, 64]`` bf16 in;
-    ``(st, dpt, dv, dk, dq)`` f32 out with ``st = k qs^T``, ``dpt = v do^T``
-    (``[128, 64]``), ``dv = bf16(st) do``, ``dk = bf16(dpt) qs`` (``[128,
-    64]``) and ``dq = bf16(dpt)^T k`` (``[64, 64]``), through the same TMA
-    loads, shared-memory staging and wgmma as the kernel.  A first check on
-    a new card or toolkit, before anything runs on those products."""
-    shapes = {"qs": (64, 64), "k": (128, 64), "v": (128, 64), "do": (64, 64)}
-    for name, x in (("qs", qs), ("k", k), ("v", v), ("do", do)):
-        if not x.is_cuda or x.dtype != torch.bfloat16 or tuple(x.shape) != shapes[name]:
-            raise ValueError(f"bwd_tile_check: {name} must be a CUDA bf16 tensor of "
-                             f"shape {shapes[name]}, got {x.dtype} {tuple(x.shape)}")
+def bwd_tile_check(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                   head_dim: int = HEAD_DIM) -> tuple[torch.Tensor, ...]:
+    """The backward kernel's five products on one tile at ``head_dim`` (64
+    or 32), on the card: ``qs``, ``do [64, d]``, ``k``, ``v [128, d]`` bf16
+    in; ``(st, dpt, dv, dk, dq)`` f32 out with ``st = k qs^T``,
+    ``dpt = v do^T`` (``[128, 64]``), ``dv = bf16(st) do``,
+    ``dk = bf16(dpt) qs`` (``[128, d]``) and ``dq = bf16(dpt)^T k``
+    (``[64, d]``), through the same TMA loads, shared-memory staging,
+    swizzle and wgmma as the kernel.  A first check on a new card or
+    toolkit, before anything runs on those products."""
+    d = head_dim
+    _check_tile_inputs("bwd_tile_check", d,
+                       {"qs": (64, d), "k": (128, d), "v": (128, d), "do": (64, d)},
+                       qs=qs, k=k, v=v, do=do)
     qs, k, v, do = (x.contiguous() for x in (qs, k, v, do))
     outs = [torch.empty(shape, dtype=torch.float32, device=qs.device)
-            for shape in ((128, 64),) * 4 + ((64, 64),)]
+            for shape in ((128, 64), (128, 64), (128, d), (128, d), (64, d))]
     launch("bwd_tile_check", qs.device, _library("flash_bwd_sm90").bvc_flash_bwd_tile_check,
            qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-           *(x.data_ptr() for x in outs))
+           *(x.data_ptr() for x in outs), d)
     return tuple(outs)
 
 

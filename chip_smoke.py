@@ -13,11 +13,11 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
 1. Build every CUDA kernel of the port from ``bvc_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print the card, its power
    limit, its highest SM clock, the versions, the build time and each
-   kernel's registers and spills (failing if the unmasked backward kernel
-   spills or ptxas serialises its wgmma).  Then the unmasked forward's two
-   products on one tile (S = q k^T, O = bf16(S) v) and the unmasked
-   backward's five (S^T, dP^T, dV, dK, dQ) against f32 products, before
-   anything runs on them.
+   kernel's registers and spills (failing if a backward instantiation or a
+   key-bias forward spills or ptxas serialises its wgmma).  Then the
+   forward's two products on one tile (S = q k^T, O = bf16(S) v) and the
+   backward's five (S^T, dP^T, dV, dK, dQ) at head widths 64 and 32 against
+   f32 products, before anything runs on them.
 2. Forward kernel against plain: the flash forward kernel against its plain
    PyTorch version on the card, at the extraction shape ``[8, 1568, 12, 64]``,
    the encoder's shape in training ``[8, 160, 12, 64]``, the V-JEPA target
@@ -44,15 +44,21 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    beside the 5-product bound, the plain version and SDPA's backward in a
    graph with its backend pinned (flash, and cuDNN where it runs; the
    faster is kept).
-4. Key-bias kernels against plain: the forward, dQ and dK/dV kernels with a
-   per-sample key bias at JEPA's context shape ``[8, 169, 12, 64]`` and
-   predictor shape ``[32, 199, 12, 32]`` (collator masks), an odd N with 40%
-   of the keys masked, and one batch element with every key masked at both
-   head widths: the limits of 2 and 3, LSE +inf exactly on rows with no
-   key, and dK = dV = 0 exactly at masked keys; times at the two JEPA
-   shapes against the bound, the plain version and SDPA with the bias as
-   its mask; the two backward kernels and SDPA's backward (memory-efficient
-   and cuDNN backends pinned, the faster kept) also in a CUDA graph.
+4. Key-bias kernels against plain: the forward and the backward (pre-pass,
+   fused kernel, post-pass, the same three kernels as 3 at head widths 64
+   and 32) with a per-sample key bias at JEPA's context shape
+   ``[8, 169, 12, 64]`` and predictor shape ``[32, 199, 12, 32]`` (collator
+   masks), an odd N with 40% of the keys masked, one batch element with
+   every key masked at both head widths, and the B=64 step's own
+   ``[64, 169, 12, 64]`` and ``[256, 199, 12, 32]``: the limits of 2 and 3,
+   a second run's dQ within 1e-3, LSE +inf exactly on rows with no key, and
+   dK = dV = 0 exactly at masked keys; at the step's shapes, times by events
+   and in a CUDA graph of the forward, the whole backward and each of its
+   kernels against the bound (K and V of attendable keys only), the plain
+   version and SDPA with the bias as its mask (memory-efficient and cuDNN
+   backends pinned, the faster kept and named); then the kernels against
+   plain attention, forward plus backward, at B=64 and N in {128, 160, 256}
+   at both widths, for the masked routing rule.
 5. GEMM kernels against plain (``csrc/gemm.cu``): the s8 kernel's raw
    int32 product exactly equal to the plain one at 1024^3,
    ``[8192,1024] x [1024,1024]``, ``[1001,768] x [2300,768]``, with a
@@ -104,8 +110,9 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    cosine 0.999 to the plain attention path, clips/s at B=64.
 12. JEPA training at full width: V-JEPA ViT-B steps
    through ``JEPA``, ``mask_collate``, ``TrainState.create`` with the EMA
-   target and ``make_jepa_train_step``.  At B=8 one step launches each
-   key-bias kernel 18 times and the unmasked forward kernel 12 times, agrees
+   target and ``make_jepa_train_step``.  At B=8 one step launches the
+   key-bias forward and each of the key-bias backward's three kernels 18
+   times and the unmasked forward kernel 12 times, agrees
    with the plain-attention step (loss within 1e-4 relative, gradient
    cosine >= 0.9995 per parameter tensor) and moves the EMA target.  Then
    clips/s, MFU and peak memory at the largest batch in {64, 32, 16} that
@@ -207,17 +214,21 @@ def ms_text(ms: float | None) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-def check_no_spills_or_serialisation(name: str, kernel: str) -> None:
+def check_no_spills_or_serialisation(name: str, kernel: str, args: str = "") -> None:
     """Fail unless ``ptxas -v`` reports no spill bytes for the kernel named
     ``kernel`` in ``csrc/<name>.cu``, and no wgmma serialisation warning for
     the source.  The entry is found by the kernel's own mangled name (its
-    length, the name, then ``E`` or a template's ``I``), not by a substring:
-    the file's other kernels carry the file name in their namespace tag."""
+    length, the name, then ``E`` or a template's ``I``; with ``args``, the
+    instantiation whose template arguments mangle to them, such as
+    ``ILi32ELb1EE`` for ``<32, true>``), not by a substring: the file's other
+    kernels carry the file name in their namespace tag."""
     from bvc_tpu_torch.ops import _build
 
     log = _build.build_log(name)
     check("serialized" not in log, f"ptxas serialises wgmma in {name}.cu")
-    own = re.compile(rf"{len(kernel)}{re.escape(kernel)}[EI]")
+    tail = re.escape(args) if args else "[EI]"
+    own = re.compile(rf"{len(kernel)}{re.escape(kernel)}{tail}")
+    kernel += args
     lines = log.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry" in line and own.search(line):
@@ -258,14 +269,17 @@ def cold_ms(fn, iters: int = 20) -> float:
     return sum(start.elapsed_time(end) for start, end in events) / iters
 
 
-def attention_bound_ms(B: int, N: int, h: int, d: int,
-                       bias: bool = False) -> tuple[float, str]:
-    """Least time of the forward on the card: 4*B*h*N^2*d tensor-core
-    operations at the bf16 peak against q/k/v/o (bf16), LSE (f32) and, with
-    a key bias, the [B, N] f32 bias bytes at the HBM rate; the larger one
-    bounds."""
-    ops_ms = 4 * B * h * N * N * d / PEAK_BF16_FLOPS * 1e3
-    nbytes = 4 * B * N * h * d * 2 + B * h * N * 4 + (B * N * 4 if bias else 0)
+def attention_bound_ms(B: int, N: int, h: int, d: int, bias: bool = False,
+                       keys: int | None = None) -> tuple[float, str]:
+    """Least time of the forward on the card: 4*h*N*K*d tensor-core
+    operations at the bf16 peak against q/o (bf16) for every token, k/v
+    (bf16) for the K keys the function needs, LSE (f32) and, with a key
+    bias, the [B, N] f32 bias bytes at the HBM rate; the larger one bounds.
+    K = ``keys``, the attendable keys summed over the batch where a key
+    bias masks some (no kernel need read a masked key), else B*N."""
+    keys = B * N if keys is None else keys
+    ops_ms = 4 * h * N * keys * d / PEAK_BF16_FLOPS * 1e3
+    nbytes = 2 * (B * N + keys) * h * d * 2 + B * h * N * 4 + (B * N * 4 if bias else 0)
     bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -294,17 +308,20 @@ def exp_roof(B: int, N: int, h: int) -> float:
 
 
 def bwd_bound_ms(B: int, N: int, h: int, d: int, products: int, outputs: int,
-                 bias: bool = False) -> tuple[float, str]:
-    """Least time of a backward (or of one of its kernels) on the card:
-    ``products`` N x N x d tensor-core products (5 for the whole unmasked
-    backward; 3 for the key-bias dQ kernel, 4 for its dK/dV kernel), 2*B*h*N^2*d
-    operations each, at the bf16 peak, against reading qs, k, v, dO (bf16),
-    L and D (f32) and, with a key bias, the [B, N] f32 bias once and writing
-    ``outputs`` bf16 tensors (dQ, dK, dV: 3; dQ: 1; dK, dV: 2) at the HBM
-    rate; the larger one bounds."""
-    ops_ms = 2 * products * B * h * N * N * d / PEAK_BF16_FLOPS * 1e3
-    elems = B * N * h * d
-    nbytes = (4 + outputs) * elems * 2 + 2 * B * h * N * 4 + (B * N * 4 if bias else 0)
+                 bias: bool = False, keys: int | None = None) -> tuple[float, str]:
+    """Least time of a backward on the card: ``products`` N x K x d
+    tensor-core products (5 for the whole backward), 2*h*N*K*d operations
+    each, at the bf16 peak, against reading qs and dO (bf16) for every
+    token, k and v (bf16) for the K keys the function needs, L and D (f32)
+    and, with a key bias, the [B, N] f32 bias once, and writing ``outputs``
+    bf16 tensors (dQ, dK, dV: 3; a masked key's dK and dV rows are written
+    too, as zeros) at the HBM rate; the larger one bounds.  K = ``keys``,
+    the attendable keys summed over the batch where a key bias masks some,
+    else B*N."""
+    keys = B * N if keys is None else keys
+    ops_ms = 2 * products * h * N * keys * d / PEAK_BF16_FLOPS * 1e3
+    nbytes = ((2 + outputs) * B * N + 2 * keys) * h * d * 2 + 2 * B * h * N * 4 + (
+        B * N * 4 if bias else 0)
     bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -358,9 +375,9 @@ def qkv_inputs(B: int, N: int, h: int, d: int, seed: int):
 
 
 def phase_attn_tile() -> None:
-    """The unmasked forward kernel's two products on one tile, before
-    anything runs on them (``attention_tile_check``): S = q k^T and
-    O = bf16(S) v, each within 1e-4 x max|ref| of the f32 product on the
+    """The forward kernels' two products on one tile at head widths 64 and
+    32, before anything runs on them (``attention_tile_check``): S = q k^T
+    and O = bf16(S) v, each within 1e-4 x max|ref| of the f32 product on the
     card (the reference for O takes the kernel's own S, so that each product
     is checked alone)."""
     import torch
@@ -369,17 +386,19 @@ def phase_attn_tile() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(7)
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-               for shape in ((64, 64), (128, 64), (128, 64)))
-    s, o = attention_tile_check(q, k, v)
-    s_ref = q.float() @ k.float().T
-    o_ref = s.to(torch.bfloat16).float() @ v.float()
-    torch.cuda.synchronize()
-    for name, x, ref in (("S = q k^T", s, s_ref), ("O = bf16(S) v", o, o_ref)):
-        err, scale = (x - ref).abs().max().item(), ref.abs().max().item()
-        print(f"attention tile check: {name} max abs err {err:.3e} (limit "
-              f"{TILE_TOL * scale:.3e} = {TILE_TOL} x max|ref|)", flush=True)
-        check(err <= TILE_TOL * scale, f"attention tile check: {name} is wrong, max err {err}")
+    for d in (64, 32):
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for shape in ((64, d), (128, d), (128, d)))
+        s, o = attention_tile_check(q, k, v, d)
+        s_ref = q.float() @ k.float().T
+        o_ref = s.to(torch.bfloat16).float() @ v.float()
+        torch.cuda.synchronize()
+        for name, x, ref in (("S = q k^T", s, s_ref), ("O = bf16(S) v", o, o_ref)):
+            err, scale = (x - ref).abs().max().item(), ref.abs().max().item()
+            print(f"attention tile check d={d}: {name} max abs err {err:.3e} (limit "
+                  f"{TILE_TOL * scale:.3e} = {TILE_TOL} x max|ref|)", flush=True)
+            check(err <= TILE_TOL * scale,
+                  f"attention tile check d={d}: {name} is wrong, max err {err}")
 
 
 def phase_kernel() -> dict:
@@ -487,33 +506,35 @@ def phase_kernel() -> dict:
 
 
 def phase_bwd_tile() -> None:
-    """The unmasked backward kernel's five products on one tile, before
-    anything runs on them (``bwd_tile_check``): S^T = k qs^T, dP^T = v do^T,
-    dV = bf16(S^T) do, dK = bf16(dP^T) qs and dQ = bf16(dP^T)^T k, each
-    within 1e-4 x max|ref| of the f32 product on the card (the references
-    for the last three take the kernel's own S^T and dP^T, so that each
-    product is checked alone)."""
+    """The backward kernel's five products on one tile at head widths 64
+    and 32, before anything runs on them (``bwd_tile_check``): S^T = k qs^T,
+    dP^T = v do^T, dV = bf16(S^T) do, dK = bf16(dP^T) qs and
+    dQ = bf16(dP^T)^T k, each within 1e-4 x max|ref| of the f32 product on
+    the card (the references for the last three take the kernel's own S^T
+    and dP^T, so that each product is checked alone)."""
     import torch
 
     from bvc_tpu_torch.ops.flash_attention import bwd_tile_check
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(11)
-    qs, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-                    for shape in ((64, 64), (128, 64), (128, 64), (64, 64)))
-    st, dpt, dv, dk, dq = bwd_tile_check(qs, k, v, do)
-    p, ds = (x.to(torch.bfloat16).float() for x in (st, dpt))
-    refs = (("S^T = k qs^T", st, k.float() @ qs.float().T),
-            ("dP^T = v do^T", dpt, v.float() @ do.float().T),
-            ("dV = bf16(S^T) do", dv, p @ do.float()),
-            ("dK = bf16(dP^T) qs", dk, ds @ qs.float()),
-            ("dQ = bf16(dP^T)^T k", dq, ds.T @ k.float()))
-    torch.cuda.synchronize()
-    for name, x, ref in refs:
-        err, scale = (x - ref).abs().max().item(), ref.abs().max().item()
-        print(f"backward tile check: {name} max abs err {err:.3e} (limit "
-              f"{TILE_TOL * scale:.3e} = {TILE_TOL} x max|ref|)", flush=True)
-        check(err <= TILE_TOL * scale, f"backward tile check: {name} is wrong, max err {err}")
+    for d in (64, 32):
+        qs, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                        for shape in ((64, d), (128, d), (128, d), (64, d)))
+        st, dpt, dv, dk, dq = bwd_tile_check(qs, k, v, do, d)
+        p, ds = (x.to(torch.bfloat16).float() for x in (st, dpt))
+        refs = (("S^T = k qs^T", st, k.float() @ qs.float().T),
+                ("dP^T = v do^T", dpt, v.float() @ do.float().T),
+                ("dV = bf16(S^T) do", dv, p @ do.float()),
+                ("dK = bf16(dP^T) qs", dk, ds @ qs.float()),
+                ("dQ = bf16(dP^T)^T k", dq, ds.T @ k.float()))
+        torch.cuda.synchronize()
+        for name, x, ref in refs:
+            err, scale = (x - ref).abs().max().item(), ref.abs().max().item()
+            print(f"backward tile check d={d}: {name} max abs err {err:.3e} (limit "
+                  f"{TILE_TOL * scale:.3e} = {TILE_TOL} x max|ref|)", flush=True)
+            check(err <= TILE_TOL * scale,
+                  f"backward tile check d={d}: {name} is wrong, max err {err}")
 
 
 def sdpa_bwd_ms(qs, k, v, do, backends, attn_mask=None) -> tuple:
@@ -604,11 +625,11 @@ def phase_bwd_kernel() -> dict:
     shape's numbers under ``"shapes"``."""
     import torch
 
-    from bvc_tpu_torch.ops.flash_attention import (_delta, flash_attention_bwd_ref,
-                                                   flash_bwd_cuda, flash_fwd_cuda,
-                                                   launch_bwd_fused, launch_bwd_post,
-                                                   launch_bwd_prep, padded_tokens,
-                                                   unmasked_bwd_operands)
+    from bvc_tpu_torch.ops.flash_attention import (_delta, bwd_operands,
+                                                   flash_attention_bwd_ref, flash_bwd_cuda,
+                                                   flash_fwd_cuda, launch_bwd_fused,
+                                                   launch_bwd_post, launch_bwd_prep,
+                                                   padded_tokens)
 
     result, shapes = {}, {}
     for label, (B, N, h, d) in (("decoder", (8, 1568, 6, 64)),
@@ -640,7 +661,7 @@ def phase_bwd_kernel() -> dict:
 
         # the pre-pass alone: D and L log2 e against their plain versions,
         # the dQ accumulator zeroed; the post-pass alone: dQ = bf16(acc)
-        w = unmasked_bwd_operands(qs, k, v, o, lse, do)
+        w = bwd_operands(qs, k, v, o, lse, do)
         launch_bwd_prep(w)
         n_pad = padded_tokens(N)
         stats = w["stats"].view(B * h, 2, n_pad)
@@ -1110,28 +1131,73 @@ def jepa_train_flops_per_clip(cfg, enc_cap: int, pred_cap: int, npred: int) -> f
     return target + 3 * (context + predictor)
 
 
-def phase_bias_kernel() -> dict:
-    """The key-bias forward, dQ and dK/dV kernels against their plain
-    versions at JEPA's context shape ``[8, 169, 12, 64]`` (collator mask),
-    its predictor shape ``[32, 199, 12, 32]`` (concatenated mask), an odd
-    ``[8, 197, 12, 64]`` with about 40% of the keys masked, and at both
-    widths with one batch element whose every key is masked: O within 2e-2,
-    LSE within 1e-3 (+inf exactly where a row has no key), dQ/dK/dV within
-    2e-2 x max|ref| and 1e-3 in |err|/|ref|, and dK = dV = 0 exactly at
-    masked keys.  Returns each kernel's record at the context shape, with
-    the predictor shape's numbers under ``"predictor"``."""
+def sdpa_fwd_ms(qs, k, v, backends, attn_mask=None) -> tuple:
+    """SDPA's forward at ``[B, N, h, d]`` inputs, a yardstick only (the port
+    never calls it): for each backend of ``backends`` (pinned with
+    ``torch.nn.attention.sdpa_kernel``) that runs here, by events and in a
+    CUDA graph; returns ``(events ms, graph ms, backend)`` of the backend
+    fastest in a graph, with every backend's readings printed, or
+    ``(None, None, None)`` where none runs."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (qs, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn_mask, scale=1.0)
+
+    best = (None, None, None)
+    for backend in backends:
+        try:
+            with sdpa_kernel(backend), torch.no_grad():
+                ev, gr = time_ms(fwd), graph_ms(fwd)
+        except RuntimeError as exc:
+            print(f"  sdpa {backend.name}: does not run here ({str(exc).splitlines()[0][:80]})",
+                  flush=True)
+            continue
+        print(f"  sdpa {backend.name} forward: {ev:.4f} ms by events, {gr:.4f} in a graph",
+              flush=True)
+        if best[1] is None or gr < best[1]:
+            best = (ev, gr, backend.name)
+    return best
+
+
+def phase_bias_kernel() -> dict:
+    """The key-bias forward and backward (pre-pass, fused kernel, post-pass)
+    against their plain versions at JEPA's context shape ``[8, 169, 12, 64]``
+    (collator mask), its predictor shape ``[32, 199, 12, 32]`` (concatenated
+    mask), an odd ``[8, 197, 12, 64]`` with about 40% of the keys masked, at
+    both widths with one batch element whose every key is masked, and at the
+    B=64 step's own shapes ``[64, 169, 12, 64]`` and ``[256, 199, 12, 32]``:
+    O within 2e-2, LSE within 1e-3 (+inf exactly where a row has no key),
+    dQ/dK/dV within 2e-2 x max|ref| and 1e-3 in |err|/|ref|, a second run's
+    dQ within 1e-3 of the first (its f32 sum over key tiles has no fixed
+    order), and dK = dV = 0 exactly at masked keys.  At the step's shapes,
+    times by events and in a CUDA graph of the forward, the whole backward
+    and each of its kernels beside the bounds (K and V counted for the
+    attendable keys only), the plain versions and SDPA with the bias as its
+    mask, backend pinned and named; then forward plus backward of the
+    kernels against plain attention at B=64 and N in {128, 160, 256} at
+    both widths, for the masked routing rule.  Returns the four kernels'
+    records at ``[64, 169, 12, 64]``, the predictor's under
+    ``"predictor"``."""
+    import torch
     from torch.nn.attention import SDPBackend
 
     from bvc_tpu_torch.masks.multiblock import mask_collate
-    from bvc_tpu_torch.ops.flash_attention import (bwd_operands, flash_attention_bwd_ref,
+    from bvc_tpu_torch.ops.attention import multi_head_attention
+    from bvc_tpu_torch.ops.flash_attention import (_delta, bwd_operands,
+                                                   flash_attention_bwd_ref,
                                                    flash_attention_fwd_ref, flash_bwd_cuda,
-                                                   flash_fwd_cuda, key_bias, launch_dkv,
-                                                   launch_dq)
+                                                   flash_fwd_cuda, key_bias, launch_bwd_fused,
+                                                   launch_bwd_post, launch_bwd_prep,
+                                                   padded_tokens)
 
     cfg, mask_cfg, _ = jepa_config()
-    enc_mask, pred_mask = jepa_key_masks(mask_collate(cfg, mask_cfg, seed=0)(8, step=0))
+    collate = mask_collate(cfg, mask_cfg, seed=0)
+    enc_mask, pred_mask = jepa_key_masks(collate(8, step=0))
+    enc_step, pred_step = jepa_key_masks(collate(64, step=0))
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def random_mask(B, N, keep, dead=None):
@@ -1144,7 +1210,9 @@ def phase_bias_kernel() -> dict:
              ("predictor", (32, 199, 12, 32), pred_mask),
              ("odd N", (8, 197, 12, 64), random_mask(8, 197, 0.6)),
              ("all masked d64", (4, 169, 12, 64), random_mask(4, 169, 0.5, dead=1)),
-             ("all masked d32", (4, 199, 12, 32), random_mask(4, 199, 0.5, dead=2)))
+             ("all masked d32", (4, 199, 12, 32), random_mask(4, 199, 0.5, dead=2)),
+             ("context step", (64, 169, 12, 64), enc_step),
+             ("predictor step", (256, 199, 12, 32), pred_step))
     result = {}
     for label, (B, N, h, d), mask in cases:
         _, qs, k, v = qkv_inputs(B, N, h, d, seed=3 * N + d)
@@ -1153,6 +1221,7 @@ def phase_bias_kernel() -> dict:
         o, lse = flash_fwd_cuda(qs, k, v, bias)
         o_ref, lse_ref = flash_attention_fwd_ref(qs, k, v, bias)
         grads = flash_bwd_cuda(qs, k, v, o, lse, do, bias)
+        again = flash_bwd_cuda(qs, k, v, o, lse, do, bias)
         refs = flash_attention_bwd_ref(qs, k, v, o, lse, do, bias)
         torch.cuda.synchronize()
         shape = f"[{B},{N},{h},{d}] ({label}, {(~mask).float().mean().item():.2f} masked)"
@@ -1167,78 +1236,134 @@ def phase_bias_kernel() -> dict:
               and torch.allclose(lse[~no_key], lse_ref[~no_key], atol=LSE_TOL, rtol=LSE_TOL),
               f"flash_fwd_bias LSE disagrees with the plain version at {label}: {err_lse}")
         errs = {}
-        for name, x, ref in zip(("dq", "dk", "dv"), grads, refs):
+        for name, x, y, ref in zip(("dq", "dk", "dv"), grads, again, refs):
             diff = x.float() - ref.float()
             err, scale = diff.abs().max().item(), ref.float().abs().max().item()
             rel = (diff.norm() / ref.float().norm()).item()
+            rerun = ((x.float() - y.float()).norm() / ref.float().norm()).item()
             errs[name] = err
             at_masked = (x[~mask].abs().max().item()
                          if name != "dq" and bool((~mask).any()) else 0.0)
             print(f"flash_bwd_bias {shape} {name}: max abs err {err:.3e} (bound "
-                  f"{BWD_TOL * scale:.3e}), |err|/|ref| {rel:.3e} (bound {BWD_REL_TOL})"
-                  + (f", max|{name}| at masked keys {at_masked}" if name != "dq" else ""),
+                  f"{BWD_TOL * scale:.3e}), |err|/|ref| {rel:.3e} (bound {BWD_REL_TOL}); "
+                  f"second run {'bitwise equal' if torch.equal(x, y) else 'differs'}, "
+                  f"|run1 - run2|/|ref| {rerun:.3e}"
+                  + (f"; max|{name}| at masked keys {at_masked}" if name != "dq" else ""),
                   flush=True)
             check(err <= BWD_TOL * scale and rel <= BWD_REL_TOL,
                   f"flash_bwd_bias {name} disagrees with the plain version at {label}: "
                   f"{err}, rel {rel}")
+            check(rerun <= BWD_REL_TOL,
+                  f"flash_bwd_bias {name} at {label}: two runs differ by {rerun}")
             check(at_masked == 0, f"flash_bwd_bias {name} at {label}: masked keys get "
                                   f"{at_masked}, not 0")
         if "all masked" in label:
             dead = ~mask.any(dim=1)
             check(grads[0][dead].abs().max().item() == 0 and bool(o[dead].isfinite().all()),
                   f"flash_bias at {label}: a row with no key got a gradient or a NaN")
-        if label not in ("context", "predictor"):
+        del o_ref, lse_ref, again, refs
+        if not label.endswith("step"):
             continue
 
-        fwd_ms = time_ms(lambda: flash_fwd_cuda(qs, k, v, bias))
-        operands = bwd_operands(qs, k, v, o, lse, do, bias)
-        dq_ms = time_ms(lambda: launch_dq(*operands))
-        dkv_ms = time_ms(lambda: launch_dkv(*operands))
-        plain_fwd_ms = time_ms(lambda: flash_attention_fwd_ref(qs, k, v, bias), iters=5)
-        plain_bwd_ms = time_ms(lambda: flash_attention_bwd_ref(qs, k, v, o, lse, do, bias),
-                               iters=5)
-        # the port's key-bias backward (both kernels) in a CUDA graph, and as
-        # a yardstick only (the port never calls it) SDPA with the bias as
-        # its additive mask: its forward, and its backward with the backend
-        # pinned, in a graph (forward plus backward less the forward)
-        bwd_g_ms = graph_ms(lambda: (launch_dq(*operands), launch_dkv(*operands)))
-        qt, kt, vt = (x.transpose(1, 2) for x in (qs, k, v))
+        # the step's shapes: each kernel, the whole backward and SDPA (a
+        # yardstick only: the port never calls it) with the bias as its
+        # additive mask, backend pinned, forward and backward, in graphs
+        keys = int(mask.sum())
+        # the pre-pass alone: D and L log2 e against their plain versions;
+        # the post-pass: dQ = bf16 of the accumulator
+        w = bwd_operands(qs, k, v, o, lse, do, bias)
+        n_pad = padded_tokens(N)
+        launch_bwd_prep(w)
+        stats = w["stats"].view(B * h, 2, n_pad)
+        delta = _delta(o, do).view(B * h, N)
+        err_d = (stats[:, 1, :N] - delta).abs().max().item()
+        err_l = (stats[:, 0, :N] - lse.view(B * h, N) * math.log2(math.e)).abs().max().item()
+        launch_bwd_fused(w)
+        launch_bwd_post(w)
+        acc = w["dq_acc"].view(B, h, n_pad, d)[:, :, :N].transpose(1, 2)
+        err_post = (w["dq"].float() - acc.to(torch.bfloat16).float()).abs().max().item()
+        torch.cuda.synchronize()
+        print(f"flash_bwd_prep_bias ({label}): max|dD| {err_d:.3e}, max|d(L log2 e)| "
+              f"{err_l:.3e}; flash_bwd_post_bias: max|dQ - bf16(acc)| {err_post}", flush=True)
+        check(err_d <= 1e-5 * max(1.0, delta.abs().max().item())
+              and err_l <= 1e-5 * max(1.0, lse.abs().max().item()),
+              f"flash_bwd_prep_bias disagrees with the plain version at {label}")
+        check(err_post == 0, f"flash_bwd_post_bias disagrees with bf16(acc) at {label}")
+        calls = {"fwd": lambda: flash_fwd_cuda(qs, k, v, bias),
+                 "whole": lambda: flash_bwd_cuda(qs, k, v, o, lse, do, bias),
+                 "prep": lambda: launch_bwd_prep(w), "fused": lambda: launch_bwd_fused(w),
+                 "post": lambda: launch_bwd_post(w)}
+        t = {name: (time_ms(fn), graph_ms(fn)) for name, fn in calls.items()}
+        plain = {"fwd": time_ms(lambda: flash_attention_fwd_ref(qs, k, v, bias), iters=3,
+                                warmup=1),
+                 "whole": time_ms(lambda: flash_attention_bwd_ref(qs, k, v, o, lse, do, bias),
+                                  iters=3, warmup=1),
+                 "prep": time_ms(lambda: _delta(o, do)),
+                 "post": time_ms(lambda: acc.to(torch.bfloat16))}
         amask = bias.to(torch.bfloat16)[:, None, None, :]
-        with torch.no_grad():
-            lib_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=amask, scale=1.0))
-        lib_bwd_ms, lib_bwd_g_ms, backend = sdpa_bwd_ms(
-            qs, k, v, do, (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION), amask)
-        print(f"flash_bias backward [{B},{N},{h},{d}] ({label}): dq + dkv in a CUDA graph "
-              f"{bwd_g_ms:.4f} ms; sdpa backward ({backend}) graph {ms_text(lib_bwd_g_ms)}",
-              flush=True)
-        records = {}
-        for name, ms, plain_ms, lib_ms, bound, err in (
-                ("fwd", fwd_ms, plain_fwd_ms, lib_fwd_ms,
-                 attention_bound_ms(B, N, h, d, bias=True), err_o),
-                ("dq", dq_ms, plain_bwd_ms, lib_bwd_ms,
-                 bwd_bound_ms(B, N, h, d, 3, 1, bias=True), errs["dq"]),
-                ("dkv", dkv_ms, plain_bwd_ms, lib_bwd_ms,
-                 bwd_bound_ms(B, N, h, d, 4, 2, bias=True), max(errs["dk"], errs["dv"]))):
-            records[name] = {"at": [B, N, h, d], "max_abs_err": err, "ms": ms,
-                             "plain_ms": plain_ms, "library_ms": lib_ms,
-                             "bound_ms": bound[0], "bound_by": bound[1]}
-            if name != "fwd":  # both kernels together, and SDPA's backward, in a graph
-                records[name].update({"bwd_graph_ms": bwd_g_ms,
-                                      "library_graph_ms": lib_bwd_g_ms,
-                                      "library_backend": backend})
-            products = {"fwd": 2, "dq": 3, "dkv": 4}[name]
-            tflops = 2 * products * B * h * N * N * d / ms / 1e9
-            print(f"flash_bias {name} [{B},{N},{h},{d}] ({label}): kernel {ms:.4f} ms "
-                  f"({tflops:.1f} TFLOP/s), bound {bound[0]:.4f} ms ({bound[1]}, "
-                  f"{bound[0] / ms:.3f} of it), plain {plain_ms:.4f} ms"
-                  f"{' (dq and dkv together)' if name != 'fwd' else ''}, sdpa "
-                  f"{'backward ' if name != 'fwd' else ''}{ms_text(lib_ms)}", flush=True)
+        backends = (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION)
+        lib_fwd = sdpa_fwd_ms(qs, k, v, backends, amask)
+        lib_bwd = sdpa_bwd_ms(qs, k, v, do, backends, amask)
+        elems, rows = B * N * h * d, B * h * n_pad
+        bounds = {"fwd": attention_bound_ms(B, N, h, d, bias=True, keys=keys),
+                  "whole": bwd_bound_ms(B, N, h, d, 5, 3, bias=True, keys=keys),
+                  # the pre-pass reads O, dO and L and writes the stats table and
+                  # the zeroed accumulator; the post-pass reads the
+                  # accumulator's N rows and writes dQ
+                  "prep": ((2 * elems * 2 + B * h * N * 4 + rows * 2 * 4 + rows * d * 4)
+                           / PEAK_HBM_BYTES * 1e3, "bytes"),
+                  "post": (elems * 6 / PEAK_HBM_BYTES * 1e3, "bytes")}
+        bounds["fused"] = bounds["whole"]
+        for name in ("fwd", "whole", "fused", "prep", "post"):
+            bound, by = bounds[name]
+            print(f"flash_bias {name} [{B},{N},{h},{d}] ({label}, {keys} of {B * N} keys "
+                  f"attendable): {t[name][0]:.4f} ms by events, {t[name][1]:.4f} in a CUDA "
+                  f"graph; bound {bound:.4f} ms ({by}, {bound / t[name][1]:.3f} of the graph "
+                  f"time)" + (f"; plain {plain[name]:.4f} ms" if name in plain else ""),
+                  flush=True)
+        print(f"flash_bias [{B},{N},{h},{d}] ({label}): sdpa forward ({lib_fwd[2]}) "
+              f"{ms_text(lib_fwd[0])}, graph {ms_text(lib_fwd[1])}; sdpa backward "
+              f"({lib_bwd[2]}) {ms_text(lib_bwd[0])}, graph {ms_text(lib_bwd[1])}", flush=True)
+        records = {
+            "fwd": {"max_abs_err": err_o, "max_abs_err_lse": err_lse, "plain_ms": plain["fwd"],
+                    "library_ms": lib_fwd[0], "library_graph_ms": lib_fwd[1],
+                    "library_backend": lib_fwd[2]},
+            "fused": {"max_abs_err": max(errs.values()), "whole_ms": t["whole"][0],
+                      "whole_graph_ms": t["whole"][1], "plain_ms": plain["whole"],
+                      "library_ms": lib_bwd[0], "library_graph_ms": lib_bwd[1],
+                      "library_backend": lib_bwd[2]},
+            "prep": {"max_abs_err": err_d, "plain_ms": plain["prep"], "library_ms": None},
+            "post": {"max_abs_err": err_post, "plain_ms": plain["post"],
+                     "library_ms": plain["post"]}}
         for name, rec in records.items():
-            if label == "context":
+            rec.update({"at": [B, N, h, d], "attendable_keys": keys, "ms": t[name][0],
+                        "graph_ms": t[name][1], "bound_ms": bounds[name][0],
+                        "bound_by": bounds[name][1]})
+            if label == "context step":
                 result[name] = rec
             else:
                 result[name]["predictor"] = rec
+        del w, acc, stats, delta, qs, k, v, o, lse, do, grads
+
+    # Masked routing: the kernels (public entry, scale folding included)
+    # against plain attention, forward plus backward, at B=64 and 12 heads
+    # with about 60% of the keys kept; the JEPA step's own two shapes are
+    # timed the same way in phase_jepa_train.
+    for N in (128, 160, 256):
+        for d in (64, 32):
+            mask = random_mask(64, N, 0.6)
+            q, _, k, v = qkv_inputs(64, N, 12, d, seed=N + d)
+            q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+            def fwd_bwd(impl):
+                out = multi_head_attention(q, k, v, impl=impl, key_mask=mask)
+                return torch.autograd.grad(out, (q, k, v), do)
+
+            k_ms = time_ms(lambda: fwd_bwd("flash"))
+            p_ms = time_ms(lambda: fwd_bwd("xla"), iters=5)
+            print(f"routing masked fwd+bwd [64,{N},12,{d}]: flash {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms", flush=True)
     return result
 
 
@@ -1702,8 +1827,9 @@ def _launch_counters() -> dict:
             "flash_bwd": (flash_bwd_cuda, "launches_fused"),
             "flash_bwd_post": (flash_bwd_cuda, "launches_post"),
             "flash_fwd_bias": (flash_fwd_cuda, "launches_bias"),
-            "flash_bwd_dq_bias": (flash_bwd_cuda, "launches_dq_bias"),
-            "flash_bwd_dkv_bias": (flash_bwd_cuda, "launches_dkv_bias"),
+            "flash_bwd_prep_bias": (flash_bwd_cuda, "launches_prep_bias"),
+            "flash_bwd_bias": (flash_bwd_cuda, "launches_fused_bias"),
+            "flash_bwd_post_bias": (flash_bwd_cuda, "launches_post_bias"),
             "gemm_s8": (int8_matmul_cuda, "launches"),
             "gemm_bf16": (bf16_matmul_cuda, "launches"),
             "softmax_probe_fwd": (softmax_probe_fwd_cuda, "launches")}
@@ -1750,9 +1876,10 @@ def phase_jepa_embed(card: str) -> int:
 def phase_jepa_train(card: str, profile: str | None) -> dict[str, int]:
     """V-JEPA ViT-B pretraining steps on the card through the port's entry
     points (``JEPA``, ``mask_collate``, ``TrainState.create`` with the EMA
-    target, ``make_jepa_train_step``).  At B=8 one step launches each
-    key-bias kernel 18 times (12 context-encoder and 6 predictor layers) and
-    the unmasked forward kernel 12 times (the target encoder), agrees with a
+    target, ``make_jepa_train_step``).  At B=8 one step launches the
+    key-bias forward and each of the key-bias backward's three kernels 18
+    times (12 context-encoder and 6 predictor layers) and the unmasked
+    forward kernel 12 times (the target encoder), agrees with a
     step through the plain attention path from the same weights, batch and
     masks, and moves the EMA target.  Then clips/s, MFU and peak memory at
     the largest batch in {64, 32, 16} that fits, and the masked attention's
@@ -1799,8 +1926,8 @@ def phase_jepa_train(card: str, profile: str | None) -> dict[str, int]:
     print(f"jepa train: one step at B=8 launched {launches}", flush=True)
     masked_layers = cfg.depth + cfg.pred_depth
     expected = {**{k: 0 for k in launches}, "flash_fwd": cfg.depth,
-                "flash_fwd_bias": masked_layers, "flash_bwd_dq_bias": masked_layers,
-                "flash_bwd_dkv_bias": masked_layers}
+                **{name: masked_layers for name in ("flash_fwd_bias", "flash_bwd_prep_bias",
+                                                    "flash_bwd_bias", "flash_bwd_post_bias")}}
     check(launches == expected, f"expected {expected} in one JEPA step, got {launches}")
 
     plain = new_state()
@@ -1964,14 +2091,19 @@ def main() -> None:
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}",
           flush=True)
     t0 = time.perf_counter()
-    kernels = ["flash_fwd", "flash_bwd", "flash_bwd_sm90", "gemm", "softmax_probe"]
+    kernels = ["flash_fwd", "flash_bwd_sm90", "gemm", "softmax_probe"]
     _build.build_all(kernels)
     print(f"built {kernels} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in kernels:
         for line in _build.build_log(name).splitlines():
             if any(w in line for w in ("registers", "spill", "serialized", "Compiling entry")):
                 print(f"  {name}: {line.strip()}", flush=True)
-    check_no_spills_or_serialisation("flash_bwd_sm90", "flash_bwd_sm90")
+    for name, kernel, template_args in (("flash_bwd_sm90", "flash_bwd_sm90", "ILi64ELb0EE"),
+                                        ("flash_bwd_sm90", "flash_bwd_sm90", "ILi64ELb1EE"),
+                                        ("flash_bwd_sm90", "flash_bwd_sm90", "ILi32ELb1EE"),
+                                        ("flash_fwd", "flash_fwd_bias_sm90", "ILi64EE"),
+                                        ("flash_fwd", "flash_fwd_bias_sm90", "ILi32EE")):
+        check_no_spills_or_serialisation(name, kernel, template_args)
 
     from bvc_tpu_torch.probes import int8_dot, softmax_dtype
 
@@ -2006,7 +2138,6 @@ def main() -> None:
     # for the bf16 GEMM and the softmax probe kernel), with the other paths'
     # counts beside them
     fwd_src = "bvc_tpu_torch/csrc/flash_fwd.cu"
-    bwd_src = "bvc_tpu_torch/csrc/flash_bwd.cu"
     bwd_sm90_src = "bvc_tpu_torch/csrc/flash_bwd_sm90.cu"
     replaces = "bvc_tpu/ops/flash_attention.py"
     records = [
@@ -2020,7 +2151,7 @@ def main() -> None:
          "replaces": f"{replaces}:250 and :278", "launches": train_launches["flash_bwd"],
          "at": [8, 1568, 6, 64], **bwd["fused"]},
         {"name": "flash_bwd_prep", "route": "cuda", "source": bwd_sm90_src,
-         "replaces": f"{replaces}:317 (D of _bwd, for :250 and :278)",
+         "replaces": f"{replaces}:315 (D of _bwd, for :250 and :278)",
          "launches": train_launches["flash_bwd_prep"], "at": [8, 1568, 6, 64], **bwd["prep"]},
         {"name": "flash_bwd_post", "route": "cuda", "source": bwd_sm90_src,
          "replaces": f"{replaces}:250 (dQ's bf16 store)",
@@ -2028,12 +2159,15 @@ def main() -> None:
         {"name": "flash_fwd_bias", "route": "cuda", "source": fwd_src,
          "replaces": f"{replaces}:74", "launches": jepa_launches["flash_fwd_bias"],
          **bias["fwd"]},
-        {"name": "flash_bwd_dq_bias", "route": "cuda", "source": bwd_src,
-         "replaces": f"{replaces}:187", "launches": jepa_launches["flash_bwd_dq_bias"],
-         **bias["dq"]},
-        {"name": "flash_bwd_dkv_bias", "route": "cuda", "source": bwd_src,
-         "replaces": f"{replaces}:212", "launches": jepa_launches["flash_bwd_dkv_bias"],
-         **bias["dkv"]},
+        {"name": "flash_bwd_bias", "route": "cuda", "source": bwd_sm90_src,
+         "replaces": f"{replaces}:187 and :212", "launches": jepa_launches["flash_bwd_bias"],
+         **bias["fused"]},
+        {"name": "flash_bwd_prep_bias", "route": "cuda", "source": bwd_sm90_src,
+         "replaces": f"{replaces}:315 (D of _bwd, for :187 and :212)",
+         "launches": jepa_launches["flash_bwd_prep_bias"], **bias["prep"]},
+        {"name": "flash_bwd_post_bias", "route": "cuda", "source": bwd_sm90_src,
+         "replaces": f"{replaces}:187 (dQ's bf16 store)",
+         "launches": jepa_launches["flash_bwd_post_bias"], **bias["post"]},
         {"name": "gemm_s8", "route": "cuda", "source": "bvc_tpu_torch/csrc/gemm.cu",
          "replaces": "tools/probe_pallas_int8.py:37",
          "launches": w8a8_launches["videomae"]["gemm_s8"],

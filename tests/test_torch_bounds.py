@@ -1,8 +1,9 @@
 """The roofs ``chip_smoke.py`` reports beside each attention kernel's time,
 against numbers worked by hand: the tensor-core and byte roofs of
-``attention_bound_ms`` and ``bwd_bound_ms`` (the whole unmasked backward as
-5 products with 3 outputs, the key-bias kernels as 3 and 4) and the choice
-of the larger, and the exponential roof of ``exp_bound_ms``.  Importing
+``attention_bound_ms`` and ``bwd_bound_ms`` (the whole backward as 5
+products with 3 outputs; under a key bias that masks some keys, K and V
+read and multiplied for the attendable keys only) and the choice of the
+larger, and the exponential roof of ``exp_bound_ms``.  Importing
 ``chip_smoke`` runs no phase: it imports ``torch`` only inside its
 functions."""
 
@@ -22,16 +23,21 @@ _spec.loader.exec_module(chip_smoke)
 SCORES = 236_027_904
 
 
-@pytest.mark.parametrize("shape,bias,want_ms,want_by", [
+@pytest.mark.parametrize("shape,bias,keys,want_ms,want_by", [
     # 4 B h N^2 d = 60,423,143,424 operations at 989e12/s, against
     # 77,672,448 bytes (q, k, v, o bf16 and LSE f32) at 3.35e12/s: 0.023186 ms
-    ((8, 1568, 12, 64), False, 0.0610952, "operations"),
+    ((8, 1568, 12, 64), False, None, 0.0610952, "operations"),
     # 4 * 8 * 12 * 169^2 * 64 = 701,915,136 operations: 7.0972e-4 ms, against
     # 8,306,688 + 64,896 + 5,408 (the key bias) = 8,376,992 bytes: 0.0025006 ms
-    ((8, 169, 12, 64), True, 0.0025006, "bytes"),
+    ((8, 169, 12, 64), True, None, 0.0025006, "bytes"),
+    # 76 of each element's 169 keys attendable (608 in all): 4 * 12 * 169 *
+    # 608 * 64 = 315,654,144 operations (3.1916e-4 ms), against q and o for
+    # every token and k and v for the 608 keys, 2 * (1352 + 608) * 12 * 64 * 2
+    # = 6,021,120, + 64,896 + 5,408 = 6,091,424 bytes: 0.0018183 ms
+    ((8, 169, 12, 64), True, 608, 0.0018183, "bytes"),
 ])
-def test_attention_bound_takes_the_larger_roof(shape, bias, want_ms, want_by):
-    ms, by = chip_smoke.attention_bound_ms(*shape, bias=bias)
+def test_attention_bound_takes_the_larger_roof(shape, bias, keys, want_ms, want_by):
+    ms, by = chip_smoke.attention_bound_ms(*shape, bias=bias, keys=keys)
     assert by == want_by
     assert ms == pytest.approx(want_ms, rel=1e-4)
 
@@ -69,16 +75,18 @@ def test_backward_bound_of_the_fused_kernel(shape, products, outputs, want_ms, w
     assert ms == pytest.approx(want_ms, rel=1e-5)
 
 
-@pytest.mark.parametrize("products,outputs,bias,want_ms", [
-    # the key-bias kernels keep their own bounds at [8, 169, 12, 64]: dQ
-    # reads qs, k, v, dO, L, D and the bias and writes dQ: 5 x 1,038,336 x 2
-    # + 2 x 8 x 12 x 169 x 4 + 8 x 169 x 4 = 10,518,560 bytes -> 0.0031399 ms;
-    # dK/dV writes two: 12,595,232 bytes -> 0.0037598 ms (both over their
-    # 3- and 4-product roofs, 0.0010646 and 0.0014194 ms)
-    (3, 1, True, 0.0031399),
-    (4, 2, True, 0.0037598),
+@pytest.mark.parametrize("products,outputs,keys,want_ms", [
+    # the fused key-bias backward at [8, 169, 12, 64], 5 products and 3
+    # outputs: it reads qs, k, v, dO, L, D and the bias and writes dQ, dK, dV:
+    # 7 x 1,038,336 x 2 + 2 x 8 x 12 x 169 x 4 + 8 x 169 x 4 = 14,671,904
+    # bytes -> 0.0043797 ms, over its 1,754,787,840-operation roof (0.0017743)
+    (5, 3, None, 0.0043797),
+    # 608 of the 1352 keys attendable: k and v for those only, (5 x 1352 + 2
+    # x 608) x 12 x 64 x 2 + 129,792 + 5,408 = 12,386,336 bytes -> 0.0036974
+    # ms, over 10 x 12 x 169 x 608 x 64 = 789,135,360 operations (7.979e-4)
+    (5, 3, 608, 0.0036974),
 ])
-def test_backward_bound_of_the_key_bias_kernels(products, outputs, bias, want_ms):
-    ms, by = chip_smoke.bwd_bound_ms(8, 169, 12, 64, products, outputs, bias=bias)
+def test_backward_bound_of_the_key_bias_kernels(products, outputs, keys, want_ms):
+    ms, by = chip_smoke.bwd_bound_ms(8, 169, 12, 64, products, outputs, bias=True, keys=keys)
     assert by == "bytes"
     assert ms == pytest.approx(want_ms, rel=1e-4)

@@ -18,8 +18,9 @@ import torch
 
 from bvc_tpu.ops.attention import _xla_attention
 from bvc_tpu.ops.flash_attention import flash_attention as jax_flash
-from bvc_tpu_torch.ops.attention import (FLASH_MIN_TOKENS, attention_route,
-                                         multi_head_attention, plain_attention)
+from bvc_tpu_torch.ops.attention import (FLASH_MIN_MASKED_TOKENS, FLASH_MIN_TOKENS,
+                                         attention_route, multi_head_attention,
+                                         plain_attention)
 from bvc_tpu_torch.ops.flash_attention import (NEG_INF, flash_attention,
                                                flash_attention_bwd_ref,
                                                flash_attention_fwd_ref, flash_bwd_cuda,
@@ -141,10 +142,13 @@ def test_key_bias_and_plain_versions():
     ("cuda", torch.bfloat16, 1568, 80, False, "xla"),     # ViT-H: d=80
     ("cuda", torch.bfloat16, 1568, 88, True, "xla"),      # ViT-g: d=88
     ("cuda", torch.bfloat16, FLASH_MIN_TOKENS - 1, 64, False, "xla"),
+    ("cuda", torch.bfloat16, FLASH_MIN_MASKED_TOKENS, 64, True, "flash"),
+    ("cuda", torch.bfloat16, FLASH_MIN_MASKED_TOKENS, 32, True, "flash"),
+    ("cuda", torch.bfloat16, FLASH_MIN_MASKED_TOKENS - 1, 32, True, "xla"),
     ("cuda", torch.float32, 1568, 64, False, "xla"),
     ("cpu", torch.bfloat16, 1568, 64, True, "xla"),
 ], ids=["target", "context", "predictor", "d32-unmasked", "vit-h", "vit-g", "short",
-        "f32", "cpu"])
+        "masked-128-d64", "masked-128-d32", "masked-short", "f32", "cpu"])
 def test_attention_route(device, dtype, n, d, masked, route):
     assert attention_route(device, dtype, n, d, masked) == route
 
@@ -169,11 +173,11 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     # CPU tensors never run anything but the kernels, and the counters stay
     x = torch.zeros(1, 8, 1, 32, dtype=torch.bfloat16)
     bias = torch.zeros(1, 8)
-    counts = (flash_fwd_cuda.launches_bias, flash_bwd_cuda.launches_dq_bias,
-              flash_bwd_cuda.launches_dkv_bias)
+    counters = ((flash_fwd_cuda, "launches_bias"), (flash_bwd_cuda, "launches_prep_bias"),
+                (flash_bwd_cuda, "launches_fused_bias"), (flash_bwd_cuda, "launches_post_bias"))
+    counts = [getattr(fn, name) for fn, name in counters]
     with pytest.raises(ValueError, match="CUDA bf16"):
         flash_fwd_cuda(x, x, x, bias)
     with pytest.raises(ValueError, match="CUDA bf16"):
         flash_bwd_cuda(x, x, x, x, torch.zeros(1, 1, 8), x, bias)
-    assert (flash_fwd_cuda.launches_bias, flash_bwd_cuda.launches_dq_bias,
-            flash_bwd_cuda.launches_dkv_bias) == counts
+    assert [getattr(fn, name) for fn, name in counters] == counts

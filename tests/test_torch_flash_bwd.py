@@ -99,7 +99,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     x = torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16)
     lse = torch.zeros(1, 1, 8)
     counters = ("launches_prep", "launches_fused", "launches_post",
-                "launches_dq_bias", "launches_dkv_bias")
+                "launches_prep_bias", "launches_fused_bias", "launches_post_bias")
     counts = [getattr(flash_bwd_cuda, c) for c in counters]
     for bias in (None, torch.zeros(1, 8)):
         with pytest.raises(ValueError, match="CUDA bf16"):
