@@ -3,8 +3,10 @@
 The JAX package ``bvc_tpu`` stays beside this one, unchanged, as the
 reference: every slice of the port is tested against it.  So far the port
 serves VideoMAE and JEPA embeddings, bf16 or W8A8 (``evalbench.extract``,
-``ops.quant``), and takes VideoMAE and V-JEPA pretraining steps
-(``training.steps``), through hand-written CUDA kernels: the
+``ops.quant``), and trains VideoMAE and V-JEPA curriculum stages on one GPU
+(``cli.pretrain_videomae``, ``cli.pretrain_jepa``: the input pipeline of
+``data``, the trainers, steps and checkpoints of ``training``), through
+hand-written CUDA kernels: the
 flash-attention forward (``csrc/flash_fwd.cu``) and backward
 (``csrc/flash_bwd_sm90.cu``), without a key mask or with a per-sample key
 bias, and the tensor-core GEMM (``csrc/gemm.cu``) whose int8 instantiation

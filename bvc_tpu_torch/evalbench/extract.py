@@ -12,8 +12,9 @@ fname, deduplicated, the test split under ``savedir/test/``.
   ``.pth.tar`` in the reference ``VisionTransformer`` layout; the EMA
   target is not used for embeddings, as in the reference.
 
-Both layouts are what ``bvc_tpu/cli/export_torch.py`` writes; Orbax
-checkpoints need JAX and are not read here.  Extraction runs in one process
+Both layouts are what ``bvc_tpu/cli/export_torch.py`` writes, and what the
+port's own trainers write (``bvc_tpu_torch.training``); Orbax checkpoints
+need JAX and are not read here.  Extraction runs in one process
 on one device.  ``quantize="int8"`` takes the W8A8 path of either family
 (:mod:`bvc_tpu_torch.ops.quant`: the blocks' qkv and fc1 quantized after
 the weights load, their products on the s8 kernel of ``csrc/gemm.cu``).

@@ -98,6 +98,13 @@ class MultiBlockMaskCollator:
         self._step += 1
         return self._step
 
+    def state_dict(self) -> dict:
+        return {"step": self._step, "seed": self.seed}
+
+    def load_state_dict(self, d: dict) -> None:
+        self._step = int(d["step"])
+        self.seed = int(d.get("seed", self.seed))
+
     def _sample_block_mask(self, rng: np.random.Generator, b_size,
                            acceptable_regions=None):
         h, w = b_size

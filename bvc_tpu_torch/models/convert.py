@@ -17,8 +17,13 @@ dicts).
 - :func:`videomae_from_hf_state_dict`: HF ``VideoMAEForPreTraining`` names,
   as ``bvc_tpu/cli/export_torch.py`` writes them into
   ``model_{run_id}.pth.tar`` -> the encoder's state dict.  HF has no k bias,
-  so the fused qkv bias gets zeros in its k third.  The HF decoder entries
-  are not read yet (ROADMAP).
+  so the fused qkv bias gets zeros in its k third.
+  :func:`videomae_pretrain_from_hf_state_dict` fills the pretraining model,
+  encoder and decoder, and :func:`videomae_pretrain_to_hf_state_dict` is
+  its inverse, key for key what ``bvc_tpu.models.torch_interop``'s
+  ``videomae_to_hf_state_dict`` writes (the k thirds of the qkv biases
+  dropped; a trainer's checkpoint keeps them beside, see
+  :func:`qkv_key_biases`).
 - :func:`jepa_from_jax_params`: the JAX package's JEPA tree
   ``{"encoder", "predictor"}`` as numpy arrays -> the state dict of
   :class:`~bvc_tpu_torch.models.jepa.JEPA`;
@@ -27,7 +32,12 @@ dicts).
 - :func:`jepa_encoder_from_reference_state_dict`: the reference
   ``VisionTransformer`` names, as ``bvc_tpu/cli/export_torch.py`` writes a
   JEPA checkpoint's ``encoder`` into ``model_{run_id}.pth.tar`` -> the state
-  dict of :class:`JEPAEncoder` (``pos_embed`` is recomputed, not read).
+  dict of :class:`JEPAEncoder` (``pos_embed`` is recomputed, not read);
+  :func:`jepa_predictor_from_reference_state_dict` the same for the
+  predictor's ``VisionTransformerPredictor`` names.  Their inverses,
+  :func:`jepa_encoder_to_reference` and :func:`jepa_predictor_to_reference`,
+  write those layouts with the fixed position tables, as
+  ``bvc_tpu.models.torch_interop`` does.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from bvc_tpu_torch.models.posenc import positional_encoding_3d
 from bvc_tpu_torch.utils.config import ModelConfig
 
 
@@ -95,28 +106,124 @@ def videomae_pretrain_from_jax_params(tree: dict, cfg: ModelConfig) -> dict[str,
     return sd
 
 
+_HF_BLOCK = (("proj", "attention.output.dense"), ("ln1", "layernorm_before"),
+             ("ln2", "layernorm_after"), ("fc1", "intermediate.dense"),
+             ("fc2", "output.dense"))
+_HF_ATT = "attention.attention."
+
+
+def _blocks_from_hf(sd: dict, src_prefix: str, dst_prefix: str, depth: int
+                    ) -> dict[str, torch.Tensor]:
+    """HF ``VideoMAELayer`` entries ``{src_prefix}{i}.*`` -> ``Blocks``
+    entries ``{dst_prefix}{i}.*``."""
+    out = {}
+    for i in range(depth):
+        src, dst = f"{src_prefix}{i}.", f"{dst_prefix}{i}."
+        g = lambda name: _f32(sd[src + name])  # noqa: E731
+        out[dst + "qkv.weight"] = torch.cat(
+            [g(_HF_ATT + "query.weight"), g(_HF_ATT + "key.weight"),
+             g(_HF_ATT + "value.weight")])
+        if src + _HF_ATT + "q_bias" in sd:
+            q_bias = g(_HF_ATT + "q_bias")
+            out[dst + "qkv.bias"] = torch.cat(
+                [q_bias, torch.zeros_like(q_bias), g(_HF_ATT + "v_bias")])
+        for ours, theirs in _HF_BLOCK:
+            out[dst + ours + ".weight"] = g(theirs + ".weight")
+            out[dst + ours + ".bias"] = g(theirs + ".bias")
+    return out
+
+
+def _blocks_to_hf(sd: dict, src_prefix: str, dst_prefix: str, depth: int
+                  ) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`_blocks_from_hf`: the k third of a qkv bias is
+    dropped (HF has no k bias)."""
+    out = {}
+    for i in range(depth):
+        src, dst = f"{src_prefix}{i}.", f"{dst_prefix}{i}."
+        qkv = _f32(sd[src + "qkv.weight"])
+        d = qkv.shape[1]
+        for j, name in enumerate(("query", "key", "value")):
+            out[f"{dst}{_HF_ATT}{name}.weight"] = qkv[j * d:(j + 1) * d].clone()
+        if src + "qkv.bias" in sd:
+            b = _f32(sd[src + "qkv.bias"])
+            out[dst + _HF_ATT + "q_bias"] = b[:d].clone()
+            out[dst + _HF_ATT + "v_bias"] = b[2 * d:].clone()
+        for ours, theirs in _HF_BLOCK:
+            out[dst + theirs + ".weight"] = _f32(sd[src + ours + ".weight"])
+            out[dst + theirs + ".bias"] = _f32(sd[src + ours + ".bias"])
+    return out
+
+
 def videomae_from_hf_state_dict(sd: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """HF ``VideoMAEForPreTraining``/``VideoMAEForVideoClassification``
     state dict -> encoder state dict."""
     proj = _f32(sd["videomae.embeddings.patch_embeddings.projection.weight"])
-    out = {"patch_embed.weight": proj.reshape(proj.shape[0], -1),
-           "patch_embed.bias": _f32(sd["videomae.embeddings.patch_embeddings.projection.bias"])}
-    for i in range(cfg.depth):
-        src, dst = f"videomae.encoder.layer.{i}.", f"blocks.layers.{i}."
-        g = lambda name: _f32(sd[src + name])  # noqa: E731
-        att = "attention.attention."
-        out[dst + "qkv.weight"] = torch.cat(
-            [g(att + "query.weight"), g(att + "key.weight"), g(att + "value.weight")])
-        if src + att + "q_bias" in sd:
-            q_bias = g(att + "q_bias")
-            out[dst + "qkv.bias"] = torch.cat(
-                [q_bias, torch.zeros_like(q_bias), g(att + "v_bias")])
-        for ours, theirs in (("ln1", "layernorm_before"), ("ln2", "layernorm_after"),
-                             ("proj", "attention.output.dense"),
-                             ("fc1", "intermediate.dense"), ("fc2", "output.dense")):
-            out[dst + ours + ".weight"] = g(theirs + ".weight")
-            out[dst + ours + ".bias"] = g(theirs + ".bias")
+    return {"patch_embed.weight": proj.reshape(proj.shape[0], -1),
+            "patch_embed.bias": _f32(sd["videomae.embeddings.patch_embeddings.projection.bias"]),
+            **_blocks_from_hf(sd, "videomae.encoder.layer.", "blocks.layers.", cfg.depth)}
+
+
+def videomae_pretrain_from_hf_state_dict(sd: dict, cfg: ModelConfig
+                                         ) -> dict[str, torch.Tensor]:
+    """HF ``VideoMAEForPreTraining`` state dict -> pretraining-model state
+    dict (encoder and decoder)."""
+    out = {"encoder." + k: x for k, x in videomae_from_hf_state_dict(sd, cfg).items()}
+    out.update(_blocks_from_hf(sd, "decoder.decoder_layers.", "decoder.layers.",
+                               cfg.decoder_depth))
+    out["enc_to_dec.weight"] = _f32(sd["encoder_to_decoder.weight"])
+    out["mask_token"] = _f32(sd["mask_token"])
+    for ours, theirs in (("decoder_norm", "decoder.norm"), ("decoder_head", "decoder.head")):
+        out[ours + ".weight"] = _f32(sd[theirs + ".weight"])
+        out[ours + ".bias"] = _f32(sd[theirs + ".bias"])
     return out
+
+
+def videomae_pretrain_to_hf_state_dict(sd: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """Pretraining-model state dict -> HF ``VideoMAEForPreTraining`` state
+    dict (f32 CPU tensors), the layout of the reference's checkpoints."""
+    w = _f32(sd["encoder.patch_embed.weight"])
+    out = {"videomae.embeddings.patch_embeddings.projection.weight": w.reshape(
+               w.shape[0], cfg.in_channels, cfg.tubelet_size, cfg.patch_size,
+               cfg.patch_size).contiguous(),
+           "videomae.embeddings.patch_embeddings.projection.bias":
+               _f32(sd["encoder.patch_embed.bias"])}
+    out.update(_blocks_to_hf(sd, "encoder.blocks.layers.", "videomae.encoder.layer.",
+                             cfg.depth))
+    out.update(_blocks_to_hf(sd, "decoder.layers.", "decoder.decoder_layers.",
+                             cfg.decoder_depth))
+    out["encoder_to_decoder.weight"] = _f32(sd["enc_to_dec.weight"])
+    out["mask_token"] = _f32(sd["mask_token"])
+    for ours, theirs in (("decoder_norm", "decoder.norm"), ("decoder_head", "decoder.head")):
+        out[theirs + ".weight"] = _f32(sd[ours + ".weight"])
+        out[theirs + ".bias"] = _f32(sd[ours + ".bias"])
+    return out
+
+
+def qkv_key_biases(sd: dict) -> dict[str, torch.Tensor]:
+    """The k thirds of the fused qkv biases of a state dict (``{name: k
+    third}``, f32 CPU), which the HF layout cannot hold.  Mathematically
+    their gradient is zero (a bias on every key adds the same amount to a
+    query's scores), but in floating point they drift from 0; a checkpoint
+    that keeps them resumes bit for bit."""
+    out = {}
+    for name, b in sd.items():
+        if name.endswith("qkv.bias"):
+            d = b.shape[0] // 3
+            out[name] = _f32(b[d:2 * d]).clone()
+    return out
+
+
+def with_qkv_key_biases(sd: dict[str, torch.Tensor], k_biases: dict[str, torch.Tensor]
+                        ) -> dict[str, torch.Tensor]:
+    """``sd`` with the k thirds of its qkv biases replaced by ``k_biases``
+    (the output of :func:`qkv_key_biases`)."""
+    sd = dict(sd)
+    for name, k in k_biases.items():
+        b = sd[name].clone()
+        d = b.shape[0] // 3
+        b[d:2 * d] = k
+        sd[name] = b
+    return sd
 
 
 def jepa_encoder_from_jax_params(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
@@ -143,19 +250,79 @@ def jepa_from_jax_params(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor
     return sd
 
 
+_REF_BLOCK = (("ln1", "norm1"), ("qkv", "attn.qkv"), ("proj", "attn.proj"),
+              ("ln2", "norm2"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"))
+
+
+def _ref_blocks(sd: dict, src_prefix: str, dst_prefix: str, depth: int, to_ref: bool
+                ) -> dict[str, torch.Tensor]:
+    """Reference ViT block entries ``{src_prefix}{i}.{norm1,attn.qkv,...}``
+    <-> ``Blocks`` entries (``to_ref`` picks the direction; the prefixes
+    are the source's and the destination's)."""
+    out = {}
+    for i in range(depth):
+        for ours, theirs in _REF_BLOCK:
+            src, dst = (ours, theirs) if to_ref else (theirs, ours)
+            for leaf in ("weight", "bias"):
+                out[f"{dst_prefix}{i}.{dst}.{leaf}"] = _f32(sd[f"{src_prefix}{i}.{src}.{leaf}"])
+    return out
+
+
 def jepa_encoder_from_reference_state_dict(sd: dict, cfg: ModelConfig
                                            ) -> dict[str, torch.Tensor]:
     """Reference ``VisionTransformer.state_dict()`` (``patch_embed.proj``
     as a Conv3d ``[D, C, ts, p, p]``, ``blocks.{i}.{norm1,attn.qkv,
     attn.proj,norm2,mlp.fc1,mlp.fc2}``, ``norm``) -> encoder state dict."""
     proj = _f32(sd["patch_embed.proj.weight"])
-    out = {"patch_embed.weight": proj.reshape(proj.shape[0], -1),
-           "patch_embed.bias": _f32(sd["patch_embed.proj.bias"]),
-           "norm.weight": _f32(sd["norm.weight"]), "norm.bias": _f32(sd["norm.bias"])}
-    for i in range(cfg.depth):
-        src, dst = f"blocks.{i}.", f"blocks.layers.{i}."
-        for ours, theirs in (("ln1", "norm1"), ("qkv", "attn.qkv"), ("proj", "attn.proj"),
-                             ("ln2", "norm2"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
-            for leaf in ("weight", "bias"):
-                out[f"{dst}{ours}.{leaf}"] = _f32(sd[f"{src}{theirs}.{leaf}"])
+    return {"patch_embed.weight": proj.reshape(proj.shape[0], -1),
+            "patch_embed.bias": _f32(sd["patch_embed.proj.bias"]),
+            "norm.weight": _f32(sd["norm.weight"]), "norm.bias": _f32(sd["norm.bias"]),
+            **_ref_blocks(sd, "blocks.", "blocks.layers.", cfg.depth, to_ref=False)}
+
+
+def jepa_predictor_from_reference_state_dict(sd: dict, cfg: ModelConfig
+                                             ) -> dict[str, torch.Tensor]:
+    """Reference ``VisionTransformerPredictor.state_dict()`` -> predictor
+    state dict (``predictor_pos_embed`` is recomputed, not read)."""
+    out = {"mask_token": _f32(sd["mask_token"]),
+           **_ref_blocks(sd, "predictor_blocks.", "blocks.layers.", cfg.pred_depth,
+                         to_ref=False)}
+    for ours, theirs in (("embed", "predictor_embed"), ("norm", "predictor_norm"),
+                         ("proj", "predictor_proj")):
+        out[ours + ".weight"] = _f32(sd[theirs + ".weight"])
+        out[ours + ".bias"] = _f32(sd[theirs + ".bias"])
+    return out
+
+
+def _pos_table(cfg: ModelConfig, dim: int) -> torch.Tensor:
+    g = cfg.image_size // cfg.patch_size
+    table = positional_encoding_3d(cfg.num_frames // cfg.tubelet_size, g, g, dim)
+    return torch.from_numpy(np.ascontiguousarray(table))[None]
+
+
+def jepa_encoder_to_reference(sd: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """Encoder state dict -> reference ``VisionTransformer.state_dict()``
+    layout, with the fixed ``pos_embed`` table."""
+    w = _f32(sd["patch_embed.weight"])
+    return {"patch_embed.proj.weight": w.reshape(w.shape[0], cfg.in_channels,
+                                                 cfg.tubelet_size, cfg.patch_size,
+                                                 cfg.patch_size).contiguous(),
+            "patch_embed.proj.bias": _f32(sd["patch_embed.bias"]),
+            "pos_embed": _pos_table(cfg, w.shape[0]),
+            "norm.weight": _f32(sd["norm.weight"]), "norm.bias": _f32(sd["norm.bias"]),
+            **_ref_blocks(sd, "blocks.layers.", "blocks.", cfg.depth, to_ref=True)}
+
+
+def jepa_predictor_to_reference(sd: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """Predictor state dict -> reference
+    ``VisionTransformerPredictor.state_dict()`` layout, with the fixed
+    ``predictor_pos_embed`` table."""
+    out = {"mask_token": _f32(sd["mask_token"]),
+           "predictor_pos_embed": _pos_table(cfg, cfg.pred_emb_dim),
+           **_ref_blocks(sd, "blocks.layers.", "predictor_blocks.", cfg.pred_depth,
+                         to_ref=True)}
+    for ours, theirs in (("embed", "predictor_embed"), ("norm", "predictor_norm"),
+                         ("proj", "predictor_proj")):
+        out[theirs + ".weight"] = _f32(sd[ours + ".weight"])
+        out[theirs + ".bias"] = _f32(sd[ours + ".bias"])
     return out

@@ -28,8 +28,11 @@ layout, flat patch order (c, dt, dh, dw)), ``blocks.layers.{i}.*`` and
 :mod:`bvc_tpu_torch.models.convert` fills them from JAX params, and the
 encoder also from the reference layout of a ``.pth.tar``.
 
-Drop-path and position tables resized to another spatial grid come with
-the training loop (ROADMAP slice 4); until then they raise.
+Drop-path (``cfg.drop_path_rate``, the reference's per-layer
+``linspace(0, rate, depth)``) runs when the caller passes a generator, as
+the JAX package's runs when it passes an rng: the training step passes its
+state's.  Position tables resized to another spatial grid
+(``interpolate_pos_table_3d``) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from torch import nn
 from bvc_tpu_torch.models.initializers import init_linear, trunc_normal_
 from bvc_tpu_torch.models.posenc import positional_encoding_3d
 from bvc_tpu_torch.models.videomae import _DTYPES, normalize_on_device
-from bvc_tpu_torch.models.vit import Blocks, LayerNorm, layer_norm, no_remat
+from bvc_tpu_torch.models.vit import Blocks, LayerNorm, layer_norm
 from bvc_tpu_torch.ops.patchify import tubelet_patchify
 from bvc_tpu_torch.utils.config import ModelConfig
 
@@ -49,15 +52,6 @@ from bvc_tpu_torch.utils.config import ModelConfig
 def _grid(cfg: ModelConfig) -> tuple[int, int, int]:
     g = cfg.image_size // cfg.patch_size
     return (cfg.num_frames // cfg.tubelet_size, g, g)
-
-
-def _unported_options(cfg: ModelConfig) -> None:
-    """Raise for drop-path and remat, which come with the training loop."""
-    no_remat(cfg)
-    if cfg.drop_path_rate > 0:
-        raise NotImplementedError(
-            f"drop_path_rate={cfg.drop_path_rate}: drop-path comes with the "
-            "training loop (ROADMAP slice 4)")
 
 
 def safe_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -77,14 +71,13 @@ class JEPAEncoder(nn.Module):
         """Random weights drawn from ``generator``, or from a fresh one
         seeded with ``seed`` when it is None."""
         super().__init__()
-        _unported_options(cfg)
         self.cfg = cfg
         gen = generator if generator is not None else torch.Generator().manual_seed(seed)
         patch_dim = cfg.in_channels * cfg.tubelet_size * cfg.patch_size ** 2
         self.patch_embed = nn.Linear(patch_dim, cfg.hidden_size)
         init_linear(self.patch_embed, cfg.init_std, gen)
         self.blocks = Blocks(cfg.depth, cfg.hidden_size, cfg.num_heads, cfg.mlp_ratio,
-                             cfg.qkv_bias, cfg.layer_norm_eps, cfg.init_std, gen)
+                             cfg.qkv_bias, cfg.layer_norm_eps, cfg.init_std, gen, cfg.remat)
         self.norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
         self.register_buffer(
             "pos_embed",
@@ -92,10 +85,12 @@ class JEPAEncoder(nn.Module):
             persistent=False)
 
     def forward(self, video: torch.Tensor, keep_idx: torch.Tensor | None = None,
-                attn_impl: str = "auto") -> torch.Tensor:
+                attn_impl: str = "auto", generator: torch.Generator | None = None
+                ) -> torch.Tensor:
         """Encode uint8 (normalized here) or normalized ``[B, T, H, W, C]``
         video.  ``keep_idx``: optional ``[B, K]`` token indices, ``-1``
-        padded.  Returns ``[B, K, D]`` (``[B, N, D]`` without it),
+        padded.  ``generator``: the drop-path draws (training; none without
+        it).  Returns ``[B, K, D]`` (``[B, N, D]`` without ``keep_idx``),
         final-normed, in the compute dtype."""
         cfg = self.cfg
         dtype = _DTYPES[cfg.dtype]
@@ -108,7 +103,7 @@ class JEPAEncoder(nn.Module):
         if (h_in, w_in) != (h, w):
             raise NotImplementedError(
                 f"spatial grid {h_in}x{w_in} != configured {h}x{w}: resizing the "
-                "position table (interpolate_pos_table_3d) comes with ROADMAP slice 4")
+                "position table (interpolate_pos_table_3d) is not ported yet")
         pe = self.patch_embed
         tokens = tubelet_patchify(normalize_on_device(video), pe.weight, pe.bias,
                                   cfg.tubelet_size, cfg.patch_size, dtype)
@@ -117,7 +112,8 @@ class JEPAEncoder(nn.Module):
         if keep_idx is not None:
             key_mask = keep_idx >= 0
             tokens = safe_gather(tokens, keep_idx)
-        return self.norm(self.blocks(tokens, attn_impl, key_mask))
+        return self.norm(self.blocks(tokens, attn_impl, key_mask, cfg.drop_path_rate,
+                                     generator))
 
     def embed(self, video: torch.Tensor, attn_impl: str = "auto") -> torch.Tensor:
         """Mean over the tokens of the normed encoder output, ``[B, D]`` in
@@ -132,7 +128,6 @@ class JEPAPredictor(nn.Module):
     def __init__(self, cfg: ModelConfig, seed: int = 0,
                  generator: torch.Generator | None = None):
         super().__init__()
-        _unported_options(cfg)
         self.cfg = cfg
         gen = generator if generator is not None else torch.Generator().manual_seed(seed)
         d_enc, d_pred = cfg.hidden_size, cfg.pred_emb_dim
@@ -141,7 +136,7 @@ class JEPAPredictor(nn.Module):
         self.mask_token = nn.Parameter(torch.empty(1, 1, d_pred))
         trunc_normal_(self.mask_token, cfg.init_std, gen)
         self.blocks = Blocks(cfg.pred_depth, d_pred, cfg.num_heads, cfg.mlp_ratio,
-                             cfg.qkv_bias, cfg.layer_norm_eps, cfg.init_std, gen)
+                             cfg.qkv_bias, cfg.layer_norm_eps, cfg.init_std, gen, cfg.remat)
         self.norm = LayerNorm(d_pred, cfg.layer_norm_eps)
         self.proj = nn.Linear(d_pred, d_enc)
         init_linear(self.proj, cfg.init_std, gen)
@@ -150,10 +145,12 @@ class JEPAPredictor(nn.Module):
             persistent=False)
 
     def forward(self, z: torch.Tensor, enc_idx: torch.Tensor, pred_idx: torch.Tensor,
-                attn_impl: str = "auto") -> torch.Tensor:
+                attn_impl: str = "auto", generator: torch.Generator | None = None
+                ) -> torch.Tensor:
         """``z [B, Ke, D]``: encoder output at the context positions
         ``enc_idx [B, Ke]``; ``pred_idx [M, B, Kp]``: the target positions
-        (both ``-1`` padded).  Returns ``[M, B, Kp, D]``."""
+        (both ``-1`` padded); ``generator``: the drop-path draws.  Returns
+        ``[M, B, Kp, D]``."""
         dtype = z.dtype
         M, B, Kp = pred_idx.shape
         Ke = enc_idx.shape[1]
@@ -167,7 +164,8 @@ class JEPAPredictor(nn.Module):
                        + pos[pred_idx.clamp(min=0)].reshape(M * B, Kp, -1))
         pred_valid = (pred_idx >= 0).reshape(M * B, Kp)
         full = self.blocks(torch.cat([x, pred_tokens], dim=1), attn_impl,
-                           torch.cat([enc_valid, pred_valid], dim=1))
+                           torch.cat([enc_valid, pred_valid], dim=1),
+                           self.cfg.drop_path_rate, generator)
         out = self.norm(full[:, Ke:])
         out = F.linear(out, self.proj.weight.to(dtype), self.proj.bias.to(dtype))
         return out.reshape(M, B, Kp, -1)
@@ -183,7 +181,6 @@ class JEPA(nn.Module):
         encoder's first (the same as ``JEPAEncoder(cfg, seed)``), then the
         predictor's."""
         super().__init__()
-        _unported_options(cfg)
         self.cfg = cfg
         gen = torch.Generator().manual_seed(seed)
         self.encoder = JEPAEncoder(cfg, generator=gen)

@@ -37,7 +37,7 @@ from torch import nn
 from bvc_tpu_torch.masks.tube import mask_partition
 from bvc_tpu_torch.models.initializers import init_linear, trunc_normal_
 from bvc_tpu_torch.models.posenc import sinusoid_table_1d
-from bvc_tpu_torch.models.vit import Blocks, LayerNorm, layer_norm, no_remat
+from bvc_tpu_torch.models.vit import Blocks, LayerNorm, layer_norm
 from bvc_tpu_torch.ops.patchify import patchify_pixels
 from bvc_tpu_torch.utils.config import ModelConfig
 
@@ -64,7 +64,6 @@ class VideoMAEEncoder(nn.Module):
         """Random weights drawn from ``generator``, or from a fresh one
         seeded with ``seed`` when it is None."""
         super().__init__()
-        no_remat(cfg)
         if cfg.architecture != "base":
             raise ValueError(
                 f"videomae architecture {cfg.architecture!r} is not defined; "
@@ -76,7 +75,7 @@ class VideoMAEEncoder(nn.Module):
         self.patch_embed = nn.Linear(patch_dim, cfg.hidden_size)
         init_linear(self.patch_embed, cfg.init_std, gen)
         self.blocks = Blocks(cfg.depth, cfg.hidden_size, cfg.num_heads, cfg.mlp_ratio,
-                             cfg.qkv_bias, cfg.layer_norm_eps, cfg.init_std, gen)
+                             cfg.qkv_bias, cfg.layer_norm_eps, cfg.init_std, gen, cfg.remat)
         self.register_buffer(
             "pos_embed",
             torch.from_numpy(sinusoid_table_1d(cfg.seq_len, cfg.hidden_size)),
@@ -145,7 +144,6 @@ class VideoMAEPretrain(nn.Module):
         encoder's first (the same as ``VideoMAEEncoder(cfg, seed)``), then
         the decoder's."""
         super().__init__()
-        no_remat(cfg)
         self.cfg = cfg
         gen = torch.Generator().manual_seed(seed)
         self.encoder = VideoMAEEncoder(cfg, generator=gen)
@@ -156,7 +154,7 @@ class VideoMAEPretrain(nn.Module):
         self.mask_token = nn.Parameter(torch.empty(1, 1, dec_d))
         trunc_normal_(self.mask_token, cfg.init_std, gen)
         self.decoder = Blocks(cfg.decoder_depth, dec_d, cfg.decoder_num_heads, cfg.mlp_ratio,
-                              cfg.qkv_bias, cfg.layer_norm_eps, cfg.init_std, gen)
+                              cfg.qkv_bias, cfg.layer_norm_eps, cfg.init_std, gen, cfg.remat)
         self.decoder_norm = LayerNorm(dec_d, cfg.layer_norm_eps)
         self.decoder_head = nn.Linear(dec_d, patch_dim)
         init_linear(self.decoder_head, cfg.init_std, gen)

@@ -13,15 +13,18 @@ A block's ``qkv``, ``proj``, ``fc1`` and ``fc2`` may be a
 :func:`~bvc_tpu_torch.ops.quant.qdense` with the bias added in f32, as the
 JAX package's ``qdense`` does.
 
-Drop-path and activation checkpointing (off in every reference config)
-come with the training loop (ROADMAP slice 4); until then the models raise
-for a config that asks for either (:func:`no_remat`).
+Stochastic depth (:func:`drop_path`, JEPA only, off in every reference
+config) and activation checkpointing (``remat``: each block's activations
+recomputed in the backward, as the JAX package's ``run_blocks(..., remat)``)
+are options of :class:`Blocks`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from bvc_tpu_torch.models.initializers import init_linear
@@ -29,17 +32,20 @@ from bvc_tpu_torch.ops.attention import multi_head_attention
 from bvc_tpu_torch.ops.flash_attention import key_bias
 from bvc_tpu_torch.ops.gelu import gelu
 from bvc_tpu_torch.ops.quant import QuantLinear, qdense
-from bvc_tpu_torch.utils.config import ModelConfig
 
 
-def no_remat(cfg: ModelConfig) -> None:
-    """Raise for ``cfg.remat``: the JAX package checkpoints each block's
-    activations then (``run_blocks(..., remat)``), and a model built here
-    would silently keep them all."""
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat=True: activation checkpointing of each block comes with the "
-            "training loop (ROADMAP slice 4)")
+def drop_path(x: torch.Tensor, keep: torch.Tensor | None, keep_prob: float = 1.0
+              ) -> torch.Tensor:
+    """Per-sample stochastic depth on a residual branch ``x [B, ...]``:
+    ``keep [B]`` is a Bernoulli(``keep_prob``) draw, and the surviving
+    branches are scaled by ``1 / keep_prob`` in ``x``'s dtype, as the JAX
+    package's ``drop_path`` computes ``x * (mask / keep)``; None is the
+    identity."""
+    if keep is None:
+        return x
+    keep_prob = torch.tensor(keep_prob, dtype=x.dtype).item()  # rounded as JAX casts it
+    scale = keep.to(x.dtype) / keep_prob
+    return x * scale.reshape((-1,) + (1,) * (x.ndim - 1))
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor | None,
@@ -96,35 +102,64 @@ class Block(nn.Module):
             init_linear(layer, init_std, generator)
 
     def forward(self, x: torch.Tensor, attn_impl: str = "auto",
-                bias: torch.Tensor | None = None) -> torch.Tensor:
+                bias: torch.Tensor | None = None, drop_keep: torch.Tensor | None = None,
+                keep_prob: float = 1.0) -> torch.Tensor:
         """``bias``: the ``[B, N]`` f32 key bias that :class:`Blocks` builds
-        from its key mask, or None."""
+        from its key mask, or None; ``drop_keep``: ``[2, B]`` bool drop-path
+        draws (Bernoulli(``keep_prob``)) of the attention and MLP branches,
+        or None."""
         B, N, D = x.shape
         h = self.ln1(x)
         qkv = _dense(h, self.qkv).reshape(B, N, 3, self.num_heads, D // self.num_heads)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         attn = multi_head_attention(q, k, v, impl=attn_impl, bias=bias)
-        x = x + _dense(attn.reshape(B, N, D), self.proj)
-        h = gelu(_dense(self.ln2(x), self.fc1))
-        return x + _dense(h, self.fc2)
+        attn = _dense(attn.reshape(B, N, D), self.proj)
+        x = x + drop_path(attn, None if drop_keep is None else drop_keep[0], keep_prob)
+        h = _dense(gelu(_dense(self.ln2(x), self.fc1)), self.fc2)
+        return x + drop_path(h, None if drop_keep is None else drop_keep[1], keep_prob)
 
 
 class Blocks(nn.Module):
-    """A stack of ``depth`` blocks run in order (``run_blocks``)."""
+    """A stack of ``depth`` blocks run in order (``run_blocks``).
+
+    ``remat=True`` wraps each block in ``torch.utils.checkpoint`` (non
+    reentrant) while gradients are on: its activations are dropped after
+    the forward and recomputed in the backward, with the same key bias and
+    the same drop-path draw, which come in as arguments."""
 
     def __init__(self, depth: int, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, ln_eps: float = 1e-6, init_std: float = 0.02,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             Block(dim, num_heads, mlp_ratio, qkv_bias, ln_eps, init_std, generator)
             for _ in range(depth))
 
     def forward(self, x: torch.Tensor, attn_impl: str = "auto",
-                key_mask: torch.Tensor | None = None) -> torch.Tensor:
+                key_mask: torch.Tensor | None = None, drop_path_rate: float = 0.0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """``key_mask`` (``[B, N]`` bool, True = attendable) becomes its f32
-        key bias once here, for every layer."""
+        key bias once here, for every layer.  With ``drop_path_rate > 0``
+        and a ``generator`` (training), layer i drops its branches per
+        sample at the reference's rate ``linspace(0, drop_path_rate,
+        depth)[i]``, drawn from ``generator`` before the layer runs."""
         bias = None if key_mask is None else key_bias(key_mask)
-        for layer in self.layers:
-            x = layer(x, attn_impl, bias)
+        rates = (np.linspace(0.0, drop_path_rate, len(self.layers))
+                 if drop_path_rate > 0 and generator is not None else None)
+        remat = self.remat and torch.is_grad_enabled()
+        for i, layer in enumerate(self.layers):
+            keep, keep_prob = None, 1.0
+            if rates is not None and rates[i] > 0:
+                keep_prob = 1.0 - float(rates[i])
+                # independent draws for the two branches, as the reference's
+                # two drop_path calls
+                keep = torch.rand((2, x.shape[0]), generator=generator,
+                                  device=generator.device) < keep_prob
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(layer, x, attn_impl, bias, keep,
+                                                      keep_prob, use_reentrant=False,
+                                                      preserve_rng_state=False)
+            else:
+                x = layer(x, attn_impl, bias, keep, keep_prob)
         return x

@@ -127,7 +127,9 @@ def make_jepa_train_step(model_cfg: ModelConfig, total_steps: int,
 
     ``state`` holds a :class:`~bvc_tpu_torch.models.jepa.JEPA` as its model
     and the EMA target encoder as ``state.target``; the step updates the
-    model, the optimizer, the step count and the target in place.  The EMA
+    model, the optimizer, the step count and the target in place, and
+    draws the context encoder's and the predictor's drop-path (when
+    ``model_cfg.drop_path_rate > 0``) from the state's generator.  The EMA
     coefficient after update ``i`` (the state's step before it) is the
     reference's: ``ema[0] + i * (ema[1] - ema[0]) / total_steps``, not
     capped at 1, while ``i < total_steps + 5``, then ``ema_fallback``.
@@ -155,15 +157,17 @@ def make_jepa_train_step(model_cfg: ModelConfig, total_steps: int,
         grad_impl = target_impl = attn_impl
 
     def jepa_loss(state: TrainState, video, enc_idx, pred_idx,
-                  online_impl: str = grad_impl) -> torch.Tensor:
+                  online_impl: str = grad_impl, train: bool = True) -> torch.Tensor:
         """Mean smooth-L1 over the valid prediction rows, ``pred_idx``
-        ``[B, M, Kp]``."""
+        ``[B, M, Kp]``; ``train`` draws drop-path (when the config has it)
+        from the state's generator."""
         pred_idx = pred_idx.transpose(0, 1)  # [M, B, Kp]
         targets = target_features(state.target, video, pred_idx, target_impl)
         valid = (pred_idx >= 0).float()[..., None]
         model = state.model
-        z = model.encoder(video, enc_idx, online_impl)
-        preds = model.predictor(z, enc_idx, pred_idx, online_impl)
+        gen = state.generator if train else None
+        z = model.encoder(video, enc_idx, online_impl, gen)
+        preds = model.predictor(z, enc_idx, pred_idx, online_impl, gen)
         per = smooth_l1(preds, targets) * valid
         return per.sum() / (valid.sum().clamp(min=1.0) * preds.shape[-1])
 
@@ -199,7 +203,7 @@ def make_jepa_train_step(model_cfg: ModelConfig, total_steps: int,
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
         # as the JAX eval step: the online networks at the default routing
-        return {"loss": jepa_loss(state, *on_device(state, batch), attn_impl)}
+        return {"loss": jepa_loss(state, *on_device(state, batch), attn_impl, train=False)}
 
     step.eval_step = eval_step
     return step

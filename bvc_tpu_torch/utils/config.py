@@ -1,5 +1,7 @@
-"""Configuration (counterpart of ``ModelConfig``, ``MaskConfig`` and
-``OptimConfig`` of ``bvc_tpu.utils.config``).
+"""Configuration (counterpart of ``DataConfig``, ``ModelConfig``,
+``MaskConfig``, ``OptimConfig`` and ``TrainConfig`` of
+``bvc_tpu.utils.config``, and of the ``VIT_DIMS`` table of
+``bvc_tpu.models.vit``).
 
 The same field names and defaults as the JAX package, so one set of flags or
 one yaml drives both; ``bvc_tpu.utils`` imports JAX, so the port keeps its
@@ -7,11 +9,67 @@ own copy.  The model defaults are VideoMAE-B: 224 px, 16 frames, tubelet 2,
 patch 16, 768 wide, 12 layers, 12 heads, a 384-wide 4-layer decoder, bf16
 activations; the mask defaults are tube masking at 0.9; the optimizer
 defaults are SGD with Nesterov momentum 0.9 at lr 0.1.
+:meth:`TrainConfig.dump_yaml` writes ``params_{run_id}.yaml`` with the keys
+of the JAX package's dump.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any
+
+# name: (embed_dim, depth, num_heads) of the JEPA ViTs (reference factories
+# vision_transformer.py:551-600)
+VIT_DIMS: dict[str, tuple[int, int, int]] = {
+    "vit_tiny": (192, 12, 3),
+    "vit_small": (384, 12, 6),
+    "vit_base": (768, 12, 12),
+    "vit_large": (1024, 24, 16),
+    "vit_huge": (1280, 32, 16),
+    "vit_giant": (1408, 40, 16),
+}
+
+
+@dataclass
+class DataConfig:
+    """Input-pipeline knobs (reference CLI flags + homeview constants)."""
+
+    jpg_root: str = ""
+    train_group: str = "g0"
+    ds_rate: int = 1
+    fold: int = 0
+    num_folds: int = 3  # 'max_folds' at generative/homeview.py:33
+    condition: str = "default"
+    n_trainsamples: int = 81000
+    num_frames: int = 16
+    tubelet_size: int = 2
+    image_size: int = 224
+    interval: int = 0  # pair sampling gap (predictive/contrastive)
+    augs: str = "n"  # subset of 'cjbgo'
+    crop_scale: tuple[float, float] = (1.0, 1.0)
+    keep_val: bool = False  # keep_val=='y' → val_ratio 0.1, else 0
+    batch_size: int = 16  # per-device batch
+    shuffle: bool = True
+    seed: int = 0
+    num_workers: int = 6  # host decode threads
+    prefetch: int = 2  # batches in flight
+    # ship uint8 frames and normalize on the device (4x less H2D)
+    feed_uint8: bool = True
+    # Frames per contiguous fold segment: 30 min * 60 s * 30 fps / ds_rate
+    # (generative/homeview.py:158).
+    segment_minutes: float = 30.0
+    native_fps: float = 30.0
+    # Matched-complexity control data root ('controls.py:44-49')
+    control_data_root: str = ""
+    # Packed-corpus root (data/packed.py): plain transforms read
+    # pre-resized uint8 memmaps instead of decoding JPEGs per step
+    pack_root: str = ""
+
+    @property
+    def segment_size(self) -> int:
+        return int(self.segment_minutes * 60 * self.native_fps / self.ds_rate)
 
 
 @dataclass
@@ -44,7 +102,7 @@ class ModelConfig:
     drop_path_rate: float = 0.0
     # compute
     dtype: str = "bfloat16"  # activation/compute dtype
-    remat: bool = False  # activation checkpointing of each block; the models raise for True
+    remat: bool = False  # recompute each block's activations in the backward
     # bf16-stored attention logits for the JEPA target encoder and gradient
     # paths where their attention runs plain ('xla_bf16', see
     # make_jepa_train_step); the flash kernels keep f32 scores
@@ -103,17 +161,61 @@ class OptimConfig:
     contrastive_negatives: str = "global"
     bn_stats: str = "global"
     # 'none' keeps lr constant; 'warmup_cosine' warms start_lr -> lr over
-    # warmup_epochs, then decays lr -> final_lr by a cosine
+    # warmup_epochs, then decays lr -> final_lr by a cosine.  The warmup
+    # epochs and the horizon's padding ipe_scale become make_optimizer's
+    # (warmup, total) steps through training.optim.schedule_steps
     schedule: str = "none"  # 'none' | 'warmup_cosine'
+    warmup_epochs: float = 0.0
     start_lr: float = 0.0
     final_lr: float = 0.0
     # cosine weight-decay schedule weight_decay -> final_wd; None: constant
     final_wd: float | None = None
-    # Read by the trainer (slice 4), not yet by the port: it turns
-    # warmup_epochs and ipe_scale into make_optimizer's (warmup, total)
-    # steps, and passes grad_accum_steps to make_videomae_train_step's
-    # grad_accum (>1: average the gradients of that many microbatches
-    # before the one optimizer step).  Until then the caller passes both.
-    warmup_epochs: float = 0.0
     ipe_scale: float = 1.25
+    # >1: average the gradients of that many microbatches before the one
+    # optimizer step (the trainers pass it to the steps' grad_accum)
     grad_accum_steps: int = 1
+
+
+@dataclass
+class TrainConfig:
+    """One curriculum stage's run: the JAX package's fields, so
+    ``params_{run_id}.yaml`` holds the same keys.  ``mesh_shape``,
+    ``param_sharding`` and ``pipe_microbatches`` belong to the multi-GPU
+    slice: the trainers refuse a mesh and a sharding other than
+    ``replicated``."""
+
+    run_id: str = ""
+    savedir: str = ""
+    init_checkpoint_path: str = "na"
+    # checkpoint each epoch and pick up from model_{run_id}.pth.tar when
+    # resuming
+    save_every_epoch: bool = False
+    # snapshot the state to the host, then write on a background thread
+    async_save: bool = False
+    resume: bool = False
+    n_epoch: int = 1
+    max_epoch_iters: int = 0  # 0 → as many as the data allows
+    seed: int = 0
+    log_freq: int = 10
+    log_grad_stats: bool = False
+    # one torch.profiler trace of train steps 1-3 to this dir; "" disables
+    profile_dir: str = ""
+    script: str = ""
+    mesh_shape: dict[str, int] = field(default_factory=dict)
+    param_sharding: str = "replicated"
+    pipe_microbatches: int = 4
+    data: DataConfig = field(default_factory=DataConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    mask: MaskConfig = field(default_factory=MaskConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def dump_yaml(self, path: str | Path) -> None:
+        """Provenance dump, reference ``pretrain_jepa.py:206-209``
+        (``params_{run_id}.yaml``)."""
+        import yaml
+
+        with open(path, "w") as f:
+            yaml.safe_dump(self.to_dict(), f, sort_keys=False)

@@ -121,10 +121,35 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
 13. The entry point: ``extract_embeddings`` over a small synthetic dataset,
    then ``save_results``, with a bf16 and with an int8 embed function; row
    count and width 768.
+14. The pretraining CLIs at full width (``python -m
+   bvc_tpu_torch.cli.pretrain_videomae`` and ``.pretrain_jepa`` through
+   their ``main``), over a synthetic corpus written from numpy: placeholder
+   ``.jpg`` names under subject dirs of ``get_group('g0')`` and a packed
+   shard of the port's format (nothing decodes a JPEG).  VideoMAE-B at the
+   batch 10 picked, V-JEPA ViT-B with the CLI's defaults at B=64: a
+   19-step stage (timed at steps 5-11, then timed and traced by
+   ``--profile_dir`` at steps 12-18), a 3-step stage
+   chained from its checkpoint, and ``--resume y`` of the finished stage,
+   which returns at once.  Each stage launches exactly its step's kernels
+   a step, its CSV has a finite loss a step, and the checkpoint embeds a
+   batch through ``make_embed_fn`` at cosine >= 0.999 to the trained
+   encoder.  Prints the trainer's clips/s (steps 5-11, host clock between
+   two synchronisations; and over the traced steps), the loader's alone (pinned buffers, side-stream
+   copies, each batch's device sum held against its samples' host sum),
+   the step's alone (CUDA events, the batch on the card; and the host time
+   to dispatch one step into an empty queue), and the device's idle share
+   over the traced steps (the share of them in which no kernel ran; the
+   loader's copies are printed apart).
+15. Remat: one VideoMAE-B step at ``remat=True`` against ``remat=False`` at
+   the batch 10 picked: gradient cosine >= 0.9995 per parameter tensor,
+   32 ``flash_fwd`` launches (the recompute) and no other change, and a
+   lower peak memory (both printed).
 
 Every path runs with every launch count set to 0 just before it and read
 just after, and fails if a kernel other than its own launched.
-Prints one JSON ``{"kernels": [...]}`` line and, last,
+Prints one JSON ``{"trainers": {...}}`` line (14 and 15), one JSON
+``{"kernels": [...]}`` line (with each kernel's ``launches_per_cli_step``)
+and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that last line,
 when there is no CUDA device, when run outside a checkout, or when any phase
 fails.
@@ -976,11 +1001,12 @@ def time_train_steps(make_state, step, video, steps: int = 10) -> tuple:
     return start.elapsed_time(end) / steps, torch.stack(losses).tolist(), state
 
 
-def phase_train(card: str, profile: str | None) -> dict[str, int]:
+def phase_train(card: str, profile: str | None) -> tuple[dict[str, int], int]:
     """VideoMAE-B pretraining steps on the card through the port's entry
     points (``VideoMAEPretrain``, ``TrainState.create``,
     ``make_videomae_train_step``), as ``bench.py`` configures the JAX
-    flagship.  Returns each kernel's launches in one step at B=8."""
+    flagship.  Returns each kernel's launches in one step at B=8, and the
+    batch timed."""
     import gc
 
     import numpy as np
@@ -1077,7 +1103,10 @@ def phase_train(card: str, profile: str | None) -> dict[str, int]:
         break
     else:
         fail("no batch size in {48, 32, 16} fits")
-    return launches
+    del state, video
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, B
 
 
 def jepa_config():
@@ -2023,6 +2052,398 @@ def phase_jepa_train(card: str, profile: str | None) -> dict[str, int]:
     return launches
 
 
+# steps [a, b) of a CLI stage timed as rec[key]: the trainer's clips/s untraced,
+# then the same number of steps under --profile_dir's trace (its idle share)
+CLI_WINDOWS = {"ms": (5, 12), "traced_ms": (12, 19)}
+CLI_ITERS = 19  # training steps of a CLI stage
+CORPUS_FRAMES = 1000  # frames per subject: JEPA's pairs 300 apart need > 300 + B*iters/2
+REMAT_COSINE_MIN = 0.9995  # per parameter tensor, remat against no remat
+
+
+def write_corpus(root: Path, image_size: int = 224, subjects: int = 2) -> tuple[str, str]:
+    """A synthetic corpus in the HOMEview layout: ``jpg/<subject>/<frame>.jpg``
+    placeholders (the readers list the names; nothing decodes them) for
+    the first ``subjects`` subjects of the port's ``get_group('g0')``, and
+    their frames, uniform random uint8 from numpy, in a packed shard of the
+    port's format (``pack/<subject>/frames_<S>.u8`` and ``.json``).  The
+    card's machine is not known to have a JPEG decoder, so a frame the
+    packed reader lacked would fail loudly rather than decode.  Returns the
+    two roots."""
+    import numpy as np
+
+    from bvc_tpu_torch.data.indexing import get_group
+    from bvc_tpu_torch.data.packed import write_shard
+
+    rng = np.random.default_rng(0)
+    jpg, pack = root / "jpg", root / "pack"
+    for subject in get_group("g0")[:subjects]:
+        (jpg / subject).mkdir(parents=True)
+        names = [f"frame_{i:05d}.jpg" for i in range(CORPUS_FRAMES)]
+        for name in names:
+            (jpg / subject / name).touch()
+        chunks = (rng.integers(0, 256, (100, image_size, image_size, 3), dtype=np.uint8)
+                  for _ in range(CORPUS_FRAMES // 100))
+        write_shard(str(pack), subject, names, chunks, image_size)
+    return str(jpg), str(pack)
+
+
+def captured_loaders(module) -> tuple[list, object]:
+    """Patch the trainer ``module``'s ``DataLoader`` so the loaders it
+    builds are kept; returns (the list, an undo function)."""
+    loader_cls, kept = module.DataLoader, []
+
+    class Kept(loader_cls):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            kept.append(self)
+
+    module.DataLoader = Kept
+    return kept, lambda: setattr(module, "DataLoader", loader_cls)
+
+
+def timed_steps(module, factory: str) -> dict:
+    """Patch the trainer ``module``'s step factory so each step it makes is
+    recorded: the state (``rec['state']``, ``rec['step']``), the batches'
+    count, and for each of ``CLI_WINDOWS`` the host clock at the start of
+    its first step and after its last, both after a device synchronisation
+    (``rec[key]``: ms a step over the window); and its ``StepTraceWindow``
+    so that ``--profile_dir`` traces the ``traced_ms`` window."""
+    import torch
+
+    make, window = getattr(module, factory), module.StepTraceWindow
+    rec = {"calls": 0}
+
+    def patched(*args, **kw):
+        step = make(*args, **kw)
+
+        def wrapped(state, batch):
+            i = rec["calls"]
+            rec.update(calls=i + 1, state=state, step=step, batch=batch)
+            for key, (a, _) in CLI_WINDOWS.items():
+                if i == a:
+                    torch.cuda.synchronize()
+                    rec[key] = time.perf_counter()
+            out = step(state, batch)
+            for key, (a, b) in CLI_WINDOWS.items():
+                if i == b - 1:
+                    torch.cuda.synchronize()
+                    rec[key] = (time.perf_counter() - rec[key]) * 1e3 / (b - a)
+            return out
+
+        wrapped.eval_step = step.eval_step
+        return wrapped
+
+    setattr(module, factory, patched)
+    a, b = CLI_WINDOWS["traced_ms"]
+    module.StepTraceWindow = lambda logdir: window(logdir, start=a, n=b - a)
+
+    def restore():
+        setattr(module, factory, make)
+        module.StepTraceWindow = window
+
+    rec["restore"] = restore
+    return rec
+
+
+def loader_alone(ds, B: int, collate=None) -> tuple[float, int]:
+    """Clips/s of the port's ``DataLoader`` alone on the card (pinned
+    buffers, side-stream copies; no step), over batches 2 .. CLI_ITERS - 1
+    of epoch 0, with each batch's uint8 sum taken on the device held
+    against the sum of its samples on the host (a pinned buffer refilled
+    before its copy finished would break it).  Returns (clips/s, batches
+    checked)."""
+    import numpy as np
+    import torch
+
+    from bvc_tpu_torch.data.loader import DataLoader
+
+    loader = DataLoader(ds, B, seed=0, max_batches=CLI_ITERS, collate_fn=collate,
+                        device="cuda")
+    sums = []
+    for i, batch in enumerate(loader.epoch(0)):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        video = batch["video"] if isinstance(batch, dict) else batch
+        check(video.is_cuda and video.dtype == torch.uint8, f"loader batch {video.device}")
+        sums.append(video.sum(dtype=torch.int64))
+    torch.cuda.synchronize()
+    clips_s = (len(sums) - 2) * B / (time.perf_counter() - t0)
+    for i, idxs in enumerate(loader.sampler.batches(0)[:CLI_ITERS]):
+        # the loader's per-sample generator: (seed, epoch, index)
+        want = sum(int(ds[(int(j), np.random.default_rng((0, 0, int(j))))].sum(dtype=np.int64))
+                   for j in idxs)
+        check(int(sums[i]) == want, f"loader batch {i}: device sum {int(sums[i])} != host {want}")
+    check(set(ds.served) == {"packed"}, f"frames read by path {dict(ds.served)}: want packed only")
+    return clips_s, len(sums)
+
+
+def run_cli_stage(main, argv: list[str], what: str) -> tuple[dict, dict, float]:
+    """``main(argv)`` with every launch count set to 0 just before and read
+    just after; returns (summary, launches, wall seconds)."""
+    import torch
+
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"{what}: main() in {wall:.1f} s launched {launches}", flush=True)
+    return summary, launches, wall
+
+
+def check_cli_launches(launches: dict, per_step: dict, steps: int, what: str) -> None:
+    expected = {**{k: 0 for k in launches}, **{k: v * steps for k, v in per_step.items()}}
+    check(launches == expected, f"{what}: expected {expected} ({steps} steps), got {launches}")
+
+
+def check_csv(path: Path, rows: int, loss_col: int, what: str) -> list[float]:
+    lines = path.read_text().splitlines()
+    losses = [float(line.split(",")[loss_col]) for line in lines[1:]]
+    check(len(losses) == rows and all(math.isfinite(x) for x in losses),
+          f"{what}: {path.name} has {len(losses)} rows (want {rows}) or a non-finite loss")
+    return losses
+
+
+def check_embed(family: str, ckpt: str, cfg, encoder, clips, what: str) -> float:
+    """The checkpoint through ``make_embed_fn`` against the trained encoder
+    in memory, cosine per row; returns the lowest."""
+    import numpy as np
+    import torch
+
+    from bvc_tpu_torch.evalbench.extract import make_embed_fn
+
+    emb = make_embed_fn(family, ckpt, cfg)(clips)
+    with torch.inference_mode():
+        ref = encoder.embed(torch.from_numpy(clips).cuda()).cpu().numpy()
+    cos = (emb * ref).sum(1) / (np.linalg.norm(emb, axis=1) * np.linalg.norm(ref, axis=1))
+    print(f"{what}: checkpoint embed vs trained model, cosine min {cos.min():.6f}", flush=True)
+    check(bool(cos.min() >= COSINE_MIN), f"{what}: checkpoint embed cosine {cos.min()}")
+    return float(cos.min())
+
+
+def step_only_ms(rec: dict, steps: int = 5) -> tuple[float, float]:
+    """Device ms of the CLI's own step on the last batch, already on the
+    card, back to back (CUDA events), from the state the CLI trained; and
+    the host ms to dispatch one step into an empty queue (the least of 3,
+    host clock from a synchronisation to the step's return)."""
+    import torch
+
+    state, step, batch = rec["state"], rec["step"], rec["batch"]
+    dispatch = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        dispatch.append((time.perf_counter() - t0) * 1e3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps, min(dispatch)
+
+
+def report_cli(what: str, card: str, B: int, rec: dict, loader_clips_s: float,
+               profile_dir: Path) -> dict:
+    summary = json.loads((profile_dir / "summary.json").read_text())
+    (a, b), (ta, tb) = CLI_WINDOWS["ms"], CLI_WINDOWS["traced_ms"]
+    check(summary["steps"] == tb - ta, f"{what}: traced {summary['steps']} steps, want {tb - ta}")
+    trainer = B / (rec["ms"] / 1e3)
+    step_ms, dispatch_ms = step_only_ms(rec)
+    out = {"trainer_clips_s": trainer, "trainer_ms": rec["ms"],
+           "traced_trainer_clips_s": B / (rec["traced_ms"] / 1e3),
+           "traced_trainer_ms": rec["traced_ms"], "loader_clips_s": loader_clips_s,
+           "step_only_clips_s": B / (step_ms / 1e3), "step_only_ms": step_ms,
+           "host_dispatch_ms": dispatch_ms, "loader_stall_ms": rec["stall_ms"],
+           "idle_share": summary["idle_share"], "traced_steps": summary["steps"],
+           "device_copy_ms": summary["device_copy_ms"]}
+    print(f"{what} [{card}]: B={B} trainer {rec['ms']:.2f} ms/step -> {trainer:.1f} clips/s "
+          f"(steps {a}-{b - 1}); loader alone {loader_clips_s:.1f} "
+          f"clips/s; step alone {step_ms:.2f} ms -> {out['step_only_clips_s']:.1f} clips/s, "
+          f"its host dispatch {dispatch_ms:.1f} ms; the trainer waited "
+          f"{rec['stall_ms']:.1f} ms a batch for its loader; traced steps {ta}-{tb - 1}: "
+          f"trainer {rec['traced_ms']:.2f} ms/step -> {out['traced_trainer_clips_s']:.1f} "
+          f"clips/s, device idle share {summary['idle_share']:.3f} "
+          f"(kernels {summary['device_busy_ms']:.1f} of {summary['wall_ms']:.1f} ms; "
+          f"copies {summary['device_copy_ms']:.1f} ms)", flush=True)
+    return out
+
+
+def phase_pretrain_cli_videomae(card: str, corpus: tuple[str, str], B: int,
+                                per_step: dict) -> dict:
+    """``python -m bvc_tpu_torch.cli.pretrain_videomae`` on the card through
+    ``main``, at full width (VideoMAE-B, 224 px, 16 frames, tube mask 0.9)
+    and the batch ``phase_train`` picked: a 19-step stage from the packed
+    corpus (timed at steps 5-11, then timed and traced by ``--profile_dir``
+    at steps 12-18), then a 3-step stage
+    chained from its checkpoint, then ``--resume y`` of the finished first
+    stage, which returns at once.  Each stage launches exactly
+    ``per_step`` (the step's own kernels, ``phase_train``) a step, its CSV
+    has a finite loss a step, and the first checkpoint embeds a batch
+    through ``make_embed_fn`` at cosine >= 0.999 to the trained encoder.
+    Prints the trainer's clips/s, the loader's alone, the step's alone (and
+    its host dispatch time), and the device's idle share over the traced
+    steps beside the trainer's clips/s over them."""
+    import numpy as np
+
+    from bvc_tpu_torch.cli import pretrain_videomae
+    from bvc_tpu_torch.data.factory import make_dataset
+    from bvc_tpu_torch.training import trainer_videomae
+
+    jpg, pack = corpus
+    with tempfile.TemporaryDirectory() as d:
+        out, prof = Path(d) / "out", Path(d) / "profile"
+        base = ["-jpg_root", jpg, "--pack_root", pack, "-savedir", str(out),
+                "--batch_size", str(B), "--n_trainsamples", str(B * CLI_ITERS)]
+        stage1 = base + ["--run_id", "dev_1_g0_default_0_0", "--max_epoch_iters",
+                         str(CLI_ITERS), "--profile_dir", str(prof)]
+        rec = timed_steps(trainer_videomae, "make_videomae_train_step")
+        loaders, undo = captured_loaders(trainer_videomae)
+        try:
+            s1, launches, wall = run_cli_stage(pretrain_videomae.main, stage1,
+                                               "videomae cli stage 1")
+        finally:
+            rec["restore"]()
+            undo()
+        rec["stall_ms"] = loaders[0].stall_ms
+        check(rec["calls"] == CLI_ITERS, f"{rec['calls']} steps, want {CLI_ITERS}")
+        check_cli_launches(launches, per_step, CLI_ITERS, "videomae cli stage 1")
+        losses = check_csv(out / "csvlog_dev_1_g0_default_0_0.csv", CLI_ITERS, 2,
+                           "videomae cli stage 1")
+        print(f"videomae cli stage 1: losses {losses[0]:.4f} .. {losses[-1]:.4f}", flush=True)
+        cfg = pretrain_videomae.config_from_args(pretrain_videomae.build_parser().parse_args(stage1))
+        clips = np.random.default_rng(5).integers(0, 256, (4, 16, 224, 224, 3), dtype=np.uint8)
+        check_embed("videomae", s1["checkpoint"], cfg.model, rec["state"].model.encoder, clips,
+                    "videomae cli")
+        result = report_cli("videomae cli", card, B, rec,
+                            loader_alone(make_dataset("videomae", cfg.data)["train"], B)[0], prof)
+        del rec
+        stage2 = base + ["--run_id", "dev_2_g0_default_0_0", "--max_epoch_iters", "3",
+                         "-init_checkpoint_path", s1["checkpoint"]]
+        _, launches2, _ = run_cli_stage(pretrain_videomae.main, stage2, "videomae cli stage 2")
+        check_cli_launches(launches2, per_step, 3, "videomae cli stage 2")
+        check_csv(out / "csvlog_dev_2_g0_default_0_0.csv", 3, 2, "videomae cli stage 2")
+        s3, launches3, wall3 = run_cli_stage(pretrain_videomae.main, stage1 + ["--resume", "y"],
+                                             "videomae cli resume of the finished stage")
+        check(s3["checkpoint"] == s1["checkpoint"] and not any(launches3.values()) and wall3 < 10,
+              f"resume of a finished stage: {s3}, {launches3}, {wall3:.1f} s")
+    return {**result, "launches_per_cli_step": {k: v // CLI_ITERS for k, v in launches.items()}}
+
+
+def phase_pretrain_cli_jepa(card: str, corpus: tuple[str, str], B: int, per_step: dict) -> dict:
+    """``python -m bvc_tpu_torch.cli.pretrain_jepa`` on the card through
+    ``main``, with the CLI's defaults (V-JEPA ViT-B, 224 px, 2 frames,
+    pairs 300 frames apart) at B=64, as
+    :func:`phase_pretrain_cli_videomae` does: a 19-step stage (timed steps
+    5-11, timed and traced steps 12-18), a 3-step stage chained from it (its epochs count on), and the
+    finished stage's ``--resume y``."""
+    import numpy as np
+
+    from bvc_tpu_torch.cli import pretrain_jepa
+    from bvc_tpu_torch.data.factory import make_dataset
+    from bvc_tpu_torch.training import trainer_jepa
+
+    jpg, pack = corpus
+    with tempfile.TemporaryDirectory() as d:
+        out, prof = Path(d) / "out", Path(d) / "profile"
+        base = ["-jpg_root", jpg, "--pack_root", pack, "-savedir", str(out),
+                "--batch_size", str(B), "--n_trainsamples", str(B * CLI_ITERS)]
+        stage1 = base + ["--run_id", "dev_1_g0_default_0_0", "--max_epoch_iters",
+                         str(CLI_ITERS), "--profile_dir", str(prof)]
+        rec = timed_steps(trainer_jepa, "make_jepa_train_step")
+        loaders, undo = captured_loaders(trainer_jepa)
+        try:
+            s1, launches, _ = run_cli_stage(pretrain_jepa.main, stage1, "jepa cli stage 1")
+        finally:
+            rec["restore"]()
+            undo()
+        rec["stall_ms"] = loaders[0].stall_ms
+        check(rec["calls"] == CLI_ITERS, f"{rec['calls']} steps, want {CLI_ITERS}")
+        check_cli_launches(launches, per_step, CLI_ITERS, "jepa cli stage 1")
+        losses = check_csv(out / "csvlog_dev_1_g0_default_0_0.csv", CLI_ITERS, 2,
+                           "jepa cli stage 1")
+        print(f"jepa cli stage 1: losses {losses[0]:.4f} .. {losses[-1]:.4f}", flush=True)
+        cfg = pretrain_jepa.config_from_args(pretrain_jepa.build_parser().parse_args(stage1))
+        clips = np.random.default_rng(6).integers(0, 256, (8, 2, 224, 224, 3), dtype=np.uint8)
+        check_embed("jepa", s1["checkpoint"], cfg.model, rec["state"].model.encoder, clips,
+                    "jepa cli")
+        collate = trainer_jepa.make_mask_collate(cfg, CLI_ITERS)[0]
+        result = report_cli("jepa cli", card, B, rec,
+                            loader_alone(make_dataset("jepa", cfg.data)["train"], B, collate)[0],
+                            prof)
+        del rec
+        stage2 = base + ["--run_id", "dev_2_g0_default_0_0", "--max_epoch_iters", "3",
+                         "-init_checkpoint_path", s1["checkpoint"]]
+        _, launches2, _ = run_cli_stage(pretrain_jepa.main, stage2, "jepa cli stage 2")
+        check_cli_launches(launches2, per_step, 3, "jepa cli stage 2")
+        rows = (out / "csvlog_dev_2_g0_default_0_0.csv").read_text().splitlines()[1:]
+        check(len(rows) == 3 and {r.split(",")[0] for r in rows} == {"2"},
+              f"jepa cli stage 2 rows {rows}: want 3 of epoch 2 (chained epochs count on)")
+        s3, launches3, wall3 = run_cli_stage(pretrain_jepa.main, stage1 + ["--resume", "y"],
+                                             "jepa cli resume of the finished stage")
+        check(s3["checkpoint"] == s1["checkpoint"] and not any(launches3.values()) and wall3 < 10,
+              f"resume of a finished stage: {s3}, {launches3}, {wall3:.1f} s")
+    return {**result, "launches_per_cli_step": {k: v // CLI_ITERS for k, v in launches.items()}}
+
+
+def phase_remat(card: str, B: int) -> dict:
+    """One VideoMAE-B step at ``remat=True`` against ``remat=False`` from the
+    same weights, clips and mask at batch ``B``: gradient cosine >= 0.9995
+    per parameter tensor, both peak memories, and the launches (the
+    recompute runs each block's forward again: 32 ``flash_fwd`` a step)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from bvc_tpu_torch.models.videomae import VideoMAEPretrain
+    from bvc_tpu_torch.training.state import TrainState
+    from bvc_tpu_torch.training.steps import make_videomae_train_step
+    from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig
+
+    video = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 256, (B, 16, 224, 224, 3), dtype=np.uint8)).cuda()
+    grads, peaks, launches, ms = {}, {}, {}, {}
+    for remat in (False, True):
+        cfg = ModelConfig(remat=remat)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = TrainState.create(VideoMAEPretrain(cfg, seed=0), OptimConfig(), seed=1)
+        step = make_videomae_train_step(cfg, MaskConfig())
+        reset_launches()
+        step(state, video)
+        torch.cuda.synchronize()
+        launches[remat] = read_launches()
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2**30
+        grads[remat] = {n: p.grad.flatten().float() for n, p in state.model.named_parameters()}
+        ms[remat] = time_ms(lambda: step(state, video), iters=3, warmup=1)
+        del state, step
+    cosine = torch.nn.functional.cosine_similarity
+    per_tensor = sorted((cosine(grads[True][n], grads[False][n], dim=0).item(), n)
+                        for n in grads[False])
+    print(f"remat [{card}]: B={B} step {ms[False]:.2f} ms without remat, {ms[True]:.2f} ms "
+          f"with; peak memory {peaks[False]:.2f} GiB without, "
+          f"{peaks[True]:.2f} GiB with; flash_fwd launches {launches[False]['flash_fwd']} -> "
+          f"{launches[True]['flash_fwd']}; gradient cosine per tensor, lowest: "
+          + ", ".join(f"{n} {c:.6f}" for c, n in per_tensor[:3]), flush=True)
+    check(per_tensor[0][0] >= REMAT_COSINE_MIN,
+          f"remat gradient cosine of {per_tensor[0][1]} {per_tensor[0][0]} < {REMAT_COSINE_MIN}")
+    layers = cfg.depth + cfg.decoder_depth
+    expected = {**launches[False], "flash_fwd": 2 * layers}
+    check(launches[True] == expected, f"remat step launched {launches[True]}, want {expected}")
+    check(peaks[True] < peaks[False], f"remat peak {peaks[True]} >= {peaks[False]} GiB")
+    del grads, video
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"peak_gib": peaks, "launches": launches[True], "ms": ms,
+            "min_cosine": per_tensor[0][0]}
+
+
 def phase_entry_point() -> None:
     """extract_embeddings over a synthetic dataset, then save_results, with
     a bf16 and with an int8 (W8A8) embed function."""
@@ -2127,10 +2548,15 @@ def main() -> None:
     softmax_probe = probe_path("softmax dtype", softmax_dtype.run, {"softmax_probe_fwd"})
     embed_launches = phase_main_path(smi, args.profile)
     w8a8_launches = phase_w8a8(smi, args.profile)
-    train_launches = phase_train(smi, args.profile)
+    train_launches, train_B = phase_train(smi, args.profile)
     jepa_embed_launches = phase_jepa_embed(smi)
     jepa_launches = phase_jepa_train(smi, args.profile)
     phase_entry_point()
+    with tempfile.TemporaryDirectory() as d:
+        corpus = write_corpus(Path(d))
+        cli = phase_pretrain_cli_videomae(smi, corpus, train_B, train_launches)
+        jepa_cli = phase_pretrain_cli_jepa(smi, corpus, 64, jepa_launches)
+    remat = phase_remat(smi, train_B)
 
     # launches: per step of the path that runs the kernel most (VideoMAE
     # training for the unmasked kernels, JEPA training for the key-bias
@@ -2146,7 +2572,9 @@ def main() -> None:
          "launches_per_embed": embed_launches,
          "launches_per_w8a8_embed": w8a8_launches["videomae"]["flash_fwd"],
          "launches_per_jepa_step": jepa_launches["flash_fwd"],
-         "launches_per_jepa_embed": jepa_embed_launches, "at": [8, 1568, 12, 64], **flash},
+         "launches_per_jepa_embed": jepa_embed_launches,
+         "launches_per_remat_step": remat["launches"]["flash_fwd"], "at": [8, 1568, 12, 64],
+         **flash},
         {"name": "flash_bwd", "route": "cuda", "source": bwd_sm90_src,
          "replaces": f"{replaces}:250 and :278", "launches": train_launches["flash_bwd"],
          "at": [8, 1568, 6, 64], **bwd["fused"]},
@@ -2181,6 +2609,22 @@ def main() -> None:
          "replaces": "tools/probe_softmax_dtype.py:45",
          "launches": softmax_probe["softmax_probe_fwd"], **probe},
     ]
+    # launches a step of the CLIs' stages: the unmasked kernels' from the
+    # VideoMAE CLI, the key-bias ones' from the JEPA CLI (flash_fwd's JEPA
+    # count beside)
+    for r in records:
+        if r["name"] in cli["launches_per_cli_step"] and r["name"].startswith("flash"):
+            source = jepa_cli if r["name"].endswith("_bias") else cli
+            r["launches_per_cli_step"] = source["launches_per_cli_step"][r["name"]]
+    records[0]["launches_per_jepa_cli_step"] = jepa_cli["launches_per_cli_step"]["flash_fwd"]
+    trainers = {"videomae_cli": {k: v for k, v in cli.items() if k != "launches_per_cli_step"},
+                "jepa_cli": {k: v for k, v in jepa_cli.items() if k != "launches_per_cli_step"},
+                "remat": {"B": train_B, "peak_gib_without": remat["peak_gib"][False],
+                          "peak_gib_with": remat["peak_gib"][True],
+                          "step_ms_without": remat["ms"][False],
+                          "step_ms_with": remat["ms"][True],
+                          "min_grad_cosine": remat["min_cosine"]}}
+    print(json.dumps({"trainers": trainers}), flush=True)
     check(all(math.isfinite(r[k]) for r in records
               for k in ("max_abs_err", "ms", "plain_ms", "bound_ms"))
           and all(r["library_ms"] is None or math.isfinite(r["library_ms"]) for r in records),

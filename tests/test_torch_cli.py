@@ -1,0 +1,153 @@
+"""The port's pretraining CLIs: ``main(argv, device="cpu")`` writes the
+artifacts with the JAX trainers' schemas, the same flags give the JAX CLIs'
+configuration (``params_{run_id}.yaml`` loads to the same dict), the
+multi-GPU flags and ``--log_grad_stats y`` raise, and with no device named
+and no GPU ``main`` raises.
+
+Tolerance: none; the yaml dumps load to equal dicts and the CSV headers are
+equal strings.
+"""
+
+import json
+
+import pytest
+import torch
+import yaml
+
+from bvc_tpu.cli import pretrain_jepa as jax_pretrain_jepa
+from bvc_tpu.cli import pretrain_videomae as jax_pretrain_videomae
+from bvc_tpu_torch.cli import pretrain_jepa, pretrain_videomae
+from torch_tiny_runs import VIDEOMAE_MODEL
+
+CLIS = {"videomae": (pretrain_videomae, jax_pretrain_videomae),
+        "jepa": (pretrain_jepa, jax_pretrain_jepa)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _argv(family, frame_corpus, savedir, *extra):
+    common = ["-jpg_root", frame_corpus, "-savedir", str(savedir), "--batch_size", "4",
+              "--n_trainsamples", "16", "--max_epoch_iters", "2", "--segment_minutes", "0.02",
+              "--num_workers", "2", "--run_id", "dev_1_g0_default_0_0"]
+    if family == "videomae":
+        return common + ["--image_size", "32", "--num_frames", "4", *extra]
+    return common + ["--image_size", "64", "--architecture", "tiny", "--pred_emb_dim", "24",
+                     "--pred_depth", "1", "--interval", "5", *extra]
+
+
+@pytest.fixture
+def tiny_videomae(monkeypatch):
+    """The VideoMAE CLI has no model-width flags: shrink the parsed config's
+    model inside the test."""
+    parse = pretrain_videomae.config_from_args
+
+    def tiny(args):
+        cfg = parse(args)
+        for k, v in VIDEOMAE_MODEL.items():
+            if k not in ("image_size", "num_frames", "tubelet_size", "patch_size"):
+                setattr(cfg.model, k, v)
+        cfg.model.patch_size = 8
+        return cfg
+
+    monkeypatch.setattr(pretrain_videomae, "config_from_args", tiny)
+
+
+@pytest.mark.parametrize("family", ["videomae", "jepa"])
+def test_main_writes_the_artifacts(family, frame_corpus, tmp_path, capsys, request):
+    if family == "videomae":
+        request.getfixturevalue("tiny_videomae")
+    port, _ = CLIS[family]
+    summary = port.main(_argv(family, frame_corpus, tmp_path), device="cpu")
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == summary
+    run_id = "dev_1_g0_default_0_0"
+    ckpt = tmp_path / f"model_{run_id}.pth.tar"
+    assert summary["checkpoint"] == str(ckpt) and ckpt.exists()
+    rows = (tmp_path / f"csvlog_{run_id}.csv").read_text().splitlines()
+    header = ("epoch,itr,train loss,val loss,grad-EFL,grad-ELL,grad-DLL" if family == "videomae"
+              else "epoch,itr,loss,grad-FL,grad-LL,mask-A,mask-B,time (ms)")
+    assert rows[0] == header and len(rows) == 1 + 2
+    meta = torch.load(ckpt, weights_only=True)["meta"]
+    assert meta["run_id"] == run_id and meta["epoch"] == 1 and meta["family"] == family
+    # a finished stage resumes at once, from the meta
+    again = port.main(_argv(family, frame_corpus, tmp_path, "--resume", "y"), device="cpu")
+    assert again["checkpoint"] == summary["checkpoint"]
+    assert len((tmp_path / f"csvlog_{run_id}.csv").read_text().splitlines()) == 3
+
+
+@pytest.mark.parametrize("family", ["videomae", "jepa"])
+def test_flags_give_the_jax_configuration(family, frame_corpus, tmp_path):
+    port, ref = CLIS[family]
+    argv = _argv(family, frame_corpus, tmp_path, "--lr", "0.05", "--wd", "0.01",
+                 "--lr_schedule", "warmup_cosine", "--warmup_epochs", "0.5",
+                 "--final_wd", "0.02", "--grad_accum_steps", "2", "--pack_root", "/p",
+                 "--async_save", "y", "--save_every_epoch", "y", "--fold", "1")
+    dumps = []
+    for mod, name in ((port, "port.yaml"), (ref, "jax.yaml")):
+        mod.config_from_args(mod.build_parser().parse_args(argv)).dump_yaml(tmp_path / name)
+        dumps.append(yaml.safe_load((tmp_path / name).read_text()))
+    assert dumps[0] == dumps[1]
+    assert (tmp_path / "port.yaml").read_text() == (tmp_path / "jax.yaml").read_text()
+    assert dumps[0]["optim"]["grad_accum_steps"] == 2
+
+
+@pytest.mark.parametrize("family", ["videomae", "jepa"])
+@pytest.mark.parametrize("flags,env,match", [
+    (("--mesh", "data=2"), {}, "slice 7"),
+    (("--param_sharding", "zero1"), {}, "slice 7"),
+    ((), {"WORLD_SIZE": "2"}, "slice 7"),
+    (("--log_grad_stats", "y"), {}, "full_grad_probes"),
+], ids=["mesh", "param_sharding", "world_size", "log_grad_stats"])
+def test_unported_flags_raise(family, flags, env, match, frame_corpus, tmp_path, monkeypatch):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    port, _ = CLIS[family]
+    with pytest.raises(NotImplementedError, match=match):
+        port.main(_argv(family, frame_corpus, tmp_path, *flags), device="cpu")
+    assert not (tmp_path / "csvlog_dev_1_g0_default_0_0.csv").exists()
+
+
+@pytest.mark.parametrize("family", ["videomae", "jepa"])
+def test_main_without_a_gpu_or_a_device_raises(family, frame_corpus, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    port, _ = CLIS[family]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port.main(_argv(family, frame_corpus, tmp_path))
+
+
+def test_profile_dir_writes_a_trace(frame_corpus, tmp_path):
+    """``--profile_dir``: one torch.profiler trace of train steps 1-3 (here
+    1 and 2, the stage ends first) and its summary."""
+    prof = tmp_path / "prof"
+    pretrain_jepa.main(_argv("jepa", frame_corpus, tmp_path, "--max_epoch_iters", "3",
+                             "--n_trainsamples", "16", "--profile_dir", str(prof)),
+                       device="cpu")
+    summary = json.loads((prof / "summary.json").read_text())
+    assert summary["steps"] == 2 and summary["wall_ms"] > 0
+    assert summary["device_busy_ms"] == 0 and summary["idle_share"] == 1.0  # no device here
+    assert summary["device_copy_ms"] == 0
+    assert json.loads((prof / "trace.json").read_text())["traceEvents"]
+
+
+def test_busy_time_counts_kernels_apart_from_copies():
+    """The trace summary's busy time is the union of the kernels' intervals
+    (streams overlapping count once); memory copies and sets are summed
+    apart, and host events count in neither."""
+    from types import SimpleNamespace
+
+    from bvc_tpu_torch.utils.profiling import busy_us
+
+    def event(name, lo, hi, device=torch.autograd.DeviceType.CUDA):
+        return SimpleNamespace(name=name, device_type=device,
+                               time_range=SimpleNamespace(start=lo, end=hi))
+
+    events = [event("gemm", 0, 10), event("flash_fwd", 5, 12), event("gemm", 20, 25),
+              event("Memcpy HtoD (Pinned -> Device)", 8, 30), event("Memset (Device)", 40, 41),
+              event("aten::mm", 0, 100, torch.autograd.DeviceType.CPU)]
+    assert busy_us(events) == (17.0, 23.0)

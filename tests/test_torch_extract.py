@@ -115,9 +115,15 @@ def test_untrained_embed_fn_and_empty_dataset():
 
 @pytest.mark.parametrize("family", ["jepa", "simclr"])
 def test_other_families_name_their_slice(family, tmp_path):
-    # SimCLR is not ported; JEPA is (tests/test_torch_jepa.py), but not its
-    # drop-path
+    # SimCLR is not ported and names its slice; JEPA is (tests/test_torch_jepa.py),
+    # drop-path included, which draws nothing when embedding
     cfg = ModelConfig(**SMALL, drop_path_rate=0.1 if family == "jepa" else 0.0)
+    if family == "jepa":
+        clips = np.random.default_rng(2).integers(0, 256, (2, 4, 32, 32, 3), dtype=np.uint8)
+        out = untrained_embed_fn(family, cfg, device="cpu")(clips)
+        ref = untrained_embed_fn(family, ModelConfig(**SMALL), device="cpu")(clips)
+        np.testing.assert_array_equal(out, ref)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP slice"):
         untrained_embed_fn(family, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP slice"):

@@ -13,6 +13,8 @@ import pytest
 import torch
 
 import bvc_tpu_torch
+from bvc_tpu_torch.cli import pretrain_jepa, pretrain_videomae
+from bvc_tpu_torch.data.loader import DataLoader
 from bvc_tpu_torch.evalbench import extract
 from bvc_tpu_torch.masks.multiblock import mask_collate
 from bvc_tpu_torch.models.jepa import JEPA
@@ -20,7 +22,9 @@ from bvc_tpu_torch.models.videomae import VideoMAEPretrain
 from bvc_tpu_torch.ops import _build
 from bvc_tpu_torch.training.state import TrainState
 from bvc_tpu_torch.training.steps import make_jepa_train_step, make_videomae_train_step
-from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig
+from bvc_tpu_torch.training.trainer_jepa import run_pretraining as run_jepa
+from bvc_tpu_torch.training.trainer_videomae import run_pretraining as run_videomae
+from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig, TrainConfig
 from bvc_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parent.parent
@@ -98,6 +102,26 @@ def test_no_silent_cpu_default_jepa(monkeypatch):
     metrics = make_jepa_train_step(cfg, total_steps=10)(state, batch)
     assert all(m.device == torch.device("cpu") for m in metrics.values())
     assert state.target.patch_embed.weight.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("entry", ["run_videomae", "run_jepa", "pretrain_videomae.main",
+                                   "pretrain_jepa.main", "DataLoader"])
+def test_no_silent_cpu_default_training_loop(entry, monkeypatch, tmp_path):
+    """The training loop's entry points refuse to fall back to the CPU: with
+    no GPU and no device named they raise before any work."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TrainConfig(savedir=str(tmp_path))
+    argv = ["-savedir", str(tmp_path)]
+    calls = {"run_videomae": lambda: run_videomae(cfg),
+             "run_jepa": lambda: run_jepa(cfg),
+             "pretrain_videomae.main": lambda: pretrain_videomae.main(argv),
+             "pretrain_jepa.main": lambda: pretrain_jepa.main(argv),
+             "DataLoader": lambda: DataLoader(list(range(8)), 4, device=None)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+    assert not any(tmp_path.iterdir())
+    assert DataLoader(list(range(8)), 4, device="cpu").device == torch.device("cpu")
+    assert DataLoader(list(range(8)), 4, to_device=False).device is None
 
 
 def test_kernel_build_is_keyed_by_source_hash():

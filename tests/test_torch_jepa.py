@@ -227,10 +227,15 @@ def test_untrained_embed_fn_and_unported_options():
     for (n, a), b in zip(JEPA(cfg, seed=0).encoder.state_dict().items(),
                          enc.state_dict().values()):
         assert torch.equal(a, b), n
-    # another spatial grid and drop-path come with the training loop
+    # another spatial grid is not ported yet; drop-path is, and runs only
+    # with a generator (training): without one the forward is unchanged
     with pytest.raises(NotImplementedError, match="interpolate_pos_table_3d"):
         enc(torch.zeros(1, 2, 48, 48, 3))
     with pytest.raises(ValueError, match="time grid"):
         enc(torch.zeros(1, 4, 32, 32, 3))
-    with pytest.raises(NotImplementedError, match="drop_path"):
-        JEPA(ModelConfig(**TINY, drop_path_rate=0.1))
+    dropping = JEPA(ModelConfig(**TINY, drop_path_rate=0.1), seed=0).encoder
+    video = torch.randint(0, 256, (2, 2, 32, 32, 3), dtype=torch.uint8)
+    with torch.no_grad():
+        assert torch.equal(dropping(video), enc(video))
+        gen = torch.Generator().manual_seed(0)
+        assert not torch.equal(dropping(video, generator=gen), enc(video))

@@ -1,0 +1,42 @@
+"""Tiny one-stage training configurations shared by the port's trainer,
+checkpoint and CLI tests: the same fields set on the JAX package's
+``TrainConfig`` and on the port's, over the ``frame_corpus`` fixture's
+32x32 frames."""
+
+from __future__ import annotations
+
+VIDEOMAE_MODEL = dict(image_size=32, patch_size=8, num_frames=4, tubelet_size=2,
+                      hidden_size=32, depth=2, num_heads=2, mlp_ratio=2.0,
+                      decoder_hidden_size=16, decoder_depth=1, decoder_num_heads=2,
+                      dtype="float32")
+JEPA_MODEL = dict(family="jepa", image_size=32, patch_size=8, num_frames=2, tubelet_size=1,
+                  hidden_size=32, depth=2, num_heads=2, mlp_ratio=2.0, pred_depth=1,
+                  pred_emb_dim=16, dtype="float32")
+
+
+def tiny_cfg(Cfg, family: str, frame_corpus: str, savedir: str, run_id: str,
+             batch_size: int = 8, **top):
+    """A ``Cfg`` (either package's ``TrainConfig``) for a 3-step stage of
+    ``family`` on ``frame_corpus``; ``batch_size`` is per device."""
+    cfg = Cfg(run_id=run_id, savedir=str(savedir), n_epoch=1, max_epoch_iters=3, seed=0,
+              log_freq=1)
+    d = cfg.data
+    d.jpg_root, d.train_group, d.image_size = frame_corpus, "g0", 32
+    d.n_trainsamples, d.batch_size, d.num_workers = 24, batch_size, 2
+    d.segment_minutes, d.keep_val = 0.02, False
+    model = VIDEOMAE_MODEL if family == "videomae" else JEPA_MODEL
+    for k, v in model.items():
+        setattr(cfg.model, k, v)
+    d.num_frames, d.tubelet_size = cfg.model.num_frames, cfg.model.tubelet_size
+    if family == "videomae":
+        cfg.mask.mask_ratio = 0.75
+        cfg.optim.lr = 0.01
+    else:
+        d.interval = 5
+        cfg.mask.pred_mask_scale, cfg.mask.min_keep = (0.2, 0.25), 2
+        cfg.optim.lr = 0.03
+        cfg.optim.exclude_bias_and_norm_from_wd = True
+    cfg.optim.weight_decay = 1e-4
+    for k, v in top.items():
+        setattr(cfg, k, v)
+    return cfg
