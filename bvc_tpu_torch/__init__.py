@@ -2,12 +2,14 @@
 
 The JAX package ``bvc_tpu`` stays beside this one, unchanged, as the
 reference: every slice of the port is tested against it.  So far the port
-serves VideoMAE and JEPA embeddings, bf16 or W8A8 (``evalbench.extract``,
-``ops.quant``), and trains VideoMAE and V-JEPA curriculum stages on one GPU
-(``cli.pretrain_videomae``, ``cli.pretrain_jepa``: the input pipeline of
-``data``, the trainers, steps and checkpoints of ``training``), through
-hand-written CUDA kernels: the
-flash-attention forward (``csrc/flash_fwd.cu``) and backward
+serves VideoMAE, JEPA and SimCLR embeddings of the benchmark sets (the ViT
+families bf16 or W8A8; ``cli.compute_embeddings``, ``evalbench``,
+``ops.quant``), and trains VideoMAE, V-JEPA and SimCLR curriculum stages on
+one GPU (``cli.pretrain_videomae``, ``cli.pretrain_jepa``,
+``cli.pretrain_simclr``: the input pipeline of ``data``, the trainers,
+steps and checkpoints of ``training``); the ViT families run through
+hand-written CUDA kernels (SimCLR's ResNet on cuDNN's convolutions, as on
+XLA's): the flash-attention forward (``csrc/flash_fwd.cu``) and backward
 (``csrc/flash_bwd_sm90.cu``), without a key mask or with a per-sample key
 bias, and the tensor-core GEMM (``csrc/gemm.cu``) whose int8 instantiation
 runs the W8A8 products.  ``probes`` holds the counterparts of the JAX

@@ -4,11 +4,12 @@ defaults).
 
 Flag names, defaults and single-dash/double-dash spelling follow the
 reference entry points (``pretrain_videomae.py:383-499``,
-``pretrain_jepa.py:486-607``) so existing slurm invocations port over
-mechanically.  The multi-GPU flags (``--mesh``, ``--param_sharding``) are
-parsed as the JAX CLIs parse them; the trainers refuse any value but the
-single-GPU one (ROADMAP slice 7), and ``--pipe_microbatches``, which acts
-only on a pipe mesh, is accepted and unused.
+``pretrain_jepa.py:486-607``, ``pretrain_simclr.py:390-495``) so existing
+slurm invocations port over mechanically.  The multi-GPU flags (``--mesh``,
+``--param_sharding``) are parsed as the JAX CLIs parse them; the trainers
+refuse any value but the single-GPU one (ROADMAP slice 7), and
+``--pipe_microbatches``, which acts only on a pipe mesh, is accepted and
+unused.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--segment_minutes", type=float, default=30.0,
                    help="fold segment length in minutes (reference: 30)")
     p.add_argument("--log_grad_stats", type=str, default="n",
-                   help="y: per-layer grad-norm stats table (not ported yet: raises)")
+                   help="y: per-layer grad-norm stats table in the log lines")
     p.add_argument("--profile_dir", type=str, default="",
                    help="capture one torch.profiler trace of train steps 1-3 to "
                         "this dir (Chrome/Perfetto timeline, summary.json)")

@@ -1,6 +1,5 @@
 """Dataset factories per trainer family, plus the complexity-matched
-control conditions (a copy of :mod:`bvc_tpu.data.factory`; the contrastive
-family comes with the SimCLR slice and raises until then).
+control conditions (a copy of :mod:`bvc_tpu.data.factory`).
 
 Mirrors the three ``make_dataset`` variants
 (``generative/homeview.py:17-79``, ``predictive/pretrain_jepa.py:51-82``,
@@ -120,9 +119,22 @@ def make_predictive_dataset(cfg: DataConfig) -> dict:
 
 
 def make_contrastive_dataset(cfg: DataConfig) -> dict:
-    """Frame pairs for SimCLR: not ported yet."""
-    raise NotImplementedError(
-        "the contrastive (SimCLR) dataset comes with the SimCLR slice (ROADMAP slice 6)")
+    """Frame pairs for SimCLR with crop_scale (0.7, 1.0)
+    (``pretrain_simclr.py:43-69``)."""
+    rng = _random.Random(cfg.seed)
+    fps = _corpus(cfg, rng)
+    if cfg.condition == "shuffle":
+        rng.shuffle(fps)
+    transform = FrameTransform(
+        image_size=cfg.image_size, augs=cfg.augs,
+        crop_size=cfg.image_size, crop_scale=(0.7, 1.0),
+        output_uint8=cfg.feed_uint8,
+    )
+    train = PairDataset(
+        get_fpath2framelist(fps, cfg.interval, n_samples=cfg.n_trainsamples),
+        transform,
+    )
+    return {"train": train, "val": None}
 
 
 def load_control_seqlist(cfg: DataConfig) -> list[list[str]]:

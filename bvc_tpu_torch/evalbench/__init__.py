@@ -1,1 +1,1 @@
-"""Embedding extraction."""
+"""Embedding extraction and the benchmark datasets' readers."""

@@ -1,7 +1,8 @@
 """Embedding extraction (counterpart of :mod:`bvc_tpu.evalbench.extract`).
 
-Load a VideoMAE or JEPA checkpoint (or build a random model), run the pooled
-embedding over a dataset of ``(clip, fname)`` samples, and write
+Load a VideoMAE, JEPA or SimCLR checkpoint (or build a random model), run
+the family's embedding over a dataset of ``(clip, fname)`` samples (the
+benchmark readers of :func:`make_task_dataset`), and write
 ``embeddings_{run_id}.csv`` under the reference's CSV contract: sorted by
 fname, deduplicated, the test split under ``savedir/test/``.
 
@@ -10,17 +11,24 @@ fname, deduplicated, the test split under ``savedir/test/``.
 - JEPA: the mean over the tokens of the normed online encoder
   (:meth:`JEPAEncoder.embed`), from the ``encoder`` entry of a
   ``.pth.tar`` in the reference ``VisionTransformer`` layout; the EMA
-  target is not used for embeddings, as in the reference.
+  target is not used for embeddings, as in the reference;
+- SimCLR: the ResNet's pooled features of the last frame only, head
+  stripped, BatchNorm in eval mode (its running statistics), f32
+  (:meth:`~bvc_tpu_torch.models.resnet.ResNet.embed`), from a
+  ``model_state_dict`` in torchvision names.  In f32 the convolutions run
+  on cuDNN, which may use TF32 under ``torch.backends.cudnn.allow_tf32``
+  (PyTorch's default is True, as XLA's default precision on a GPU); this
+  module leaves that global setting to the caller: set it False for full
+  f32 products.
 
-Both layouts are what ``bvc_tpu/cli/export_torch.py`` writes, and what the
+The layouts are what ``bvc_tpu/cli/export_torch.py`` writes, and what the
 port's own trainers write (``bvc_tpu_torch.training``); Orbax checkpoints
-need JAX and are not read here.  Extraction runs in one process
-on one device.  ``quantize="int8"`` takes the W8A8 path of either family
+need JAX and are not read here.  Extraction runs in one process on one
+device.  ``quantize="int8"`` takes the W8A8 path of the ViT families
 (:mod:`bvc_tpu_torch.ops.quant`: the blocks' qkv and fc1 quantized after
-the weights load, their products on the s8 kernel of ``csrc/gemm.cu``).
-Still to come (ROADMAP): SimCLR extraction, the sequence-parallel mesh
-(and with it ``_check_quantize``'s mesh rejection), the dataset readers and
-the ``compute_embeddings`` CLI.
+the weights load, their products on the s8 kernel of ``csrc/gemm.cu``);
+SimCLR's conv trunk is refused.  The sequence-parallel mesh waits for the
+multi-GPU slice (ROADMAP slice 7).
 """
 
 from __future__ import annotations
@@ -33,21 +41,43 @@ import numpy as np
 import pandas as pd
 import torch
 
+from bvc_tpu_torch.evalbench.datasets import (Cifar10Dataset, SSv2Dataset, ToyboxDataset,
+                                              UCF101Dataset, drop_none_collate)
 from bvc_tpu_torch.models.convert import (jepa_encoder_from_reference_state_dict,
+                                          resnet_from_torchvision_state_dict,
                                           videomae_from_hf_state_dict)
 from bvc_tpu_torch.models.jepa import JEPAEncoder
+from bvc_tpu_torch.models.resnet import ResNet
 from bvc_tpu_torch.models.videomae import VideoMAEEncoder
 from bvc_tpu_torch.ops.quant import quantize_encoder
 from bvc_tpu_torch.utils.config import ModelConfig
 from bvc_tpu_torch.utils.device import resolve_device
 
 
-def drop_none_collate(samples: list[tuple]) -> tuple[np.ndarray, list[str]]:
-    """Stack ``(clip, fname)`` pairs, dropping failed decodes (clip None)."""
-    kept = [(c, f) for c, f in samples if c is not None]
-    if not kept:
-        return np.zeros((0,)), []
-    return np.stack([c for c, _ in kept]), [f for _, f in kept]
+def make_task_dataset(ds_task: str, vid_root: str, frame_rate: int, sample_len: int,
+                      train: bool, image_size: int = 224, annotation_path: str = "",
+                      fold: int = 1):
+    """The benchmark reader of ``ds_task`` (ssv2, toybox / tb_cat /
+    tb_trans, ucf101, cifar10), as the JAX package builds it."""
+    if ds_task == "ssv2":
+        return SSv2Dataset(vid_root, frame_rate, sample_len, train, image_size)
+    if ds_task in ("toybox", "tb_cat", "tb_trans"):
+        return ToyboxDataset(vid_root, frame_rate, sample_len, image_size)
+    if ds_task == "ucf101":
+        # fold plumbed through like the reference's UCF101(fold=...)
+        # (benchmarks/dsdatasets.py:238)
+        return UCF101Dataset(vid_root, annotation_path or str(Path(vid_root).parent
+                                                              / "ucfTrainTestlist"),
+                             fold=fold, train=train, sample_len=sample_len,
+                             frame_rate=frame_rate, image_size=image_size)
+    if ds_task == "cifar10":
+        return Cifar10Dataset(vid_root, sample_len, train, image_size)
+    raise ValueError(f"unknown ds_task {ds_task!r}")
+
+
+def _simclr_model(cfg: ModelConfig, head_dim: int = 512, seed: int = 0) -> ResNet:
+    # f32, as the JAX package's extraction applies the ResNet
+    return ResNet(cfg.architecture or "resnet18", head_dim, dtype=torch.float32, seed=seed)
 
 
 _ENCODERS = {"videomae": VideoMAEEncoder, "jepa": JEPAEncoder}
@@ -55,9 +85,7 @@ _ENCODERS = {"videomae": VideoMAEEncoder, "jepa": JEPAEncoder}
 
 def _encoder_class(family: str) -> type[torch.nn.Module]:
     if family not in _ENCODERS:
-        raise NotImplementedError(
-            f"family {family!r} is not ported yet: SimCLR extraction comes with "
-            "ROADMAP slice 6")
+        raise ValueError(f"unknown family {family!r}")
     return _ENCODERS[family]
 
 
@@ -77,18 +105,21 @@ def _check_quantize(family: str, quantize: str | None) -> bool:
     return True
 
 
-def _embed_fn(model: VideoMAEEncoder | JEPAEncoder, device: torch.device) -> Callable:
-    """``fn(video_batch) -> [B, D]`` f32 numpy; ``fn.model`` is the module,
-    ``fn.feature_dim`` the embedding width."""
+def _embed_fn(model: VideoMAEEncoder | JEPAEncoder | ResNet, device: torch.device
+              ) -> Callable:
+    """``fn(video_batch) -> [B, D]`` f32 numpy; ``fn.model`` is the module
+    (in eval mode), ``fn.feature_dim`` the embedding width."""
     model = model.to(device).eval()
+    # SimCLR reads the last frame only: the others stay on the host
+    frames = slice(-1, None) if isinstance(model, ResNet) else slice(None)
 
     @torch.inference_mode()
     def fn(video) -> np.ndarray:
-        x = torch.as_tensor(np.asarray(video)).to(device)
+        x = torch.as_tensor(np.asarray(video)[:, frames]).to(device)
         return model.embed(x).cpu().numpy()
 
     fn.model = model
-    fn.feature_dim = model.cfg.hidden_size
+    fn.feature_dim = model.feature_dim if isinstance(model, ResNet) else model.cfg.hidden_size
     return fn
 
 
@@ -97,14 +128,20 @@ def make_embed_fn(family: str, ckpt_path: str, cfg: ModelConfig,
                   quantize: str | None = "none") -> Callable:
     """Load the encoder of a ``.pth.tar`` checkpoint (VideoMAE:
     ``model_state_dict`` in HF names; JEPA: ``encoder`` in the reference
-    layout, else ``target_encoder``) and return the embedding function on ``device`` (``cuda`` when
-    None); ``quantize="int8"`` quantizes the loaded blocks (see
+    layout, else ``target_encoder``; SimCLR: ``model_state_dict`` in
+    torchvision names, running statistics included) and return the
+    embedding function on ``device`` (``cuda`` when None);
+    ``quantize="int8"`` quantizes the loaded blocks (see
     :func:`_check_quantize`)."""
     q = _check_quantize(family, quantize)
-    encoder = _encoder_class(family)
     device = resolve_device(device)
-    model = encoder(cfg)
     ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    if family == "simclr":
+        sd = resnet_from_torchvision_state_dict(ckpt["model_state_dict"])
+        model = _simclr_model(cfg, head_dim=sd["fc.0.weight"].shape[0])
+        model.load_state_dict(sd)
+        return _embed_fn(model, device)
+    model = _encoder_class(family)(cfg)
     if family == "jepa":
         # as the JAX package reads it: the EMA target where no online encoder was kept
         enc = ckpt["encoder"] if "encoder" in ckpt else ckpt["target_encoder"]
@@ -121,9 +158,10 @@ def untrained_embed_fn(family: str, cfg: ModelConfig, seed: int = 0,
     """Random-init model from ``seed``: the stage-0 untrained baseline;
     ``quantize="int8"`` quantizes its blocks."""
     q = _check_quantize(family, quantize)
-    encoder = _encoder_class(family)
     device = resolve_device(device)
-    model = encoder(cfg, seed=seed)
+    if family == "simclr":
+        return _embed_fn(_simclr_model(cfg, seed=seed), device)
+    model = _encoder_class(family)(cfg, seed=seed)
     return _embed_fn(quantize_encoder(model) if q else model, device)
 
 

@@ -1,2 +1,2 @@
-"""VideoMAE and JEPA models, transformer core, position tables,
-initialisation and weight conversion."""
+"""VideoMAE, JEPA and SimCLR's ResNet models, transformer core, position
+tables, initialisation and weight conversion."""

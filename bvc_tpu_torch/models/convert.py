@@ -38,6 +38,15 @@ dicts).
   :func:`jepa_encoder_to_reference` and :func:`jepa_predictor_to_reference`,
   write those layouts with the fixed position tables, as
   ``bvc_tpu.models.torch_interop`` does.
+- :func:`resnet_from_jax_params`: the JAX package's ResNet ``(params,
+  batch_stats)`` as numpy arrays (convolutions HWIO, kernels ``[in,
+  out]``) -> the state dict of :class:`~bvc_tpu_torch.models.resnet.ResNet`
+  (OIHW, ``[out, in]``, torchvision names, ``num_batches_tracked`` 0).
+  The model keeps torchvision's names, so the export layout,
+  ``bvc_tpu.models.torch_interop``'s ``resnet_to_torch_state_dict``, is its
+  state dict on the CPU in f32: :func:`resnet_to_torchvision_state_dict`
+  writes it (the SimCLR checkpoint's ``model_state_dict``) and
+  :func:`resnet_from_torchvision_state_dict` reads it back.
 """
 
 from __future__ import annotations
@@ -326,3 +335,57 @@ def jepa_predictor_to_reference(sd: dict, cfg: ModelConfig) -> dict[str, torch.T
         out[theirs + ".weight"] = _f32(sd[ours + ".weight"])
         out[theirs + ".bias"] = _f32(sd[ours + ".bias"])
     return out
+
+
+def _bn_entries(prefix: str, p: dict, s: dict) -> dict[str, torch.Tensor]:
+    return {prefix + "weight": _f32(p["scale"]), prefix + "bias": _f32(p["bias"]),
+            prefix + "running_mean": _f32(s["mean"]), prefix + "running_var": _f32(s["var"]),
+            prefix + "num_batches_tracked": torch.zeros((), dtype=torch.int64)}
+
+
+def _oihw(w: Any) -> torch.Tensor:
+    return _f32(w).permute(3, 2, 0, 1).contiguous()
+
+
+def resnet_from_jax_params(params: dict, stats: dict, arch: str) -> dict[str, torch.Tensor]:
+    """JAX ``resnet.init_params``-shaped ``(params, batch_stats)`` ->
+    :class:`~bvc_tpu_torch.models.resnet.ResNet` state dict."""
+    from bvc_tpu_torch.models.resnet import BLOCKS
+
+    kind, reps = BLOCKS[arch]
+    sd = {"conv1.weight": _oihw(params["stem"]["conv"]),
+          **_bn_entries("bn1.", params["stem"]["bn"], stats["stem"])}
+    n_convs = 3 if kind == "bottleneck" else 2
+    for s in range(len(reps)):
+        for b, (bp, bs) in enumerate(zip(params[f"stage{s}"], stats[f"stage{s}"])):
+            pre = f"layer{s + 1}.{b}."
+            for c in range(1, n_convs + 1):
+                sd[f"{pre}conv{c}.weight"] = _oihw(bp[f"conv{c}"])
+                sd.update(_bn_entries(f"{pre}bn{c}.", bp[f"bn{c}"], bs[f"bn{c}"]))
+            if "down_conv" in bp:
+                sd[pre + "downsample.0.weight"] = _oihw(bp["down_conv"])
+                sd.update(_bn_entries(pre + "downsample.1.", bp["down_bn"], bs["down_bn"]))
+    for ours, theirs in (("fc.0.", "fc1"), ("fc.2.", "fc2")):
+        sd.update(_linear(params["head"][theirs], ours))
+    return sd
+
+
+def _export(x: Any) -> torch.Tensor:
+    t = torch.as_tensor(np.asarray(x)) if not isinstance(x, torch.Tensor) else x.detach()
+    if t.dtype == torch.int64:  # num_batches_tracked
+        return t.to("cpu").clone()
+    return t.to("cpu", torch.float32).contiguous()
+
+
+def resnet_to_torchvision_state_dict(sd: dict) -> dict[str, torch.Tensor]:
+    """:class:`~bvc_tpu_torch.models.resnet.ResNet` state dict -> the export
+    layout (torchvision names with the ``fc = Sequential(Linear, ReLU,
+    Linear)`` head): every tensor on the CPU, contiguous, f32 but the int64
+    ``num_batches_tracked``."""
+    return {k: _export(v) for k, v in sd.items()}
+
+
+def resnet_from_torchvision_state_dict(sd: dict) -> dict[str, torch.Tensor]:
+    """The export layout (tensors or numpy arrays) ->
+    :class:`~bvc_tpu_torch.models.resnet.ResNet` state dict."""
+    return {k: _export(v) for k, v in sd.items()}

@@ -1,2 +1,2 @@
-"""VideoMAE and JEPA pretraining: optimizer, train state, steps and
-gradient probes."""
+"""VideoMAE, JEPA and SimCLR pretraining: optimizer, train state, steps,
+trainers and gradient probes."""

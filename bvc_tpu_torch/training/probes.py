@@ -1,25 +1,52 @@
-"""Gradient-health probes (counterpart of
-:func:`bvc_tpu.training.probes.videomae_grad_metrics` and
-:func:`~bvc_tpu.training.probes.jepa_grad_metrics`).
+"""Gradient-health probes (counterpart of :mod:`bvc_tpu.training.probes`).
 
 The reference's ``grad_logger`` reads the gradient norms of a few named
-layers: three VideoMAE ones, or JEPA's first and last encoder ``qkv``
-weights; the JAX package adds the global norm and takes them all from one
-pass over the gradients.  So does this: one per-tensor norm per parameter
-(``torch._foreach_norm``, one multi-tensor pass on the device), combined
-into the metrics, which stay device tensors.
+layers: three VideoMAE ones, JEPA's first and last encoder ``qkv`` weights,
+or SimCLR's ``conv1`` and ``fc.0``; the JAX package adds the global norm and
+takes them all from one pass over the gradients.  So does this: one
+per-tensor norm per parameter (``torch._foreach_norm``, one multi-tensor
+pass on the device), combined into the metrics, which stay device tensors.
+
+The opt-in grad-stats table (``--log_grad_stats y``): :func:`full_grad_probes`
+gives a family's extra probes, the mean, least and largest of a set of
+per-layer gradient norms (the reference meter's ``avg (min, max)``), and
+:func:`format_gstats` the log line's suffix.  The sets are the JAX
+package's: VideoMAE's patch embedding, ``enc_to_dec`` and decoder head;
+every JEPA weight (:func:`per_layer_weight_norms`); SimCLR's stem
+convolution and its head's first layer.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 
-def _grad_sumsqs(model: torch.nn.Module) -> list[tuple[str, torch.Tensor]]:
-    """(name, squared gradient norm) of every parameter with a gradient."""
-    named = [(n, p.grad) for n, p in model.named_parameters() if p.grad is not None]
-    sumsq = [x.square() for x in torch._foreach_norm([g.float() for _, g in named])]
-    return [(n, s) for (n, _), s in zip(named, sumsq)]
+def _sumsqs(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Squared norms in f32: one multi-tensor pass on the card; on the CPU a
+    cascade sum of squares per tensor, since the CPU's norm kernels sum a
+    large tensor less exactly (4e-5 relative at 2.4M entries)."""
+    tensors = [t.float() for t in tensors]
+    if tensors and tensors[0].is_cuda:
+        return [x.square() for x in torch._foreach_norm(tensors)]
+    return [t.square().sum() for t in tensors]
+
+
+def _grad_sumsqs(model: torch.nn.Module, select: Callable[[str, torch.Tensor], bool]
+                 = lambda name, p: True) -> list[tuple[str, torch.Tensor]]:
+    """(name, squared gradient norm) of every selected parameter with a
+    gradient."""
+    named = [(n, p.grad) for n, p in model.named_parameters()
+             if p.grad is not None and select(n, p)]
+    return list(zip([n for n, _ in named], _sumsqs([g for _, g in named])))
+
+
+def _norm_of(sumsqs: list[tuple[str, torch.Tensor]], prefix: str, device) -> torch.Tensor:
+    """The norm over the entries whose name starts with ``prefix``: the
+    global norm of one module's gradients."""
+    parts = [s for n, s in sumsqs if n.startswith(prefix)]
+    return torch.stack(parts).sum().sqrt() if parts else torch.zeros((), device=device)
 
 
 def videomae_grad_metrics(model: torch.nn.Module) -> dict[str, torch.Tensor]:
@@ -54,3 +81,70 @@ def jepa_grad_metrics(model: torch.nn.Module) -> dict[str, torch.Tensor]:
     return {"grad_norm": torch.stack([s for _, s in sumsqs]).sum().sqrt() if sumsqs else zero,
             "grad_fl": by_name.get("encoder.blocks.layers.0.qkv.weight", zero).sqrt(),
             "grad_ll": by_name.get(f"encoder.blocks.layers.{last}.qkv.weight", zero).sqrt()}
+
+
+def simclr_grad_metrics(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """``grad_norm`` over every parameter with a gradient, and the norms of
+    the stem convolution (``grad_conv1``) and of the head's first layer,
+    weight and bias (``grad_fc0``), of a
+    :class:`~bvc_tpu_torch.models.resnet.ResNet`."""
+    sumsqs = _grad_sumsqs(model)
+    device = next(model.parameters()).device
+    return {"grad_norm": _norm_of(sumsqs, "", device),
+            "grad_conv1": _norm_of(sumsqs, "conv1.", device),
+            "grad_fc0": _norm_of(sumsqs, "fc.0.", device)}
+
+
+def per_layer_weight_norms(model: torch.nn.Module) -> torch.Tensor:
+    """The gradient norm of every weight: each parameter of at least 2
+    dimensions with no ``bias`` in its name (the reference's ``len(p.shape)
+    > 1`` filter), one norm per layer since each layer's weights are tensors
+    of their own.  LayerNorm scales are out, JEPA's ``mask_token`` is in; a
+    weight with no gradient counts 0, as the JAX package's zero gradient."""
+    weights = [(n, p) for n, p in model.named_parameters() if p.ndim >= 2 and "bias" not in n]
+    if not weights:
+        return torch.zeros((1,), device=next(model.parameters()).device)
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for _, p in weights]
+    return torch.stack(_sumsqs(grads)).sqrt()
+
+
+def _meter(norms_fn: Callable[[torch.nn.Module], torch.Tensor]
+           ) -> dict[str, Callable[[torch.nn.Module], torch.Tensor]]:
+    """avg/min/max over a set of per-layer norms: the reference
+    ``AverageMeter``'s fields that its log lines read."""
+    return {"gstat_avg": lambda m: norms_fn(m).mean(),
+            "gstat_min": lambda m: norms_fn(m).min(),
+            "gstat_max": lambda m: norms_fn(m).max()}
+
+
+def _module_norms(prefixes: tuple[str, ...]) -> Callable[[torch.nn.Module], torch.Tensor]:
+    def norms(model: torch.nn.Module) -> torch.Tensor:
+        sumsqs = _grad_sumsqs(model, lambda n, p: n.startswith(prefixes))
+        device = next(model.parameters()).device
+        return torch.stack([_norm_of(sumsqs, pre, device) for pre in prefixes])
+
+    return norms
+
+
+def full_grad_probes(family: str) -> dict[str, Callable[[torch.nn.Module], torch.Tensor]]:
+    """The opt-in grad-stats table of one model family: extra probes (name
+    -> fn(model), read after the backward) for a step's ``grad_probes``."""
+    if family == "videomae":
+        return _meter(_module_norms(("encoder.patch_embed.", "enc_to_dec.", "decoder_head.")))
+    if family == "jepa":
+        # every weight of encoder and predictor, as the reference's meter
+        return _meter(per_layer_weight_norms)
+    if family == "simclr":
+        return _meter(_module_norms(("conv1.", "fc.0.")))
+    raise ValueError(f"unknown family {family!r}")
+
+
+def format_gstats(metrics) -> str:
+    """The log line's suffix of the grad-stats table (the reference meter's
+    ``avg (min, max)``, ``loggingtools.py:98-119``), empty when the step ran
+    no probe.  Shared by the three trainers."""
+    if "gstat_avg" not in metrics:
+        return ""
+    return " [grad: %.2e (%.2e, %.2e)]" % (float(metrics["gstat_avg"]),
+                                            float(metrics["gstat_min"]),
+                                            float(metrics["gstat_max"]))

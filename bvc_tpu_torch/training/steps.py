@@ -1,6 +1,7 @@
-"""The VideoMAE and JEPA pretraining steps (counterparts of
-:func:`bvc_tpu.training.steps.make_videomae_train_step` and
-:func:`~bvc_tpu.training.steps.make_jepa_train_step` and their
+"""The VideoMAE, JEPA and SimCLR pretraining steps (counterparts of
+:func:`bvc_tpu.training.steps.make_videomae_train_step`,
+:func:`~bvc_tpu.training.steps.make_jepa_train_step` and
+:func:`~bvc_tpu.training.steps.make_simclr_train_step` and their
 ``eval_step``, unsharded).
 
 A VideoMAE step: normalize the uint8 clips on the device, draw the tube (or
@@ -9,7 +10,12 @@ loss of :class:`~bvc_tpu_torch.models.videomae.VideoMAEPretrain` and its
 gradients, take the optimizer's update, and read the gradient probes.
 A JEPA step: the EMA target's features at the prediction positions (no
 gradient), the context encoder and the predictor, the smooth-L1 loss over
-the valid prediction rows, the update, then the EMA of the target encoder.
+the valid prediction rows, the update, then the EMA of the target encoder.  A SimCLR step: the
+uint8 pairs normalized on the device and flattened to the interleaved
+``[2B]`` batch, the ResNet and its head with BatchNorm over the batch, the
+InfoNCE loss in f32, the update.  Each step's ``grad_probes`` (name ->
+fn(model), e.g. :func:`~bvc_tpu_torch.training.probes.full_grad_probes`)
+add metrics read from the gradients after the backward.
 PyTorch runs eagerly, so there is no jit: a step is a plain function that
 updates the state in place.  Its metrics stay device tensors, so the step
 never waits for the device; the caller reads them when it needs them.
@@ -25,8 +31,11 @@ import torch
 
 from bvc_tpu_torch.masks.tube import random_mask, tube_mask
 from bvc_tpu_torch.models.jepa import target_features
+from bvc_tpu_torch.models.videomae import normalize_on_device
+from bvc_tpu_torch.objectives.contrastive import info_nce_loss
 from bvc_tpu_torch.training.optim import apply_schedules
-from bvc_tpu_torch.training.probes import jepa_grad_metrics, videomae_grad_metrics
+from bvc_tpu_torch.training.probes import (jepa_grad_metrics, simclr_grad_metrics,
+                                           videomae_grad_metrics)
 from bvc_tpu_torch.training.state import TrainState
 from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig
 
@@ -40,8 +49,19 @@ def microbatches(x: torch.Tensor, k: int) -> list[torch.Tensor]:
     return [x[j::k] for j in range(k)]
 
 
+GradProbes = dict[str, Callable[[torch.nn.Module], torch.Tensor]]
+
+
+def _probed(metrics: dict[str, torch.Tensor], model: torch.nn.Module,
+            grad_probes: GradProbes | None) -> dict[str, torch.Tensor]:
+    for name, fn in (grad_probes or {}).items():
+        metrics[name] = fn(model)
+    return metrics
+
+
 def make_videomae_train_step(model_cfg: ModelConfig, mask_cfg: MaskConfig,
-                             grad_accum: int = 1, attn_impl: str = "auto"
+                             grad_accum: int = 1, attn_impl: str = "auto",
+                             grad_probes: GradProbes | None = None
                              ) -> Callable[..., dict[str, torch.Tensor]]:
     """``step(state, video, mask=None) -> metrics`` over uint8 (or
     normalized) ``video [B, T, H, W, C]``.
@@ -91,7 +111,7 @@ def make_videomae_train_step(model_cfg: ModelConfig, mask_cfg: MaskConfig,
         apply_schedules(opt, state.step)
         opt.step()
         state.step += 1
-        return {"loss": loss, **videomae_grad_metrics(model)}
+        return _probed({"loss": loss, **videomae_grad_metrics(model)}, model, grad_probes)
 
     @torch.no_grad()
     def eval_step(state: TrainState, video: torch.Tensor, step_idx: int = 0,
@@ -118,7 +138,7 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> to
 def make_jepa_train_step(model_cfg: ModelConfig, total_steps: int,
                          ema: tuple[float, float] = (0.996, 1.0),
                          ema_fallback: float = 0.998, grad_accum: int = 1,
-                         attn_impl: str = "auto"
+                         attn_impl: str = "auto", grad_probes: GradProbes | None = None
                          ) -> Callable[..., dict[str, torch.Tensor]]:
     """``step(state, batch) -> metrics`` over a batch dict of
     ``video [B, T, H, W, C]`` (uint8 or normalized), ``enc_idx [B, Ke]`` and
@@ -195,15 +215,86 @@ def make_jepa_train_step(model_cfg: ModelConfig, total_steps: int,
             torch._foreach_mul_(target, m)
             torch._foreach_add_(target, list(model.encoder.parameters()), alpha=1.0 - m)
         state.step += 1
-        return {"loss": loss, **jepa_grad_metrics(model),
-                "mask_a": (enc_idx[0] >= 0).sum(), "mask_b": (pred_idx[0, 0] >= 0).sum(),
-                # a fill on the device: a copy from the host would wait for it
-                "ema_m": torch.full((), m, device=state.device)}
+        return _probed({"loss": loss, **jepa_grad_metrics(model),
+                        "mask_a": (enc_idx[0] >= 0).sum(),
+                        "mask_b": (pred_idx[0, 0] >= 0).sum(),
+                        # a fill on the device: a copy from the host would wait for it
+                        "ema_m": torch.full((), m, device=state.device)}, model, grad_probes)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
         # as the JAX eval step: the online networks at the default routing
         return {"loss": jepa_loss(state, *on_device(state, batch), attn_impl, train=False)}
+
+    step.eval_step = eval_step
+    return step
+
+
+def make_simclr_train_step(temperature: float = 0.1, loss_mode: str = "parity",
+                           negatives: str = "global", bn_stats: str = "global",
+                           grad_probes: GradProbes | None = None, grad_accum: int = 1
+                           ) -> Callable[..., dict[str, torch.Tensor]]:
+    """``step(state, pairs) -> metrics`` over augmentation pairs ``[B, 2, H,
+    W, C]`` (uint8, or normalized).
+
+    ``state.model`` is a :class:`~bvc_tpu_torch.models.resnet.ResNet`: its
+    ``dtype`` is the compute dtype (bf16 from the f32 master weights, or
+    f32); BatchNorm's statistics and InfoNCE's cosine matrix stay f32.  The
+    pairs are normalized on the device and reshaped to ``[2B, H, W, C]``,
+    which interleaves them (anchor0, pos0, anchor1, ...) as the reference's
+    batch (``pretrain_simclr.py:320-329``) and the loss's positive mask
+    expect: a concatenation of the two views would pair other rows.  The
+    step runs the model in train mode, so BatchNorm normalises by the
+    batch's statistics and moves its running ones, and updates the model,
+    the optimizer and the step count in place.
+
+    ``negatives`` / ``bn_stats``: ``'per_replica'`` scopes InfoNCE's
+    negatives / BatchNorm's statistics to each data shard; on one device
+    there is one shard, so both act as ``'global'``, as the JAX step does at
+    a data axis of 1.  ``grad_accum`` must be 1: InfoNCE's negatives and
+    BatchNorm's statistics span the whole batch.
+
+    Metrics: ``loss``, ``grad_norm``, ``grad_conv1`` and ``grad_fc0``,
+    scalar device tensors.  ``step.eval_step(state, pairs, step_idx=0)``
+    returns ``{"loss": ...}`` with BatchNorm in eval mode (its running
+    statistics), the state untouched.
+    """
+    if grad_accum != 1:
+        raise ValueError(
+            "grad_accum_steps is not supported for SimCLR: InfoNCE "
+            "negatives (and BatchNorm statistics) span the whole batch, "
+            "so accumulation would change the loss semantics")
+    for name, value in (("negatives", negatives), ("bn_stats", bn_stats)):
+        if value not in ("global", "per_replica"):
+            raise ValueError(f"{name} must be 'global' or 'per_replica', got {value!r}")
+
+    def flat_pairs(state: TrainState, pairs: torch.Tensor) -> torch.Tensor:
+        x = normalize_on_device(pairs.to(state.device, non_blocking=True))
+        return x.reshape(x.shape[0] * 2, *x.shape[2:])
+
+    def step(state: TrainState, pairs: torch.Tensor) -> dict[str, torch.Tensor]:
+        x = flat_pairs(state, pairs)
+        model, opt = state.model.train(), state.optimizer
+        opt.zero_grad(set_to_none=True)
+        loss = info_nce_loss(model(x), temperature, loss_mode)
+        loss.backward()
+        apply_schedules(opt, state.step)
+        opt.step()
+        state.step += 1
+        return _probed({"loss": loss.detach(), **simclr_grad_metrics(model)}, model,
+                       grad_probes)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, pairs: torch.Tensor, step_idx: int = 0
+                  ) -> dict[str, torch.Tensor]:
+        del step_idx  # no masks to draw
+        model = state.model
+        was_training = model.training
+        try:
+            return {"loss": info_nce_loss(model.eval()(flat_pairs(state, pairs)),
+                                          temperature, loss_mode)}
+        finally:
+            model.train(was_training)
 
     step.eval_step = eval_step
     return step

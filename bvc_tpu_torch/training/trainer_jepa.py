@@ -33,6 +33,7 @@ from bvc_tpu_torch.training.checkpoint import (checkpoint_exists, checkpoint_pat
                                                load_optimizer_state)
 from bvc_tpu_torch.training.metrics_pipe import MetricsPipe
 from bvc_tpu_torch.training.optim import schedule_steps
+from bvc_tpu_torch.training.probes import format_gstats, full_grad_probes
 from bvc_tpu_torch.training.state import TrainState
 from bvc_tpu_torch.training.steps import make_jepa_train_step
 from bvc_tpu_torch.training.trainer_videomae import refuse_unported
@@ -155,8 +156,10 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
     # the EMA momentum ramps over the real iteration count (reference
     # pretrain_jepa.py:309-311 uses ipe*num_epochs)
     total_steps = max(n_batches, 1) * cfg.n_epoch
-    step = make_jepa_train_step(cfg.model, total_steps, cfg.optim.ema, cfg.optim.ema_fallback,
-                                grad_accum=cfg.optim.grad_accum_steps)
+    step = make_jepa_train_step(
+        cfg.model, total_steps, cfg.optim.ema, cfg.optim.ema_fallback,
+        grad_accum=cfg.optim.grad_accum_steps,
+        grad_probes=full_grad_probes("jepa") if cfg.log_grad_stats else None)
     loader = DataLoader(
         datasets["train"], global_batch, shuffle=True, seed=cfg.seed,
         num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch,
@@ -208,9 +211,9 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
                                int(metrics["mask_a"]), int(metrics["mask_b"]),
                                int(pipe_ms[0]))
             if itr % cfg.log_freq == 0:
-                logger.info("[%d, %5d] loss: %.3f masks: %.1f %.1f (%.0f ms) m=%.4f",
+                logger.info("[%d, %5d] loss: %.3f masks: %.1f %.1f (%.0f ms) m=%.4f%s",
                             epoch + 1, itr, loss_meter.avg, mask_a.avg, mask_b.avg,
-                            pipe_ms[0], metrics["ema_m"])
+                            pipe_ms[0], metrics["ema_m"], format_gstats(metrics))
             if loss != loss or abs(loss) == float("inf"):
                 raise FloatingPointError(f"loss is {loss} at epoch {epoch} itr {itr}")
 

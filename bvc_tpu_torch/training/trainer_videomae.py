@@ -31,6 +31,7 @@ from bvc_tpu_torch.training.checkpoint import (checkpoint_exists, checkpoint_pat
                                                load_optimizer_state)
 from bvc_tpu_torch.training.metrics_pipe import MetricsPipe
 from bvc_tpu_torch.training.optim import schedule_steps
+from bvc_tpu_torch.training.probes import format_gstats, full_grad_probes
 from bvc_tpu_torch.training.state import TrainState
 from bvc_tpu_torch.training.steps import make_videomae_train_step
 from bvc_tpu_torch.utils.config import ModelConfig, TrainConfig
@@ -41,17 +42,13 @@ from bvc_tpu_torch.utils.profiling import StepTraceWindow, device_memory_stats
 
 def refuse_unported(cfg: TrainConfig) -> None:
     """Raise for what the single-GPU trainers do not do yet: a mesh, a
-    parameter sharding, several processes (the multi-GPU slice) and the
-    grad-stats table (``full_grad_probes``)."""
+    parameter sharding, several processes (the multi-GPU slice)."""
     world = int(os.environ.get("WORLD_SIZE", "1") or 1)
     if cfg.mesh_shape or cfg.param_sharding != "replicated" or world > 1:
         raise NotImplementedError(
             f"mesh {cfg.mesh_shape or '{}'}, param_sharding {cfg.param_sharding!r}, "
             f"WORLD_SIZE {world}: multi-GPU training comes with ROADMAP slice 7; "
             "this trainer runs on one GPU (empty --mesh, 'replicated')")
-    if cfg.log_grad_stats:
-        raise NotImplementedError("--log_grad_stats y: the grad-stats table "
-                                  "(full_grad_probes) is not ported yet")
 
 
 def videomae_model_state(ckpt: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
@@ -112,8 +109,9 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
         state.step = int(restored["step"])
         state.generator.set_state(restored["rng"])
         start_epoch = int(restored["epoch"])
-    step = make_videomae_train_step(cfg.model, cfg.mask,
-                                    grad_accum=cfg.optim.grad_accum_steps)
+    step = make_videomae_train_step(
+        cfg.model, cfg.mask, grad_accum=cfg.optim.grad_accum_steps,
+        grad_probes=full_grad_probes("videomae") if cfg.log_grad_stats else None)
 
     # data ---------------------------------------------------------------------
     datasets = make_dataset("videomae", cfg.data)
@@ -177,8 +175,9 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
                           for k in ("grad_efl", "grad_ell", "grad_dll")))
                 if itr % cfg.log_freq == 0:
                     mem = device_memory_stats(device)["peak_bytes_in_use"] / 1024**2
-                    logger.info("[%d, %5d] %s loss: %.3f [mem: %.2e MB] (%.0f ms/it)",
-                                epoch + 1, itr, phase, loss_meter[phase].avg, mem, pipe_ms[0])
+                    logger.info("[%d, %5d] %s loss: %.3f [mem: %.2e MB] (%.0f ms/it)%s",
+                                epoch + 1, itr, phase, loss_meter[phase].avg, mem, pipe_ms[0],
+                                format_gstats(metrics))
                 if loss != loss or abs(loss) == float("inf"):
                     raise FloatingPointError(f"loss is {loss} at epoch {epoch} itr {itr}")
 

@@ -154,10 +154,11 @@ class OptimConfig:
     # go without)
     exclude_bias_and_norm_from_wd: bool = False
     # JEPA target-encoder EMA ramp: what the caller passes as
-    # make_jepa_train_step's ema and ema_fallback.  The SimCLR options below
-    # are read by no port code yet, kept for the SimCLR slice
+    # make_jepa_train_step's ema and ema_fallback
     ema: tuple[float, float] = (0.996, 1.0)
     ema_fallback: float = 0.998
+    # SimCLR: InfoNCE negatives and BatchNorm statistics per data shard
+    # ('per_replica') or over the whole batch; one GPU is one shard
     contrastive_negatives: str = "global"
     bn_stats: str = "global"
     # 'none' keeps lr constant; 'warmup_cosine' warms start_lr -> lr over

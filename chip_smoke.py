@@ -144,12 +144,41 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    the batch 10 picked: gradient cosine >= 0.9995 per parameter tensor,
    32 ``flash_fwd`` launches (the recompute) and no other change, and a
    lower peak memory (both printed).
+16. The SimCLR step at full width (ResNet-18, 224 px, head 512, 16 pairs),
+   through ``ResNet``, ``TrainState.create`` and ``make_simclr_train_step``:
+   the f32 step on the card with TF32 off against the same step on the CPU
+   (loss within 1e-4 relative, gradient cosine >= 0.9995 per parameter
+   tensor, running statistics within 1e-4), and the bf16 step against the
+   f32 one on the card under limits set from ``emulate_simclr_bf16`` on the
+   CPU (loss 1e-3, cosine 0.8, statistics 5e-3), which two deliberately
+   unsound bf16 steps (``unsound_bf16``: BatchNorm's statistics in bf16;
+   InfoNCE's cosine matrix and logsumexp in bf16) must each fail.  Then the
+   bf16 step alone
+   at the largest batch in {256, 128, 64} pairs: pairs/s, images/s, MFU
+   from ``simclr_train_flops_per_pair`` (21.30 GFLOP, counted by
+   ``torch.utils.flop_counter``), peak memory.
+17. SimCLR extraction through ``untrained_embed_fn("simclr", ...)``: clips/s
+   at B=64 16-frame clips, cosine >= 0.999 per row to the CPU.
+18. ``python -m bvc_tpu_torch.cli.pretrain_simclr`` through ``main`` with its
+   defaults (``--interval 900 --augs cjo``) at the batch of 16, over 3 x
+   2000 JPEG frames written with cv2 or PIL (the phase fails without
+   either): a 19-step stage as in 14, a chained
+   3-step stage and ``--resume y``; the trainer's, the loader's and the
+   step's pairs/s, the idle share, the host's decode and augmentation ms a
+   frame; the checkpoint through ``make_embed_fn("simclr")`` at cosine >=
+   0.999 to the trained model.
+19. ``python -m bvc_tpu_torch.cli.compute_embeddings`` through ``main`` over a
+   synthetic CIFAR-10 (the reader's pickle format): ``--family simclr``
+   with 18's checkpoint (10 rows of 512) and ``--family videomae``
+   untrained (10 rows of 768, 12 ``flash_fwd`` launches).
 
 Every path runs with every launch count set to 0 just before it and read
-just after, and fails if a kernel other than its own launched.
-Prints one JSON ``{"trainers": {...}}`` line (14 and 15), one JSON
-``{"kernels": [...]}`` line (with each kernel's ``launches_per_cli_step``)
-and, last,
+just after, and fails if a kernel other than its own launched (no SimCLR
+path launches one: each kernel's ``launches_on_simclr_paths`` is the sum of
+the counts read over them).
+Prints one JSON ``{"trainers": {...}}`` line (14-18), one JSON
+``{"kernels": [...]}`` line (with each kernel's ``launches_per_cli_step``),
+the script's wall time and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that last line,
 when there is no CUDA device, when run outside a checkout, or when any phase
 fails.
@@ -168,6 +197,7 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+T0 = time.perf_counter()
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -2065,10 +2095,9 @@ def write_corpus(root: Path, image_size: int = 224, subjects: int = 2) -> tuple[
     placeholders (the readers list the names; nothing decodes them) for
     the first ``subjects`` subjects of the port's ``get_group('g0')``, and
     their frames, uniform random uint8 from numpy, in a packed shard of the
-    port's format (``pack/<subject>/frames_<S>.u8`` and ``.json``).  The
-    card's machine is not known to have a JPEG decoder, so a frame the
-    packed reader lacked would fail loudly rather than decode.  Returns the
-    two roots."""
+    port's format (``pack/<subject>/frames_<S>.u8`` and ``.json``): a frame
+    the packed reader lacked would fail loudly rather than decode.  Returns
+    the two roots."""
     import numpy as np
 
     from bvc_tpu_torch.data.indexing import get_group
@@ -2145,12 +2174,14 @@ def timed_steps(module, factory: str) -> dict:
     return rec
 
 
-def loader_alone(ds, B: int, collate=None) -> tuple[float, int]:
+def loader_alone(ds, B: int, collate=None, want: str = "packed",
+                 checked: int = CLI_ITERS) -> tuple[float, int]:
     """Clips/s of the port's ``DataLoader`` alone on the card (pinned
     buffers, side-stream copies; no step), over batches 2 .. CLI_ITERS - 1
-    of epoch 0, with each batch's uint8 sum taken on the device held
-    against the sum of its samples on the host (a pinned buffer refilled
-    before its copy finished would break it).  Returns (clips/s, batches
+    of epoch 0, with the uint8 sum of each of the first ``checked`` batches
+    taken on the device held against the sum of its samples on the host (a
+    pinned buffer refilled before its copy finished would break it), and
+    every frame read by path ``want``.  Returns (clips/s, batches
     checked)."""
     import numpy as np
     import torch
@@ -2169,13 +2200,13 @@ def loader_alone(ds, B: int, collate=None) -> tuple[float, int]:
         sums.append(video.sum(dtype=torch.int64))
     torch.cuda.synchronize()
     clips_s = (len(sums) - 2) * B / (time.perf_counter() - t0)
-    for i, idxs in enumerate(loader.sampler.batches(0)[:CLI_ITERS]):
+    check(set(ds.served) == {want}, f"frames read by path {dict(ds.served)}: want {want} only")
+    for i, idxs in enumerate(loader.sampler.batches(0)[:checked]):
         # the loader's per-sample generator: (seed, epoch, index)
-        want = sum(int(ds[(int(j), np.random.default_rng((0, 0, int(j))))].sum(dtype=np.int64))
+        host = sum(int(ds[(int(j), np.random.default_rng((0, 0, int(j))))].sum(dtype=np.int64))
                    for j in idxs)
-        check(int(sums[i]) == want, f"loader batch {i}: device sum {int(sums[i])} != host {want}")
-    check(set(ds.served) == {"packed"}, f"frames read by path {dict(ds.served)}: want packed only")
-    return clips_s, len(sums)
+        check(int(sums[i]) == host, f"loader batch {i}: device sum {int(sums[i])} != host {host}")
+    return clips_s, min(checked, len(sums))
 
 
 def run_cli_stage(main, argv: list[str], what: str) -> tuple[dict, dict, float]:
@@ -2248,26 +2279,28 @@ def step_only_ms(rec: dict, steps: int = 5) -> tuple[float, float]:
 
 
 def report_cli(what: str, card: str, B: int, rec: dict, loader_clips_s: float,
-               profile_dir: Path) -> dict:
+               profile_dir: Path, unit: str = "clips") -> dict:
+    """The CLI stage's rates in ``unit`` (clips, or SimCLR's pairs) a
+    second, printed and returned."""
     summary = json.loads((profile_dir / "summary.json").read_text())
     (a, b), (ta, tb) = CLI_WINDOWS["ms"], CLI_WINDOWS["traced_ms"]
     check(summary["steps"] == tb - ta, f"{what}: traced {summary['steps']} steps, want {tb - ta}")
     trainer = B / (rec["ms"] / 1e3)
     step_ms, dispatch_ms = step_only_ms(rec)
-    out = {"trainer_clips_s": trainer, "trainer_ms": rec["ms"],
-           "traced_trainer_clips_s": B / (rec["traced_ms"] / 1e3),
-           "traced_trainer_ms": rec["traced_ms"], "loader_clips_s": loader_clips_s,
-           "step_only_clips_s": B / (step_ms / 1e3), "step_only_ms": step_ms,
+    out = {f"trainer_{unit}_s": trainer, "trainer_ms": rec["ms"],
+           f"traced_trainer_{unit}_s": B / (rec["traced_ms"] / 1e3),
+           "traced_trainer_ms": rec["traced_ms"], f"loader_{unit}_s": loader_clips_s,
+           f"step_only_{unit}_s": B / (step_ms / 1e3), "step_only_ms": step_ms,
            "host_dispatch_ms": dispatch_ms, "loader_stall_ms": rec["stall_ms"],
            "idle_share": summary["idle_share"], "traced_steps": summary["steps"],
            "device_copy_ms": summary["device_copy_ms"]}
-    print(f"{what} [{card}]: B={B} trainer {rec['ms']:.2f} ms/step -> {trainer:.1f} clips/s "
+    print(f"{what} [{card}]: B={B} trainer {rec['ms']:.2f} ms/step -> {trainer:.1f} {unit}/s "
           f"(steps {a}-{b - 1}); loader alone {loader_clips_s:.1f} "
-          f"clips/s; step alone {step_ms:.2f} ms -> {out['step_only_clips_s']:.1f} clips/s, "
+          f"{unit}/s; step alone {step_ms:.2f} ms -> {out[f'step_only_{unit}_s']:.1f} {unit}/s, "
           f"its host dispatch {dispatch_ms:.1f} ms; the trainer waited "
           f"{rec['stall_ms']:.1f} ms a batch for its loader; traced steps {ta}-{tb - 1}: "
-          f"trainer {rec['traced_ms']:.2f} ms/step -> {out['traced_trainer_clips_s']:.1f} "
-          f"clips/s, device idle share {summary['idle_share']:.3f} "
+          f"trainer {rec['traced_ms']:.2f} ms/step -> {out[f'traced_trainer_{unit}_s']:.1f} "
+          f"{unit}/s, device idle share {summary['idle_share']:.3f} "
           f"(kernels {summary['device_busy_ms']:.1f} of {summary['wall_ms']:.1f} ms; "
           f"copies {summary['device_copy_ms']:.1f} ms)", flush=True)
     return out
@@ -2444,6 +2477,517 @@ def phase_remat(card: str, B: int) -> dict:
             "min_cosine": per_tensor[0][0]}
 
 
+SIMCLR_ARCH, SIMCLR_HEAD, SIMCLR_SIZE = "resnet18", 512, 224
+SIMCLR_AGREE_PAIRS = 16  # the agreement checks' batch
+SIMCLR_BATCHES = (256, 128, 64)  # pairs, the ladder of tools/bench_families.py:119
+SIMCLR_LOSS_RTOL = 1e-4  # f32 step on the card (TF32 off) against the CPU
+SIMCLR_STATS_RTOL = 1e-4  # running statistics: max|diff| over max|CPU|, per buffer
+# bf16 step against the f32 step on the card, set from emulate_simclr_bf16(224,
+# 16) on the CPU, where the sound step read at worst 7.6e-5, 0.872 at a
+# BatchNorm bias and 3.3e-3, and its unsound_bf16 controls 'bn' (1.6e-4, 0.644,
+# 7.9e-3 at best for them) and 'info_nce' (3.5e-3, 0.692, 3.3e-3) each fail two
+SIMCLR_BF16_LOSS_RTOL = 1e-3
+SIMCLR_BF16_COSINE_MIN = 0.8  # per parameter tensor
+SIMCLR_BF16_STATS_RTOL = 5e-3
+SIMCLR_CORPUS = (3, 2000)  # subjects x frames: 19 x 256 pairs 900 frames apart need 5765
+
+
+class tf32_off:
+    """cuDNN and cuBLAS in full f32 (no TF32) inside the block."""
+
+    def __enter__(self):
+        import torch
+
+        self.saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+def simclr_pairs(B: int, size: int, seed: int):
+    """``[B, 2, size, size, 3]`` uint8 pairs from numpy."""
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(0, 256, (B, 2, size, size, 3), dtype=np.uint8)
+
+
+def simclr_step_readings(model, pairs, device: str, dtype, fault: str | None = None) -> dict:
+    """One SimCLR step of a copy of ``model`` at compute ``dtype`` on
+    ``device`` through the port's entry points (``TrainState.create``,
+    ``make_simclr_train_step``, the CLI's SGD defaults), under ``fault``
+    (:class:`unsound_bf16`) if given: the loss, every parameter's gradient
+    and every running statistic, on the CPU in f32."""
+    import contextlib
+    import copy
+
+    import torch
+
+    from bvc_tpu_torch.training.state import TrainState
+    from bvc_tpu_torch.training.steps import make_simclr_train_step
+    from bvc_tpu_torch.utils.config import OptimConfig
+
+    m = copy.deepcopy(model)
+    m.dtype = dtype
+    state = TrainState.create(m, OptimConfig(), seed=1, device=device)
+    with unsound_bf16(fault) if fault else contextlib.nullcontext():
+        loss = make_simclr_train_step(0.1)(state, torch.from_numpy(pairs))["loss"].item()
+    return {"loss": loss,
+            "grads": {n: p.grad.float().cpu() for n, p in state.model.named_parameters()},
+            "stats": {n: b.float().cpu() for n, b in state.model.named_buffers()
+                      if "running" in n}}
+
+
+class unsound_bf16:
+    """A bf16 step in lower precision than the port's, the control that the
+    bf16 limits must fail: ``'bn'``, BatchNorm's statistics taken and
+    applied in bf16 (the port takes them in f32); ``'info_nce'``, InfoNCE's
+    cosine matrix and logsumexp in bf16 (the port's are f32)."""
+
+    KINDS = ("bn", "info_nce")
+
+    def __init__(self, kind: str):
+        assert kind in self.KINDS, kind
+        self.kind = kind
+
+    def __enter__(self):
+        import torch
+
+        from bvc_tpu_torch.objectives import contrastive
+
+        if self.kind == "bn":
+            self.saved = torch.nn.BatchNorm2d, "forward", torch.nn.BatchNorm2d.forward
+            torch.nn.BatchNorm2d.forward = _bn_in_bf16
+        else:
+            self.saved = contrastive, "_cosine_matrix", contrastive._cosine_matrix
+
+            def cosine_bf16(feats):
+                f = feats.bfloat16()
+                f = f / f.norm(dim=-1, keepdim=True).clamp(min=1e-8)
+                return f @ f.T
+
+            contrastive._cosine_matrix = cosine_bf16
+
+    def __exit__(self, *exc):
+        setattr(*self.saved)
+
+
+def _bn_in_bf16(bn, x):
+    """``BatchNorm2d.forward`` with its statistics, running statistics'
+    update and affine in ``x``'s dtype."""
+    import torch
+
+    dims = (0, 2, 3)
+    if bn.training:
+        mean = x.mean(dims)
+        var = (x - mean[:, None, None]).square().mean(dims)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            bn.running_mean.copy_((0.9 * bn.running_mean.to(x.dtype) + 0.1 * mean))
+            bn.running_var.copy_((0.9 * bn.running_var.to(x.dtype) + 0.1 * var * n / (n - 1)))
+            bn.num_batches_tracked += 1
+    else:
+        mean, var = bn.running_mean.to(x.dtype), bn.running_var.to(x.dtype)
+    scale = bn.weight.to(x.dtype) * torch.rsqrt(var + bn.eps)
+    return (x - mean[:, None, None]) * scale[:, None, None] + bn.bias.to(x.dtype)[:, None, None]
+
+
+def compare_simclr_readings(got: dict, want: dict) -> dict:
+    """Loss relative difference, the lowest gradient cosine over the
+    parameter tensors, and the largest running-statistic difference over
+    its buffer's largest magnitude."""
+    import torch
+
+    cos = sorted((torch.nn.functional.cosine_similarity(
+        got["grads"][n].flatten(), want["grads"][n].flatten(), dim=0).item(), n)
+        for n in want["grads"])
+    stats = sorted(((got["stats"][n] - w).abs().max().item() / w.abs().max().item(), n)
+                   for n, w in want["stats"].items())
+    return {"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            "min_cosine": cos[0][0], "min_cosine_tensor": cos[0][1],
+            "stats_rel": stats[-1][0], "stats_buffer": stats[-1][1]}
+
+
+def emulate_simclr_bf16(size: int, pairs: int, seeds=(0, 1, 2), device: str = "cpu",
+                        fault: str | None = None) -> list[dict]:
+    """The bf16 SimCLR step (under ``fault``, :class:`unsound_bf16`, if
+    given) against the f32 one (``compare_simclr_readings``) from the same
+    weights and pairs, for each seed, on ``device``: how the limits of the
+    card's check were set, from the CPU (``python3 -c "import chip_smoke;
+    print(chip_smoke.emulate_simclr_bf16(224, 4))"``)."""
+    import torch
+
+    from bvc_tpu_torch.models.resnet import ResNet
+
+    out = []
+    for seed in seeds:
+        model = ResNet(SIMCLR_ARCH, SIMCLR_HEAD, seed=seed)
+        batch = simclr_pairs(pairs, size, seed=seed + 1)
+        out.append(compare_simclr_readings(
+            simclr_step_readings(model, batch, device, torch.bfloat16, fault),
+            simclr_step_readings(model, batch, device, torch.float32)))
+    return out
+
+
+def within_bf16_limits(r: dict) -> bool:
+    return (r["loss_rel"] <= SIMCLR_BF16_LOSS_RTOL and r["min_cosine"] >= SIMCLR_BF16_COSINE_MIN
+            and r["stats_rel"] <= SIMCLR_BF16_STATS_RTOL)
+
+
+def simclr_train_flops_per_pair(arch: str = SIMCLR_ARCH, head: int = SIMCLR_HEAD,
+                                size: int = SIMCLR_SIZE) -> tuple[float, float]:
+    """Operations of one SimCLR training step a pair: the convolutions'
+    and linears' FLOPs of the forward and backward of one pair (2 images),
+    as ``torch.utils.flop_counter`` counts them on the CPU (the stem's
+    input gradient is not computed); and 3 x the forward's, for a check."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from bvc_tpu_torch.models.resnet import ResNet
+    from bvc_tpu_torch.objectives.contrastive import info_nce_loss
+
+    model = ResNet(arch, head)
+    x = torch.zeros(2, size, size, 3)
+    with FlopCounterMode(display=False) as fwd:
+        with torch.no_grad():
+            model(x)
+    with FlopCounterMode(display=False) as step:
+        info_nce_loss(model(x)).backward()
+    return float(step.get_total_flops()), 3.0 * fwd.get_total_flops()
+
+
+def sum_launches(*counts: dict[str, int]) -> dict[str, int]:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def no_launches(what: str) -> dict[str, int]:
+    """Fail if any port kernel launched since the last ``reset_launches``;
+    returns the counts read."""
+    launches = read_launches()
+    check(not any(launches.values()), f"{what} launched port kernels: {launches}")
+    return launches
+
+
+def phase_simclr_step(card: str) -> dict:
+    """The SimCLR step at full width (ResNet-18, 224 px, head 512, B=16
+    pairs) from the same weights and pairs: the f32 step on the card with
+    TF32 off against the same port step on the CPU (loss within 1e-4
+    relative, every parameter's gradient cosine >= 0.9995, running
+    statistics within 1e-4), then the bf16 step against the f32 step on the
+    card under the limits set from a CPU emulation; no port kernel
+    launches."""
+    import torch
+
+    from bvc_tpu_torch.models.resnet import ResNet
+
+    model = ResNet(SIMCLR_ARCH, SIMCLR_HEAD, seed=0)
+    pairs = simclr_pairs(SIMCLR_AGREE_PAIRS, SIMCLR_SIZE, seed=1)
+    reset_launches()
+    with tf32_off():
+        card32 = simclr_step_readings(model, pairs, "cuda", torch.float32)
+    card16 = simclr_step_readings(model, pairs, "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = no_launches("the SimCLR steps")
+    cpu32 = simclr_step_readings(model, pairs, "cpu", torch.float32)
+    f32 = compare_simclr_readings(card32, cpu32)
+    bf16 = compare_simclr_readings(card16, card32)
+    controls = {kind: compare_simclr_readings(
+        simclr_step_readings(model, pairs, "cuda", torch.bfloat16, kind), card32)
+        for kind in unsound_bf16.KINDS}
+    for what, r in (("f32 card (TF32 off) vs CPU", f32), ("bf16 vs f32, card", bf16),
+                    *((f"control: bf16 with {k} in bf16, vs f32, card", r)
+                      for k, r in controls.items())):
+        print(f"simclr step, {what}: loss {r['loss_rel']:.2e} relative; lowest gradient "
+              f"cosine {r['min_cosine']:.6f} ({r['min_cosine_tensor']}); running statistics "
+              f"{r['stats_rel']:.2e} ({r['stats_buffer']})", flush=True)
+    print(f"simclr step: losses CPU f32 {cpu32['loss']:.6f}, card f32 {card32['loss']:.6f}, "
+          f"card bf16 {card16['loss']:.6f}", flush=True)
+    check(f32["loss_rel"] <= SIMCLR_LOSS_RTOL and f32["min_cosine"] >= TENSOR_COSINE_MIN
+          and f32["stats_rel"] <= SIMCLR_STATS_RTOL, f"simclr f32 step, card vs CPU: {f32}")
+    limits = (SIMCLR_BF16_LOSS_RTOL, SIMCLR_BF16_COSINE_MIN, SIMCLR_BF16_STATS_RTOL)
+    check(within_bf16_limits(bf16), f"simclr bf16 step vs f32: {bf16} (limits {limits})")
+    for kind, r in controls.items():
+        check(not within_bf16_limits(r), f"the bf16 limits {limits} pass the unsound "
+              f"control {kind!r}: {r}")
+    return {"f32_vs_cpu": f32, "bf16_vs_f32": bf16, "controls": controls, "launches": launches}
+
+
+def phase_simclr_rate(card: str) -> dict:
+    """The bf16 SimCLR step alone (ResNet-18, 224 px, head 512, the CLI's
+    SGD) at the largest batch in ``SIMCLR_BATCHES`` that fits: device time
+    of 10 steps after 3 (CUDA events), pairs/s and images/s, MFU against
+    989 TFLOP/s from :func:`simclr_train_flops_per_pair`, peak memory; no
+    port kernel launches."""
+    import gc
+
+    import torch
+
+    from bvc_tpu_torch.models.resnet import ResNet
+    from bvc_tpu_torch.training.state import TrainState
+    from bvc_tpu_torch.training.steps import make_simclr_train_step
+    from bvc_tpu_torch.utils.config import OptimConfig
+
+    flops, flops_3fwd = simclr_train_flops_per_pair()
+    print(f"simclr: {flops / 1e9:.2f} GFLOP a pair counted (forward and backward), "
+          f"3 x forward {flops_3fwd / 1e9:.2f}", flush=True)
+    step = make_simclr_train_step(0.1)
+    for B in SIMCLR_BATCHES:
+        try:
+            pairs = torch.from_numpy(simclr_pairs(B, SIMCLR_SIZE, seed=2)).cuda()
+            reset_launches()
+            ms, losses, state = time_train_steps(
+                lambda: TrainState.create(ResNet(SIMCLR_ARCH, SIMCLR_HEAD, "bfloat16", seed=0),
+                                          OptimConfig(), seed=1), step, pairs)
+            fits = True
+        except torch.cuda.OutOfMemoryError:
+            fits = False
+        if not fits:
+            print(f"simclr: B={B} does not fit", flush=True)
+            state = pairs = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        launches = no_launches("the SimCLR rate steps")
+        check(all(math.isfinite(x) for x in losses), f"non-finite SimCLR loss: {losses}")
+        pairs_s = B / (ms / 1e3)
+        out = {"launches": launches, "B": B, "step_ms": ms, "pairs_s": pairs_s, "images_s": 2 * pairs_s,
+               "mfu": flops * pairs_s / PEAK_BF16_FLOPS, "gflop_per_pair": flops / 1e9,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(f"simclr train [{card}]: B={B} pairs, step {ms:.3f} ms -> {pairs_s:.1f} pairs/s, "
+              f"{2 * pairs_s:.1f} images/s, MFU {out['mfu']:.4f}, peak memory "
+              f"{out['peak_gib']:.2f} GiB; losses {losses[0]:.4f} .. {losses[-1]:.4f}",
+              flush=True)
+        break
+    else:
+        fail(f"no SimCLR batch in {SIMCLR_BATCHES} fits")
+    del state, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_decoder() -> str | None:
+    """The JPEG decoder the augmented transforms would use: 'cv2', 'PIL' or
+    None."""
+    for name in ("cv2", "PIL.Image"):
+        try:
+            __import__(name)
+            return name.split(".")[0]
+        except ImportError:
+            pass
+    return None
+
+
+def write_simclr_corpus(root: Path, decoder: str) -> str:
+    """``SIMCLR_CORPUS`` subjects of ``get_group('g0')`` x frames of smooth
+    random images (56 px noise, upsampled 4x), as JPEGs written by
+    ``decoder``'s package; returns the JPEG root."""
+    import concurrent.futures as cf
+
+    import numpy as np
+
+    from bvc_tpu_torch.data.indexing import get_group
+
+    n_subjects, n_frames = SIMCLR_CORPUS
+    rng = np.random.default_rng(3)
+
+    def save(path, img):
+        if decoder == "cv2":
+            import cv2
+
+            cv2.imwrite(str(path), img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 90])
+        else:
+            from PIL import Image
+
+            Image.fromarray(img).save(path, quality=90)
+
+    with cf.ThreadPoolExecutor(8) as pool:
+        for subject in get_group("g0")[:n_subjects]:
+            (root / subject).mkdir(parents=True)
+            small = rng.integers(0, 256, (n_frames, 56, 56, 3), dtype=np.uint8)
+            imgs = small.repeat(4, axis=1).repeat(4, axis=2)
+            list(pool.map(lambda i: save(root / subject / f"frame_{i:05d}.jpg", imgs[i]),
+                          range(n_frames)))
+    return str(root)
+
+
+def phase_simclr_embed(card: str) -> dict:
+    """SimCLR extraction through ``untrained_embed_fn("simclr", ...)``:
+    clips/s at B=64 16-frame clips (host clock over 10 calls after 2,
+    numpy in and out), and cosine >= 0.999 per row to the port on the CPU
+    from the same weights (cuDNN at its default TF32 setting); no port
+    kernel launches."""
+    import numpy as np
+    import torch
+
+    from bvc_tpu_torch.evalbench.extract import untrained_embed_fn
+    from bvc_tpu_torch.utils.config import ModelConfig
+
+    cfg = ModelConfig(family="simclr", architecture=SIMCLR_ARCH)
+    clips = np.zeros((64, 16, SIMCLR_SIZE, SIMCLR_SIZE, 3), np.float32)
+    clips[:, -1] = np.random.default_rng(4).standard_normal(clips[:, -1].shape)
+    reset_launches()
+    fn = untrained_embed_fn("simclr", cfg, seed=5)
+    for _ in range(2):
+        out = fn(clips)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        out = fn(clips)
+    clips_s = 10 * 64 / (time.perf_counter() - t0)
+    launches = no_launches("SimCLR extraction")
+    ref = untrained_embed_fn("simclr", cfg, seed=5, device="cpu")(clips[:4])
+    cos = (out[:4] * ref).sum(1) / (np.linalg.norm(out[:4], axis=1) * np.linalg.norm(ref, axis=1))
+    print(f"simclr embed [{card}]: B=64 16-frame clips, {clips_s:.1f} clips/s; cosine to the "
+          f"CPU min {cos.min():.6f} (TF32 {torch.backends.cudnn.allow_tf32})", flush=True)
+    check(out.shape == (64, 512) and bool(np.isfinite(out).all()), f"simclr embed {out.shape}")
+    check(bool(cos.min() >= COSINE_MIN), f"simclr embed cosine to the CPU {cos.min()}")
+    return {"clips_s": clips_s, "min_cosine_to_cpu": float(cos.min()), "launches": launches}
+
+
+def write_cifar(root: Path, n: int = 10) -> str:
+    """A synthetic CIFAR-10 test split in the reader's own pickle format."""
+    import pickle
+
+    import numpy as np
+
+    base = root / "cifar-10-batches-py"
+    base.mkdir(parents=True)
+    rng = np.random.default_rng(6)
+    with open(base / "test_batch", "wb") as f:
+        pickle.dump({b"data": rng.integers(0, 256, (n, 3072), dtype=np.uint8),
+                     b"labels": list(range(n))}, f)
+    return str(root)
+
+
+def phase_compute_embeddings(card: str, simclr_ckpt: str, root: Path) -> dict[str, int]:
+    """``python -m bvc_tpu_torch.cli.compute_embeddings`` through ``main``
+    over a synthetic CIFAR-10 test split (10 images as 16-frame clips):
+    ``--family simclr`` with the CLI stage's checkpoint (512 wide, no
+    launches) and ``--family videomae`` untrained (768 wide, 12
+    ``flash_fwd`` launches: one embed call).  Returns the SimCLR run's
+    launch counts."""
+    import pandas as pd
+
+    from bvc_tpu_torch.cli import compute_embeddings
+
+    cifar = write_cifar(root / "cifar")
+    for family, ckpt, width, per_call in (("simclr", simclr_ckpt, 512, {}),
+                                          ("videomae", "na", 768, {"flash_fwd": 12})):
+        argv = ["-ds_task", "cifar10", "-vid_root", cifar, "-savedir", str(root / "emb"),
+                "--family", family, "--dataset_split", "test", "-init_checkpoint_path", ckpt]
+        results, launches, wall = run_cli_stage(compute_embeddings.main, argv,
+                                                f"compute_embeddings {family}")
+        check_cli_launches(launches, per_call, 1, f"compute_embeddings {family}")
+        if family == "simclr":
+            simclr_launches = launches
+        df = pd.read_csv(results[0]["csv"])
+        print(f"compute_embeddings {family} [{card}]: {df.shape[0]} rows of width "
+              f"{df.shape[1] - 1} in {wall:.1f} s", flush=True)
+        check(len(results) == 1 and df.shape == (10, width + 1)
+              and bool(df.iloc[:, 1:].notna().all().all()),
+              f"compute_embeddings {family}: {results}, CSV {df.shape}")
+    return simclr_launches
+
+
+def host_frame_ms(ds, frames: int = 64) -> dict:
+    """Host ms a frame of a SimCLR pair dataset's Python path, one thread:
+    the JPEG decode, then the augmentations (``FrameTransform``)."""
+    import numpy as np
+
+    from bvc_tpu_torch.data.transforms import decode_jpeg
+
+    paths = [fp for pair in ds.pairlist[:frames // 2] for fp in pair]
+    t0 = time.perf_counter()
+    imgs = [decode_jpeg(fp) for fp in paths]
+    t1 = time.perf_counter()
+    for i, img in enumerate(imgs):
+        ds.transform(img, np.random.default_rng(i))
+    t2 = time.perf_counter()
+    out = {"decode_ms_per_frame": (t1 - t0) * 1e3 / len(paths),
+           "augment_ms_per_frame": (t2 - t1) * 1e3 / len(paths)}
+    print(f"simclr host path, one thread: decode {out['decode_ms_per_frame']:.2f} ms a frame, "
+          f"augment ({ds.transform.augs}) {out['augment_ms_per_frame']:.2f} ms a frame", flush=True)
+    return out
+
+
+def phase_pretrain_cli_simclr(card: str, B: int, root: Path) -> dict:
+    """``python -m bvc_tpu_torch.cli.pretrain_simclr`` through ``main`` with
+    the CLI's defaults (ResNet-18, head 512, ``--interval 900``, ``--augs
+    cjo``) at batch ``B``: a 19-step stage (timed at steps 5-11, timed and
+    traced at 12-18), a 3-step stage chained from its checkpoint, and
+    ``--resume y`` of the finished stage, over JPEGs (the augmented
+    transforms decode with cv2 or PIL: the phase fails without either).  No
+    stage launches a port kernel; the checkpoint embeds through
+    ``make_embed_fn("simclr")`` at cosine >= 0.999 to the trained model;
+    ``compute_embeddings`` then runs over a synthetic CIFAR-10.  Returns the
+    stage's rates and, under ``"launches"``, the counts read over all of
+    these runs."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from bvc_tpu_torch.cli import pretrain_simclr
+    from bvc_tpu_torch.data.factory import make_dataset
+    from bvc_tpu_torch.training import trainer_simclr
+
+    decoder = host_decoder()
+    check(decoder is not None, "neither cv2 nor PIL imports: --augs cjo cannot decode JPEGs")
+    t0 = time.perf_counter()
+    jpg = write_simclr_corpus(root / "simclr_corpus", decoder)
+    print(f"simclr cli: corpus of {SIMCLR_CORPUS[0]} x {SIMCLR_CORPUS[1]} frames written in "
+          f"{time.perf_counter() - t0:.1f} s (JPEGs by {decoder})", flush=True)
+    out, prof = root / "simclr_out", root / "simclr_profile"
+    base = ["-jpg_root", jpg, "-savedir", str(out), "--batch_size", str(B),
+            "--n_trainsamples", str(B * CLI_ITERS)]
+    stage1 = base + ["--run_id", "dev_1_g0_default_0_0", "--max_epoch_iters", str(CLI_ITERS),
+                     "--profile_dir", str(prof)]
+    rec = timed_steps(trainer_simclr, "make_simclr_train_step")
+    loaders, undo = captured_loaders(trainer_simclr)
+    try:
+        s1, launches, _ = run_cli_stage(pretrain_simclr.main, stage1, "simclr cli stage 1")
+    finally:
+        rec["restore"]()
+        undo()
+    rec["stall_ms"] = loaders[0].stall_ms
+    check(rec["calls"] == CLI_ITERS, f"{rec['calls']} steps, want {CLI_ITERS}")
+    check_cli_launches(launches, {}, CLI_ITERS, "simclr cli stage 1")
+    losses = check_csv(out / "csvlog_dev_1_g0_default_0_0.csv", CLI_ITERS, 2,
+                       "simclr cli stage 1")
+    print(f"simclr cli stage 1: losses {losses[0]:.4f} .. {losses[-1]:.4f}; frames by path "
+          f"{dict(loaders[0].dataset.served)}", flush=True)
+    cfg = pretrain_simclr.config_from_args(pretrain_simclr.build_parser().parse_args(stage1))
+    trained = copy.deepcopy(rec["state"].model).eval()
+    trained.dtype = torch.float32  # make_embed_fn embeds in f32
+    clips = np.random.default_rng(7).standard_normal((4, 2, 224, 224, 3)).astype(np.float32)
+    reset_launches()
+    check_embed("simclr", s1["checkpoint"], cfg.model, trained, clips, "simclr cli")
+    embed_launches = no_launches("the SimCLR checkpoint embed")
+    del trained
+    ds = make_dataset("simclr", cfg.data)["train"]
+    host = host_frame_ms(ds)
+    # one batch's host check: each of its 512 frames is decoded and augmented again
+    loader_pairs_s = loader_alone(ds, B, want="python", checked=1)[0]
+    result = {**report_cli("simclr cli", card, B, rec, loader_pairs_s, prof, unit="pairs"),
+              "augs": cfg.data.augs, "decoder": decoder, **host}
+    del rec
+    stage2 = base + ["--run_id", "dev_2_g0_default_0_0", "--max_epoch_iters", "3",
+                     "-init_checkpoint_path", s1["checkpoint"]]
+    _, launches2, _ = run_cli_stage(pretrain_simclr.main, stage2, "simclr cli stage 2")
+    check_cli_launches(launches2, {}, 3, "simclr cli stage 2")
+    check_csv(out / "csvlog_dev_2_g0_default_0_0.csv", 3, 2, "simclr cli stage 2")
+    s3, launches3, wall3 = run_cli_stage(pretrain_simclr.main, stage1 + ["--resume", "y"],
+                                         "simclr cli resume of the finished stage")
+    check(s3["checkpoint"] == s1["checkpoint"] and not any(launches3.values()) and wall3 < 10,
+          f"resume of a finished stage: {s3}, {launches3}, {wall3:.1f} s")
+    ce_launches = phase_compute_embeddings(card, s1["checkpoint"], root)
+    result["launches"] = sum_launches(launches, embed_launches, launches2, launches3,
+                                      ce_launches)
+    return result
+
+
 def phase_entry_point() -> None:
     """extract_embeddings over a synthetic dataset, then save_results, with
     a bf16 and with an int8 (W8A8) embed function."""
@@ -2557,6 +3101,11 @@ def main() -> None:
         cli = phase_pretrain_cli_videomae(smi, corpus, train_B, train_launches)
         jepa_cli = phase_pretrain_cli_jepa(smi, corpus, 64, jepa_launches)
     remat = phase_remat(smi, train_B)
+    simclr_step = phase_simclr_step(smi)
+    simclr_rate = phase_simclr_rate(smi)
+    simclr_embed = phase_simclr_embed(smi)
+    with tempfile.TemporaryDirectory() as d:
+        simclr_cli = phase_pretrain_cli_simclr(smi, simclr_rate["B"], Path(d))
 
     # launches: per step of the path that runs the kernel most (VideoMAE
     # training for the unmasked kernels, JEPA training for the key-bias
@@ -2617,19 +3166,28 @@ def main() -> None:
             source = jepa_cli if r["name"].endswith("_bias") else cli
             r["launches_per_cli_step"] = source["launches_per_cli_step"][r["name"]]
     records[0]["launches_per_jepa_cli_step"] = jepa_cli["launches_per_cli_step"]["flash_fwd"]
+    # the counts read over every SimCLR path: steps, rate, extraction, the
+    # CLI stages, their checkpoint's embed and compute_embeddings --family simclr
+    simclr_launches = sum_launches(*(phase.pop("launches") for phase in (
+        simclr_step, simclr_rate, simclr_embed, simclr_cli)))
+    for r in records:
+        r["launches_on_simclr_paths"] = simclr_launches[r["name"]]
     trainers = {"videomae_cli": {k: v for k, v in cli.items() if k != "launches_per_cli_step"},
                 "jepa_cli": {k: v for k, v in jepa_cli.items() if k != "launches_per_cli_step"},
                 "remat": {"B": train_B, "peak_gib_without": remat["peak_gib"][False],
                           "peak_gib_with": remat["peak_gib"][True],
                           "step_ms_without": remat["ms"][False],
                           "step_ms_with": remat["ms"][True],
-                          "min_grad_cosine": remat["min_cosine"]}}
+                          "min_grad_cosine": remat["min_cosine"]},
+                "simclr_cli": simclr_cli, "simclr_step": {**simclr_rate, **simclr_step},
+                "simclr_embed": simclr_embed}
     print(json.dumps({"trainers": trainers}), flush=True)
     check(all(math.isfinite(r[k]) for r in records
               for k in ("max_abs_err", "ms", "plain_ms", "bound_ms"))
           and all(r["library_ms"] is None or math.isfinite(r["library_ms"]) for r in records),
           "non-finite timing")
     print(json.dumps({"kernels": records}), flush=True)
+    print(f"chip_smoke wall time {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -1,26 +1,37 @@
 """The port's pretraining CLIs: ``main(argv, device="cpu")`` writes the
 artifacts with the JAX trainers' schemas, the same flags give the JAX CLIs'
 configuration (``params_{run_id}.yaml`` loads to the same dict), the
-multi-GPU flags and ``--log_grad_stats y`` raise, and with no device named
-and no GPU ``main`` raises.
+multi-GPU flags raise, ``--log_grad_stats y`` appends the grad-stats
+table's suffix that JAX's ``format_gstats`` writes for the run's metrics,
+and with no device named and no GPU ``main`` raises.
 
-Tolerance: none; the yaml dumps load to equal dicts and the CSV headers are
-equal strings.
+Tolerance: none; the yaml dumps load to equal dicts and the CSV headers and
+log suffixes are equal strings.
 """
 
 import json
+import logging
+import math
 
 import pytest
 import torch
 import yaml
 
 from bvc_tpu.cli import pretrain_jepa as jax_pretrain_jepa
+from bvc_tpu.cli import pretrain_simclr as jax_pretrain_simclr
 from bvc_tpu.cli import pretrain_videomae as jax_pretrain_videomae
-from bvc_tpu_torch.cli import pretrain_jepa, pretrain_videomae
+from bvc_tpu.training.probes import format_gstats as jax_format_gstats
+from bvc_tpu_torch.cli import pretrain_jepa, pretrain_simclr, pretrain_videomae
+from bvc_tpu_torch.training import trainer_jepa, trainer_simclr, trainer_videomae
 from torch_tiny_runs import VIDEOMAE_MODEL
 
 CLIS = {"videomae": (pretrain_videomae, jax_pretrain_videomae),
-        "jepa": (pretrain_jepa, jax_pretrain_jepa)}
+        "jepa": (pretrain_jepa, jax_pretrain_jepa),
+        "simclr": (pretrain_simclr, jax_pretrain_simclr)}
+TRAINERS = {"videomae": trainer_videomae, "jepa": trainer_jepa, "simclr": trainer_simclr}
+HEADERS = {"videomae": "epoch,itr,train loss,val loss,grad-EFL,grad-ELL,grad-DLL",
+           "jepa": "epoch,itr,loss,grad-FL,grad-LL,mask-A,mask-B,time (ms)",
+           "simclr": "epoch,itr,train loss,grad-conv1,grad-fc0,time (ms)"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -37,6 +48,9 @@ def _argv(family, frame_corpus, savedir, *extra):
               "--num_workers", "2", "--run_id", "dev_1_g0_default_0_0"]
     if family == "videomae":
         return common + ["--image_size", "32", "--num_frames", "4", *extra]
+    if family == "simclr":
+        return common + ["--image_size", "32", "--pred_emb_dim", "16", "--interval", "5",
+                         "--augs", "n", *extra]
     return common + ["--image_size", "64", "--architecture", "tiny", "--pred_emb_dim", "24",
                      "--pred_depth", "1", "--interval", "5", *extra]
 
@@ -58,7 +72,7 @@ def tiny_videomae(monkeypatch):
     monkeypatch.setattr(pretrain_videomae, "config_from_args", tiny)
 
 
-@pytest.mark.parametrize("family", ["videomae", "jepa"])
+@pytest.mark.parametrize("family", ["videomae", "jepa", "simclr"])
 def test_main_writes_the_artifacts(family, frame_corpus, tmp_path, capsys, request):
     if family == "videomae":
         request.getfixturevalue("tiny_videomae")
@@ -70,9 +84,7 @@ def test_main_writes_the_artifacts(family, frame_corpus, tmp_path, capsys, reque
     ckpt = tmp_path / f"model_{run_id}.pth.tar"
     assert summary["checkpoint"] == str(ckpt) and ckpt.exists()
     rows = (tmp_path / f"csvlog_{run_id}.csv").read_text().splitlines()
-    header = ("epoch,itr,train loss,val loss,grad-EFL,grad-ELL,grad-DLL" if family == "videomae"
-              else "epoch,itr,loss,grad-FL,grad-LL,mask-A,mask-B,time (ms)")
-    assert rows[0] == header and len(rows) == 1 + 2
+    assert rows[0] == HEADERS[family] and len(rows) == 1 + 2
     meta = torch.load(ckpt, weights_only=True)["meta"]
     assert meta["run_id"] == run_id and meta["epoch"] == 1 and meta["family"] == family
     # a finished stage resumes at once, from the meta
@@ -81,7 +93,7 @@ def test_main_writes_the_artifacts(family, frame_corpus, tmp_path, capsys, reque
     assert len((tmp_path / f"csvlog_{run_id}.csv").read_text().splitlines()) == 3
 
 
-@pytest.mark.parametrize("family", ["videomae", "jepa"])
+@pytest.mark.parametrize("family", ["videomae", "jepa", "simclr"])
 def test_flags_give_the_jax_configuration(family, frame_corpus, tmp_path):
     port, ref = CLIS[family]
     argv = _argv(family, frame_corpus, tmp_path, "--lr", "0.05", "--wd", "0.01",
@@ -97,13 +109,39 @@ def test_flags_give_the_jax_configuration(family, frame_corpus, tmp_path):
     assert dumps[0]["optim"]["grad_accum_steps"] == 2
 
 
-@pytest.mark.parametrize("family", ["videomae", "jepa"])
+@pytest.mark.parametrize("family", ["videomae", "jepa", "simclr"])
+def test_log_grad_stats_suffix_is_jax_format_gstats(family, frame_corpus, tmp_path, caplog,
+                                                    monkeypatch, request):
+    """``--log_grad_stats y``: the trainer's log line ends with the suffix
+    JAX's ``format_gstats`` writes for the metrics of the same run."""
+    if family == "videomae":
+        request.getfixturevalue("tiny_videomae")
+    module, seen = TRAINERS[family], []
+
+    def spy(metrics):
+        suffix = real(metrics)
+        seen.append((dict(metrics), suffix))
+        return suffix
+
+    real = module.format_gstats
+    monkeypatch.setattr(module, "format_gstats", spy)
+    with caplog.at_level(logging.INFO):
+        CLIS[family][0].main(_argv(family, frame_corpus, tmp_path, "--log_grad_stats", "y"),
+                             device="cpu")
+    assert len(seen) == 1  # log_freq 10: the first of the two steps
+    metrics, suffix = seen[0]
+    assert suffix == jax_format_gstats(metrics) and suffix.startswith(" [grad: ")
+    assert all(math.isfinite(metrics[k]) for k in ("gstat_avg", "gstat_min", "gstat_max"))
+    assert metrics["gstat_min"] <= metrics["gstat_avg"] <= metrics["gstat_max"]
+    assert any(m.endswith(suffix) for m in caplog.messages)
+
+
+@pytest.mark.parametrize("family", ["videomae", "jepa", "simclr"])
 @pytest.mark.parametrize("flags,env,match", [
     (("--mesh", "data=2"), {}, "slice 7"),
     (("--param_sharding", "zero1"), {}, "slice 7"),
     ((), {"WORLD_SIZE": "2"}, "slice 7"),
-    (("--log_grad_stats", "y"), {}, "full_grad_probes"),
-], ids=["mesh", "param_sharding", "world_size", "log_grad_stats"])
+], ids=["mesh", "param_sharding", "world_size"])
 def test_unported_flags_raise(family, flags, env, match, frame_corpus, tmp_path, monkeypatch):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -113,7 +151,7 @@ def test_unported_flags_raise(family, flags, env, match, frame_corpus, tmp_path,
     assert not (tmp_path / "csvlog_dev_1_g0_default_0_0.csv").exists()
 
 
-@pytest.mark.parametrize("family", ["videomae", "jepa"])
+@pytest.mark.parametrize("family", ["videomae", "jepa", "simclr"])
 def test_main_without_a_gpu_or_a_device_raises(family, frame_corpus, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     port, _ = CLIS[family]

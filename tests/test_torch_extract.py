@@ -115,19 +115,44 @@ def test_untrained_embed_fn_and_empty_dataset():
 
 @pytest.mark.parametrize("family", ["jepa", "simclr"])
 def test_other_families_name_their_slice(family, tmp_path):
-    # SimCLR is not ported and names its slice; JEPA is (tests/test_torch_jepa.py),
-    # drop-path included, which draws nothing when embedding
-    cfg = ModelConfig(**SMALL, drop_path_rate=0.1 if family == "jepa" else 0.0)
+    """The other families embed: JEPA (tests/test_torch_jepa.py), drop-path
+    included, which draws nothing when embedding; SimCLR from a
+    ``model_state_dict`` in torchvision names, against the JAX package's
+    embed (``resnet.apply`` on the last frame, eval BatchNorm, no head) on
+    the same weights and running statistics (f32, 1e-4 of max|ref| plus
+    1e-5)."""
     if family == "jepa":
+        cfg = ModelConfig(**SMALL, drop_path_rate=0.1)
         clips = np.random.default_rng(2).integers(0, 256, (2, 4, 32, 32, 3), dtype=np.uint8)
         out = untrained_embed_fn(family, cfg, device="cpu")(clips)
         ref = untrained_embed_fn(family, ModelConfig(**SMALL), device="cpu")(clips)
         np.testing.assert_array_equal(out, ref)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
-        untrained_embed_fn(family, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
-        make_embed_fn(family, str(tmp_path / "x.pth.tar"), cfg, device="cpu")
+    from bvc_tpu.models import resnet as jax_resnet
+    from bvc_tpu.models.torch_interop import resnet_to_torch_state_dict
+
+    params, stats = jax.tree_util.tree_map(
+        np.asarray, jax_resnet.init_params(jax.random.PRNGKey(3), "resnet18", 16))
+    rng = np.random.default_rng(3)
+    stats = jax.tree_util.tree_map(  # running statistics off their init values
+        lambda x: (x + rng.uniform(0, 0.5, x.shape)).astype(np.float32), stats)
+    ckpt = tmp_path / f"model_{RUN_ID}.pth.tar"
+    torch.save({"model_state_dict": {k: torch.from_numpy(np.array(v)) for k, v in
+                                     resnet_to_torch_state_dict(params, stats, "resnet18").items()}},
+               ckpt)
+    cfg = ModelConfig(family="simclr", architecture="resnet18", image_size=32, num_frames=3)
+    fn = make_embed_fn(family, str(ckpt), cfg, device="cpu")
+    clips = rng.normal(0, 1, (3, 3, 32, 32, 3)).astype(np.float32)
+    got = fn(clips)
+    want = np.asarray(jax_resnet.apply(params, stats, jnp.asarray(clips[:, -1]), "resnet18",
+                                       training=False, with_head=False)[0])
+    assert fn.feature_dim == 512 and got.shape == (3, 512) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max() + 1e-5)
+    assert not fn.model.training
+    untrained = untrained_embed_fn(family, cfg, seed=1, device="cpu")
+    assert untrained(clips).shape == (3, 512)
+    with pytest.raises(ValueError, match="resnet conv trunk"):
+        untrained_embed_fn(family, cfg, device="cpu", quantize="int8")
 
 
 def test_collate_and_merge_match_jax():

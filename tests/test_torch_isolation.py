@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import bvc_tpu_torch
-from bvc_tpu_torch.cli import pretrain_jepa, pretrain_videomae
+from bvc_tpu_torch.cli import compute_embeddings, pretrain_jepa, pretrain_simclr, pretrain_videomae
 from bvc_tpu_torch.data.loader import DataLoader
 from bvc_tpu_torch.evalbench import extract
 from bvc_tpu_torch.masks.multiblock import mask_collate
@@ -23,6 +23,7 @@ from bvc_tpu_torch.ops import _build
 from bvc_tpu_torch.training.state import TrainState
 from bvc_tpu_torch.training.steps import make_jepa_train_step, make_videomae_train_step
 from bvc_tpu_torch.training.trainer_jepa import run_pretraining as run_jepa
+from bvc_tpu_torch.training.trainer_simclr import run_pretraining as run_simclr
 from bvc_tpu_torch.training.trainer_videomae import run_pretraining as run_videomae
 from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig, TrainConfig
 from bvc_tpu_torch.utils.device import resolve_device
@@ -105,17 +106,23 @@ def test_no_silent_cpu_default_jepa(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["run_videomae", "run_jepa", "pretrain_videomae.main",
-                                   "pretrain_jepa.main", "DataLoader"])
+                                   "pretrain_jepa.main", "DataLoader", "run_simclr",
+                                   "pretrain_simclr.main", "compute_embeddings.main"])
 def test_no_silent_cpu_default_training_loop(entry, monkeypatch, tmp_path):
-    """The training loop's entry points refuse to fall back to the CPU: with
-    no GPU and no device named they raise before any work."""
+    """The training loop's and extraction's entry points refuse to fall back
+    to the CPU: with no GPU and no device named they raise before any work."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = TrainConfig(savedir=str(tmp_path))
     argv = ["-savedir", str(tmp_path)]
     calls = {"run_videomae": lambda: run_videomae(cfg),
              "run_jepa": lambda: run_jepa(cfg),
+             "run_simclr": lambda: run_simclr(cfg),
              "pretrain_videomae.main": lambda: pretrain_videomae.main(argv),
              "pretrain_jepa.main": lambda: pretrain_jepa.main(argv),
+             "pretrain_simclr.main": lambda: pretrain_simclr.main(argv),
+             "compute_embeddings.main": lambda: compute_embeddings.main(
+                 ["-ds_task", "cifar10", "-vid_root", str(tmp_path), "-savedir",
+                  str(tmp_path / "emb"), "--family", "simclr"]),
              "DataLoader": lambda: DataLoader(list(range(8)), 4, device=None)}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -12,6 +12,9 @@ VIDEOMAE_MODEL = dict(image_size=32, patch_size=8, num_frames=4, tubelet_size=2,
 JEPA_MODEL = dict(family="jepa", image_size=32, patch_size=8, num_frames=2, tubelet_size=1,
                   hidden_size=32, depth=2, num_heads=2, mlp_ratio=2.0, pred_depth=1,
                   pred_emb_dim=16, dtype="float32")
+SIMCLR_MODEL = dict(family="simclr", architecture="resnet18", image_size=32, num_frames=2,
+                    tubelet_size=1, pred_emb_dim=16, dtype="float32")
+MODELS = {"videomae": VIDEOMAE_MODEL, "jepa": JEPA_MODEL, "simclr": SIMCLR_MODEL}
 
 
 def tiny_cfg(Cfg, family: str, frame_corpus: str, savedir: str, run_id: str,
@@ -24,13 +27,17 @@ def tiny_cfg(Cfg, family: str, frame_corpus: str, savedir: str, run_id: str,
     d.jpg_root, d.train_group, d.image_size = frame_corpus, "g0", 32
     d.n_trainsamples, d.batch_size, d.num_workers = 24, batch_size, 2
     d.segment_minutes, d.keep_val = 0.02, False
-    model = VIDEOMAE_MODEL if family == "videomae" else JEPA_MODEL
-    for k, v in model.items():
+    for k, v in MODELS[family].items():
         setattr(cfg.model, k, v)
     d.num_frames, d.tubelet_size = cfg.model.num_frames, cfg.model.tubelet_size
     if family == "videomae":
         cfg.mask.mask_ratio = 0.75
         cfg.optim.lr = 0.01
+    elif family == "simclr":
+        # InfoNCE's gradient at init has norm near 190: a larger step makes
+        # f32 rounding decide the trajectory (tests/test_torch_simclr.py)
+        d.interval = 5
+        cfg.optim.lr = 1e-4
     else:
         d.interval = 5
         cfg.mask.pred_mask_scale, cfg.mask.min_keep = (0.2, 0.25), 2
