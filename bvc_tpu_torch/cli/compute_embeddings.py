@@ -28,9 +28,9 @@ from pathlib import Path
 import torch
 
 from bvc_tpu_torch.evalbench.extract import (extract_embeddings, make_embed_fn,
-                                             make_task_dataset, run_id_from_checkpoint,
-                                             save_results, untrained_embed_fn)
-from bvc_tpu_torch.utils.config import VIT_DIMS, ModelConfig
+                                             make_task_dataset, save_results,
+                                             untrained_embed_fn)
+from bvc_tpu_torch.utils.config import VIT_DIMS, ModelConfig, run_id_from_checkpoint
 from bvc_tpu_torch.utils.logging import get_logger
 
 

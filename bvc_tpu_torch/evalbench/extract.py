@@ -222,14 +222,3 @@ def merge_gathered(gathered) -> tuple[list[str], np.ndarray]:
         return all_names, np.concatenate(non_empty)
     dim = max((e.shape[1] for e in all_embs), default=1)
     return all_names, np.zeros((0, dim), np.float32)
-
-
-def run_id_from_checkpoint(fp: str) -> str:
-    """``model_{run_id}.pth.tar`` -> ``run_id``."""
-    name = Path(fp).name
-    if name.startswith("model_"):
-        name = name[len("model_"):]
-    for suf in (".pth.tar", ".ckpt"):
-        if name.endswith(suf):
-            name = name[: -len(suf)]
-    return name

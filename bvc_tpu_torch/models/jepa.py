@@ -31,8 +31,9 @@ encoder also from the reference layout of a ``.pth.tar``.
 Drop-path (``cfg.drop_path_rate``, the reference's per-layer
 ``linspace(0, rate, depth)``) runs when the caller passes a generator, as
 the JAX package's runs when it passes an rng: the training step passes its
-state's.  Position tables resized to another spatial grid
-(``interpolate_pos_table_3d``) are not ported yet and raise.
+state's.  Video at another spatial size than the configured one reads the
+position table resized to its grid (``interpolate_pos_table_3d``), as the
+JAX package's encoder does.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bvc_tpu_torch.models.initializers import init_linear, trunc_normal_
-from bvc_tpu_torch.models.posenc import positional_encoding_3d
+from bvc_tpu_torch.models.posenc import interpolate_pos_table_3d, positional_encoding_3d
 from bvc_tpu_torch.models.videomae import _DTYPES, normalize_on_device
 from bvc_tpu_torch.models.vit import Blocks, LayerNorm, layer_norm
 from bvc_tpu_torch.ops.patchify import tubelet_patchify
@@ -100,14 +101,15 @@ class JEPAEncoder(nn.Module):
         if t_in != t:
             raise ValueError(f"time grid {t_in} != configured {t}: positional tables "
                              "only interpolate spatially")
+        pos = self.pos_embed
         if (h_in, w_in) != (h, w):
-            raise NotImplementedError(
-                f"spatial grid {h_in}x{w_in} != configured {h}x{w}: resizing the "
-                "position table (interpolate_pos_table_3d) is not ported yet")
+            pos = torch.from_numpy(interpolate_pos_table_3d(
+                positional_encoding_3d(t, h, w, cfg.hidden_size), t, h, w, h_in, w_in)
+            ).to(pos.device)
         pe = self.patch_embed
         tokens = tubelet_patchify(normalize_on_device(video), pe.weight, pe.bias,
                                   cfg.tubelet_size, cfg.patch_size, dtype)
-        tokens = tokens + self.pos_embed.to(dtype)
+        tokens = tokens + pos.to(dtype)
         key_mask = None
         if keep_idx is not None:
             key_mask = keep_idx >= 0

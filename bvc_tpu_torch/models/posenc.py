@@ -2,10 +2,11 @@
 
 - :func:`sinusoid_table_1d`, VideoMAE's;
 - :func:`positional_encoding_3d`, the JEPA video ViT's, with the channel
-  partition of the reference's ``PositionalEncoding3D``.
+  partition of the reference's ``PositionalEncoding3D``;
+- :func:`interpolate_pos_table_3d`, that table resized bicubically to
+  another spatial grid (torch's ``interpolate`` semantics, in numpy).
 
-Resizing a table to another spatial grid (``interpolate_pos_table_3d``) and
-the image ViT's 2-D table come with later slices (ROADMAP).
+The image ViT's 2-D table comes with its model (ROADMAP).
 """
 
 from __future__ import annotations
@@ -51,3 +52,81 @@ def positional_encoding_3d(t: int, h: int, w: int, channels: int) -> np.ndarray:
     table[..., block: 2 * block] = emb_y[None, :, None, :]
     table[..., 2 * block:] = emb_x[None, None, :, :]
     return table[..., :channels].reshape(t * h * w, channels).astype(np.float32)
+
+
+def _cubic_weights(t: np.ndarray, a: float = -0.75) -> np.ndarray:
+    """Cubic-convolution weights ``[len(t), 4]`` for the 4-tap kernel at
+    fractional offset ``t`` (Keys kernel, torch's a=-0.75)."""
+    def k(x):
+        x = np.abs(x)
+        return np.where(
+            x <= 1.0,
+            ((a + 2.0) * x - (a + 3.0)) * x * x + 1.0,
+            np.where(x < 2.0, (((x - 5.0) * x + 8.0) * x - 4.0) * a, 0.0),
+        )
+    return np.stack([k(t + 1.0), k(t), k(1.0 - t), k(2.0 - t)], axis=-1)
+
+
+def _bicubic_axis(x: np.ndarray, out_size: int, scale: float) -> np.ndarray:
+    """Resize axis 0 of ``x`` with torch's bicubic semantics
+    (``align_corners=False``: src = (dst + 0.5) / scale − 0.5, 4-tap Keys
+    kernel a=−0.75, borders clamped)."""
+    in_size = x.shape[0]
+    dst = np.arange(out_size, dtype=np.float64)
+    src = (dst + 0.5) / scale - 0.5
+    i0 = np.floor(src).astype(np.int64)
+    t = src - i0
+    w = _cubic_weights(t)  # [out, 4]
+    taps = np.stack(
+        [np.clip(i0 + d, 0, in_size - 1) for d in (-1, 0, 1, 2)], axis=-1
+    )  # [out, 4]
+    gathered = x[taps.reshape(-1)].reshape(out_size, 4, *x.shape[1:])
+    w = w.reshape(out_size, 4, *([1] * (x.ndim - 1)))
+    return np.sum(gathered * w, axis=1)
+
+
+def bicubic_resize_2d(grid: np.ndarray, scale_factor: float,
+                      out_hw: tuple[int, int] | None = None,
+                      scale_w: float | None = None) -> np.ndarray:
+    """``[H, W, D] → [out_h, out_w, D]`` replicating
+    ``torch.nn.functional.interpolate(mode='bicubic', align_corners=False,
+    scale_factor=sf)``: source coordinates mapped with the *given* scale
+    factor (torch keeps the provided scale when ``recompute_scale_factor``
+    is unset), golden-tested against torch in ``tests/test_posenc.py``.
+
+    ``out_hw`` defaults to torch's ``floor(dim * sf)`` but callers that
+    know the exact target pass it explicitly — ``int(H * sf)`` silently
+    truncates one row for many valid targets (e.g. ``14 * (61/14)`` →
+    60.999… → 60), a float pitfall the upstream DINO code dodges by
+    adding 0.1 to the scale.  ``scale_w`` allows a distinct width scale
+    (non-uniform resizes)."""
+    H, W, _ = grid.shape
+    sw = scale_factor if scale_w is None else scale_w
+    out_h, out_w = out_hw or (int(H * scale_factor), int(W * sw))
+    out = _bicubic_axis(grid.astype(np.float64), out_h, scale_factor)
+    out = np.moveaxis(
+        _bicubic_axis(np.moveaxis(out, 1, 0), out_w, sw), 0, 1
+    )
+    return out
+
+
+def interpolate_pos_table_3d(table: np.ndarray, t: int, h: int, w: int,
+                             new_h: int, new_w: int) -> np.ndarray:
+    """Spatially resize a ``[t*h*w, D]`` video position table to
+    ``[t*new_h*new_w, D]`` (bicubic per time slice).
+
+    The reference's video ViT routes through the same 2-D
+    ``interpolate_pos_encoding`` (``vision_transformer.py:388,404-418``),
+    which treats token 0 as a class embedding and assumes a square
+    ``sqrt(N)`` grid — latently broken for ``t*h*w`` video tables (it can
+    only ever hit its ``npatch == N`` early-return in the shipped
+    configs).  This implements the evident intent: per-time-slice spatial
+    bicubic with the same torch kernel semantics.
+    """
+    grid = table.reshape(t, h, w, -1).astype(np.float64)
+    out = np.stack([
+        bicubic_resize_2d(grid[i], new_h / h, out_hw=(new_h, new_w),
+                          scale_w=new_w / w)
+        for i in range(t)
+    ])
+    return out.reshape(t * new_h * new_w, -1).astype(np.float32)

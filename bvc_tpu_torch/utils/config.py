@@ -11,6 +11,11 @@ activations; the mask defaults are tube masking at 0.9; the optimizer
 defaults are SGD with Nesterov momentum 0.9 at lr 0.1.
 :meth:`TrainConfig.dump_yaml` writes ``params_{run_id}.yaml`` with the keys
 of the JAX package's dump.
+
+Also the run-id codec :class:`RunId`: the reference's
+``{curr}_{stage}_{group}_{condition}_{fold}_{seed}`` names the checkpoints
+(``model_{run_id}``) and the embedding CSVs, and the evaluation parses
+metadata back out of them (``notebooks/EvaluateEmbeddings.ipynb`` cell 9).
 """
 
 from __future__ import annotations
@@ -30,6 +35,69 @@ VIT_DIMS: dict[str, tuple[int, int, int]] = {
     "vit_huge": (1280, 32, 16),
     "vit_giant": (1408, 40, 16),
 }
+
+
+def run_id_from_checkpoint(fp: str | Path) -> str:
+    """``.../model_{run_id}.pth.tar`` (the port's checkpoints) or
+    ``model_{run_id}.ckpt`` (the JAX package's) -> ``run_id``."""
+    name = Path(fp).name
+    if name.startswith("model_"):
+        name = name[len("model_"):]
+    for suffix in (".pth.tar", ".ckpt"):
+        if name.endswith(suffix):
+            name = name[: -len(suffix)]
+    return name
+
+
+@dataclass(frozen=True)
+class RunId:
+    """Codec for the ``{curr}_{stage}_{group}_{condition}_{fold}_{seed}`` contract.
+
+    Mirrors ``parse_fname`` in the reference notebook (cell 9) and the
+    ``run_id=`` assembly in e.g. ``slurmscripts/generative/slurm_dev_def.bash:99``.
+    """
+
+    curriculum: str  # 'dev' | 'adev' | 'rnd' | 'adult' | ... (free-form)
+    stage: int
+    train_group: str  # 'g0' | 'g1' | 'g2' | 'g3' | 'gr' | 'na'
+    condition: str  # 'default' | 'shuffle' | 'static' | 'MatchedSpatial' | ...
+    fold: int
+    seed: int
+
+    def __str__(self) -> str:
+        return "_".join([self.curriculum, str(self.stage), self.train_group, self.condition,
+                         str(self.fold), str(self.seed)])
+
+    @staticmethod
+    def parse(run_id: str) -> "RunId":
+        parts = run_id.split("_")
+        if len(parts) < 6:
+            # Degenerate ids (e.g. untrained baselines named with 'na') parse
+            # the way the notebook's parse_fname treats them.
+            return RunId("untrained", 0, "na", "na", 0, 0)
+        # the first three and last two fields are unambiguous; the
+        # condition takes what is between
+        curr, stage = parts[0], int(parts[1])
+        fold, seed = int(parts[-2]), int(parts[-1])
+        return RunId(curr, stage, parts[2], "_".join(parts[3:-2]), fold, seed)
+
+    @staticmethod
+    def from_checkpoint_path(fp: str | Path) -> "RunId":
+        """Invert the ``model_{run_id}`` checkpoint naming (reference
+        ``benchmarks/compute_embeddings_videomae.py:129-131``)."""
+        return RunId.parse(run_id_from_checkpoint(fp))
+
+    def train_groups_seen(self) -> str:
+        """Cumulative groups after this stage, as the notebook reports them.
+
+        ``get_traingroups`` (notebook cell 9): dev → 'g0g1g2'[:2*stage],
+        adev → 'g2g1g0'[:2*stage], otherwise 'na'.
+        """
+        if self.curriculum == "dev":
+            return "g0g1g2"[: 2 * self.stage]
+        if self.curriculum == "adev":
+            return "g2g1g0"[: 2 * self.stage]
+        return "na"
 
 
 @dataclass

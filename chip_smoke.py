@@ -171,13 +171,35 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    synthetic CIFAR-10 (the reader's pickle format): ``--family simclr``
    with 18's checkpoint (10 rows of 512) and ``--family videomae``
    untrained (10 rows of 768, 12 ``flash_fwd`` launches).
+20. The curriculum: ``python -m bvc_tpu_torch.cli.run_curriculum`` through
+   ``main`` once a family at its preset's full width (``generative``:
+   VideoMAE-B at B=16 with the untrained baseline; ``predictive``: V-JEPA
+   ViT-B at B=16, the sweep under ``--extract_quantize int8``;
+   ``contrastive``: ResNet-18 at B=32 pairs with its per-stage lr and
+   interval), the ``dev`` curriculum's three stages of 3 steps (the only
+   cut: ``--override n_epoch=1,max_epoch_iters=3,n_trainsamples=3B``) over
+   4 x 2000 JPEG frames (subjects of g0, g1 and g2, 180-frame fold
+   segments), each stage from the one before's ``model_{run_id}.pth.tar``,
+   the extraction sweep over an SSv2 layout (2 x 8 clips, two classes) and
+   ``python -m bvc_tpu_torch.cli.evaluate_embeddings`` (linear and nn: a
+   row a run id, finite scores); then VideoMAE's stage 1 alone over the
+   corpus packed by ``python -m bvc_tpu_torch.cli.pack_corpus`` (every
+   frame read from the shard).  Run ids, folds, the checkpoint chain, the
+   manifest's keys and every CSV are checked, and each run's launches
+   must equal its steps' and embed calls' from the counts 8-12 read
+   (VideoMAE 16 of each unmasked kernel a step and 12 ``flash_fwd`` a
+   call; JEPA 18 of each key-bias kernel and 12 ``flash_fwd`` a step, 24
+   ``gemm_s8`` and 12 ``flash_fwd`` an int8 call; SimCLR none).  Prints
+   each stage's wall time and clips/s (pairs/s), the sweep's, the
+   scoring's and the phase's wall time.
 
 Every path runs with every launch count set to 0 just before it and read
 just after, and fails if a kernel other than its own launched (no SimCLR
 path launches one: each kernel's ``launches_on_simclr_paths`` is the sum of
 the counts read over them).
-Prints one JSON ``{"trainers": {...}}`` line (14-18), one JSON
-``{"kernels": [...]}`` line (with each kernel's ``launches_per_cli_step``),
+Prints one JSON ``{"trainers": {...}}`` line (14-18 and 20), one JSON
+``{"kernels": [...]}`` line (with each kernel's ``launches_per_cli_step``
+and ``launches_per_curriculum``),
 the script's wall time and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that last line,
 when there is no CUDA device, when run outside a checkout, or when any phase
@@ -2780,10 +2802,23 @@ def host_decoder() -> str | None:
     return None
 
 
-def write_simclr_corpus(root: Path, decoder: str) -> str:
-    """``SIMCLR_CORPUS`` subjects of ``get_group('g0')`` x frames of smooth
-    random images (56 px noise, upsampled 4x), as JPEGs written by
-    ``decoder``'s package; returns the JPEG root."""
+def save_jpeg(path: Path, img, decoder: str) -> None:
+    """One uint8 RGB frame as a JPEG at quality 90, by ``decoder``'s package."""
+    if decoder == "cv2":
+        import cv2
+
+        cv2.imwrite(str(path), img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 90])
+    else:
+        from PIL import Image
+
+        Image.fromarray(img).save(path, quality=90)
+
+
+def write_simclr_corpus(root: Path, decoder: str, subjects: list[str] | None = None) -> str:
+    """``subjects`` (default: the first ``SIMCLR_CORPUS[0]`` of
+    ``get_group('g0')``) x ``SIMCLR_CORPUS[1]`` frames of smooth random
+    images (56 px noise, upsampled 4x), as JPEGs written by ``decoder``'s
+    package; returns the JPEG root."""
     import concurrent.futures as cf
 
     import numpy as np
@@ -2792,24 +2827,13 @@ def write_simclr_corpus(root: Path, decoder: str) -> str:
 
     n_subjects, n_frames = SIMCLR_CORPUS
     rng = np.random.default_rng(3)
-
-    def save(path, img):
-        if decoder == "cv2":
-            import cv2
-
-            cv2.imwrite(str(path), img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 90])
-        else:
-            from PIL import Image
-
-            Image.fromarray(img).save(path, quality=90)
-
     with cf.ThreadPoolExecutor(8) as pool:
-        for subject in get_group("g0")[:n_subjects]:
+        for subject in subjects or get_group("g0")[:n_subjects]:
             (root / subject).mkdir(parents=True)
             small = rng.integers(0, 256, (n_frames, 56, 56, 3), dtype=np.uint8)
             imgs = small.repeat(4, axis=1).repeat(4, axis=2)
-            list(pool.map(lambda i: save(root / subject / f"frame_{i:05d}.jpg", imgs[i]),
-                          range(n_frames)))
+            list(pool.map(lambda i: save_jpeg(root / subject / f"frame_{i:05d}.jpg", imgs[i],
+                                              decoder), range(n_frames)))
     return str(root)
 
 
@@ -2988,6 +3012,251 @@ def phase_pretrain_cli_simclr(card: str, B: int, root: Path) -> dict:
     return result
 
 
+# the curriculum phase: (preset, family, batch, extra flags); stage length is
+# its only cut, CURRICULUM_ITERS steps a stage, and the corpus is written small
+CURRICULUM_RUNS = (("generative", "videomae", 16, ["--untrained_baseline", "y"]),
+                   ("predictive", "jepa", 16, ["--extract_quantize", "int8"]),
+                   ("contrastive", "simclr", 32, []))
+CURRICULUM_ITERS = 3
+# 180-frame fold segments: each fold of a 2000-frame subject holds 540 or more
+# frames, and stage 1's two g0 subjects 1440, enough for contrastive pairs 900
+# frames apart
+CURRICULUM_SEGMENT_MINUTES = 0.1
+CURRICULUM_CLIPS = 8  # SSv2 clips a split: two classes of four
+CURRICULUM_WIDTHS = {"videomae": 768, "jepa": 768, "simclr": 512}  # embedding widths
+MANIFEST_KEYS = {"curriculum", "stages", "final_checkpoint", "extraction"}
+STAGE_KEYS = {"stage", "train_group", "fold", "run_id", "overrides", "checkpoint"}
+
+
+def write_ssv2(root: Path, decoder: str) -> str:
+    """An SSv2 layout (``{train,val}/<id>/<n>.jpg``, ``CURRICULUM_CLIPS``
+    clips a split of 8 frames of 112 px noise) and its label CSVs
+    (``train_labels.csv``, ``val_labels.csv``: ``<id>.webm`` -> one of two
+    classes).  Returns the root."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    for split, first in (("train", 0), ("val", 100)):
+        rows = ["fname,label"]
+        for i in range(CURRICULUM_CLIPS):
+            clip = root / split / str(first + i)
+            clip.mkdir(parents=True)
+            for f in range(8):
+                save_jpeg(clip / f"{f}.jpg", rng.integers(0, 256, (112, 112, 3), dtype=np.uint8),
+                          decoder)
+            rows.append(f"{first + i}.webm,{'ab'[i % 2]}")
+        (root / f"{split}_labels.csv").write_text("\n".join(rows) + "\n")
+    return str(root)
+
+
+class curriculum_timers:
+    """Time each stage's trainer and each extraction sweep that
+    ``run_curriculum`` starts, on the host clock, by wrapping the driver's
+    ``_trainer_for`` and ``_run_extraction`` while the ``with`` lasts (no
+    synchronisation is added: a stage ends with its checkpoint copied to the
+    host, a sweep with its CSVs written).  ``stages``: (run id, seconds);
+    ``sweeps``: (CSVs written, seconds)."""
+
+    def __init__(self):
+        self.stages, self.sweeps = [], []
+
+    def __enter__(self):
+        from bvc_tpu_torch.curriculum import driver
+
+        make, extract = driver._trainer_for, driver._run_extraction
+
+        def trainer_for(family):
+            run = make(family)
+
+            def stage(cfg, **kw):
+                t0 = time.perf_counter()
+                summary = run(cfg, **kw)
+                self.stages.append((cfg.run_id, time.perf_counter() - t0))
+                return summary
+            return stage
+
+        def sweep(*args, **kw):
+            t0 = time.perf_counter()
+            outs = extract(*args, **kw)
+            self.sweeps.append((len(outs), time.perf_counter() - t0))
+            return outs
+
+        self.restore = (make, extract)
+        driver._trainer_for, driver._run_extraction = trainer_for, sweep
+        return self
+
+    def __exit__(self, *exc):
+        from bvc_tpu_torch.curriculum import driver
+
+        driver._trainer_for, driver._run_extraction = self.restore
+
+
+def check_curriculum(family: str, out: Path, results: dict, sweep_ids: list[str],
+                     width: int) -> None:
+    """Each stage's run id and fold, stage k+1 started from stage k's
+    ``model_{run_id}.pth.tar``, the manifest with the JAX package's keys,
+    and a train and a test CSV of ``CURRICULUM_CLIPS`` finite rows a run id
+    of ``sweep_ids``."""
+    import numpy as np
+    import pandas as pd
+    import yaml
+
+    from bvc_tpu_torch.curriculum import CURRICULA
+
+    what = f"curriculum {family}"
+    stages = results["stages"]
+    want = [(f"dev_{k}_{g}_default_{k % 3}_0", k % 3)
+            for k, g in enumerate(CURRICULA["dev"][:len(stages)], start=1)]
+    check([(st["run_id"], st["fold"]) for st in stages] == want,
+          f"{what}: stages {[(st['run_id'], st['fold']) for st in stages]}, want {want}")
+    init = "na"
+    for st in stages:
+        params = yaml.safe_load((out / f"params_{st['run_id']}.yaml").read_text())
+        check(params["init_checkpoint_path"] == init,
+              f"{what}: {st['run_id']} started from {params['init_checkpoint_path']}, not {init}")
+        init = str(out / f"model_{st['run_id']}.pth.tar")
+        check(st["checkpoint"] == init and Path(init).is_file(), f"{what}: no {init}")
+    manifest = json.loads((out / "curriculum_dev_default_0.json").read_text())
+    check(set(manifest) == MANIFEST_KEYS - ({"extraction"} if not sweep_ids else set())
+          and all(STAGE_KEYS <= set(st) for st in manifest["stages"])
+          and manifest["final_checkpoint"] == init,
+          f"{what}: manifest keys {sorted(manifest)}, stage keys "
+          f"{[sorted(st) for st in manifest['stages']]}")
+    for rid in sweep_ids:
+        for sub in ("", "test"):
+            path = out / "benchmarks" / "ssv2" / sub / f"embeddings_{rid}.csv"
+            check(path.is_file(), f"{what}: no {path}")
+            dims = pd.read_csv(path).filter(like="dim").to_numpy()
+            check(dims.shape == (CURRICULUM_CLIPS, width) and bool(np.isfinite(dims).all()),
+                  f"{what}: {path.name} ({sub or 'train'}) of shape {dims.shape} or not finite")
+
+
+def score_curriculum(family: str, out: Path, ssv2: str, sweep_ids: list[str]) -> float:
+    """``python -m bvc_tpu_torch.cli.evaluate_embeddings`` through ``main``
+    over the sweep's CSVs, ``--eval_type linear`` and ``nn``: one row a run
+    id, finite scores.  Returns the wall seconds of both."""
+    import numpy as np
+
+    from bvc_tpu_torch.cli import evaluate_embeddings
+
+    t0 = time.perf_counter()
+    for eval_type, cols in (("linear", ["category"]), ("nn", ["Top1", "Top5", "Top10"])):
+        df = evaluate_embeddings.main(
+            ["-emb_root", str(out / "benchmarks" / "ssv2"), "-ds_task", "ssv2",
+             "--ssv2_train_labels", f"{ssv2}/train_labels.csv",
+             "--ssv2_test_labels", f"{ssv2}/val_labels.csv", "--eval_type", eval_type])
+        check(sorted(df["Stage"]) == sorted(int(r.split("_")[1]) for r in sweep_ids)
+              and bool(np.isfinite(df[cols].to_numpy(dtype=float)).all()),
+              f"curriculum {family}: {eval_type} scores\n{df}")
+    return time.perf_counter() - t0
+
+
+def expected_launches(per_step: dict, steps: int, per_call: dict, calls: int) -> dict:
+    return {k: per_step.get(k, 0) * steps + per_call.get(k, 0) * calls for k in read_launches()}
+
+
+def phase_curriculum(card: str, root: Path, train_step: dict, embed_call: int,
+                     jepa_step: dict, jepa_w8a8_call: dict) -> dict:
+    """``python -m bvc_tpu_torch.cli.run_curriculum`` through ``main``, once
+    a family at each preset's full width (VideoMAE-B at B=16, V-JEPA ViT-B
+    at B=16, ResNet-18 at B=32 pairs, with its per-stage lr and interval),
+    the ``dev`` curriculum's three chained stages of ``CURRICULUM_ITERS``
+    steps over JPEG frames (subjects of g0, g1 and g2), the sweep over an
+    SSv2 layout (VideoMAE with the untrained baseline, JEPA under
+    ``--extract_quantize int8``), then ``evaluate_embeddings``; and
+    VideoMAE's first stage again on the corpus packed by ``python -m
+    bvc_tpu_torch.cli.pack_corpus``.  Each run's launches equal the sum of
+    its steps' and embed calls' (``train_step``, ``embed_call``,
+    ``jepa_step``, ``jepa_w8a8_call``: the counts the earlier phases read;
+    none for SimCLR).  Returns each run's launches and readings."""
+    import gc
+
+    import torch
+
+    from bvc_tpu_torch.cli import pack_corpus, run_curriculum
+    from bvc_tpu_torch.data.indexing import get_group
+    from bvc_tpu_torch.training import trainer_videomae
+
+    t_phase = time.perf_counter()
+    decoder = host_decoder()
+    check(decoder is not None, "neither cv2 nor PIL imports: the curriculum reads JPEGs")
+    subjects = get_group("g0")[:2] + get_group("g1")[:1] + get_group("g2")[:1]
+    jpg = write_simclr_corpus(root / "curriculum_corpus", decoder, subjects)
+    ssv2 = write_ssv2(root / "ssv2", decoder)
+    print(f"curriculum: corpus of {len(subjects)} x {SIMCLR_CORPUS[1]} JPEG frames and SSv2 "
+          f"of 2 x {CURRICULUM_CLIPS} clips written in {time.perf_counter() - t_phase:.1f} s "
+          f"(by {decoder})", flush=True)
+    per = {"videomae": (train_step, {"flash_fwd": embed_call}),
+           "jepa": (jepa_step, jepa_w8a8_call), "simclr": ({}, {})}
+    out = {}
+    runs = [(preset, family, B, extra, 3, None) for preset, family, B, extra in CURRICULUM_RUNS]
+    runs.append(("generative", "videomae_packed", 16, [], 1, root / "pack"))
+    for preset, family, B, extra, n_stages, pack in runs:
+        model = family.removesuffix("_packed")
+        unit = "pairs" if model == "simclr" else "clips"
+        savedir = root / f"curriculum_{family}"
+        argv = ["-jpg_root", jpg, "-savedir", str(savedir), "--preset", preset,
+                "--curriculum", "dev", "--seed", "0", "--n_stages", str(n_stages),
+                "--segment_minutes", str(CURRICULUM_SEGMENT_MINUTES),
+                "--override", f"n_epoch=1,max_epoch_iters={CURRICULUM_ITERS},"
+                              f"n_trainsamples={B * CURRICULUM_ITERS}"] + extra
+        if pack is None:
+            argv += ["--extract", f"ssv2={ssv2}"]
+        else:
+            t0 = time.perf_counter()
+            counts = pack_corpus.main(["-jpg_root", jpg, "-pack_root", str(pack), "--group", "g0"])
+            check(counts == {s: SIMCLR_CORPUS[1] for s in get_group("g0")[:2]},
+                  f"pack_corpus packed {counts}")
+            print(f"curriculum: pack_corpus of g0 ({sum(counts.values())} frames) in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            argv += ["--pack_root", str(pack)]
+        loaders, undo = captured_loaders(trainer_videomae)
+        try:
+            with curriculum_timers() as timers:
+                results, launches, wall = run_cli_stage(run_curriculum.main, argv,
+                                                        f"curriculum {family}")
+        finally:
+            undo()
+        baseline = ["dev_0_na_default_0_0"] if "--untrained_baseline" in extra else []
+        sweep_ids = [] if pack else baseline + [st["run_id"] for st in results["stages"]]
+        check_curriculum(family, savedir, results, sweep_ids, CURRICULUM_WIDTHS[model])
+        steps = 0
+        for st in results["stages"]:
+            steps += len(check_csv(savedir / f"csvlog_{st['run_id']}.csv", CURRICULUM_ITERS, 2,
+                                   f"curriculum {family} {st['run_id']}"))
+        calls = len(sweep_ids) * 2 * math.ceil(CURRICULUM_CLIPS / 64)  # train and test splits
+        per_step, per_call = per[model]
+        want = expected_launches(per_step, steps, per_call, calls)
+        check(launches == want, f"curriculum {family}: {steps} steps and {calls} embed calls "
+                                f"want launches {want}, got {launches}")
+        if model == "videomae":  # the packed run reads its shard, the others decode JPEGs
+            served = {k for ld in loaders for k, n in ld.dataset.served.items() if n}
+            check(served and (served == {"packed"}) == bool(pack),
+                  f"curriculum {family}: frames read by path {served}")
+        rec = {"launches": launches, "wall_s": wall, "steps": steps, "embed_calls": calls,
+               "stages": [{"run_id": rid, "wall_s": dt, f"{unit}_s": B * CURRICULUM_ITERS / dt}
+                          for rid, dt in timers.stages]}
+        for st in rec["stages"]:
+            print(f"curriculum {family} [{card}]: stage {st['run_id']}: {st['wall_s']:.2f} s "
+                  f"(model build, steps, checkpoint), B={B} x {CURRICULUM_ITERS} steps -> "
+                  f"{st[f'{unit}_s']:.2f} {unit}/s", flush=True)
+        if sweep_ids:
+            rows = sum(csvs for csvs, _ in timers.sweeps) * CURRICULUM_CLIPS
+            sweep_s = sum(dt for _, dt in timers.sweeps)
+            rec.update(sweep_s=sweep_s, sweep_clips_s=rows / sweep_s,
+                       score_s=score_curriculum(family, savedir, ssv2, sweep_ids))
+            print(f"curriculum {family} [{card}]: sweep of {len(sweep_ids)} checkpoints, "
+                  f"{rows} clips in {sweep_s:.2f} s -> {rows / sweep_s:.2f} clips/s "
+                  f"(checkpoint loads included); scoring (linear and nn) "
+                  f"{rec['score_s']:.2f} s", flush=True)
+        out[family] = rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"curriculum phase [{card}]: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def phase_entry_point() -> None:
     """extract_embeddings over a synthetic dataset, then save_results, with
     a bf16 and with an int8 (W8A8) embed function."""
@@ -3106,6 +3375,9 @@ def main() -> None:
     simclr_embed = phase_simclr_embed(smi)
     with tempfile.TemporaryDirectory() as d:
         simclr_cli = phase_pretrain_cli_simclr(smi, simclr_rate["B"], Path(d))
+    with tempfile.TemporaryDirectory() as d:
+        curriculum = phase_curriculum(smi, Path(d), train_launches, embed_launches,
+                                      jepa_launches, w8a8_launches["jepa"])
 
     # launches: per step of the path that runs the kernel most (VideoMAE
     # training for the unmasked kernels, JEPA training for the key-bias
@@ -3168,10 +3440,13 @@ def main() -> None:
     records[0]["launches_per_jepa_cli_step"] = jepa_cli["launches_per_cli_step"]["flash_fwd"]
     # the counts read over every SimCLR path: steps, rate, extraction, the
     # CLI stages, their checkpoint's embed and compute_embeddings --family simclr
+    # and its curriculum
     simclr_launches = sum_launches(*(phase.pop("launches") for phase in (
-        simclr_step, simclr_rate, simclr_embed, simclr_cli)))
+        simclr_step, simclr_rate, simclr_embed, simclr_cli)), curriculum["simclr"]["launches"])
+    runs = [k for k in curriculum if k != "wall_s"]
     for r in records:
         r["launches_on_simclr_paths"] = simclr_launches[r["name"]]
+        r["launches_per_curriculum"] = {k: curriculum[k]["launches"][r["name"]] for k in runs}
     trainers = {"videomae_cli": {k: v for k, v in cli.items() if k != "launches_per_cli_step"},
                 "jepa_cli": {k: v for k, v in jepa_cli.items() if k != "launches_per_cli_step"},
                 "remat": {"B": train_B, "peak_gib_without": remat["peak_gib"][False],
@@ -3180,7 +3455,10 @@ def main() -> None:
                           "step_ms_with": remat["ms"][True],
                           "min_grad_cosine": remat["min_cosine"]},
                 "simclr_cli": simclr_cli, "simclr_step": {**simclr_rate, **simclr_step},
-                "simclr_embed": simclr_embed}
+                "simclr_embed": simclr_embed,
+                "curriculum": {"wall_s": curriculum["wall_s"],
+                               **{k: {f: v for f, v in curriculum[k].items() if f != "launches"}
+                                  for k in runs}}}
     print(json.dumps({"trainers": trainers}), flush=True)
     check(all(math.isfinite(r[k]) for r in records
               for k in ("max_abs_err", "ms", "plain_ms", "bound_ms"))

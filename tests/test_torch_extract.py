@@ -20,11 +20,10 @@ from bvc_tpu_torch.evalbench.extract import (
     extract_embeddings,
     make_embed_fn,
     merge_gathered,
-    run_id_from_checkpoint,
     save_results,
     untrained_embed_fn,
 )
-from bvc_tpu_torch.utils.config import ModelConfig
+from bvc_tpu_torch.utils.config import ModelConfig, run_id_from_checkpoint
 
 SMALL = dict(image_size=32, patch_size=8, num_frames=4, tubelet_size=2,
              hidden_size=24, depth=2, num_heads=2, mlp_ratio=2.0,

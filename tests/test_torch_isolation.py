@@ -1,6 +1,7 @@
-"""The port stands alone: no JAX and nothing of ``bvc_tpu`` is imported,
-entry points never fall back to the CPU on their own, and ``chip_smoke.py``
-refuses to run without a card or outside a checkout."""
+"""The port stands alone: no JAX and nothing of ``bvc_tpu`` is imported (nor
+scikit-learn, which the card's host lacks: the evaluation scores with its
+own numpy probes), entry points never fall back to the CPU on their own, and
+``chip_smoke.py`` refuses to run without a card or outside a checkout."""
 
 import ast
 import copy
@@ -13,7 +14,8 @@ import pytest
 import torch
 
 import bvc_tpu_torch
-from bvc_tpu_torch.cli import compute_embeddings, pretrain_jepa, pretrain_simclr, pretrain_videomae
+from bvc_tpu_torch.cli import (compute_embeddings, pretrain_jepa, pretrain_simclr,
+                               pretrain_videomae, run_curriculum)
 from bvc_tpu_torch.data.loader import DataLoader
 from bvc_tpu_torch.evalbench import extract
 from bvc_tpu_torch.masks.multiblock import mask_collate
@@ -31,6 +33,15 @@ from bvc_tpu_torch.utils.device import resolve_device
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = Path(bvc_tpu_torch.__file__).parent
 PY_FILES = sorted(PACKAGE.rglob("*.py"))
+# the curriculum and evaluation slice: held to the same rules by name, so
+# that a module moved out of the package cannot drop out of these tests
+SLICE_8A = ["curriculum/__init__.py", "curriculum/presets.py", "curriculum/driver.py",
+            "evalbench/scores.py", "evalbench/evaluators.py", "cli/run_curriculum.py",
+            "cli/evaluate_embeddings.py", "cli/pack_corpus.py"]
+
+
+def test_slice_8a_modules_are_checked():
+    assert {PACKAGE / name for name in SLICE_8A} <= set(PY_FILES)
 
 
 def test_import_pulls_in_no_jax_and_no_bvc_tpu():
@@ -38,8 +49,7 @@ def test_import_pulls_in_no_jax_and_no_bvc_tpu():
         "import importlib, pkgutil, sys, bvc_tpu_torch\n"
         "for m in pkgutil.walk_packages(bvc_tpu_torch.__path__, 'bvc_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
-        "       or k == 'bvc_tpu' or k.startswith('bvc_tpu.')]\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'bvc_tpu', 'sklearn')]\n"
         "print(len([k for k in sys.modules if k.startswith('bvc_tpu_torch.')]), bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -59,7 +69,8 @@ def test_source_imports_neither_jax_nor_bvc_tpu(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "bvc_tpu", "flax", "optax"), (path, name)
+            assert root not in ("jax", "jaxlib", "bvc_tpu", "flax", "optax", "sklearn"), (
+                path, name)
 
 
 def test_no_silent_cpu_default(monkeypatch):
@@ -107,7 +118,8 @@ def test_no_silent_cpu_default_jepa(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["run_videomae", "run_jepa", "pretrain_videomae.main",
                                    "pretrain_jepa.main", "DataLoader", "run_simclr",
-                                   "pretrain_simclr.main", "compute_embeddings.main"])
+                                   "pretrain_simclr.main", "compute_embeddings.main",
+                                   "run_curriculum.main"])
 def test_no_silent_cpu_default_training_loop(entry, monkeypatch, tmp_path):
     """The training loop's and extraction's entry points refuse to fall back
     to the CPU: with no GPU and no device named they raise before any work."""
@@ -123,6 +135,9 @@ def test_no_silent_cpu_default_training_loop(entry, monkeypatch, tmp_path):
              "compute_embeddings.main": lambda: compute_embeddings.main(
                  ["-ds_task", "cifar10", "-vid_root", str(tmp_path), "-savedir",
                   str(tmp_path / "emb"), "--family", "simclr"]),
+             "run_curriculum.main": lambda: run_curriculum.main(
+                 ["-jpg_root", str(tmp_path), "-savedir", str(tmp_path / "out"),
+                  "--extract", f"ssv2={tmp_path}", "--untrained_baseline", "y"]),
              "DataLoader": lambda: DataLoader(list(range(8)), 4, device=None)}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

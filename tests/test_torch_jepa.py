@@ -227,10 +227,10 @@ def test_untrained_embed_fn_and_unported_options():
     for (n, a), b in zip(JEPA(cfg, seed=0).encoder.state_dict().items(),
                          enc.state_dict().values()):
         assert torch.equal(a, b), n
-    # another spatial grid is not ported yet; drop-path is, and runs only
-    # with a generator (training): without one the forward is unchanged
-    with pytest.raises(NotImplementedError, match="interpolate_pos_table_3d"):
-        enc(torch.zeros(1, 2, 48, 48, 3))
+    # another spatial grid reads the resized position table (held to JAX's
+    # in test_torch_unported.py); drop-path runs only with a generator
+    # (training): without one the forward is unchanged
+    assert enc(torch.zeros(1, 2, 48, 48, 3)).shape == (1, 2 * 6 * 6, 128)
     with pytest.raises(ValueError, match="time grid"):
         enc(torch.zeros(1, 4, 32, 32, 3))
     dropping = JEPA(ModelConfig(**TINY, drop_path_rate=0.1), seed=0).encoder
