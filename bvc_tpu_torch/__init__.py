@@ -7,12 +7,15 @@ families bf16 or W8A8; ``cli.compute_embeddings``, ``evalbench``,
 ``ops.quant``), and trains VideoMAE, V-JEPA and SimCLR curriculum stages on
 one GPU (``cli.pretrain_videomae``, ``cli.pretrain_jepa``,
 ``cli.pretrain_simclr``: the input pipeline of ``data``, the trainers,
-steps and checkpoints of ``training``); the ViT families run through
+steps and checkpoints of ``training``), and freezes extraction into
+``torch.export`` artifacts (``serving``, ``cli.export_serving``); the ViT
+families run through
 hand-written CUDA kernels (SimCLR's ResNet on cuDNN's convolutions, as on
 XLA's): the flash-attention forward (``csrc/flash_fwd.cu``) and backward
 (``csrc/flash_bwd_sm90.cu``), without a key mask or with a per-sample key
 bias, and the tensor-core GEMM (``csrc/gemm.cu``) whose int8 instantiation
-runs the W8A8 products.  ``probes`` holds the counterparts of the JAX
+runs the W8A8 products, each reached through a ``torch.library`` custom
+operator (``torch.ops.bvc_tpu_torch``).  ``probes`` holds the counterparts of the JAX
 package's two kernel probes (``csrc/gemm.cu`` in bf16,
 ``csrc/softmax_probe.cu``).
 

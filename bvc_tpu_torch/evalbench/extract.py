@@ -123,32 +123,47 @@ def _embed_fn(model: VideoMAEEncoder | JEPAEncoder | ResNet, device: torch.devic
     return fn
 
 
+def load_family_model(family: str, ckpt_path: str, cfg: ModelConfig) -> torch.nn.Module:
+    """The model a family embeds with, on the CPU in f32, with the weights
+    of a ``.pth.tar`` checkpoint: one account of each family's checkpoint
+    keys, shared by :func:`make_embed_fn` and the serving exporter
+    (:mod:`bvc_tpu_torch.serving`).  VideoMAE: ``model_state_dict`` in HF
+    names; JEPA: the online ``encoder`` in the reference layout, else
+    ``target_encoder`` (as the JAX package reads it); SimCLR:
+    ``model_state_dict`` in torchvision names, running statistics
+    included."""
+    ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    if family == "simclr":
+        sd = resnet_from_torchvision_state_dict(ckpt["model_state_dict"])
+        model = _simclr_model(cfg, head_dim=sd["fc.0.weight"].shape[0])
+    else:
+        model = _encoder_class(family)(cfg)
+        if family == "jepa":
+            enc = ckpt["encoder"] if "encoder" in ckpt else ckpt["target_encoder"]
+            sd = jepa_encoder_from_reference_state_dict(enc, cfg)
+        else:
+            sd = videomae_from_hf_state_dict(ckpt["model_state_dict"], cfg)
+    model.load_state_dict(sd)
+    return model
+
+
+def init_family_model(family: str, cfg: ModelConfig, seed: int = 0) -> torch.nn.Module:
+    """The model a family embeds with, random from ``seed``, on the CPU."""
+    if family == "simclr":
+        return _simclr_model(cfg, seed=seed)
+    return _encoder_class(family)(cfg, seed=seed)
+
+
 def make_embed_fn(family: str, ckpt_path: str, cfg: ModelConfig,
                   device: str | torch.device | None = None,
                   quantize: str | None = "none") -> Callable:
-    """Load the encoder of a ``.pth.tar`` checkpoint (VideoMAE:
-    ``model_state_dict`` in HF names; JEPA: ``encoder`` in the reference
-    layout, else ``target_encoder``; SimCLR: ``model_state_dict`` in
-    torchvision names, running statistics included) and return the
+    """Load a checkpoint's model (:func:`load_family_model`) and return the
     embedding function on ``device`` (``cuda`` when None);
     ``quantize="int8"`` quantizes the loaded blocks (see
     :func:`_check_quantize`)."""
     q = _check_quantize(family, quantize)
     device = resolve_device(device)
-    ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-    if family == "simclr":
-        sd = resnet_from_torchvision_state_dict(ckpt["model_state_dict"])
-        model = _simclr_model(cfg, head_dim=sd["fc.0.weight"].shape[0])
-        model.load_state_dict(sd)
-        return _embed_fn(model, device)
-    model = _encoder_class(family)(cfg)
-    if family == "jepa":
-        # as the JAX package reads it: the EMA target where no online encoder was kept
-        enc = ckpt["encoder"] if "encoder" in ckpt else ckpt["target_encoder"]
-        sd = jepa_encoder_from_reference_state_dict(enc, cfg)
-    else:
-        sd = videomae_from_hf_state_dict(ckpt["model_state_dict"], cfg)
-    model.load_state_dict(sd)
+    model = load_family_model(family, ckpt_path, cfg)
     return _embed_fn(quantize_encoder(model) if q else model, device)
 
 
@@ -159,9 +174,7 @@ def untrained_embed_fn(family: str, cfg: ModelConfig, seed: int = 0,
     ``quantize="int8"`` quantizes its blocks."""
     q = _check_quantize(family, quantize)
     device = resolve_device(device)
-    if family == "simclr":
-        return _embed_fn(_simclr_model(cfg, seed=seed), device)
-    model = _encoder_class(family)(cfg, seed=seed)
+    model = init_family_model(family, cfg, seed)
     return _embed_fn(quantize_encoder(model) if q else model, device)
 
 

@@ -29,6 +29,9 @@ dicts).
   :class:`~bvc_tpu_torch.models.jepa.JEPA`;
   :func:`jepa_encoder_from_jax_params`: its ``encoder`` subtree (or an EMA
   target) -> the state dict of :class:`JEPAEncoder`.
+- :func:`vit_image_from_jax_params`: the JAX package's image-ViT tree
+  (``patch_embed``, ``blocks``, ``norm``, the JEPA encoder's layout) -> the
+  state dict of :class:`~bvc_tpu_torch.models.vit_image.ImageViT`.
 - :func:`jepa_encoder_from_reference_state_dict`: the reference
   ``VisionTransformer`` names, as ``bvc_tpu/cli/export_torch.py`` writes a
   JEPA checkpoint's ``encoder`` into ``model_{run_id}.pth.tar`` -> the state
@@ -241,6 +244,12 @@ def jepa_encoder_from_jax_params(tree: dict, cfg: ModelConfig) -> dict[str, torc
             **_blocks(tree["blocks"], cfg.depth, "blocks."),
             "norm.weight": _f32(tree["norm"]["scale"]),
             "norm.bias": _f32(tree["norm"]["bias"])}
+
+
+def vit_image_from_jax_params(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """JAX ``vit_image.init_params``-shaped tree -> :class:`ImageViT` state
+    dict; the tree has the JEPA encoder's layout."""
+    return jepa_encoder_from_jax_params(tree, cfg)
 
 
 def jepa_from_jax_params(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:

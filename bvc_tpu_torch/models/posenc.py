@@ -4,9 +4,10 @@
 - :func:`positional_encoding_3d`, the JEPA video ViT's, with the channel
   partition of the reference's ``PositionalEncoding3D``;
 - :func:`interpolate_pos_table_3d`, that table resized bicubically to
-  another spatial grid (torch's ``interpolate`` semantics, in numpy).
-
-The image ViT's 2-D table comes with its model (ROADMAP).
+  another spatial grid (torch's ``interpolate`` semantics, in numpy);
+- :func:`sincos_2d`, the image ViT's 2-D table, and
+  :func:`interpolate_pos_table`, a square-grid table resized bicubically
+  to another number of patches.
 """
 
 from __future__ import annotations
@@ -52,6 +53,34 @@ def positional_encoding_3d(t: int, h: int, w: int, channels: int) -> np.ndarray:
     table[..., block: 2 * block] = emb_y[None, :, None, :]
     table[..., 2 * block:] = emb_x[None, None, :, :]
     return table[..., :channels].reshape(t * h * w, channels).astype(np.float32)
+
+
+def _sincos_1d_halves(embed_dim: int, pos: np.ndarray) -> np.ndarray:
+    """``[len(pos), embed_dim]`` with first half all-sin, second half
+    all-cos (``get_1d_sincos_pos_embed_from_grid``,
+    ``predictive/vision_transformer.py:124-142``)."""
+    if embed_dim % 2:
+        raise ValueError(f"embed_dim {embed_dim} must be even")
+    omega = np.arange(embed_dim // 2, dtype=np.float64) / (embed_dim / 2.0)
+    omega = 1.0 / 10000**omega
+    out = np.einsum("m,d->md", pos.reshape(-1).astype(np.float64), omega)
+    return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+
+def sincos_2d(embed_dim: int, grid_size: int, cls_token: bool = False) -> np.ndarray:
+    """``[grid^2 (+1), embed_dim]`` image-ViT table
+    (``get_2d_sincos_pos_embed``, ``:82-108``): positions flattened
+    row-major (h slow, w fast); the first half of the channels encodes the
+    w coordinate (the reference's ``meshgrid(grid_w, grid_h)`` puts the
+    w-grid in ``grid[0]``, which its ``emb_h`` then consumes)."""
+    coords = np.arange(grid_size, dtype=np.float64)
+    grid_w, grid_h = np.meshgrid(coords, coords)  # h slow, w fast
+    emb_first = _sincos_1d_halves(embed_dim // 2, grid_w)
+    emb_second = _sincos_1d_halves(embed_dim // 2, grid_h)
+    table = np.concatenate([emb_first, emb_second], axis=1)
+    if cls_token:
+        table = np.concatenate([np.zeros((1, embed_dim)), table], axis=0)
+    return table.astype(np.float32)
 
 
 def _cubic_weights(t: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -108,6 +137,35 @@ def bicubic_resize_2d(grid: np.ndarray, scale_factor: float,
         _bicubic_axis(np.moveaxis(out, 1, 0), out_w, sw), 0, 1
     )
     return out
+
+
+def interpolate_pos_table(table: np.ndarray, npatch: int,
+                          cls_token: bool = False) -> np.ndarray:
+    """Bicubically resize a square-grid position table to ``npatch``
+    positions, the reference's ``interpolate_pos_encoding``
+    (``pretraining/predictive/vision_transformer_image.py:426-440``): strip
+    the cls row if present, reshape the rest to its sqrt(N) square grid,
+    resize by ``scale_factor=sqrt(npatch/N)`` bicubic, flatten, re-prepend
+    cls.  ``table``: ``[N(+1), D]``.  Returns ``[npatch(+1), D]`` float32;
+    raises unless both N and ``npatch`` are squares."""
+    cls_row = None
+    if cls_token:
+        cls_row, table = table[:1], table[1:]
+    n = table.shape[0]
+    if npatch == n:
+        out = table
+    else:
+        g = int(np.sqrt(n))
+        g_new = int(round(np.sqrt(npatch)))
+        if g * g != n or g_new * g_new != npatch:
+            raise ValueError(f"pos table of {n} rows and target {npatch} patches must "
+                             "both be square grids")
+        out = bicubic_resize_2d(
+            table.reshape(g, g, -1), float(np.sqrt(npatch / n)), out_hw=(g_new, g_new),
+        ).reshape(-1, table.shape[-1])
+    if cls_row is not None:
+        out = np.concatenate([cls_row, out], axis=0)
+    return out.astype(np.float32)
 
 
 def interpolate_pos_table_3d(table: np.ndarray, t: int, h: int, w: int,

@@ -36,12 +36,21 @@ without a bias and ``.launches_prep_bias``, ``.launches_fused_bias``,
 :func:`flash_attention_fwd_ref` and :func:`flash_attention_bwd_ref` are the
 plain PyTorch versions of the same arithmetic: the CPU tests use them, and
 ``chip_smoke.py`` holds the kernels against them on the card.
-:func:`flash_attention_fwd` and
-:func:`flash_attention_bwd` pick between the two by the tensors' device
-only.  :func:`attention_tile_check` and :func:`bwd_tile_check` run the
-forward's two and the backward's five Hopper products on one tile at head
-width 64 or 32, a first check on a new card.  :func:`flash_attention` is the public
-``[B, N, h, d]`` entry, differentiable through :class:`FlashAttention`.
+
+PyTorch reaches both through two custom operators, ``torch.ops.bvc_tpu_torch
+.flash_fwd(qs, k, v, bias?) -> (o, lse)`` and ``.flash_bwd(qs, k, v, o,
+lse, do, bias?) -> (dqs, dk, dv)`` (:data:`flash_fwd`, :data:`flash_bwd`):
+the kernels for CUDA tensors, the plain versions for CPU tensors, and fake
+implementations that give the outputs' shapes without data, so that
+``torch.export`` traces them as graph nodes and a saved program calls them
+again.  ``flash_fwd``'s gradient is ``flash_bwd`` (the JAX package's
+``_flash`` and ``_flash_b`` custom VJPs); the bias and LSE get none.
+:func:`flash_attention_fwd` and :func:`flash_attention_bwd` are their
+public names; :data:`OP_LIBRARIES` names the ``csrc/`` library behind each.
+:func:`attention_tile_check` and :func:`bwd_tile_check` run the forward's
+two and the backward's five Hopper products on one tile at head width 64 or
+32, a first check on a new card.  :func:`flash_attention` is the public,
+differentiable ``[B, N, h, d]`` entry.
 """
 
 from __future__ import annotations
@@ -133,6 +142,8 @@ def flash_attention_bwd_ref(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(qs.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# the library in csrc/ that each custom operator's CUDA side launches
+OP_LIBRARIES = {"flash_fwd": "flash_fwd", "flash_bwd": "flash_bwd_sm90"}
 _SIGNATURES = {  # (void* arguments, long long arguments) of each entry point
     "flash_fwd": {"bvc_flash_fwd": (6, 16), "bvc_attn_tile_check": (5, 1)},
     "flash_bwd_sm90": {"bvc_flash_bwd_prep": (5, 11), "bvc_flash_bwd_sm90": (9, 23),
@@ -364,48 +375,83 @@ def bwd_tile_check(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch
     return tuple(outs)
 
 
-def flash_attention_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        bias: torch.Tensor | None = None
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(o, lse)`` of pre-scaled attention: the kernel for CUDA tensors,
-    the plain version for CPU tensors."""
-    if qs.is_cuda:
-        return flash_fwd_cuda(qs, k, v, bias)
-    if qs.device.type != "cpu":
-        raise ValueError(f"flash attention runs on cuda or cpu, not {qs.device}")
-    return flash_attention_fwd_ref(qs, k, v, bias)
+def _check_shapes(caller: str, bias: torch.Tensor | None, **tensors: torch.Tensor) -> None:
+    """What the fakes check, from metadata alone: 4-D ``[B, N, h, d]``
+    tensors of one shape and, if given, a ``[B, N]`` bias; for CUDA tensors
+    also everything the kernels need (:func:`_check_kernel_inputs`)."""
+    first = next(iter(tensors.values()))
+    if first.is_cuda:
+        _check_kernel_inputs(caller, bias, **tensors)
+        return
+    for name, x in tensors.items():
+        if x.dim() != 4 or x.shape != first.shape:
+            raise ValueError(f"{caller}: {', '.join(tensors)} must be 4-D tensors of one "
+                             f"shape, got {name} {tuple(x.shape)}")
+    if bias is not None and bias.shape != first.shape[:2]:
+        raise ValueError(f"{caller}: bias of shape {tuple(bias.shape)}, want "
+                         f"{tuple(first.shape[:2])}")
 
 
-def flash_attention_bwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        bias: torch.Tensor | None = None
-                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dqs, dk, dv)``: the kernels for CUDA tensors, the plain version
-    for CPU tensors."""
-    if qs.is_cuda:
-        return flash_bwd_cuda(qs, k, v, o, lse, do, bias)
-    if qs.device.type != "cpu":
-        raise ValueError(f"flash attention runs on cuda or cpu, not {qs.device}")
-    return flash_attention_bwd_ref(qs, k, v, o, lse, do, bias)
+@torch.library.custom_op("bvc_tpu_torch::flash_fwd", mutates_args=(), device_types="cpu",
+                         schema="(Tensor qs, Tensor k, Tensor v, Tensor? bias=None) -> "
+                                "(Tensor, Tensor)")
+def flash_fwd(qs, k, v, bias=None):
+    """``(o, lse)``: :func:`flash_attention_fwd_ref` on CPU tensors (outputs
+    contiguous, as the kernel writes them), :func:`flash_fwd_cuda` on CUDA
+    ones."""
+    return tuple(x.contiguous() for x in flash_attention_fwd_ref(qs, k, v, bias))
 
 
-class FlashAttention(torch.autograd.Function):
-    """O of pre-scaled attention with an optional key bias, with the
-    backward kernels as its gradient (the JAX package's ``_flash`` and
-    ``_flash_b`` custom VJPs): the forward saves ``(qs, k, v, o, lse,
-    bias)``; the bias gets no gradient."""
+flash_fwd.register_kernel("cuda")(flash_fwd_cuda)
 
-    @staticmethod
-    def forward(ctx, qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                bias: torch.Tensor | None = None) -> torch.Tensor:
-        o, lse = flash_attention_fwd(qs, k, v, bias)
-        ctx.save_for_backward(qs, k, v, o, lse, bias)
-        return o
 
-    @staticmethod
-    def backward(ctx, do: torch.Tensor):
-        qs, k, v, o, lse, bias = ctx.saved_tensors
-        return (*flash_attention_bwd(qs, k, v, o, lse, do, bias), None)
+@flash_fwd.register_fake
+def _flash_fwd_fake(qs, k, v, bias=None):
+    _check_shapes("flash_fwd", bias, qs=qs, k=k, v=v)
+    B, N, h, _ = qs.shape
+    return qs.new_empty(qs.shape), qs.new_empty((B, h, N), dtype=torch.float32)
+
+
+@torch.library.custom_op("bvc_tpu_torch::flash_bwd", mutates_args=(), device_types="cpu",
+                         schema="(Tensor qs, Tensor k, Tensor v, Tensor o, Tensor lse, "
+                                "Tensor do, Tensor? bias=None) -> (Tensor, Tensor, Tensor)")
+def flash_bwd(qs, k, v, o, lse, do, bias=None):
+    """``(dqs, dk, dv)``: :func:`flash_attention_bwd_ref` on CPU tensors
+    (outputs contiguous), :func:`flash_bwd_cuda` on CUDA ones."""
+    return tuple(x.contiguous() for x in flash_attention_bwd_ref(qs, k, v, o, lse, do, bias))
+
+
+flash_bwd.register_kernel("cuda")(flash_bwd_cuda)
+
+
+@flash_bwd.register_fake
+def _flash_bwd_fake(qs, k, v, o, lse, do, bias=None):
+    _check_shapes("flash_bwd", bias, qs=qs, k=k, v=v, o=o, do=do)
+    B, N, h, _ = qs.shape
+    if lse.shape != (B, h, N):
+        raise ValueError(f"flash_bwd: lse of shape {tuple(lse.shape)}, want {(B, h, N)}")
+    return qs.new_empty(qs.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _save_for_bwd(ctx, inputs, output) -> None:
+    qs, k, v, bias = inputs
+    o, lse = output
+    ctx.save_for_backward(qs, k, v, o, lse, bias)
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_fwd_grad(ctx, do, _dlse):
+    qs, k, v, o, lse, bias = ctx.saved_tensors
+    return (*flash_bwd(qs, k, v, o, lse, do, bias), None)
+
+
+flash_fwd.register_autograd(_flash_fwd_grad, setup_context=_save_for_bwd)
+
+
+# the public names: the kernels for CUDA tensors, the plain versions for CPU
+# tensors, differentiable in qs, k and v
+flash_attention_fwd = flash_fwd
+flash_attention_bwd = flash_bwd
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -428,4 +474,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias = resolve_bias(key_mask, bias)
     if bias is not None:
         bias = bias.to(q.device, torch.float32).contiguous()
-    return FlashAttention.apply(qs, k, v, bias)
+    return flash_attention_fwd(qs, k, v, bias)[0]

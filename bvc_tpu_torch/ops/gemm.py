@@ -27,8 +27,15 @@ CPU tensors, other dtypes, K not a multiple of 16.  A row that does not
 start on 16 bytes is copied into a fresh tensor first.
 :func:`int8_matmul_ref` and :func:`bf16_matmul_ref` are the plain
 versions: the CPU tests use them, and ``chip_smoke.py`` holds the kernel
-against them on the card.  :func:`int8_matmul`, which ``qdense`` calls,
-picks between the two by the tensors' device only.
+against them on the card.
+
+PyTorch reaches both through the custom operators
+``torch.ops.bvc_tpu_torch.gemm_s8(a, b, xscale?, wscale?, bias?, out_dtype)``
+and ``.gemm_bf16(a, b)`` (:data:`gemm_s8`, :data:`gemm_bf16`): the kernel
+for CUDA tensors, the plain version for CPU tensors, and fake
+implementations for ``torch.export``.  :func:`int8_matmul`, which
+``qdense`` calls, is ``gemm_s8`` with its defaults; :data:`OP_LIBRARIES`
+names the ``csrc/`` library behind each operator.
 """
 
 from __future__ import annotations
@@ -74,6 +81,8 @@ def bf16_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float().T
 
 
+# the library in csrc/ that each custom operator's CUDA side launches
+OP_LIBRARIES = {"gemm_s8": "gemm", "gemm_bf16": "gemm"}
 _SIGNATURES = {"bvc_gemm_s8": (6, 6), "bvc_gemm_bf16": (3, 5)}  # (void*, long long)
 
 
@@ -109,6 +118,21 @@ def _vector(caller: str, name: str, x: torch.Tensor, length: int,
     return x.contiguous()
 
 
+def _s8_out_dtype(caller: str, xscale: torch.Tensor | None, wscale: torch.Tensor | None,
+                  bias: torch.Tensor | None, out_dtype: torch.dtype) -> torch.dtype:
+    """The s8 product's output dtype: int32 without ``xscale`` (the raw
+    epilogue), else ``out_dtype`` (bf16 or f32); raises for arguments that
+    do not go together."""
+    if xscale is None:
+        if wscale is not None or bias is not None:
+            raise ValueError(f"{caller}: wscale and bias need xscale")
+        return torch.int32
+    if wscale is None or out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{caller}: the dequant epilogue takes xscale and wscale "
+                         f"and writes bf16 or f32, not {out_dtype}")
+    return out_dtype
+
+
 def int8_matmul_cuda(a: torch.Tensor, b: torch.Tensor, xscale: torch.Tensor | None = None,
                      wscale: torch.Tensor | None = None, bias: torch.Tensor | None = None,
                      out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -122,15 +146,10 @@ def int8_matmul_cuda(a: torch.Tensor, b: torch.Tensor, xscale: torch.Tensor | No
     b = _operand(caller, "b", b, torch.int8)
     _check_shapes(caller, a, b)
     (M, K), N = a.shape, b.shape[0]
+    out_dtype = _s8_out_dtype(caller, xscale, wscale, bias, out_dtype)
     if xscale is None:
-        if wscale is not None or bias is not None:
-            raise ValueError(f"{caller}: wscale and bias need xscale")
-        out_dtype = torch.int32
         ptrs = (None, None, None)
     else:
-        if wscale is None or out_dtype not in (torch.bfloat16, torch.float32):
-            raise ValueError(f"{caller}: the dequant epilogue takes xscale and wscale "
-                             f"and writes bf16 or f32, not {out_dtype}")
         ptrs = (_vector(caller, "xscale", xscale, M, a.device).data_ptr(),
                 _vector(caller, "wscale", wscale, N, a.device).data_ptr(),
                 None if bias is None else _vector(caller, "bias", bias, N, a.device).data_ptr())
@@ -167,18 +186,58 @@ def bf16_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 bf16_matmul_cuda.launches = 0
 
 
-def _on_cpu(caller: str, a: torch.Tensor) -> bool:
-    """True for CPU tensors, False for CUDA ones; raises for any other device."""
+def _fake_operands(caller: str, a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> None:
+    """What the fakes check, from metadata alone: 2-D ``a`` and ``b`` of
+    ``dtype`` sharing K; on CUDA also one device and K a multiple of 16."""
+    if a.dim() != 2 or b.dim() != 2 or a.dtype != dtype or b.dtype != dtype:
+        raise ValueError(f"{caller}: a and b must be 2-D {dtype} tensors, got "
+                         f"{a.dtype} {tuple(a.shape)} and {b.dtype} {tuple(b.shape)}")
     if a.is_cuda:
-        return False
-    if a.device.type != "cpu":
-        raise ValueError(f"{caller} runs on cuda or cpu, not {a.device}")
-    return True
+        _check_shapes(caller, a, b)
+    elif a.shape[1] != b.shape[1]:
+        raise ValueError(f"{caller}: a {tuple(a.shape)} and b {tuple(b.shape)} must share K")
+
+
+@torch.library.custom_op("bvc_tpu_torch::gemm_s8", mutates_args=(), device_types="cpu",
+                         schema="(Tensor a, Tensor b, Tensor? xscale, Tensor? wscale, "
+                                "Tensor? bias, ScalarType out_dtype) -> Tensor")
+def gemm_s8(a, b, xscale, wscale, bias, out_dtype):
+    """:func:`int8_matmul_ref` on CPU tensors, :func:`int8_matmul_cuda` on
+    CUDA ones; both refuse arguments that do not go together."""
+    _s8_out_dtype("gemm_s8", xscale, wscale, bias, out_dtype)
+    return int8_matmul_ref(a, b, xscale, wscale, bias, out_dtype).contiguous()
+
+
+gemm_s8.register_kernel("cuda")(int8_matmul_cuda)
+
+
+@gemm_s8.register_fake
+def _gemm_s8_fake(a, b, xscale, wscale, bias, out_dtype):
+    _fake_operands("gemm_s8", a, b, torch.int8)
+    dtype = _s8_out_dtype("gemm_s8", xscale, wscale, bias, out_dtype)
+    return a.new_empty((a.shape[0], b.shape[0]), dtype=dtype)
+
+
+@torch.library.custom_op("bvc_tpu_torch::gemm_bf16", mutates_args=(), device_types="cpu",
+                         schema="(Tensor a, Tensor b) -> Tensor")
+def gemm_bf16(a, b):
+    """:func:`bf16_matmul_ref` on CPU tensors, :func:`bf16_matmul_cuda` on
+    CUDA ones."""
+    return bf16_matmul_ref(a, b).contiguous()
+
+
+gemm_bf16.register_kernel("cuda")(bf16_matmul_cuda)
+
+
+@gemm_bf16.register_fake
+def _gemm_bf16_fake(a, b):
+    _fake_operands("gemm_bf16", a, b, torch.bfloat16)
+    return a.new_empty((a.shape[0], b.shape[0]), dtype=torch.float32)
 
 
 def int8_matmul(a: torch.Tensor, b: torch.Tensor, xscale: torch.Tensor | None = None,
                 wscale: torch.Tensor | None = None, bias: torch.Tensor | None = None,
                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """The s8 kernel for CUDA tensors, the plain version for CPU tensors."""
-    fn = int8_matmul_ref if _on_cpu("int8_matmul", a) else int8_matmul_cuda
-    return fn(a, b, xscale, wscale, bias, out_dtype)
+    """:data:`gemm_s8`: the s8 kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    return gemm_s8(a, b, xscale, wscale, bias, out_dtype)

@@ -130,8 +130,12 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    19-step stage (timed at steps 5-11, then timed and traced by
    ``--profile_dir`` at steps 12-18), a 3-step stage
    chained from its checkpoint, and ``--resume y`` of the finished stage,
-   which returns at once.  Each stage launches exactly its step's kernels
-   a step, its CSV has a finite loss a step, and the checkpoint embeds a
+   which returns at once.  VideoMAE's stages write their checkpoints by
+   the async writer (``--async_save y``), and its chained stage keeps a
+   val split (``--keep_val y``): each val batch launches the step's
+   forward kernels, and its val rows and val loss are finite.  Each stage
+   launches exactly its step's kernels a step, its CSV has a finite loss a
+   step, and the checkpoint embeds a
    batch through ``make_embed_fn`` at cosine >= 0.999 to the trained
    encoder.  Prints the trainer's clips/s (steps 5-11, host clock between
    two synchronisations; and over the traced steps), the loader's alone (pinned buffers, side-stream
@@ -192,14 +196,29 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    ``gemm_s8`` and 12 ``flash_fwd`` an int8 call; SimCLR none).  Prints
    each stage's wall time and clips/s (pairs/s), the sweep's, the
    scoring's and the phase's wall time.
+21. Serving export (``bvc_tpu_torch.serving``): VideoMAE-B in bf16 and
+   W8A8, V-JEPA ViT-B and SimCLR ResNet-18 exported batch-polymorphic on
+   the card (their graphs' kernel nodes counted) and saved, then loaded and
+   called in a fresh process that imports no model module: at B=1 and at
+   8's batch, cosine >= 0.9999 per row to extraction on the same weights
+   (W8A8 to W8A8), one call's launches exactly the graph's kernels (12
+   ``flash_fwd``; W8A8 also 24 ``gemm_s8``; SimCLR none); the artifact's
+   clips/s beside extraction's, export, save, load and first-call seconds
+   and bytes.
+22. The image ViT: ViT-B/16 at 224 px, bf16, B=64: ``embed`` through 12
+   ``flash_fwd`` against plain attention, and a forward with a ``keep_idx``
+   of up to 147 of the 196 tokens through 12 ``flash_fwd_bias`` against the
+   plain masked path, cosine >= 0.999 per row; images/s.
 
 Every path runs with every launch count set to 0 just before it and read
 just after, and fails if a kernel other than its own launched (no SimCLR
 path launches one: each kernel's ``launches_on_simclr_paths`` is the sum of
 the counts read over them).
-Prints one JSON ``{"trainers": {...}}`` line (14-18 and 20), one JSON
-``{"kernels": [...]}`` line (with each kernel's ``launches_per_cli_step``
-and ``launches_per_curriculum``),
+Prints the host's CUDA device and CPU core counts, one JSON
+``{"trainers": {...}}`` line (14-18 and 20-22), one JSON ``{"kernels":
+[...]}`` line (with each kernel's ``launches_per_cli_step``,
+``launches_per_curriculum``, ``launches_per_artifact_call`` and
+``launches_per_vit_image_embed``),
 the script's wall time and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that last line,
 when there is no CUDA device, when run outside a checkout, or when any phase
@@ -211,6 +230,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -479,8 +499,11 @@ def phase_attn_tile() -> None:
 
 
 def phase_kernel() -> dict:
-    """Flash forward kernel against its plain version; returns its record
-    at the extraction shape, with every shape's times under ``"shapes"``."""
+    """Flash forward kernel against its plain version at every shape a path
+    of this script gives it (the image ViT's ``[64, 196, 12, 64]``, a partial
+    key tile of 68, among them): O within 2e-2, LSE within 1e-3.  Returns
+    its record at the extraction shape, with every shape's times under
+    ``"shapes"``."""
     import torch
     import torch.nn.functional as F
 
@@ -494,6 +517,7 @@ def phase_kernel() -> dict:
                                 ("encoder", (8, 160, 12, 64)),
                                 ("jepa target", (8, 392, 12, 64)),
                                 ("odd N", (8, 197, 12, 64)),
+                                ("image vit", (VIT_IMAGE_B, 196, 12, 64)),
                                 ("decoder", (8, 1568, 6, 64)),
                                 ("extraction B=64", (64, 1568, 12, 64))):
         _, qs, k, v = qkv_inputs(B, N, h, d, seed=N + h + B - 8)
@@ -833,9 +857,9 @@ def phase_bwd_kernel() -> dict:
     return result
 
 
-def phase_main_path(card: str, profile: str | None) -> int:
+def phase_main_path(card: str, profile: str | None) -> tuple[int, int]:
     """VideoMAE-B extraction on the card; returns the kernel's launches in
-    one embed call."""
+    one embed call and the batch timed (the largest that fits)."""
     import numpy as np
     import torch
 
@@ -893,7 +917,7 @@ def phase_main_path(card: str, profile: str | None) -> int:
         break
     else:
         fail("no batch size in {64, 32, 16} fits")
-    return launches
+    return launches, B
 
 
 def profile_call(fn, what: str, out_file: str) -> float:
@@ -1249,8 +1273,9 @@ def phase_bias_kernel() -> dict:
     against their plain versions at JEPA's context shape ``[8, 169, 12, 64]``
     (collator mask), its predictor shape ``[32, 199, 12, 32]`` (concatenated
     mask), an odd ``[8, 197, 12, 64]`` with about 40% of the keys masked, at
-    both widths with one batch element whose every key is masked, and at the
-    B=64 step's own shapes ``[64, 169, 12, 64]`` and ``[256, 199, 12, 32]``:
+    both widths with one batch element whose every key is masked, at the
+    image ViT's ``keep_idx`` shape ``[64, 147, 12, 64]`` with 140-147 keys
+    kept a row (a partial key tile of 19), and at the B=64 step's own shapes ``[64, 169, 12, 64]`` and ``[256, 199, 12, 32]``:
     O within 2e-2, LSE within 1e-3 (+inf exactly where a row has no key),
     dQ/dK/dV within 2e-2 x max|ref| and 1e-3 in |err|/|ref|, a second run's
     dQ within 1e-3 of the first (its f32 sum over key tiles has no fixed
@@ -1287,11 +1312,16 @@ def phase_bias_kernel() -> dict:
             mask[dead] = False
         return mask
 
+    # the image ViT's keep_idx rows: 140-147 kept tokens each, padded with -1
+    kept = VIT_IMAGE_KEEP - torch.arange(VIT_IMAGE_B, device="cuda")[:, None] % 8
+    keep_mask = torch.arange(VIT_IMAGE_KEEP, device="cuda") < kept
+
     cases = (("context", (8, 169, 12, 64), enc_mask),
              ("predictor", (32, 199, 12, 32), pred_mask),
              ("odd N", (8, 197, 12, 64), random_mask(8, 197, 0.6)),
              ("all masked d64", (4, 169, 12, 64), random_mask(4, 169, 0.5, dead=1)),
              ("all masked d32", (4, 199, 12, 32), random_mask(4, 199, 0.5, dead=2)),
+             ("image vit keep", (VIT_IMAGE_B, VIT_IMAGE_KEEP, 12, 64), keep_mask),
              ("context step", (64, 169, 12, 64), enc_step),
              ("predictor step", (256, 199, 12, 32), pred_step))
     result = {}
@@ -2340,6 +2370,11 @@ def phase_pretrain_cli_videomae(card: str, corpus: tuple[str, str], B: int,
     ``per_step`` (the step's own kernels, ``phase_train``) a step, its CSV
     has a finite loss a step, and the first checkpoint embeds a batch
     through ``make_embed_fn`` at cosine >= 0.999 to the trained encoder.
+    Both stages write their checkpoint by the async writer
+    (``--async_save y``); the chained one keeps a val split (``--keep_val
+    y``): each of its val batches launches the step's ``flash_fwd`` count
+    and no backward kernel, and its CSV's val rows and the summary's val
+    loss are finite.
     Prints the trainer's clips/s, the loader's alone, the step's alone (and
     its host dispatch time), and the device's idle share over the traced
     steps beside the trainer's clips/s over them."""
@@ -2353,7 +2388,8 @@ def phase_pretrain_cli_videomae(card: str, corpus: tuple[str, str], B: int,
     with tempfile.TemporaryDirectory() as d:
         out, prof = Path(d) / "out", Path(d) / "profile"
         base = ["-jpg_root", jpg, "--pack_root", pack, "-savedir", str(out),
-                "--batch_size", str(B), "--n_trainsamples", str(B * CLI_ITERS)]
+                "--batch_size", str(B), "--n_trainsamples", str(B * CLI_ITERS),
+                "--async_save", "y"]
         stage1 = base + ["--run_id", "dev_1_g0_default_0_0", "--max_epoch_iters",
                          str(CLI_ITERS), "--profile_dir", str(prof)]
         rec = timed_steps(trainer_videomae, "make_videomae_train_step")
@@ -2378,10 +2414,28 @@ def phase_pretrain_cli_videomae(card: str, corpus: tuple[str, str], B: int,
                             loader_alone(make_dataset("videomae", cfg.data)["train"], B)[0], prof)
         del rec
         stage2 = base + ["--run_id", "dev_2_g0_default_0_0", "--max_epoch_iters", "3",
-                         "-init_checkpoint_path", s1["checkpoint"]]
-        _, launches2, _ = run_cli_stage(pretrain_videomae.main, stage2, "videomae cli stage 2")
-        check_cli_launches(launches2, per_step, 3, "videomae cli stage 2")
-        check_csv(out / "csvlog_dev_2_g0_default_0_0.csv", 3, 2, "videomae cli stage 2")
+                         "-init_checkpoint_path", s1["checkpoint"], "--keep_val", "y"]
+        loaders, undo = captured_loaders(trainer_videomae)
+        try:
+            s2, launches2, _ = run_cli_stage(pretrain_videomae.main, stage2,
+                                             "videomae cli stage 2 (--keep_val y)")
+        finally:
+            undo()
+        n_val = len(loaders[1]) if len(loaders) > 1 else 0
+        check(n_val >= 1, f"videomae cli stage 2: {n_val} val batches with --keep_val y")
+        # each val batch runs the step's forward: its flash_fwd launches, no backward
+        check_cli_launches({**launches2, "flash_fwd": launches2["flash_fwd"]
+                            - n_val * per_step["flash_fwd"]}, per_step, 3,
+                           "videomae cli stage 2 (train steps)")
+        rows = check_csv(out / "csvlog_dev_2_g0_default_0_0.csv", 3 + n_val, 2,
+                         "videomae cli stage 2")
+        val = check_csv(out / "csvlog_dev_2_g0_default_0_0.csv", 3 + n_val, 3,
+                        "videomae cli stage 2")[3:]
+        check(rows[3:] == [0.0] * n_val and all(v > 0 for v in val)
+              and math.isfinite(s2["val_loss"]) and s2["val_loss"] > 0,
+              f"videomae cli stage 2: val rows {val}, val loss {s2['val_loss']}")
+        print(f"videomae cli stage 2: {n_val} val batches, val loss {s2['val_loss']:.4f}",
+              flush=True)
         s3, launches3, wall3 = run_cli_stage(pretrain_videomae.main, stage1 + ["--resume", "y"],
                                              "videomae cli resume of the finished stage")
         check(s3["checkpoint"] == s1["checkpoint"] and not any(launches3.values()) and wall3 < 10,
@@ -3298,6 +3352,256 @@ def phase_entry_point() -> None:
               f"{df.shape[0]} rows of width {df.shape[1] - 1}", flush=True)
 
 
+EXPORT_COSINE_MIN = 0.9999  # artifact against extraction on the same weights, per row
+EXPORT_TIMED_CALLS = 3  # host clock over these calls, after one untimed
+
+
+def export_specs() -> list[tuple]:
+    """The artifacts of :func:`phase_export`, ``(name, family, config,
+    quantize)``, each from random weights of seed 0: VideoMAE-B in bf16 and
+    W8A8 (``ModelConfig()``: 224 px, 16 frames), V-JEPA ViT-B as the JEPA
+    CLI's defaults build it, and SimCLR's ResNet-18 at 224 px."""
+    from bvc_tpu_torch.utils.config import ModelConfig
+
+    return [("videomae_bf16", "videomae", ModelConfig(), "none"),
+            ("videomae_w8a8", "videomae", ModelConfig(), "int8"),
+            ("vjepa_bf16", "jepa", jepa_config()[0], "none"),
+            ("simclr_resnet18", "simclr", ModelConfig(family="simclr", architecture=SIMCLR_ARCH),
+             "none")]
+
+
+def artifact_kernels(family: str, cfg, quantize: str) -> dict[str, int]:
+    """The kernel launches of one call of an artifact, which are its graph's
+    kernel nodes: a ``flash_fwd`` a ViT block, two ``gemm_s8`` a block in
+    W8A8 (qkv and fc1), none for SimCLR."""
+    if family == "simclr":
+        return {}
+    return {"flash_fwd": cfg.depth, **({"gemm_s8": 2 * cfg.depth} if quantize == "int8" else {})}
+
+
+def timed_calls_s(fn, x) -> float:
+    """Host seconds a call of ``fn(x)`` (numpy in, numpy out, so each call
+    ends in a synchronisation) over :data:`EXPORT_TIMED_CALLS` calls after
+    one untimed."""
+    fn(x)
+    t0 = time.perf_counter()
+    for _ in range(EXPORT_TIMED_CALLS):
+        fn(x)
+    return (time.perf_counter() - t0) / EXPORT_TIMED_CALLS
+
+
+def serve_artifacts(job: str) -> None:
+    """The loading side of :func:`phase_export`, run in a fresh process
+    that imports ``bvc_tpu_torch.serving`` (the launch counters' kernel
+    modules come with it) and no model module.  ``job`` is a JSON file
+    listing artifact directories, their devices and their uint8 input
+    files; each artifact is loaded by ``load_artifact`` (seconds, the kernel
+    build included),
+    called at B=1 (its first call, seconds), at the input's batch with every
+    launch count set to 0 just before and read just after, and timed there
+    (:func:`timed_calls_s`).  Outputs go to ``out.npz`` beside the job, the
+    readings and the ``bvc_tpu_torch.models`` modules imported to
+    ``out.json``."""
+    import numpy as np
+
+    from bvc_tpu_torch.serving import load_artifact
+
+    job_path = Path(job)
+    outputs, readings = {}, {}
+    for art in json.loads(job_path.read_text()):
+        clips = np.load(art["input"])
+        t0 = time.perf_counter()
+        fn = load_artifact(art["path"], device=art["device"])
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outputs[art["name"] + "_1"] = fn(clips[:1])
+        first_s = time.perf_counter() - t0
+        reset_launches()
+        outputs[art["name"] + "_B"] = fn(clips)
+        launches = read_launches()
+        readings[art["name"]] = {
+            "load_s": load_s, "first_call_s": first_s, "launches": launches,
+            "clips_s": len(clips) / timed_calls_s(fn, clips),
+            "models_imported": sorted(k for k in sys.modules
+                                      if k.startswith("bvc_tpu_torch.models"))}
+    np.savez(job_path.with_name("out.npz"), **outputs)
+    job_path.with_name("out.json").write_text(json.dumps(readings))
+
+
+def phase_export(card: str, B: int, root: Path) -> dict:
+    """Serving export at full width (:func:`export_specs`): each artifact
+    exported from the extraction model's weights through
+    ``bvc_tpu_torch.serving.export_embed`` (batch-polymorphic, on the card),
+    its graph's kernel nodes counted, saved by ``save_artifact``; then all of
+    them loaded and called in one fresh process (:func:`serve_artifacts`),
+    which must import no ``bvc_tpu_torch.models`` module.  Each artifact's
+    embeddings at B=1 and at ``B`` (the extraction batch
+    ``phase_main_path`` picked) against extraction's (``untrained_embed_fn``,
+    the function ``make_embed_fn`` returns, on the same weights; W8A8
+    against W8A8 extraction; SimCLR's frames normalized as its readers
+    give them): cosine >= 0.9999 per row, max|diff| printed; the launches of
+    one call equal the graph's kernel nodes (:func:`artifact_kernels`).
+    Prints clips/s of the artifact and of extraction at ``B`` (both by
+    :func:`timed_calls_s`), export, save, load and first-call seconds and
+    the artifact's bytes; returns them by artifact."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from bvc_tpu_torch.evalbench.extract import untrained_embed_fn
+    from bvc_tpu_torch.models.videomae import normalize_on_device
+    from bvc_tpu_torch.serving import export_embed, save_artifact
+    from bvc_tpu_torch.serving.export import kernel_ops
+
+    rng = np.random.default_rng(7)
+    inputs, plain, jobs, results, refs = {}, {}, [], {}, {}
+    for name, family, cfg, quantize in export_specs():
+        shape = (cfg.num_frames, cfg.image_size, cfg.image_size, cfg.in_channels)
+        if shape not in inputs:
+            inputs[shape] = root / f"clips_{len(inputs)}.npy"
+            np.save(inputs[shape], rng.integers(0, 256, (B,) + shape, dtype=np.uint8))
+        clips = np.load(inputs[shape])
+        if family not in plain:
+            plain[family] = untrained_embed_fn(family, cfg, seed=0)
+        ref = (plain[family] if quantize == "none"
+               else untrained_embed_fn(family, cfg, seed=0, quantize=quantize))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exported, meta = export_embed(family, plain[family].model, cfg, quantize=quantize)
+        export_s = time.perf_counter() - t0
+        nodes = dict(kernel_ops(exported))
+        want = artifact_kernels(family, cfg, quantize)
+        check(nodes == want and meta["platforms"] == ["cuda"] and meta["batch"] == "polymorphic",
+              f"export {name}: kernel nodes {nodes} (want {want}), meta {meta}")
+        t0 = time.perf_counter()
+        path = Path(save_artifact(root / name, exported, meta))
+        save_s = time.perf_counter() - t0
+        del exported
+        if family == "simclr":  # the last frame, normalized as the readers give it
+            clips = normalize_on_device(torch.from_numpy(clips[:, -1:])).numpy()
+        refs[name] = (ref(clips[:1]), ref(clips))
+        results[name] = {"export_s": export_s, "save_s": save_s,
+                         "bytes": sum(f.stat().st_size for f in path.iterdir()),
+                         "extraction_clips_s": B / timed_calls_s(ref, clips)}
+        jobs.append({"name": name, "path": str(path), "input": str(inputs[shape]),
+                     "device": meta["platforms"][0], "want": want})
+        del ref, clips
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    job = root / "job.json"
+    job.write_text(json.dumps(jobs))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c",
+                           f"import chip_smoke; chip_smoke.serve_artifacts({str(job)!r})"],
+                          cwd=REPO, capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0, f"loading the artifacts failed:\n{proc.stderr[-6000:]}")
+    print(f"export: the loading process ran in {time.perf_counter() - t0:.1f} s", flush=True)
+    outputs = np.load(root / "out.npz")
+    readings = json.loads((root / "out.json").read_text())
+    for art in jobs:
+        name, r = art["name"], readings[art["name"]]
+        check(r["models_imported"] == [],
+              f"loading {name} imported model modules {r['models_imported']}")
+        want = {**{k: 0 for k in r["launches"]}, **art["want"]}
+        check(r["launches"] == want, f"artifact {name}: one call launched {r['launches']}, "
+                                     f"want {want}")
+        cosines, diffs = [], []
+        for tag, ref in zip(("1", "B"), refs[name]):
+            got = outputs[f"{name}_{tag}"]
+            check(got.shape == ref.shape and bool(np.isfinite(got).all()),
+                  f"artifact {name}: output {got.shape} (want {ref.shape}) or not finite")
+            cosines.append(float(((got * ref).sum(1) / (np.linalg.norm(got, axis=1)
+                                                         * np.linalg.norm(ref, axis=1))).min()))
+            diffs.append(float(np.abs(got - ref).max()))
+        check(min(cosines) >= EXPORT_COSINE_MIN,
+              f"artifact {name}: cosine to extraction {cosines} < {EXPORT_COSINE_MIN}")
+        res = results[name]
+        res.update(load_s=r["load_s"], first_call_s=r["first_call_s"], clips_s=r["clips_s"],
+                   min_cosine=min(cosines), max_abs_diff=max(diffs),
+                   launches={k: v for k, v in r["launches"].items() if v})
+        print(f"export {name} [{card}]: export {res['export_s']:.2f} s, save "
+              f"{res['save_s']:.2f} s, {res['bytes']} bytes; load {r['load_s']:.2f} s, first "
+              f"call (B=1) {r['first_call_s']:.2f} s; one call launched {res['launches']}; "
+              f"cosine to extraction min {min(cosines):.6f} (B=1, B={B}), max|diff| "
+              f"{diffs[0]:.3e}, {diffs[1]:.3e}; B={B}: artifact {r['clips_s']:.1f} clips/s, "
+              f"extraction {res['extraction_clips_s']:.1f} clips/s (numpy in and out)",
+              flush=True)
+    return results
+
+
+VIT_IMAGE_B = 64
+VIT_IMAGE_KEEP = 147  # kept tokens of ViT-B/16's 196 at 224 px (0.75)
+VIT_IMAGE_DIFF_MAX = 2e-2  # embedding through the kernels against the plain path
+
+
+def phase_vit_image(card: str) -> dict:
+    """The image ViT at full width: ViT-B/16 at 224 px, bf16, B=64, random
+    weights of seed 0 and normal images.  ``embed`` through the kernels (12
+    ``flash_fwd``, 196 tokens) against ``attn_impl="xla"``; the forward with
+    a ``keep_idx`` of up to 147 tokens an image (rows of 140-147, padded
+    with -1; 12 ``flash_fwd_bias``), mean-pooled over the kept tokens,
+    against the plain masked path: cosine >= 0.999 per row and max|diff|
+    <= 2e-2 each, launches exactly those.  The kernels themselves are held
+    at these shapes by ``phase_kernel`` and ``phase_bias_kernel``.  Prints
+    images/s of both (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from bvc_tpu_torch.models.vit_image import ImageViT
+    from bvc_tpu_torch.utils.config import ModelConfig
+
+    cfg = ModelConfig(image_size=224, patch_size=16)
+    n = (cfg.image_size // cfg.patch_size) ** 2
+    model = ImageViT(cfg, seed=0).cuda().eval()
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((VIT_IMAGE_B, 224, 224, 3), dtype=np.float32))
+    x = x.cuda()
+    keep = np.full((VIT_IMAGE_B, VIT_IMAGE_KEEP), -1, np.int64)
+    for i in range(VIT_IMAGE_B):
+        k = VIT_IMAGE_KEEP - i % 8
+        keep[i, :k] = np.sort(rng.permutation(n)[:k])
+    keep = torch.from_numpy(keep).cuda()
+    valid = (keep >= 0)[..., None].float()
+
+    def pooled(h):
+        return (h.float() * valid).sum(1) / valid.sum(1)
+
+    out = {}
+    with torch.inference_mode():
+        for what, run, plain, want in (
+                ("unmasked", lambda: model.embed(x), lambda: model.embed(x, attn_impl="xla"),
+                 {"flash_fwd": cfg.depth}),
+                ("keep_idx", lambda: pooled(model(x, keep)),
+                 lambda: pooled(model(x, keep, attn_impl="xla")), {"flash_fwd_bias": cfg.depth})):
+            reset_launches()
+            got = run().cpu().numpy()
+            launches = read_launches()
+            want = {**{k: 0 for k in launches}, **want}
+            check(launches == want, f"vit_image {what}: launched {launches}, want {want}")
+            ref = plain().cpu().numpy()
+            check(got.shape == (VIT_IMAGE_B, cfg.hidden_size) and bool(np.isfinite(got).all()),
+                  f"vit_image {what}: {got.shape} or not finite")
+            cos = (got * ref).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(ref, axis=1))
+            diff = float(np.abs(got - ref).max())
+            check(bool(cos.min() >= COSINE_MIN), f"vit_image {what}: cosine {cos.min()}")
+            check(diff <= VIT_IMAGE_DIFF_MAX, f"vit_image {what}: max|diff| {diff}")
+            ms = time_ms(run, iters=10)
+            plain_ms = time_ms(plain, iters=5)
+            out[what] = {"launches": launches, "min_cosine": float(cos.min()), "max_abs_diff": diff,
+                         "images_s": VIT_IMAGE_B / ms * 1e3,
+                         "plain_images_s": VIT_IMAGE_B / plain_ms * 1e3}
+            print(f"vit_image {what} [{card}]: ViT-B/16 224 px B={VIT_IMAGE_B} launched "
+                  f"{ {k: v for k, v in launches.items() if v} }, cosine to the plain path min "
+                  f"{cos.min():.6f}, max|diff| {diff:.3e} (limit {VIT_IMAGE_DIFF_MAX}); "
+                  f"{ms:.2f} ms -> "
+                  f"{out[what]['images_s']:.1f} images/s (plain attention "
+                  f"{out[what]['plain_images_s']:.1f})", flush=True)
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", nargs="?", const="", default=None, metavar="FILE",
@@ -3323,6 +3627,8 @@ def main() -> None:
     print(smi, flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}",
+          flush=True)
+    print(f"host: {torch.cuda.device_count()} CUDA devices, {os.cpu_count()} CPU cores",
           flush=True)
     t0 = time.perf_counter()
     kernels = ["flash_fwd", "flash_bwd_sm90", "gemm", "softmax_probe"]
@@ -3359,12 +3665,15 @@ def main() -> None:
     probe = phase_softmax_probe_kernel()
     int8_probe = probe_path("int8 dot", int8_dot.run, {"gemm_s8", "gemm_bf16"})
     softmax_probe = probe_path("softmax dtype", softmax_dtype.run, {"softmax_probe_fwd"})
-    embed_launches = phase_main_path(smi, args.profile)
+    embed_launches, embed_B = phase_main_path(smi, args.profile)
     w8a8_launches = phase_w8a8(smi, args.profile)
     train_launches, train_B = phase_train(smi, args.profile)
     jepa_embed_launches = phase_jepa_embed(smi)
     jepa_launches = phase_jepa_train(smi, args.profile)
     phase_entry_point()
+    with tempfile.TemporaryDirectory() as d:
+        export = phase_export(smi, embed_B, Path(d))
+    vit_image = phase_vit_image(smi)
     with tempfile.TemporaryDirectory() as d:
         corpus = write_corpus(Path(d))
         cli = phase_pretrain_cli_videomae(smi, corpus, train_B, train_launches)
@@ -3421,7 +3730,9 @@ def main() -> None:
          "replaces": "tools/probe_pallas_int8.py:37",
          "launches": w8a8_launches["videomae"]["gemm_s8"],
          "launches_per_jepa_w8a8_embed": w8a8_launches["jepa"]["gemm_s8"],
-         "launches_in_int8_probe": int8_probe["gemm_s8"], **gemm["gemm_s8"]},
+         "launches_in_int8_probe": int8_probe["gemm_s8"],
+         "launches_per_w8a8_artifact_call": export["videomae_w8a8"]["launches"]["gemm_s8"],
+         **gemm["gemm_s8"]},
         {"name": "gemm_bf16", "route": "cuda", "source": "bvc_tpu_torch/csrc/gemm.cu",
          "replaces": "tools/probe_pallas_int8.py:42", "launches": int8_probe["gemm_bf16"],
          **gemm["gemm_bf16"]},
@@ -3447,6 +3758,10 @@ def main() -> None:
     for r in records:
         r["launches_on_simclr_paths"] = simclr_launches[r["name"]]
         r["launches_per_curriculum"] = {k: curriculum[k]["launches"][r["name"]] for k in runs}
+        r["launches_per_artifact_call"] = {k: a["launches"].get(r["name"], 0)
+                                           for k, a in export.items()}
+        r["launches_per_vit_image_embed"] = {k: v["launches"][r["name"]]
+                                             for k, v in vit_image.items()}
     trainers = {"videomae_cli": {k: v for k, v in cli.items() if k != "launches_per_cli_step"},
                 "jepa_cli": {k: v for k, v in jepa_cli.items() if k != "launches_per_cli_step"},
                 "remat": {"B": train_B, "peak_gib_without": remat["peak_gib"][False],
@@ -3456,6 +3771,10 @@ def main() -> None:
                           "min_grad_cosine": remat["min_cosine"]},
                 "simclr_cli": simclr_cli, "simclr_step": {**simclr_rate, **simclr_step},
                 "simclr_embed": simclr_embed,
+                "export": {k: {f: v for f, v in a.items() if f != "launches"}
+                           for k, a in export.items()},
+                "vit_image": {k: {f: v for f, v in a.items() if f != "launches"}
+                              for k, a in vit_image.items()},
                 "curriculum": {"wall_s": curriculum["wall_s"],
                                **{k: {f: v for f, v in curriculum[k].items() if f != "launches"}
                                   for k in runs}}}

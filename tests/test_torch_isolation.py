@@ -14,14 +14,15 @@ import pytest
 import torch
 
 import bvc_tpu_torch
-from bvc_tpu_torch.cli import (compute_embeddings, pretrain_jepa, pretrain_simclr,
-                               pretrain_videomae, run_curriculum)
+from bvc_tpu_torch.cli import (compute_embeddings, export_serving, pretrain_jepa,
+                               pretrain_simclr, pretrain_videomae, run_curriculum)
 from bvc_tpu_torch.data.loader import DataLoader
 from bvc_tpu_torch.evalbench import extract
 from bvc_tpu_torch.masks.multiblock import mask_collate
 from bvc_tpu_torch.models.jepa import JEPA
 from bvc_tpu_torch.models.videomae import VideoMAEPretrain
 from bvc_tpu_torch.ops import _build
+from bvc_tpu_torch.serving import export_embed, load_artifact
 from bvc_tpu_torch.training.state import TrainState
 from bvc_tpu_torch.training.steps import make_jepa_train_step, make_videomae_train_step
 from bvc_tpu_torch.training.trainer_jepa import run_pretraining as run_jepa
@@ -38,10 +39,17 @@ PY_FILES = sorted(PACKAGE.rglob("*.py"))
 SLICE_8A = ["curriculum/__init__.py", "curriculum/presets.py", "curriculum/driver.py",
             "evalbench/scores.py", "evalbench/evaluators.py", "cli/run_curriculum.py",
             "cli/evaluate_embeddings.py", "cli/pack_corpus.py"]
+# the export slice and the image ViT
+SLICE_8B = ["serving/__init__.py", "serving/export.py", "cli/export_serving.py",
+            "models/vit_image.py"]
 
 
 def test_slice_8a_modules_are_checked():
     assert {PACKAGE / name for name in SLICE_8A} <= set(PY_FILES)
+
+
+def test_slice_8b_modules_are_checked():
+    assert {PACKAGE / name for name in SLICE_8B} <= set(PY_FILES)
 
 
 def test_import_pulls_in_no_jax_and_no_bvc_tpu():
@@ -119,7 +127,8 @@ def test_no_silent_cpu_default_jepa(monkeypatch):
 @pytest.mark.parametrize("entry", ["run_videomae", "run_jepa", "pretrain_videomae.main",
                                    "pretrain_jepa.main", "DataLoader", "run_simclr",
                                    "pretrain_simclr.main", "compute_embeddings.main",
-                                   "run_curriculum.main"])
+                                   "run_curriculum.main", "export_serving.main",
+                                   "export_embed", "load_artifact"])
 def test_no_silent_cpu_default_training_loop(entry, monkeypatch, tmp_path):
     """The training loop's and extraction's entry points refuse to fall back
     to the CPU: with no GPU and no device named they raise before any work."""
@@ -138,6 +147,11 @@ def test_no_silent_cpu_default_training_loop(entry, monkeypatch, tmp_path):
              "run_curriculum.main": lambda: run_curriculum.main(
                  ["-jpg_root", str(tmp_path), "-savedir", str(tmp_path / "out"),
                   "--extract", f"ssv2={tmp_path}", "--untrained_baseline", "y"]),
+             "export_serving.main": lambda: export_serving.main(
+                 ["-init_checkpoint_path", "na", "-out", str(tmp_path / "art")]),
+             "export_embed": lambda: export_embed(
+                 "videomae", torch.nn.Linear(1, 1), ModelConfig()),
+             "load_artifact": lambda: load_artifact(tmp_path / "art"),
              "DataLoader": lambda: DataLoader(list(range(8)), 4, device=None)}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
