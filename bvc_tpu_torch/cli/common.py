@@ -6,10 +6,13 @@ Flag names, defaults and single-dash/double-dash spelling follow the
 reference entry points (``pretrain_videomae.py:383-499``,
 ``pretrain_jepa.py:486-607``, ``pretrain_simclr.py:390-495``) so existing
 slurm invocations port over mechanically.  The multi-GPU flags (``--mesh``,
-``--param_sharding``) are parsed as the JAX CLIs parse them; the trainers
-refuse any value but the single-GPU one (ROADMAP slice 7), and
-``--pipe_microbatches``, which acts only on a pipe mesh, is accepted and
-unused.
+``--param_sharding``) are parsed as the JAX CLIs parse them: ``--mesh
+data=N`` runs data parallel over N processes, one a GPU, launched by
+torchrun (``torchrun --nproc_per_node N -m bvc_tpu_torch.cli.pretrain_videomae
+--mesh data=N ...``), and raises unless N is the world size; the trainers
+refuse the other axes and shardings, naming the slice of the port that
+brings them (7b-7d).  ``--pipe_microbatches``, which acts only on a pipe
+mesh, is accepted and unused.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--wd", type=float, default=0.0)
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--batch_size", type=int, default=16,
-                   help="per-device batch size (matches per-GPU semantics)")
+                   help="per-GPU batch size: the global batch is batch_size x world")
     p.add_argument("--n_epoch", type=int, default=1)
     p.add_argument("--n_trainsamples", type=int, default=81000)
     p.add_argument("--seed", type=int, default=0)
@@ -44,11 +47,12 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--num_workers", type=int, default=6)
     p.add_argument("--image_size", type=int, default=224)
     p.add_argument("--mesh", type=str, default="",
-                   help="multi-GPU layout (ROADMAP slice 7); only empty (one GPU) runs")
+                   help="process layout, e.g. data=4 under torchrun --nproc_per_node 4; "
+                        "empty: every process on data (model/seq/pipe: slices 7b-7d)")
     p.add_argument("--param_sharding", type=str, default="replicated",
                    choices=["replicated", "zero1", "fsdp", "tp"],
-                   help="multi-GPU parameter sharding (ROADMAP slice 7); only "
-                        "'replicated' runs")
+                   help="parameter sharding; 'replicated' (DDP) runs, the others come "
+                        "with slice 7b")
     p.add_argument("--control_data_root", type=str, default="")
     p.add_argument("--pack_root", type=str, default="",
                    help="packed-corpus root (bvc_tpu_torch.data.packed); plain "
@@ -82,12 +86,20 @@ def base_parser(description: str) -> argparse.ArgumentParser:
 
 
 def parse_mesh(spec: str) -> dict[str, int]:
+    """``'data=2'`` -> ``{'data': 2}``; ``''`` -> ``{}``.  Raises on a part
+    that is not ``axis=int``."""
     if not spec:
         return {}
     out = {}
     for part in spec.split(","):
-        k, v = part.split("=")
-        out[k.strip()] = int(v)
+        k, sep, v = part.partition("=")
+        if not sep or not k.strip():
+            raise ValueError(f"--mesh {spec!r}: expected axis=size[,axis=size...]")
+        try:
+            out[k.strip()] = int(v)
+        except ValueError:
+            raise ValueError(f"--mesh {spec!r}: size of {k.strip()!r} is not an integer") \
+                from None
     return out
 
 

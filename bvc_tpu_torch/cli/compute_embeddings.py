@@ -1,5 +1,6 @@
-"""CLI: embedding extraction over benchmark datasets, on one GPU
-(counterpart of :mod:`bvc_tpu.cli.compute_embeddings`, the same flags).
+"""CLI: embedding extraction over benchmark datasets, on one GPU or data
+parallel over several (counterpart of :mod:`bvc_tpu.cli.compute_embeddings`,
+the same flags).
 
 One entry point for the reference's three extractors
 (``benchmarks/compute_embeddings_{videomae,jepa,simclr}.py``; flags at
@@ -7,8 +8,10 @@ One entry point for the reference's three extractors
 single checkpoint, the untrained baseline (``-init_checkpoint_path na``),
 or a ``--checkpoint_dir`` sweep over every ``model_*.pth.tar`` in it (the
 port's checkpoints, and ``bvc_tpu/cli/export_torch.py``'s; the JAX CLI
-sweeps its Orbax ``model_*.ckpt``).  ``--mesh`` (data- and
-sequence-parallel extraction) waits for the multi-GPU slice.
+sweeps its Orbax ``model_*.ckpt``).  ``--mesh data=N`` under ``torchrun
+--nproc_per_node N`` embeds each rank's strided slice of every split and
+rank 0 writes the CSVs; with ``--resume y`` every rank adopts rank 0's list
+of splits still to run.  A ``seq`` mesh comes with slice 7c.
 
 Example::
 
@@ -27,11 +30,14 @@ from pathlib import Path
 
 import torch
 
+from bvc_tpu_torch.cli.common import parse_mesh
 from bvc_tpu_torch.evalbench.extract import (extract_embeddings, make_embed_fn,
                                              make_task_dataset, save_results,
                                              untrained_embed_fn)
+from bvc_tpu_torch.parallel.collectives import all_gather_objects
+from bvc_tpu_torch.parallel.mesh import distributed_init, make_mesh
 from bvc_tpu_torch.utils.config import VIT_DIMS, ModelConfig, run_id_from_checkpoint
-from bvc_tpu_torch.utils.logging import get_logger
+from bvc_tpu_torch.utils.logging import get_logger, is_main_process
 
 
 def build_parser():
@@ -60,7 +66,8 @@ def build_parser():
     p.add_argument("--ucf_fold", type=int, default=1,
                    help="UCF101 train/test fold (dsdatasets.py:238)")
     p.add_argument("--mesh", type=str, default="",
-                   help="multi-GPU layout (ROADMAP slice 7); only empty (one GPU) runs")
+                   help="data=N under torchrun --nproc_per_node N: data-parallel "
+                        "extraction; empty: every process on data")
     p.add_argument("--quantize", type=str, default="none",
                    help="'int8': the W8A8 path of the ViT families (ops/quant.py); "
                         "'none' keeps bf16")
@@ -88,14 +95,15 @@ def model_config_from_args(args) -> ModelConfig:
 
 
 def main(argv=None, device: str | torch.device | None = None):
-    """Parse ``argv``, embed the task's splits with each checkpoint on
-    ``device`` (``cuda`` when None), print the list of CSVs written as JSON
-    and return it."""
+    """Parse ``argv``, join the launcher's process group (torchrun; none in
+    one process), embed the task's splits with each checkpoint on
+    ``device`` (``cuda`` when None, the rank's GPU under torchrun), print
+    the list of CSVs written as JSON and return it (rank 0's; the others
+    write nothing and return an empty list)."""
+    distributed_init(device=device)
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: data- and sequence-parallel extraction comes with "
-            "multi-GPU, ROADMAP slice 7; extraction runs on one GPU (empty --mesh)")
+    mesh_shape = parse_mesh(args.mesh)
+    world = make_mesh(mesh_shape).size
     logger = get_logger("bvc_tpu_torch.compute_embeddings")
     model_cfg = model_config_from_args(args)
     if args.checkpoint_dir:
@@ -119,8 +127,12 @@ def main(argv=None, device: str | torch.device | None = None):
         todo = list(phases)
         if args.resume == "y":
             # preemption recovery for long sweeps: a (checkpoint, phase)
-            # whose CSV is on disk is done
+            # whose CSV is on disk is done.  Only rank 0 writes CSVs, so
+            # every rank adopts rank 0's view: a rank's own check could
+            # leave it out of a split its peers extract
             todo = [ph for ph in phases if not csv_exists(ph, run_id)]
+            if world > 1:
+                todo = all_gather_objects(todo)[0]
             for ph in phases:
                 if ph not in todo:
                     logger.info("skip %s/%s (embeddings CSV exists)", run_id, ph)
@@ -128,10 +140,10 @@ def main(argv=None, device: str | torch.device | None = None):
                 continue  # checkpoint never loaded — the expensive part
         if ckpt == "na":
             embed_fn = untrained_embed_fn(args.family, model_cfg, args.seed, device=device,
-                                          quantize=args.quantize)
+                                          quantize=args.quantize, mesh_shape=mesh_shape)
         else:
             embed_fn = make_embed_fn(args.family, ckpt, model_cfg, device=device,
-                                     quantize=args.quantize)
+                                     quantize=args.quantize, mesh_shape=mesh_shape)
         for phase in todo:
             dataset = make_task_dataset(
                 args.ds_task, args.vid_root, args.frame_rate, args.num_frames,
@@ -141,10 +153,11 @@ def main(argv=None, device: str | torch.device | None = None):
                         len(dataset), ckpt)
             fnames, embs = extract_embeddings(embed_fn, dataset, args.batch_size,
                                               args.num_workers)
-            path = save_results(fnames, embs, phase, run_id, args.savedir)
-            logger.info("saved %s (%d rows)", path, len(fnames))
-            results.append({"checkpoint": ckpt, "phase": phase, "csv": path,
-                            "rows": len(fnames)})
+            if is_main_process():
+                path = save_results(fnames, embs, phase, run_id, args.savedir)
+                logger.info("saved %s (%d rows)", path, len(fnames))
+                results.append({"checkpoint": ckpt, "phase": phase, "csv": path,
+                                "rows": len(fnames)})
     print(json.dumps(results))
     return results
 

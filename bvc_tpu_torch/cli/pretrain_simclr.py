@@ -1,4 +1,5 @@
-"""CLI: SimCLR pretraining, one curriculum stage, on one GPU (counterpart of
+"""CLI: SimCLR pretraining, one curriculum stage, on one GPU
+or data parallel over several under torchrun (``--mesh data=N``) (counterpart of
 :mod:`bvc_tpu.cli.pretrain_simclr`, the same flags).
 
 Example::
@@ -17,6 +18,7 @@ import json
 import torch
 
 from bvc_tpu_torch.cli.common import base_parser, to_train_config
+from bvc_tpu_torch.parallel.mesh import distributed_init
 from bvc_tpu_torch.training.trainer_simclr import run_pretraining
 
 
@@ -56,8 +58,10 @@ def config_from_args(args):
 
 
 def main(argv=None, device: str | torch.device | None = None):
-    """Parse ``argv``, train one stage on ``device`` (``cuda`` when None),
-    print the summary JSON and return it."""
+    """Parse ``argv``, join the launcher's process group (torchrun; none
+    in one process), train one stage on ``device`` (``cuda`` when None, the
+    rank's GPU under torchrun), print the summary JSON and return it."""
+    distributed_init(device=device)
     cfg = config_from_args(build_parser().parse_args(argv))
     summary = run_pretraining(cfg, device=device)
     print(json.dumps(summary))

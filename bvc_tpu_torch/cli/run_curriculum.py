@@ -1,5 +1,6 @@
 """CLI: run a full curriculum experiment (the slurmscripts replacement) on
-one GPU (counterpart of :mod:`bvc_tpu.cli.run_curriculum`, its flags and
+one GPU, or data parallel over several under torchrun with ``--mesh data=N``
+(counterpart of :mod:`bvc_tpu.cli.run_curriculum`, its flags and
 ``--pack_root``).
 
 Example::
@@ -11,9 +12,12 @@ Example::
 Equivalent to ``sbatch slurmscripts/generative/slurm_dev_def.bash`` minus
 the cluster submission; add ``--n_stages``, ``--condition`` for the
 control variants, and ``--init_checkpoint_path`` to resume a chain.  The
-kernels build at their first use (``bvc_tpu_torch/ops/_build.py``).  A
-``--mesh`` or a ``--param_sharding`` other than ``replicated`` raises:
-multi-GPU comes with ROADMAP slice 7.
+kernels build at their first use (``bvc_tpu_torch/ops/_build.py``).
+``torchrun --nproc_per_node N -m bvc_tpu_torch.cli.run_curriculum --mesh
+data=N ...`` runs every stage and the sweep data parallel (rank 0 writes the
+manifest); ``--emit_script`` with ``--mesh data=N`` writes commands that
+launch each stage under torchrun.  A ``model``/``seq``/``pipe`` axis or a
+``--param_sharding`` other than ``replicated`` raises, naming slices 7b-7d.
 
 Runs on ``cuda``; ``main(argv, device="cpu")`` runs on the CPU.
 """
@@ -28,6 +32,7 @@ import torch
 from bvc_tpu_torch.cli.common import parse_mesh
 from bvc_tpu_torch.curriculum.driver import run_curriculum
 from bvc_tpu_torch.curriculum.presets import CURRICULA, FAMILY_PRESETS
+from bvc_tpu_torch.parallel.mesh import distributed_init
 from bvc_tpu_torch.utils.config import TrainConfig
 
 
@@ -45,7 +50,9 @@ def build_parser():
     p.add_argument("--init_checkpoint_path", type=str, default="na")
     p.add_argument("--num_workers", type=int, default=6)
     p.add_argument("--control_data_root", type=str, default="")
-    p.add_argument("--mesh", type=str, default="")
+    p.add_argument("--mesh", type=str, default="",
+                   help="data=N under torchrun --nproc_per_node N (every stage and the "
+                        "sweep data parallel); with --emit_script, the commands' layout")
     p.add_argument("--param_sharding", type=str, default="replicated")
     p.add_argument("--segment_minutes", type=float, default=30.0)
     p.add_argument("--pack_root", type=str, default="",
@@ -106,9 +113,10 @@ def _parse_extract(args) -> list[dict] | None:
 
 
 def main(argv=None, device: str | torch.device | None = None):
-    """Parse ``argv``; emit the script, or run the curriculum on ``device``
-    (``cuda`` when None), print the final checkpoint as JSON and return the
-    manifest."""
+    """Parse ``argv``; emit the script, or join the launcher's process group
+    (torchrun; none in one process) and run the curriculum on ``device``
+    (``cuda`` when None, the rank's GPU under torchrun), print the final
+    checkpoint as JSON and return the manifest."""
     args = build_parser().parse_args(argv)
     preset = FAMILY_PRESETS[args.preset]
     if args.override:
@@ -136,12 +144,14 @@ def main(argv=None, device: str | torch.device | None = None):
             preset_name=args.preset,
             sbatch=args.sbatch == "y",
             job_name=args.job_name or None,
+            mesh=args.mesh,
         )
         with open(args.emit_script, "w") as f:
             f.write(script)
         print(json.dumps({"emitted": args.emit_script,
                           "stages": args.n_stages}))
         return {"emitted": args.emit_script}
+    distributed_init(device=device)
     base = TrainConfig(savedir=args.savedir, seed=args.seed)
     base.save_every_epoch = args.save_every_epoch == "y"
     base.resume = args.resume == "y"

@@ -1,5 +1,6 @@
 """Curriculum driver: the reference's bash stage loop as a Python L5, on
-one GPU (counterpart of :mod:`bvc_tpu.curriculum.driver`).
+one GPU or data parallel over several (counterpart of
+:mod:`bvc_tpu.curriculum.driver`).
 
 Replaces ``slurmscripts/*/slurm_*_*.bash`` (SURVEY.md §2.8, §3.5):
 
@@ -20,10 +21,14 @@ generative/contrastive but weights+optimizer+EMA+collator-counter for
 JEPA (``pretrain_jepa.py:290-300``); the trainers already implement that
 per-family behavior, the driver just wires paths.
 
-The port's stages run the port's trainers (``training/trainer_*.py``) on
-one device and write ``model_{run_id}.pth.tar``; the sweep runs
-``evalbench/extract.py``.  A mesh or a parameter sharding waits for the
-multi-GPU slice (ROADMAP slice 7): :func:`run_curriculum` raises for one.
+The port's stages run the port's trainers (``training/trainer_*.py``) and
+write ``model_{run_id}.pth.tar``; the sweep runs ``evalbench/extract.py``.
+Under a process group (torchrun) every rank runs the curriculum: the stages
+and the sweep data parallel over ``base.mesh_shape``'s ``data`` axis, which
+must equal the world size, and rank 0 writes the manifest and the CSVs.
+Other mesh axes and parameter shardings raise before anything runs,
+naming slices 7b-7d.  :func:`emit_script` launches each stage and sweep
+under ``torchrun --nproc_per_node N`` when its ``mesh`` asks for N > 1.
 """
 
 from __future__ import annotations
@@ -37,16 +42,18 @@ from typing import Any
 
 import torch
 
+from bvc_tpu_torch.cli.common import parse_mesh
 from bvc_tpu_torch.curriculum.presets import (
     CONDITION_FRAME_OVERRIDES,
     CURRICULA,
     FAMILY_PRESETS,
     FamilyPreset,
 )
+from bvc_tpu_torch.parallel.mesh import DATA_AXIS, refuse_unported_axes
 from bvc_tpu_torch.training.trainer_videomae import refuse_unported
 from bvc_tpu_torch.utils.config import VIT_DIMS, RunId, TrainConfig
 from bvc_tpu_torch.utils.device import resolve_device
-from bvc_tpu_torch.utils.logging import get_logger
+from bvc_tpu_torch.utils.logging import get_logger, is_main_process
 
 
 def stage_plan(
@@ -157,6 +164,7 @@ def emit_script(
     preset_name: str | None = None,
     sbatch: bool = False,
     job_name: str | None = None,
+    mesh: str = "",
 ) -> str:
     """The curriculum as a runnable shell script — the reference ships its
     grids as bash (``slurmscripts/*``); this emits the equivalent over
@@ -183,6 +191,10 @@ def emit_script(
 
     The script runs the port's CLIs and threads ``model_{run_id}.pth.tar``
     from stage to stage; it is otherwise the JAX package's, line for line.
+    ``mesh`` (the CLI's ``--mesh``, e.g. ``'data=4'``) reaches every
+    command; when it asks for more than one rank, each command runs under
+    ``torchrun --nproc_per_node N`` (and the ``#SBATCH`` header asks for N
+    GPUs).
     """
     from bvc_tpu_torch.data.factory import CONTROL_CONDITIONS
 
@@ -192,6 +204,11 @@ def emit_script(
         preset = FAMILY_PRESETS[preset]
     plan = stage_plan(curriculum, preset, seed, condition, n_stages)
     cli = _FAMILY_CLI[preset.family]
+    mesh_shape = parse_mesh(mesh)
+    refuse_unported_axes(mesh_shape)
+    ranks = mesh_shape.get(DATA_AXIS, 1)
+    launch = (f"torchrun --nproc_per_node {ranks} -m" if ranks > 1 else "python -m")
+    mesh_flag = f" --mesh {mesh}" if mesh else ""
     # 'static' also routes through the control root once one is
     # configured (data/factory.py); emitting the env-backed flag for it
     # keeps script semantics identical to the live run either way
@@ -219,7 +236,7 @@ def emit_script(
             "#SBATCH --cpus-per-task=40",
             "#SBATCH --time=1-05:00:00",
             "#SBATCH --partition=gpu",
-            "#SBATCH --gres=gpu:1",
+            f"#SBATCH --gres=gpu:{ranks}",
             "#SBATCH --mail-type=FAIL",
         ]
     lines = [
@@ -255,7 +272,7 @@ def emit_script(
         cfg = build_stage_config(preset, info, base)
         o, d, m = cfg.optim, cfg.data, cfg.model
         cmd = [
-            f"python -m bvc_tpu_torch.cli.{cli}",
+            f"{launch} bvc_tpu_torch.cli.{cli}{mesh_flag}",
             f'-train_group {info["train_group"]} -jpg_root "$JPG_ROOT" '
             f'-savedir "$SAVEDIR" -init_checkpoint_path "$INIT"',
             f'--run_id {info["run_id"]} --fold {info["fold"]} '
@@ -296,7 +313,7 @@ def emit_script(
         # forms stay expandable)
         vr = vid_root if vid_root.startswith("$") else shlex.quote(vid_root)
         lines.append(
-            f"python -m bvc_tpu_torch.cli.compute_embeddings -ds_task {task} "
+            f"{launch} bvc_tpu_torch.cli.compute_embeddings{mesh_flag} -ds_task {task} "
             f'-vid_root {vr} -savedir "$SAVEDIR/benchmarks/{task}" '
             f'--family {preset.family} --checkpoint_dir "$SAVEDIR" '
             f"--num_frames {m_ex.num_frames} "
@@ -333,7 +350,8 @@ def _run_extraction(
     logger,
 ) -> list[dict[str, Any]]:
     """Extract embeddings for every (checkpoint, run_id) over one task on
-    ``device``.
+    ``device``, data parallel under a process group (rank 0 writes the
+    CSVs; the entries name the paths on every rank).
 
     ``checkpoints[i] == 'na'`` uses an untrained model (the bash stage-0
     baseline, ``slurm_dev_def.bash:68-87``).
@@ -354,10 +372,10 @@ def _run_extraction(
     for ckpt, run_id in zip(checkpoints, run_ids):
         if ckpt == "na":
             fn = untrained_embed_fn(family, model_cfg, base.seed, device=device,
-                                    quantize=quantize)
+                                    quantize=quantize, mesh_shape=base.mesh_shape)
         else:
             fn = make_embed_fn(family, ckpt, model_cfg, device=device,
-                               quantize=quantize)
+                               quantize=quantize, mesh_shape=base.mesh_shape)
         for phase in ("train", "test"):
             ds = make_task_dataset(
                 task["ds_task"], task["vid_root"],
@@ -369,7 +387,10 @@ def _run_extraction(
             names, embs = extract_embeddings(
                 fn, ds, task.get("batch_size", 64), base.data.num_workers,
             )
-            path = save_results(names, embs, phase, run_id, savedir)
+            path = str(Path(savedir) / ("test" if phase == "test" else "")
+                       / f"embeddings_{run_id}.csv")
+            if is_main_process():
+                path = save_results(names, embs, phase, run_id, savedir)
             logger.info("extraction: %s %s -> %s", task["ds_task"], phase, path)
             outs.append({"ds_task": task["ds_task"], "phase": phase,
                          "run_id": run_id, "csv": path})
@@ -388,7 +409,8 @@ def run_curriculum(
     device: str | torch.device | None = None,
 ) -> dict[str, Any]:
     """Run all stages on ``device`` (``cuda`` when None; raises when there is
-    none); returns {stage → summary} + checkpoint chain.
+    none; the rank's GPU under a process group, data parallel over
+    ``base.mesh_shape``); returns {stage → summary} + checkpoint chain.
 
     ``preset`` may be a registry name or a FamilyPreset instance (e.g.
     from ``apply_overrides``).
@@ -404,8 +426,8 @@ def run_curriculum(
     logger = get_logger("bvc_tpu_torch.curriculum")
     if isinstance(preset, str):
         preset = FAMILY_PRESETS[preset]
-    # before any stage trains: a mesh or a sharding would reach the
-    # trainers (which refuse it) only after the untrained baseline ran
+    # before any stage trains: an unported mesh axis or sharding would reach
+    # the trainers (which refuse it) only after the untrained baseline ran
     refuse_unported(base)
     device = resolve_device(device)
     base = copy.deepcopy(base)
@@ -444,7 +466,8 @@ def run_curriculum(
                                 preset.family, base, device, logger)
             )
 
-    manifest = Path(base.savedir) / f"curriculum_{curriculum}_{condition}_{base.seed}.json"
-    manifest.parent.mkdir(parents=True, exist_ok=True)
-    manifest.write_text(json.dumps(results, indent=2, default=str))
+    if is_main_process():
+        manifest = Path(base.savedir) / f"curriculum_{curriculum}_{condition}_{base.seed}.json"
+        manifest.parent.mkdir(parents=True, exist_ok=True)
+        manifest.write_text(json.dumps(results, indent=2, default=str))
     return results

@@ -28,8 +28,14 @@ Per-sample RNG: each (epoch, index) pair gets its own ``Generator`` seeded
 from (seed, epoch, index), so augmentations are reproducible and
 independent of worker scheduling.  ``to_device=False`` yields the numpy
 batches (what the JAX loader yields with ``to_device=False``), for tests;
-on the CPU a batch is a fresh tensor.  Multi-process slicing comes with the
-multi-GPU slice.
+on the CPU a batch is a fresh tensor.
+
+Data parallel: the sampler shuffles and batches the whole dataset the same
+way on every rank, and each rank takes its contiguous block of every global
+batch (the JAX loader's host slice); a global batch the world does not
+divide raises.  A collator (JEPA's masks) sees the rank's block, with the
+batch's index for drawing over the global batch
+(``training/trainer_jepa.py``).
 """
 
 from __future__ import annotations
@@ -44,12 +50,14 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
+from bvc_tpu_torch.parallel.sharding import host_local_batch_slice
 from bvc_tpu_torch.utils.device import resolve_device
 from bvc_tpu_torch.utils.logging import get_logger
 
 
 class EpochSampler:
-    """Deterministic per-epoch index order, batch-aligned."""
+    """Deterministic per-epoch index order, batch-aligned, this rank's block
+    of every global batch."""
 
     def __init__(self, dataset_len: int, global_batch_size: int, shuffle: bool = True,
                  seed: int = 0, drop_last: bool = True):
@@ -58,9 +66,11 @@ class EpochSampler:
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        # (start, size) of this rank's block; raises when the world does not divide
+        self.start, self.per_rank = host_local_batch_slice(global_batch_size)
 
     def batches(self, epoch: int) -> list[np.ndarray]:
-        """The index arrays of this epoch's batches."""
+        """The index arrays of this rank's block of this epoch's batches."""
         if self.shuffle:
             order = np.random.default_rng((self.seed, epoch)).permutation(self.n)
         else:
@@ -71,7 +81,8 @@ class EpochSampler:
             # wrap-around padding (repeats indices when n < batch)
             order = np.resize(order, n_batches * self.global_batch)
         order = order[: n_batches * self.global_batch]
-        return list(order.reshape(n_batches, self.global_batch))
+        batches = order.reshape(n_batches, self.global_batch)
+        return list(batches[:, self.start: self.start + self.per_rank])
 
 
 class _PinnedRing:

@@ -23,12 +23,18 @@ fname, deduplicated, the test split under ``savedir/test/``.
 
 The layouts are what ``bvc_tpu/cli/export_torch.py`` writes, and what the
 port's own trainers write (``bvc_tpu_torch.training``); Orbax checkpoints
-need JAX and are not read here.  Extraction runs in one process on one
-device.  ``quantize="int8"`` takes the W8A8 path of the ViT families
-(:mod:`bvc_tpu_torch.ops.quant`: the blocks' qkv and fc1 quantized after
-the weights load, their products on the s8 kernel of ``csrc/gemm.cu``);
-SimCLR's conv trunk is refused.  The sequence-parallel mesh waits for the
-multi-GPU slice (ROADMAP slice 7).
+need JAX and are not read here.  ``quantize="int8"`` takes the W8A8 path of
+the ViT families (:mod:`bvc_tpu_torch.ops.quant`: the blocks' qkv and fc1
+quantized after the weights load, their products on the s8 kernel of
+``csrc/gemm.cu``); SimCLR's conv trunk is refused, and so is int8 on a
+``seq`` mesh.
+
+Data parallel (a process group of several ranks): every rank holds the
+whole model on its own GPU and embeds its strided slice of the dataset,
+``idxs[rank::world]``; every rank gathers the rows with
+:func:`~bvc_tpu_torch.parallel.all_gather_objects`, and the callers write
+them on rank 0.  Sequence-parallel
+extraction comes with slice 7c of the port.
 """
 
 from __future__ import annotations
@@ -50,6 +56,8 @@ from bvc_tpu_torch.models.jepa import JEPAEncoder
 from bvc_tpu_torch.models.resnet import ResNet
 from bvc_tpu_torch.models.videomae import VideoMAEEncoder
 from bvc_tpu_torch.ops.quant import quantize_encoder
+from bvc_tpu_torch.parallel.collectives import all_gather_objects
+from bvc_tpu_torch.parallel.mesh import rank, world_size
 from bvc_tpu_torch.utils.config import ModelConfig
 from bvc_tpu_torch.utils.device import resolve_device
 
@@ -89,10 +97,12 @@ def _encoder_class(family: str) -> type[torch.nn.Module]:
     return _ENCODERS[family]
 
 
-def _check_quantize(family: str, quantize: str | None) -> bool:
+def _check_quantize(family: str, quantize: str | None,
+                    mesh_shape: dict[str, int] | None = None) -> bool:
     """Validate the ``quantize`` option; True for the int8 path.  ``"none"``,
-    ``""`` and None mean off; SimCLR's conv trunk is refused rather than run
-    unquantized."""
+    ``""`` and None mean off; SimCLR's conv trunk and a ``seq`` mesh (the
+    ring re-slices the blocks' parameters) are refused rather than run
+    unquantized; a data mesh runs it."""
     if quantize in ("none", "", None):
         return False
     if quantize != "int8":
@@ -102,6 +112,10 @@ def _check_quantize(family: str, quantize: str | None) -> bool:
         raise ValueError("quantize='int8' covers the ViT families "
                          "(videomae, jepa); the resnet conv trunk is "
                          "not quantized")
+    if "seq" in (mesh_shape or {}):
+        raise ValueError("quantize='int8' does not compose with "
+                         "sequence-parallel extraction; use a pure-data "
+                         "mesh")
     return True
 
 
@@ -156,12 +170,13 @@ def init_family_model(family: str, cfg: ModelConfig, seed: int = 0) -> torch.nn.
 
 def make_embed_fn(family: str, ckpt_path: str, cfg: ModelConfig,
                   device: str | torch.device | None = None,
-                  quantize: str | None = "none") -> Callable:
+                  quantize: str | None = "none",
+                  mesh_shape: dict[str, int] | None = None) -> Callable:
     """Load a checkpoint's model (:func:`load_family_model`) and return the
-    embedding function on ``device`` (``cuda`` when None);
-    ``quantize="int8"`` quantizes the loaded blocks (see
-    :func:`_check_quantize`)."""
-    q = _check_quantize(family, quantize)
+    embedding function on ``device`` (``cuda`` when None; the rank's GPU
+    under a process group); ``quantize="int8"`` quantizes the loaded blocks
+    (see :func:`_check_quantize`, which reads the run's ``mesh_shape``)."""
+    q = _check_quantize(family, quantize, mesh_shape)
     device = resolve_device(device)
     model = load_family_model(family, ckpt_path, cfg)
     return _embed_fn(quantize_encoder(model) if q else model, device)
@@ -169,10 +184,11 @@ def make_embed_fn(family: str, ckpt_path: str, cfg: ModelConfig,
 
 def untrained_embed_fn(family: str, cfg: ModelConfig, seed: int = 0,
                        device: str | torch.device | None = None,
-                       quantize: str | None = "none") -> Callable:
+                       quantize: str | None = "none",
+                       mesh_shape: dict[str, int] | None = None) -> Callable:
     """Random-init model from ``seed``: the stage-0 untrained baseline;
     ``quantize="int8"`` quantizes its blocks."""
-    q = _check_quantize(family, quantize)
+    q = _check_quantize(family, quantize, mesh_shape)
     device = resolve_device(device)
     model = init_family_model(family, cfg, seed)
     return _embed_fn(quantize_encoder(model) if q else model, device)
@@ -194,22 +210,43 @@ def save_results(fnames: list[str], embeddings: np.ndarray, phase: str,
     return str(path)
 
 
+def _clip_shape(dataset) -> tuple[int, ...]:
+    """The shape of a readable sample's clip, from the first 16 (the
+    readers return ``(None, None)`` for an unreadable one)."""
+    for i in range(min(len(dataset), 16)):
+        clip = dataset[i][0]
+        if clip is not None:
+            return np.asarray(clip).shape
+    raise RuntimeError("no readable sample in the first 16: cannot build the dummy batch "
+                       "of a rank whose chunk is empty")
+
+
 def extract_embeddings(embed_fn: Callable, dataset, batch_size: int = 64,
                        num_workers: int = 6) -> tuple[list[str], np.ndarray]:
     """Run ``embed_fn`` over the whole dataset in batches of ``batch_size``.
 
     Samples are read by a thread pool; unreadable ones (clip None) are
     dropped.  The short last batch runs as it is: the JAX package pads it
-    only to a multiple of the device count, which is one here.
+    only to a multiple of the device count, which is one a rank here.
+    Under a process group each rank embeds ``idxs[rank::world]``; the
+    count of calls comes from the global n, so every rank makes the same
+    number (a rank whose chunk is empty or unreadable embeds a one-clip
+    dummy batch and keeps no row), and the rows of every rank are gathered
+    in rank order (:func:`merge_gathered`).
     """
     fnames: list[str] = []
     embs: list[np.ndarray] = []
-    n = len(dataset)
+    n, world = len(dataset), world_size()
+    idxs = list(range(n))[rank()::world]
+    largest_slice = -(-n // world)
+    n_iters = -(-largest_slice // batch_size)
     with cf.ThreadPoolExecutor(max_workers=num_workers) as pool:
-        for start in range(0, n, batch_size):
-            chunk = range(start, min(start + batch_size, n))
+        for it in range(n_iters):
+            chunk = idxs[it * batch_size:(it + 1) * batch_size]
             clips, names = drop_none_collate(list(pool.map(lambda i: dataset[i], chunk)))
             if not names:
+                if world > 1:  # keep the ranks' calls in step
+                    embed_fn(np.zeros((1, *_clip_shape(dataset)), np.float32))
                 continue
             fnames += names
             embs.append(np.asarray(embed_fn(clips), dtype=np.float32))
@@ -218,7 +255,7 @@ def extract_embeddings(embed_fn: Callable, dataset, batch_size: int = 64,
         "embeddings": np.concatenate(embs) if embs
         else np.zeros((0, getattr(embed_fn, "feature_dim", 1)), np.float32),
     }
-    return merge_gathered([local])
+    return merge_gathered(all_gather_objects(local))
 
 
 def merge_gathered(gathered) -> tuple[list[str], np.ndarray]:

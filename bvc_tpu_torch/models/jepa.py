@@ -188,6 +188,15 @@ class JEPA(nn.Module):
         self.encoder = JEPAEncoder(cfg, generator=gen)
         self.predictor = JEPAPredictor(cfg, generator=gen)
 
+    def forward(self, video: torch.Tensor, enc_idx: torch.Tensor, pred_idx: torch.Tensor,
+                attn_impl: str = "auto", generator: torch.Generator | None = None
+                ) -> torch.Tensor:
+        """The predictor's features at the prediction positions ``pred_idx
+        [M, B, Kp]`` from the context encoder's at ``enc_idx [B, Ke]``: the
+        online half of the JEPA loss, what DistributedDataParallel calls."""
+        z = self.encoder(video, enc_idx, attn_impl, generator)
+        return self.predictor(z, enc_idx, pred_idx, attn_impl, generator)
+
 
 @torch.no_grad()
 def target_features(target: JEPAEncoder, video: torch.Tensor, pred_idx: torch.Tensor,

@@ -21,6 +21,18 @@ SAME, which pads stride-2 convolutions unevenly); the stem's max-pool is
 model permutes only the logical view, so the convolutions run on
 ``torch.channels_last`` memory.
 
+BatchNorm's batch statistics in train mode (JAX's ``bn_groups`` and the
+step's ``bn_stats``): over the whole batch of the process by default;
+``bn_groups = G`` takes them over G contiguous chunks of it, the running
+statistics following chunk 0 (the reference's per-rank DDP BatchNorm, in
+one process); ``forward(..., bn_stats="global")`` under a process group of
+several ranks takes them over every rank's batch, f32 sums of the values and
+of their squared deviations through a differentiable all-reduce (``torch.nn.SyncBatchNorm``
+runs only on CUDA tensors; this runs on NCCL and gloo alike), so every
+rank's running statistics are the global batch's.  ``"per_replica"`` keeps
+each rank's own, and DDP's buffer broadcast makes the running ones follow
+rank 0's, as the reference's DDP BatchNorm.
+
 Known difference: the head's ``F.linear`` adds its bias inside the product,
 where the JAX package adds it after the bf16 product; in bf16 the two round
 at different places (the same as the ViT's linears, ``models/vit.py``).
@@ -33,6 +45,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from bvc_tpu_torch.parallel.collectives import all_reduce_grad
+from bvc_tpu_torch.parallel.mesh import world_size
 
 BLOCKS = {
     "resnet18": ("basic", (2, 2, 2, 2)),
@@ -56,6 +71,42 @@ def _bn(c: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
+def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, groups: int = 1,
+               across_ranks: bool = False) -> torch.Tensor:
+    """``bn`` applied to ``[B, C, H, W]`` ``x``.  In eval mode, or in train
+    mode over the batch of one process (``groups == 1``, not
+    ``across_ranks``), the module itself (``F.batch_norm``).  Otherwise the
+    batch statistics in f32 in two passes, each a sum: the mean, then the
+    mean square deviation from it; over ``groups`` contiguous chunks of the
+    batch, or (``across_ranks``) each sum taken over every rank of the
+    process group by a differentiable all-reduce.  The output is normalised
+    by its chunk's mean and biased variance and cast back to ``x``'s dtype;
+    the running statistics move by chunk 0's mean and unbiased variance."""
+    if not bn.training or (groups == 1 and not across_ranks):
+        return bn(x)
+    B, C, H, W = x.shape
+    if B % groups:
+        raise ValueError(f"bn_groups={groups} does not divide the batch ({B})")
+
+    def total(t):  # [G, C]: sums over each chunk's rows and positions
+        t = t.sum((1, 3, 4))
+        return all_reduce_grad(t) if across_ranks else t
+
+    xf = x.float().reshape(groups, B // groups, C, H, W)
+    n = B // groups * H * W * (world_size() if across_ranks else 1)
+    mean = total(xf) / n
+    dev = xf - mean[:, None, :, None, None]
+    var = total(dev.square()) / n
+    y = dev * torch.rsqrt(var + bn.eps)[:, None, :, None, None]
+    y = y.reshape(B, C, H, W) * bn.weight[:, None, None] + bn.bias[:, None, None]
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(mean[0], alpha=m)
+        bn.running_var.mul_(1 - m).add_(var[0] * (n / max(n - 1, 1)), alpha=m)
+        bn.num_batches_tracked += 1
+    return y.to(x.dtype)
+
+
 class _Block(nn.Module):
     """A basic (two 3x3) or bottleneck (1x1, 3x3, 1x1 at 4x width) block,
     the stride on its first 3x3, a 1x1 projection of the identity where the
@@ -76,15 +127,16 @@ class _Block(nn.Module):
         self.downsample = (nn.Sequential(_conv(cin, cout, 1, stride), _bn(cout))
                            if stride != 1 or cin != cout else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, norm=batch_norm) -> torch.Tensor:
+        """``norm(bn, x)`` applies each BatchNorm (:func:`batch_norm`)."""
         y = x
         for i in range(1, self.n_convs + 1):
-            y = getattr(self, f"bn{i}")(conv2d(y, getattr(self, f"conv{i}")))
+            y = norm(getattr(self, f"bn{i}"), conv2d(y, getattr(self, f"conv{i}")))
             if i < self.n_convs:
                 y = F.relu(y)
         identity = x
         if self.downsample is not None:
-            identity = self.downsample[1](conv2d(x, self.downsample[0]))
+            identity = norm(self.downsample[1], conv2d(x, self.downsample[0]))
         return F.relu(y + identity)
 
 
@@ -103,18 +155,17 @@ class ResNet(nn.Module):
     ``torch.Generator`` seeded with ``seed``: convolutions kaiming-normal
     with fan-out (``std = sqrt(2 / (k*k*cout))``), linears torch's default
     uniform (weight and bias within ``sqrt(1 / fan_in)``), BatchNorm scale
-    1, bias 0, running mean 0 and variance 1.  ``bn_groups > 1`` (per-replica
-    BatchNorm statistics) needs several GPUs and raises."""
+    1, bias 0, running mean 0 and variance 1.  ``bn_groups``: the batch
+    statistics' chunks in train mode (:func:`batch_norm`)."""
 
     def __init__(self, arch: str = "resnet18", head_dim: int = 512,
                  dtype: str | torch.dtype = torch.float32, bn_groups: int = 1, seed: int = 0):
         super().__init__()
         if arch not in BLOCKS:
             raise ValueError(f"unknown architecture {arch!r} (expected one of {list(BLOCKS)})")
-        if bn_groups != 1:
-            raise NotImplementedError(
-                f"bn_groups={bn_groups}: per-replica BatchNorm statistics come with "
-                "multi-GPU training, ROADMAP slice 7")
+        if bn_groups < 1:
+            raise ValueError(f"bn_groups must be >= 1, got {bn_groups}")
+        self.bn_groups = bn_groups
         self.arch = arch
         self.dtype = _DTYPES[dtype] if isinstance(dtype, str) else dtype
         self.feature_dim = feature_dim(arch)
@@ -143,15 +194,27 @@ class ResNet(nn.Module):
                     m.bias.uniform_(-bound, bound, generator=gen)
         self.to(memory_format=torch.channels_last)
 
-    def forward(self, x: torch.Tensor, with_head: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, with_head: bool = True,
+                bn_stats: str = "global") -> torch.Tensor:
         """``[B, H, W, 3] -> [B, head_dim]`` (``with_head``) or the pooled
         ``[B, feature_dim]``, in the compute dtype; train mode normalises by
-        the batch's statistics and updates the running ones."""
+        the batch's statistics and updates the running ones: over every
+        rank's batch under a process group of several ranks when
+        ``bn_stats='global'``, over this process's (in ``bn_groups``
+        chunks) when ``'per_replica'``."""
+        if bn_stats not in ("global", "per_replica"):
+            raise ValueError(f"bn_stats must be 'global' or 'per_replica', got {bn_stats!r}")
+        across = bn_stats == "global" and world_size() > 1
+
+        def norm(bn, y):
+            return batch_norm(bn, y, self.bn_groups, across)
+
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view of channels_last memory
-        x = F.relu(self.bn1(conv2d(x, self.conv1)))
+        x = F.relu(norm(self.bn1, conv2d(x, self.conv1)))
         x = F.max_pool2d(x, 3, 2, 1)
         for s in range(1, 5):
-            x = getattr(self, f"layer{s}")(x)
+            for block in getattr(self, f"layer{s}"):
+                x = block(x, norm)
         feats = x.mean(dim=(2, 3))  # global average pool
         if not with_head:
             return feats

@@ -16,14 +16,17 @@ default):
 pairs positive.  Rows are normalised with their norm clamped at 1e-8, as
 the JAX package does (``F.normalize`` clamps at 1e-12, another function).
 ``replica_ids`` scores each replica's rows on their own and averages, the
-reference's per-rank loss; the sharded per-replica form waits for the
-multi-GPU slice.
+reference's per-rank loss, in one process; across ranks,
+:func:`per_replica_info_nce_sharded` scores each rank's block and
+:func:`global_info_nce` gathers every rank's rows first.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from bvc_tpu_torch.parallel.collectives import all_gather_grad
 
 
 def interleaved_pair_masks(n: int) -> tuple[np.ndarray, np.ndarray]:
@@ -87,3 +90,27 @@ def info_nce_loss(feats: torch.Tensor, temperature: float = 0.1, mode: str = "pa
         return log_z - torch.where(pos, sim, 0.0).sum() / pos.sum()
     log_z_row = torch.where(neg | pos, sim, float("-inf")).logsumexp(-1)
     return (log_z_row - torch.where(pos, sim, 0.0).sum(-1)).mean()
+
+
+def per_replica_info_nce_sharded(feats: torch.Tensor, temperature: float = 0.1,
+                                 mode: str = "parity") -> torch.Tensor:
+    """The per-replica loss of this rank's ``[2b, D]`` block of the
+    interleaved rows, the counterpart of JAX's ``shard_map`` form (each
+    chip scores only its own block).  Each rank returns its own block's
+    loss; DistributedDataParallel's mean of the gradients over ranks is
+    then the gradient of the mean of the blocks' losses (JAX's ``pmean``,
+    the reference's ``AllReduce`` of the per-rank loss), and the step's
+    metric averages the values.  The block must hold whole (anchor,
+    positive) pairs: an even row count."""
+    if feats.shape[0] % 2:
+        raise ValueError(f"per-replica blocks need whole pairs: {feats.shape[0]} rows")
+    return info_nce_loss(feats, temperature, mode)
+
+
+def global_info_nce(feats: torch.Tensor, temperature: float = 0.1,
+                    mode: str = "parity") -> torch.Tensor:
+    """The loss over every rank's rows, ``[2b, D]`` each, gathered with
+    their gradient in rank order: the global ``[2B, 2B]`` matrix in the
+    interleaved global order (rank r's block of pairs is JAX's shard r).
+    Every rank computes the same value."""
+    return info_nce_loss(all_gather_grad(feats), temperature, mode)

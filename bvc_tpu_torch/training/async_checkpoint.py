@@ -10,7 +10,9 @@
    :func:`bvc_tpu_torch.training.checkpoint.save_checkpoint` on a thread.
 
 Overlapping saves serialize: a new :meth:`save` first waits for the
-previous write.  An exception raised in the background propagates at the
+previous write.  Under a process group of several ranks a save is
+synchronous (as the JAX writer's multi-host save): rank 0 writes, and the
+trainer's barrier after it must find the file complete.  An exception raised in the background propagates at the
 next :meth:`save`/:meth:`wait`, so a failed checkpoint is never silent.
 """
 
@@ -22,6 +24,7 @@ from typing import Any
 
 import torch
 
+from bvc_tpu_torch.parallel.mesh import world_size
 from bvc_tpu_torch.training.checkpoint import save_checkpoint
 from bvc_tpu_torch.utils.logging import get_logger
 
@@ -59,6 +62,9 @@ class AsyncCheckpointWriter:
         """Snapshot ``state`` to the host and schedule the write; the caller
         may mutate the live state as soon as this returns."""
         self.wait()  # serialize with (and surface errors from) the previous write
+        if world_size() > 1:
+            save_checkpoint(path, state, meta)
+            return
         snapshot = cpu_snapshot(state)
         self._thread = threading.Thread(target=self._write, args=(Path(path), snapshot, meta),
                                         name="bvc-ckpt-writer", daemon=True)

@@ -123,20 +123,20 @@ def apply_schedules(opt: torch.optim.Optimizer, count: int) -> None:
             group["weight_decay"] = opt.wd_fn(count)
 
 
-def schedule_steps(cfg) -> tuple[int, int] | None:
-    """``(warmup_steps, total_steps)`` for a ``TrainConfig`` on one GPU, or
-    None when no schedule is configured (counterpart of
-    :func:`bvc_tpu.training.optim.schedule_steps`, whose global batch is
-    ``batch_size`` here).
+def schedule_steps(cfg, world: int = 1) -> tuple[int, int] | None:
+    """``(warmup_steps, total_steps)`` for a ``TrainConfig`` over ``world``
+    ranks, or None when no schedule is configured (counterpart of
+    :func:`bvc_tpu.training.optim.schedule_steps`, whose mesh's device
+    count is ``world`` here).
 
     The reference's horizon ``ipe_scale * n_epoch * iterations_per_epoch``
     (``predictive/helper.py:148-161``), iterations per epoch as the
-    trainers' loaders count them: ``n_trainsamples // batch_size``, capped
-    by ``max_epoch_iters``."""
+    trainers' loaders count them: ``n_trainsamples // (batch_size *
+    world)``, the global batch, capped by ``max_epoch_iters``."""
     o = cfg.optim
     if o.schedule == "none" and o.final_wd is None:
         return None
-    ipe = max(1, cfg.data.n_trainsamples // max(1, cfg.data.batch_size))
+    ipe = max(1, cfg.data.n_trainsamples // max(1, cfg.data.batch_size * world))
     if cfg.max_epoch_iters:
         ipe = min(ipe, cfg.max_epoch_iters)
     total = max(1, int(o.ipe_scale * cfg.n_epoch * ipe))

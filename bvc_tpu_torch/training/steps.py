@@ -19,11 +19,25 @@ add metrics read from the gradients after the backward.
 PyTorch runs eagerly, so there is no jit: a step is a plain function that
 updates the state in place.  Its metrics stay device tensors, so the step
 never waits for the device; the caller reads them when it needs them.
-Mesh, sharding and ``shard_map`` come with the multi-GPU slice.
+
+Data parallel (a process group, ``state.ddp``): a step takes this rank's
+block of the global batch and calls the model through
+``DistributedDataParallel``, whose hooks average the gradients over the
+ranks during the backward, so the update is the one process's at the
+global batch (every sample weighs the same in each family's loss).  Under
+``grad_accum > 1`` every microbatch but the last runs under ``no_sync()``:
+one gradient all-reduce per optimizer step, as JAX's sharded accumulation.
+The masks are drawn for the global batch on every rank from the same
+generator, each rank keeping its rows; the metrics are averaged over the
+ranks (one all-reduce) before the caller reads them, and the gradient
+probes read the averaged gradients.  Drop-path (0 in every reference
+configuration) is drawn per rank from the rank's generator, so it differs
+from one process's draws at the global batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable
 
@@ -32,7 +46,10 @@ import torch
 from bvc_tpu_torch.masks.tube import random_mask, tube_mask
 from bvc_tpu_torch.models.jepa import target_features
 from bvc_tpu_torch.models.videomae import normalize_on_device
-from bvc_tpu_torch.objectives.contrastive import info_nce_loss
+from bvc_tpu_torch.objectives.contrastive import (global_info_nce, info_nce_loss,
+                                                  per_replica_info_nce_sharded)
+from bvc_tpu_torch.parallel.collectives import psum_scalar
+from bvc_tpu_torch.parallel.mesh import rank, world_size
 from bvc_tpu_torch.training.optim import apply_schedules
 from bvc_tpu_torch.training.probes import (jepa_grad_metrics, simclr_grad_metrics,
                                            videomae_grad_metrics)
@@ -56,7 +73,30 @@ def _probed(metrics: dict[str, torch.Tensor], model: torch.nn.Module,
             grad_probes: GradProbes | None) -> dict[str, torch.Tensor]:
     for name, fn in (grad_probes or {}).items():
         metrics[name] = fn(model)
-    return metrics
+    return mean_over_ranks(metrics)
+
+
+def mean_over_ranks(metrics: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Scalar metrics averaged over the ranks in one all-reduce, each in
+    its own dtype; unchanged in one process."""
+    if world_size() == 1:
+        return metrics
+    mean = psum_scalar(torch.stack([v.detach().float() for v in metrics.values()]))
+    return {k: m.to(v.dtype) for (k, v), m in zip(metrics.items(), mean)}
+
+
+def _sync_unless(state: TrainState, last: bool):
+    """``state.ddp.no_sync()`` for every microbatch but the last, so the
+    gradients are all-reduced once per optimizer step."""
+    return contextlib.nullcontext() if last or state.ddp is None else state.ddp.no_sync()
+
+
+def global_rows(draw: Callable[[int], torch.Tensor], local_batch: int) -> torch.Tensor:
+    """This rank's rows of ``draw(global_batch)``: every rank draws for the
+    whole global batch from a generator in the same state, so the masks are
+    one process's at the global batch."""
+    r = rank()
+    return draw(local_batch * world_size())[r * local_batch:(r + 1) * local_batch]
 
 
 def make_videomae_train_step(model_cfg: ModelConfig, mask_cfg: MaskConfig,
@@ -73,7 +113,10 @@ def make_videomae_train_step(model_cfg: ModelConfig, mask_cfg: MaskConfig,
     as it is, so tests can hand both packages the same one.
     ``grad_accum > 1`` averages the gradients of that many strided
     microbatches before the one update; the mean of their mean losses is
-    the batch mean, since every sample has the same masked count.
+    the batch mean, since every sample has the same masked count.  Under a
+    process group ``video`` (and a given ``mask``) is this rank's block of
+    the global batch, and a drawn mask is the block's rows of the global
+    batch's (:func:`global_rows`).
     ``attn_impl`` routes the attention of every block.
 
     Metrics: ``loss``, ``grad_norm``, ``grad_efl``, ``grad_ell`` and
@@ -99,14 +142,16 @@ def make_videomae_train_step(model_cfg: ModelConfig, mask_cfg: MaskConfig,
              mask: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
         video = video.to(state.device, non_blocking=True)
         if mask is None:
-            mask = sampler(state.generator, video.shape[0])
+            mask = global_rows(functools.partial(sampler, state.generator), video.shape[0])
         mask = mask.to(state.device, non_blocking=True)
         model, opt = state.model, state.optimizer
         opt.zero_grad(set_to_none=True)
         loss = torch.zeros((), device=state.device)
-        for v, m in zip(microbatches(video, grad_accum), microbatches(mask, grad_accum)):
-            micro = model.pretrain_loss(v, m, num_visible, attn_impl) / grad_accum
-            micro.backward()
+        for j, (v, m) in enumerate(zip(microbatches(video, grad_accum),
+                                       microbatches(mask, grad_accum))):
+            with _sync_unless(state, j == grad_accum - 1):
+                micro = state.forward(v, m, num_visible, attn_impl) / grad_accum
+                micro.backward()
             loss += micro.detach()
         apply_schedules(opt, state.step)
         opt.step()
@@ -120,9 +165,10 @@ def make_videomae_train_step(model_cfg: ModelConfig, mask_cfg: MaskConfig,
         if mask is None:
             gen = torch.Generator(device=state.device)
             gen.manual_seed(hash((state.generator.initial_seed(), step_idx)) % 2**63)
-            mask = sampler(gen, video.shape[0])
+            mask = global_rows(functools.partial(sampler, gen), video.shape[0])
         mask = mask.to(state.device, non_blocking=True)
-        return {"loss": state.model.pretrain_loss(video, mask, num_visible, attn_impl)}
+        return mean_over_ranks(
+            {"loss": state.model.pretrain_loss(video, mask, num_visible, attn_impl)})
 
     step.eval_step = eval_step
     return step
@@ -180,14 +226,14 @@ def make_jepa_train_step(model_cfg: ModelConfig, total_steps: int,
                   online_impl: str = grad_impl, train: bool = True) -> torch.Tensor:
         """Mean smooth-L1 over the valid prediction rows, ``pred_idx``
         ``[B, M, Kp]``; ``train`` draws drop-path (when the config has it)
-        from the state's generator."""
+        from the state's generator and runs the online networks through
+        ``state.forward`` (DDP under a process group)."""
         pred_idx = pred_idx.transpose(0, 1)  # [M, B, Kp]
         targets = target_features(state.target, video, pred_idx, target_impl)
         valid = (pred_idx >= 0).float()[..., None]
-        model = state.model
         gen = state.generator if train else None
-        z = model.encoder(video, enc_idx, online_impl, gen)
-        preds = model.predictor(z, enc_idx, pred_idx, online_impl, gen)
+        online = state.forward if train else state.model
+        preds = online(video, enc_idx, pred_idx, online_impl, gen)
         per = smooth_l1(preds, targets) * valid
         return per.sum() / (valid.sum().clamp(min=1.0) * preds.shape[-1])
 
@@ -200,9 +246,11 @@ def make_jepa_train_step(model_cfg: ModelConfig, total_steps: int,
         model, opt = state.model, state.optimizer
         opt.zero_grad(set_to_none=True)
         loss = torch.zeros((), device=state.device)
-        for v, e, p in zip(*(microbatches(x, grad_accum) for x in (video, enc_idx, pred_idx))):
-            micro = jepa_loss(state, v, e, p) / grad_accum
-            micro.backward()
+        for j, (v, e, p) in enumerate(zip(*(microbatches(x, grad_accum)
+                                            for x in (video, enc_idx, pred_idx)))):
+            with _sync_unless(state, j == grad_accum - 1):
+                micro = jepa_loss(state, v, e, p) / grad_accum
+                micro.backward()
             loss += micro.detach()
         apply_schedules(opt, state.step)
         opt.step()
@@ -224,7 +272,8 @@ def make_jepa_train_step(model_cfg: ModelConfig, total_steps: int,
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
         # as the JAX eval step: the online networks at the default routing
-        return {"loss": jepa_loss(state, *on_device(state, batch), attn_impl, train=False)}
+        return mean_over_ranks(
+            {"loss": jepa_loss(state, *on_device(state, batch), attn_impl, train=False)})
 
     step.eval_step = eval_step
     return step
@@ -249,10 +298,17 @@ def make_simclr_train_step(temperature: float = 0.1, loss_mode: str = "parity",
     the optimizer and the step count in place.
 
     ``negatives`` / ``bn_stats``: ``'per_replica'`` scopes InfoNCE's
-    negatives / BatchNorm's statistics to each data shard; on one device
-    there is one shard, so both act as ``'global'``, as the JAX step does at
-    a data axis of 1.  ``grad_accum`` must be 1: InfoNCE's negatives and
-    BatchNorm's statistics span the whole batch.
+    negatives / BatchNorm's statistics to each rank (JAX's data shard): a
+    rank scores its own ``[2b, 2b]`` block and the loss is the blocks'
+    mean (:func:`per_replica_info_nce_sharded`), and BatchNorm takes the
+    rank's own statistics.  ``'global'`` gathers every rank's features with
+    their gradient and scores the ``[2B, 2B]`` matrix in the interleaved
+    global order (:func:`global_info_nce`), and takes BatchNorm's
+    statistics over every rank's batch.  A rank holds its block of whole
+    pairs (``[b, 2, ...]``).  In one process there is one shard, so both act
+    as ``'global'``, as the JAX step does at a data axis of 1.
+    ``grad_accum`` must be 1: InfoNCE's negatives and BatchNorm's statistics
+    span the whole batch.
 
     Metrics: ``loss``, ``grad_norm``, ``grad_conv1`` and ``grad_fc0``,
     scalar device tensors.  ``step.eval_step(state, pairs, step_idx=0)``
@@ -272,11 +328,13 @@ def make_simclr_train_step(temperature: float = 0.1, loss_mode: str = "parity",
         x = normalize_on_device(pairs.to(state.device, non_blocking=True))
         return x.reshape(x.shape[0] * 2, *x.shape[2:])
 
+    score = per_replica_info_nce_sharded if negatives == "per_replica" else global_info_nce
+
     def step(state: TrainState, pairs: torch.Tensor) -> dict[str, torch.Tensor]:
         x = flat_pairs(state, pairs)
         model, opt = state.model.train(), state.optimizer
         opt.zero_grad(set_to_none=True)
-        loss = info_nce_loss(model(x), temperature, loss_mode)
+        loss = score(state.forward(x, bn_stats=bn_stats), temperature, loss_mode)
         loss.backward()
         apply_schedules(opt, state.step)
         opt.step()
@@ -291,8 +349,8 @@ def make_simclr_train_step(temperature: float = 0.1, loss_mode: str = "parity",
         model = state.model
         was_training = model.training
         try:
-            return {"loss": info_nce_loss(model.eval()(flat_pairs(state, pairs)),
-                                          temperature, loss_mode)}
+            return mean_over_ranks({"loss": info_nce_loss(model.eval()(flat_pairs(state, pairs)),
+                                                          temperature, loss_mode)})
         finally:
             model.train(was_training)
 

@@ -1,5 +1,7 @@
-"""(V-)JEPA pretraining — one curriculum stage on one GPU
-(counterpart of :func:`bvc_tpu.training.trainer_jepa.run_pretraining`).
+"""(V-)JEPA pretraining — one curriculum stage on one GPU or data parallel
+over several (counterpart of
+:func:`bvc_tpu.training.trainer_jepa.run_pretraining`; ranks as in
+:mod:`~bvc_tpu_torch.training.trainer_videomae`).
 
 Multi-block mask collation in the input pipeline, the context encoder and
 predictor, the EMA target encoder, the predictive CSV schema (epoch, itr,
@@ -10,6 +12,11 @@ ViT names, ``pretrain_jepa.py:126-142``, as ``bvc_tpu/cli/export_torch.py``
 exports), plus ``opt``, ``epoch``, ``step``, ``rng``, the export's ``loss``,
 ``batch_size``, ``world_size`` and ``lr``, and ``meta`` (with the
 collator's ``collator_step``).
+
+Data parallel, the collator draws the masks of the whole global batch on
+every rank and each rank keeps its rows: the collator cuts every row to the
+smallest kept counts over the batch it draws, so drawing a rank's rows alone
+would give other caps than one process at the global batch.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from bvc_tpu_torch.models.convert import (jepa_encoder_from_reference_state_dict
                                           jepa_predictor_from_reference_state_dict,
                                           jepa_predictor_to_reference)
 from bvc_tpu_torch.models.jepa import JEPA
+from bvc_tpu_torch.parallel.collectives import sync_hosts
+from bvc_tpu_torch.parallel.mesh import rank
 from bvc_tpu_torch.training.checkpoint import (checkpoint_exists, checkpoint_path,
                                                checkpoint_saver, load_checkpoint, load_meta,
                                                load_optimizer_state)
@@ -43,10 +52,11 @@ from bvc_tpu_torch.utils.logging import AverageMeter, CSVLogger, get_logger, is_
 from bvc_tpu_torch.utils.profiling import StepTraceWindow
 
 
-def make_mask_collate(cfg: TrainConfig, batches_per_epoch: int):
+def make_mask_collate(cfg: TrainConfig, batches_per_epoch: int, world: int = 1):
     """``(collate_fn, collator)``: ``collate_fn(batch, epoch, batch_idx)``
     attaches the enc/pred mask indices of collator step ``epoch *
-    batches_per_epoch + batch_idx`` to each batch."""
+    batches_per_epoch + batch_idx`` to each batch: this rank's rows of the
+    indices drawn for the global batch of ``world`` ranks' blocks."""
     m = cfg.model
     collator = MultiBlockMaskCollator(
         input_size=m.image_size,
@@ -65,7 +75,9 @@ def make_mask_collate(cfg: TrainConfig, batches_per_epoch: int):
 
     def collate(batch: np.ndarray, epoch: int, batch_idx: int):
         step = epoch * batches_per_epoch + batch_idx
-        enc_idx, pred_idx = collator(batch.shape[0], step=step)
+        b, r = batch.shape[0], rank()
+        enc_idx, pred_idx = collator(b * world, step=step)
+        enc_idx, pred_idx = (x[:, r * b:(r + 1) * b] for x in (enc_idx, pred_idx))
         lift = (m.image_size, m.patch_size, m.num_frames, m.tubelet_size)
         enc_idx = update_mask_indices(enc_idx, *lift, isencoder=True)
         pred_idx = update_mask_indices(pred_idx, *lift, isencoder=False)
@@ -83,15 +95,15 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
     is none); returns a summary with the final loss and the checkpoint
     path."""
     logger = get_logger("bvc_tpu_torch.jepa")
-    refuse_unported(cfg)
+    world = refuse_unported(cfg).size
     device = resolve_device(device)
     if not cfg.savedir:
         raise ValueError("savedir is required")
     folder = Path(cfg.savedir)
     folder.mkdir(parents=True, exist_ok=True)
-    cfg.dump_yaml(folder / f"params_{cfg.run_id}.yaml")
     csv_logger = None
     if is_main_process():
+        cfg.dump_yaml(folder / f"params_{cfg.run_id}.yaml")
         csv_logger = CSVLogger(
             str(folder / f"csvlog_{cfg.run_id}.csv"),
             ("%d", "epoch"), ("%d", "itr"), ("%.5f", "loss"),
@@ -117,7 +129,8 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
     # model / state ------------------------------------------------------------
     model = JEPA(cfg.model, seed=cfg.seed)
     state = TrainState.create(model, cfg.optim, seed=cfg.seed + 1, device=device,
-                              steps=schedule_steps(cfg), target=copy.deepcopy(model.encoder))
+                              steps=schedule_steps(cfg, world),
+                              target=copy.deepcopy(model.encoder))
 
     def restore(ckpt: dict) -> None:
         state.model.encoder.load_state_dict(
@@ -148,11 +161,11 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
 
     # data ---------------------------------------------------------------------
     datasets = make_dataset("jepa", cfg.data)
-    global_batch = cfg.data.batch_size
+    global_batch = cfg.data.batch_size * world
     n_batches = len(datasets["train"]) // global_batch
     if cfg.max_epoch_iters:
         n_batches = min(n_batches, cfg.max_epoch_iters)
-    collate, collator = make_mask_collate(cfg, n_batches)
+    collate, collator = make_mask_collate(cfg, n_batches, world)
     # the EMA momentum ramps over the real iteration count (reference
     # pretrain_jepa.py:309-311 uses ipe*num_epochs)
     total_steps = max(n_batches, 1) * cfg.n_epoch
@@ -165,8 +178,8 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
         num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch,
         max_batches=cfg.max_epoch_iters, collate_fn=collate, device=device,
     )
-    logger.info("dataset: %d samples, %d iters/epoch, batch %d, on %s",
-                len(datasets["train"]), len(loader), global_batch, device)
+    logger.info("dataset: %d samples, %d iters/epoch, global batch %d over %d ranks, on %s",
+                len(datasets["train"]), len(loader), global_batch, world, device)
     if len(loader) == 0:
         raise ValueError(
             f"dataset ({len(datasets['train'])} samples) is smaller than the "
@@ -187,13 +200,14 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
             "step": state.step,
             "rng": state.generator.get_state(),
             "loss": loss_meter.avg,
-            "batch_size": cfg.data.batch_size, "world_size": 1, "lr": cfg.optim.lr,
+            "batch_size": cfg.data.batch_size, "world_size": world, "lr": cfg.optim.lr,
         }, meta={
             "run_id": cfg.run_id, "epoch": epoch_done, "loss": loss_meter.avg,
-            "batch_size": cfg.data.batch_size, "world_size": 1, "lr": cfg.optim.lr,
+            "batch_size": cfg.data.batch_size, "world_size": world, "lr": cfg.optim.lr,
             "family": "jepa", "collator_step": collator.state_dict()["step"],
             "script": cfg.script,
         })
+        sync_hosts()  # no rank reads it before rank 0 has written it
 
     tracer = StepTraceWindow(cfg.profile_dir)  # no-op when unset
     for epoch in range(start_epoch, chain_start + cfg.n_epoch):

@@ -1,5 +1,7 @@
-"""SimCLR pretraining — one curriculum stage on one GPU (counterpart of
-:func:`bvc_tpu.training.trainer_simclr.run_pretraining`).
+"""SimCLR pretraining — one curriculum stage on one GPU or data parallel over
+several (counterpart of :func:`bvc_tpu.training.trainer_simclr.run_pretraining`;
+ranks as in :mod:`~bvc_tpu_torch.training.trainer_videomae`, negatives and
+BatchNorm statistics per ``--negatives`` and ``--bn_stats``).
 
 ResNet with the 2-layer MLP head, interleaved-pair InfoNCE at tau = 0.1
 (hard-coded in the reference, ``pretrain_simclr.py:284``), the contrastive
@@ -23,6 +25,7 @@ from bvc_tpu_torch.data.loader import DataLoader
 from bvc_tpu_torch.models.convert import (resnet_from_torchvision_state_dict,
                                           resnet_to_torchvision_state_dict)
 from bvc_tpu_torch.models.resnet import ResNet
+from bvc_tpu_torch.parallel.collectives import sync_hosts
 from bvc_tpu_torch.training.checkpoint import (checkpoint_exists, checkpoint_path,
                                                checkpoint_saver, load_checkpoint, load_meta,
                                                load_optimizer_state)
@@ -52,15 +55,15 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
                 "clips fit one chip; the axis would replicate the whole "
                 "step across it and inflate global_batch with no "
                 "speedup) -- use a pure-data mesh")
-    refuse_unported(cfg)
+    world = refuse_unported(cfg).size
     device = resolve_device(device)
     if not cfg.savedir:
         raise ValueError("savedir is required")
     folder = Path(cfg.savedir)
     folder.mkdir(parents=True, exist_ok=True)
-    cfg.dump_yaml(folder / f"params_{cfg.run_id}.yaml")
     csv_logger = None
     if is_main_process():
+        cfg.dump_yaml(folder / f"params_{cfg.run_id}.yaml")
         csv_logger = CSVLogger(
             str(folder / f"csvlog_{cfg.run_id}.csv"),
             ("%d", "epoch"), ("%d", "itr"), ("%.5f", "train loss"),
@@ -87,7 +90,7 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
         model.load_state_dict(resnet_from_torchvision_state_dict(
             load_checkpoint(cfg.init_checkpoint_path)["model_state_dict"]))
     state = TrainState.create(model, cfg.optim, seed=cfg.seed + 1, device=device,
-                              steps=schedule_steps(cfg))
+                              steps=schedule_steps(cfg, world))
     start_epoch = 0
     if resuming:
         # mid-stage preemption recovery: weights with the running
@@ -108,14 +111,14 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
 
     # data ---------------------------------------------------------------------
     datasets = make_dataset("simclr", cfg.data)
-    global_batch = cfg.data.batch_size
+    global_batch = cfg.data.batch_size * world
     loader = DataLoader(
         datasets["train"], global_batch, shuffle=True, seed=cfg.seed,
         num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch,
         max_batches=cfg.max_epoch_iters, device=device,
     )
-    logger.info("dataset: %d pairs, %d iters/epoch, batch %d, on %s",
-                len(datasets["train"]), len(loader), global_batch, device)
+    logger.info("dataset: %d pairs, %d iters/epoch, global batch %d over %d ranks, on %s",
+                len(datasets["train"]), len(loader), global_batch, world, device)
     if len(loader) == 0:
         raise ValueError(
             f"dataset ({len(datasets['train'])} samples) is smaller than the "
@@ -132,12 +135,13 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
             "step": state.step,
             "rng": state.generator.get_state(),
             "train_loss": loss_meter.avg,
-            "batch_size": cfg.data.batch_size, "world_size": 1, "lr": cfg.optim.lr,
+            "batch_size": cfg.data.batch_size, "world_size": world, "lr": cfg.optim.lr,
         }, meta={
             "run_id": cfg.run_id, "epoch": epoch_done, "train_loss": loss_meter.avg,
-            "batch_size": cfg.data.batch_size, "world_size": 1, "lr": cfg.optim.lr,
+            "batch_size": cfg.data.batch_size, "world_size": world, "lr": cfg.optim.lr,
             "family": "simclr", "architecture": arch, "script": cfg.script,
         })
+        sync_hosts()  # no rank reads it before rank 0 has written it
 
     tracer = StepTraceWindow(cfg.profile_dir)  # no-op when unset
     for epoch in range(start_epoch, cfg.n_epoch):

@@ -1,6 +1,7 @@
-"""VideoMAE pretraining — one curriculum stage on one GPU
-(counterpart of :func:`bvc_tpu.training.trainer_videomae.run_pretraining`,
-its data-parallel branch).
+"""VideoMAE pretraining — one curriculum stage on one GPU or data parallel
+over several (counterpart of
+:func:`bvc_tpu.training.trainer_videomae.run_pretraining`, its
+data-parallel branch).
 
 Artifacts, as the JAX trainer writes them: ``csvlog_{run_id}.csv`` (epoch,
 itr, train loss, val loss, grad-EFL, grad-ELL, grad-DLL),
@@ -10,11 +11,18 @@ decoder, as ``bvc_tpu/cli/export_torch.py`` exports), ``qkv_k_bias`` (the k
 thirds of the qkv biases, which HF's layout drops), ``opt``, ``epoch``,
 ``step``, ``rng`` (the mask generator's state), the export's ``train_loss``,
 ``val_loss``, ``batch_size``, ``world_size`` and ``lr``, and ``meta``.
+
+Under a process group (torchrun, :func:`bvc_tpu_torch.parallel.distributed_init`)
+the trainers run data parallel over a pure ``data`` mesh of the world's
+size: the global batch is ``batch_size * world`` (the flag is per GPU), each
+rank loads its block of it, the steps average the gradients and the metrics
+over the ranks, and rank 0 alone writes the CSV, ``params_{run_id}.yaml``,
+the checkpoints (synchronously: the async writer waits at world > 1) and the
+profiler trace, with a barrier after each checkpoint write.
 """
 
 from __future__ import annotations
 
-import os
 from pathlib import Path
 
 import torch
@@ -26,6 +34,9 @@ from bvc_tpu_torch.models.convert import (qkv_key_biases,
                                           videomae_pretrain_to_hf_state_dict,
                                           with_qkv_key_biases)
 from bvc_tpu_torch.models.videomae import VideoMAEPretrain
+from bvc_tpu_torch.parallel.collectives import sync_hosts
+from bvc_tpu_torch.parallel.mesh import Mesh, make_mesh
+from bvc_tpu_torch.parallel.sharding import param_shardings
 from bvc_tpu_torch.training.checkpoint import (checkpoint_exists, checkpoint_path,
                                                checkpoint_saver, load_checkpoint, load_meta,
                                                load_optimizer_state)
@@ -40,15 +51,14 @@ from bvc_tpu_torch.utils.logging import AverageMeter, CSVLogger, get_logger, is_
 from bvc_tpu_torch.utils.profiling import StepTraceWindow, device_memory_stats
 
 
-def refuse_unported(cfg: TrainConfig) -> None:
-    """Raise for what the single-GPU trainers do not do yet: a mesh, a
-    parameter sharding, several processes (the multi-GPU slice)."""
-    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    if cfg.mesh_shape or cfg.param_sharding != "replicated" or world > 1:
-        raise NotImplementedError(
-            f"mesh {cfg.mesh_shape or '{}'}, param_sharding {cfg.param_sharding!r}, "
-            f"WORLD_SIZE {world}: multi-GPU training comes with ROADMAP slice 7; "
-            "this trainer runs on one GPU (empty --mesh, 'replicated')")
+def refuse_unported(cfg: TrainConfig) -> Mesh:
+    """The run's mesh (:func:`~bvc_tpu_torch.parallel.make_mesh` of
+    ``cfg.mesh_shape``): a pure ``data`` mesh of the world's size.  Raises
+    for what the port does not run yet, naming its slice: a ``model``,
+    ``seq`` or ``pipe`` axis (7b-7d) and a parameter sharding other than
+    ``replicated`` (7b); and for a ``data`` size other than the world's."""
+    param_shardings(cfg.param_sharding)
+    return make_mesh(cfg.mesh_shape)
 
 
 def videomae_model_state(ckpt: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
@@ -63,15 +73,15 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
     is none); returns a summary with the final losses and the checkpoint
     path."""
     logger = get_logger("bvc_tpu_torch.videomae")
-    refuse_unported(cfg)
+    world = refuse_unported(cfg).size
     device = resolve_device(device)
     if not cfg.savedir:
         raise ValueError("savedir is required")
     folder = Path(cfg.savedir)
     folder.mkdir(parents=True, exist_ok=True)
-    cfg.dump_yaml(folder / f"params_{cfg.run_id}.yaml")
     csv_logger = None
     if is_main_process():
+        cfg.dump_yaml(folder / f"params_{cfg.run_id}.yaml")
         csv_logger = CSVLogger(
             str(folder / f"csvlog_{cfg.run_id}.csv"),
             ("%d", "epoch"), ("%d", "itr"),
@@ -97,7 +107,7 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
         model.load_state_dict(videomae_model_state(load_checkpoint(cfg.init_checkpoint_path),
                                                    cfg.model))
     state = TrainState.create(model, cfg.optim, seed=cfg.seed + 1, device=device,
-                              steps=schedule_steps(cfg))
+                              steps=schedule_steps(cfg, world))
     start_epoch = 0
     if cfg.resume and checkpoint_exists(own_ckpt):
         # mid-stage preemption recovery: weights, optimizer, epoch and
@@ -115,7 +125,7 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
 
     # data ---------------------------------------------------------------------
     datasets = make_dataset("videomae", cfg.data)
-    global_batch = cfg.data.batch_size
+    global_batch = cfg.data.batch_size * world
     loaders = {
         phase: DataLoader(
             ds, global_batch, shuffle=(phase == "train"), seed=cfg.seed,
@@ -127,9 +137,10 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
         for phase, ds in datasets.items()
         if ds is not None
     }
-    logger.info("datasets: train=%d val=%s, batch %d, %d iters/epoch, on %s",
-                len(datasets["train"]), len(datasets["val"]) if datasets.get("val") else 0,
-                global_batch, len(loaders["train"]), device)
+    logger.info("datasets: train=%d val=%s, global batch %d over %d ranks, %d iters/epoch, "
+                "on %s", len(datasets["train"]),
+                len(datasets["val"]) if datasets.get("val") else 0, global_batch, world,
+                len(loaders["train"]), device)
     if len(loaders["train"]) == 0:
         raise ValueError(
             f"dataset ({len(datasets['train'])} samples) is smaller than the "
@@ -150,15 +161,16 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
             "step": state.step,
             "rng": state.generator.get_state(),
             "train_loss": train_loss, "val_loss": val_loss,
-            "batch_size": cfg.data.batch_size, "world_size": 1, "lr": cfg.optim.lr,
+            "batch_size": cfg.data.batch_size, "world_size": world, "lr": cfg.optim.lr,
         }, meta={
             "run_id": cfg.run_id, "epoch": epoch_done,
             "train_loss": train_loss, "val_loss": val_loss,
-            "batch_size": cfg.data.batch_size, "world_size": 1, "lr": cfg.optim.lr,
+            "batch_size": cfg.data.batch_size, "world_size": world, "lr": cfg.optim.lr,
             "family": "videomae", "script": cfg.script,
         })
+        sync_hosts()  # no rank reads it before rank 0 has written it
 
-    tracer = StepTraceWindow(cfg.profile_dir)  # no-op when unset
+    tracer = StepTraceWindow(cfg.profile_dir)  # no-op when unset, or off rank 0
     for epoch in range(start_epoch, cfg.n_epoch):
         loss_meter = {p: AverageMeter() for p in ("train", "val")}
         for phase, loader in loaders.items():

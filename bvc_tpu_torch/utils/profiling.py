@@ -8,7 +8,8 @@
 - :class:`StepTraceWindow`: one ``torch.profiler`` trace of train steps
   ``[start, start + n)`` (``--profile_dir``), written as a Chrome trace,
   with the device's kernel time, copy time and idle share (the share of
-  the window in which no kernel ran) in ``summary.json`` beside it.
+  the window in which no kernel ran) in ``summary.json`` beside it; on
+  rank 0 only under a process group (one timeline, not one a rank).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from pathlib import Path
 from typing import Any, Callable
 
 import torch
+
+from bvc_tpu_torch.utils.logging import is_main_process
 
 
 def sync(tree: Any = None) -> None:
@@ -83,11 +86,11 @@ class StepTraceWindow:
     ``wall_ms``, ``device_busy_ms`` of kernels, ``device_copy_ms`` of memory
     copies and sets, ``idle_share``: 1 - busy / wall) into ``logdir``.
     Closes at the ``step`` call past the window, or at :meth:`close` after
-    the loop.  No-op when ``logdir`` is empty.
+    the loop.  No-op when ``logdir`` is empty, and on every rank but 0.
     """
 
     def __init__(self, logdir: str, start: int = 1, n: int = 3):
-        self.logdir = logdir
+        self.logdir = logdir if is_main_process() else ""
         self.start, self.stop_at = start, start + n
         self._seen = 0
         self._prof = None

@@ -210,15 +210,34 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    of up to 147 of the 196 tokens through 12 ``flash_fwd_bias`` against the
    plain masked path, cosine >= 0.999 per row; images/s.
 
+23. Data parallel (slice 7a, ``phase_ddp``).  (a) World 1 over NCCL, the
+   group made by ``bvc_tpu_torch.parallel.distributed_init`` from torchrun's
+   variables: the DDP-wrapped VideoMAE-B step at 10's batch with
+   ``grad_accum=2`` and the V-JEPA step at B=64, each against the unwrapped
+   step on the same batch and masks (loss within 1e-4 relative, gradient
+   cosine >= 0.9995 per parameter tensor), the NCCL all-reduces a step
+   (every DDP bucket once, counted by a comm hook), launches equal to the
+   unwrapped step's, clips/s of both.  (b) Two ranks on the one card over
+   gloo (two processes, ``LOCAL_RANK`` 0 each): VideoMAE-B at 24 clips a
+   rank and V-JEPA at 32, against (a)'s unwrapped steps at the global batch
+   under the same limits; each rank's launches the one-GPU step's.  (c)
+   ``pretrain_simclr --mesh data=1`` (3 steps) and ``compute_embeddings
+   --mesh data=1 --quantize int8`` (24 ``gemm_s8`` and 12 ``flash_fwd``)
+   through ``main`` under torchrun's variables.  With more than one card
+   visible, also world = ``device_count()`` over NCCL, a card a rank,
+   VideoMAE-B at 10's batch a card, against one card at the global batch,
+   with per-card clips/s and the scaling efficiency (alone:
+   ``c.ddp_multi_card(smi, n, 48, Path(d))`` after ``_build.build_all``).
+
 Every path runs with every launch count set to 0 just before it and read
 just after, and fails if a kernel other than its own launched (no SimCLR
 path launches one: each kernel's ``launches_on_simclr_paths`` is the sum of
 the counts read over them).
 Prints the host's CUDA device and CPU core counts, one JSON
-``{"trainers": {...}}`` line (14-18 and 20-22), one JSON ``{"kernels":
+``{"trainers": {...}}`` line (14-18 and 20-23), one JSON ``{"kernels":
 [...]}`` line (with each kernel's ``launches_per_cli_step``,
-``launches_per_curriculum``, ``launches_per_artifact_call`` and
-``launches_per_vit_image_embed``),
+``launches_per_curriculum``, ``launches_per_artifact_call``,
+``launches_per_vit_image_embed`` and ``launches_per_ddp_step``),
 the script's wall time and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that last line,
 when there is no CUDA device, when run outside a checkout, or when any phase
@@ -3602,6 +3621,429 @@ def phase_vit_image(card: str) -> dict:
     return out
 
 
+DDP_LOSS_RTOL = 1e-4  # the DDP step against the unwrapped step, same batch and masks
+DDP_TENSOR_COSINE_MIN = 0.9995  # per parameter tensor
+DDP_JEPA_B = 64
+DDP_TIMED_STEPS = 10
+DDP_SIMCLR_B = 16  # pairs a step of the SimCLR CLI at --mesh data=1
+
+
+class rendezvous:
+    """torchrun's variables of a world of one (rank 0 on card 0, a free
+    port on localhost) in this process's environment while inside; on exit
+    the process group, if one was made, is destroyed and the variables are
+    restored."""
+
+    def __init__(self):
+        self.env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                    "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ddp_family(family: str, B: int, grad_accum: int = 1):
+    """``(new_state, step, args)`` of a family's full-width step at global
+    batch ``B``: VideoMAE-B with a tube mask (0.9) drawn once from a CPU
+    generator, or V-JEPA ViT-B with the collator's indices of the global
+    batch; clips from seed 0, on the host.  ``new_state()`` builds the state
+    from seed 0 (DDP-wrapped under a process group)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from bvc_tpu_torch.training.state import TrainState
+
+    rng = np.random.default_rng(0)
+    if family == "videomae":
+        from bvc_tpu_torch.masks.tube import tube_mask
+        from bvc_tpu_torch.models.videomae import VideoMAEPretrain
+        from bvc_tpu_torch.training.steps import make_videomae_train_step
+        from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig
+
+        cfg = ModelConfig()
+        mask_cfg = MaskConfig(sampler="tube", mask_ratio=0.9)
+        optim = OptimConfig(name="sgd", lr=0.1, momentum=0.9)
+        video = rng.integers(0, 256, (B, cfg.num_frames, cfg.image_size, cfg.image_size,
+                                      cfg.in_channels), dtype=np.uint8)
+        grid = (cfg.num_time_steps, cfg.image_size // cfg.patch_size,
+                cfg.image_size // cfg.patch_size)
+        mask = tube_mask(torch.Generator().manual_seed(0), B, grid, 0.9)
+        return (lambda: TrainState.create(VideoMAEPretrain(cfg, seed=0), optim, seed=1),
+                make_videomae_train_step(cfg, mask_cfg, grad_accum=grad_accum),
+                {"video": torch.from_numpy(video), "mask": mask})
+    from bvc_tpu_torch.masks.multiblock import mask_collate
+    from bvc_tpu_torch.models.jepa import JEPA
+    from bvc_tpu_torch.training.steps import make_jepa_train_step
+
+    cfg, mask_cfg, optim = jepa_config()
+    video = rng.integers(0, 256, (B, cfg.num_frames, cfg.image_size, cfg.image_size,
+                                  cfg.in_channels), dtype=np.uint8)
+    batch = {k: torch.from_numpy(x) for k, x in
+             {"video": video, **mask_collate(cfg, mask_cfg, seed=0)(B, 0)}.items()}
+
+    def new_state():
+        model = JEPA(cfg, seed=0)
+        return TrainState.create(model, optim, seed=1, target=copy.deepcopy(model.encoder))
+
+    return (new_state, make_jepa_train_step(cfg, JEPA_TOTAL_STEPS, optim.ema, optim.ema_fallback,
+                                            grad_accum=grad_accum), batch)
+
+
+def ddp_call(family: str, step, state, args: dict):
+    """One step of ``family`` on ``args`` (the VideoMAE step takes the
+    video and the mask, the JEPA step the batch dict)."""
+    if family == "videomae":
+        return step(state, args["video"], args["mask"])
+    return step(state, args)
+
+
+def rank_rows(args: dict, world: int, rank: int) -> dict:
+    """Rank ``rank``'s contiguous block of every tensor of a global batch."""
+    b = next(iter(args.values())).shape[0] // world
+    return {k: v[rank * b:(rank + 1) * b] for k, v in args.items()}
+
+
+def step_readings(family: str, step, state, args: dict) -> dict:
+    """One step with the launch counts set to 0 just before it: its loss,
+    every parameter's gradient (on the card) and the launches."""
+    import torch
+
+    reset_launches()
+    metrics = ddp_call(family, step, state, args)
+    torch.cuda.synchronize()
+    return {"loss": metrics["loss"].item(), "launches": read_launches(),
+            "grads": {n: p.grad.detach().flatten().clone()
+                      for n, p in state.model.named_parameters()}}
+
+
+def check_ddp_against(what: str, got: dict, want: dict) -> dict:
+    """The loss within ``DDP_LOSS_RTOL`` relative and every parameter
+    tensor's gradient within cosine ``DDP_TENSOR_COSINE_MIN``; returns the
+    readings."""
+    import torch
+
+    rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    cos = sorted((torch.nn.functional.cosine_similarity(
+        got["grads"][n].float().cuda(), g.float().cuda(), dim=0).item(), n)
+        for n, g in want["grads"].items())
+    print(f"{what}: loss {got['loss']:.6f} vs {want['loss']:.6f} (rel {rel:.2e}); gradient "
+          f"cosine per tensor ({len(cos)} tensors), lowest {cos[0][1]} {cos[0][0]:.6f}",
+          flush=True)
+    check(math.isfinite(got["loss"]) and rel <= DDP_LOSS_RTOL,
+          f"{what}: loss rel {rel} > {DDP_LOSS_RTOL}")
+    check(cos[0][0] >= DDP_TENSOR_COSINE_MIN,
+          f"{what}: gradient cosine of {cos[0][1]} {cos[0][0]} < {DDP_TENSOR_COSINE_MIN}")
+    return {"loss_rel": rel, "min_cosine": cos[0][0], "min_cosine_tensor": cos[0][1]}
+
+
+def bucket_hook(seen: list):
+    """A DDP comm hook noting the index of each bucket it all-reduces (into
+    the last list of ``seen``) before the default all-reduce."""
+    from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
+
+    def hook(process_group, bucket):
+        seen[-1].append(bucket.index())
+        return default_hooks.allreduce_hook(process_group, bucket)
+
+    return hook
+
+
+def steps_ms(family: str, step, state, args: dict, steps: int = DDP_TIMED_STEPS) -> float:
+    """Device time of one step, ms, by CUDA events over ``steps`` steps."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        ddp_call(family, step, state, args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def ddp_world1(card: str, family: str, B: int, grad_accum: int) -> tuple[dict, dict]:
+    """(a) The DDP-wrapped step at world 1 over NCCL (the port's
+    ``distributed_init`` from torchrun's variables) against the unwrapped
+    step on the same batch and masks; its all-reduces a step (every bucket
+    once), its launches (the unwrapped step's) and both steps' clips/s.
+    Returns (the record, the unwrapped step's readings on the host)."""
+    import gc
+
+    import torch
+
+    from bvc_tpu_torch.parallel import distributed_init
+
+    new_state, step, args = ddp_family(family, B, grad_accum)
+    args = {k: v.cuda() for k, v in args.items()}
+    plain = new_state()
+    check(plain.ddp is None, "a DDP wrapper without a process group")
+    want = step_readings(family, step, plain, args)
+    with rendezvous():
+        distributed_init()
+        check(torch.distributed.get_backend() == "nccl"
+              and torch.distributed.get_world_size() == 1,
+              f"world 1 on cuda: backend {torch.distributed.get_backend()}")
+        state = new_state()
+        check(state.ddp is not None, "no DDP wrapper under a process group")
+        seen: list[list[int]] = [[]]
+        state.ddp.register_comm_hook(None, bucket_hook(seen))
+        got = step_readings(family, step, state, args)
+        what = f"ddp world 1 [{family}, B={B}, grad_accum {grad_accum}]"
+        record = check_ddp_against(what, got, want)
+        check(got["launches"] == want["launches"],
+              f"{what}: launches {got['launches']} vs the unwrapped step's {want['launches']}")
+        # timed in turns, unwrapped, DDP, DDP, unwrapped; the hook notes each
+        # DDP step's buckets into the last list of ``seen``
+        times: dict[str, list[float]] = {"plain": [], "ddp": []}
+        buckets = []
+        for turn in ("plain", "ddp", "ddp", "plain"):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(DDP_TIMED_STEPS):
+                seen.append([])
+                ddp_call(family, step, plain if turn == "plain" else state, args)
+                if turn == "ddp":
+                    buckets.append(seen[-1])
+            end.record()
+            torch.cuda.synchronize()
+            times[turn].append(start.elapsed_time(end) / DDP_TIMED_STEPS)
+        n_buckets = len(buckets[-1])
+        check(n_buckets >= 1 and all(sorted(b) == list(range(n_buckets)) for b in buckets),
+              f"{what}: buckets all-reduced a step {buckets}: want each of the buckets once")
+        del state, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    ddp_ms, plain_ms = (sum(times[k]) / 2 for k in ("ddp", "plain"))
+    record.update({"B": B, "grad_accum": grad_accum, "allreduces_per_step": n_buckets,
+                   "launches": got["launches"], "ms": ddp_ms, "plain_ms": plain_ms,
+                   "ms_turns": times["ddp"], "plain_ms_turns": times["plain"],
+                   "clips_s": B / (ddp_ms / 1e3), "plain_clips_s": B / (plain_ms / 1e3)})
+    print(f"{what} [{card}]: {n_buckets} NCCL all-reduces a step (one a bucket); launches "
+          f"equal the unwrapped step's; {record['clips_s']:.1f} clips/s "
+          f"({ddp_ms:.3f} ms; turns {times['ddp']}) against the unwrapped step's "
+          f"{record['plain_clips_s']:.1f} ({plain_ms:.3f} ms; turns {times['plain']})",
+          flush=True)
+    want["grads"] = {n: g.cpu() for n, g in want["grads"].items()}
+    return record, want
+
+
+def ddp_rank_worker(out: str, families: str, per_rank: str, backend: str,
+                    timed: int) -> None:
+    """One rank of a data-parallel run started by :func:`run_ddp_ranks`
+    (torchrun's variables in the environment): for each family, one step on
+    this rank's block of the global batch (``per_rank`` clips a rank),
+    then ``timed`` timed ones; rank 0 writes the loss and the averaged
+    gradients, every rank its launches and step time, to ``out``."""
+    import gc
+
+    import torch
+
+    from bvc_tpu_torch.parallel import distributed_init, rank, world_size
+
+    distributed_init(backend=backend)
+    result = {}
+    for family, b in zip(families.split(","), map(int, per_rank.split(","))):
+        world, r = world_size(), rank()
+        new_state, step, args = ddp_family(family, b * world)
+        args = {k: v.cuda() for k, v in rank_rows(args, world, r).items()}
+        state = new_state()
+        readings = step_readings(family, step, state, args)
+        ms = steps_ms(family, step, state, args, timed) if timed else None
+        result[family] = {"launches": readings["launches"], "ms": ms, "loss": readings["loss"],
+                          "grads": ({n: g.cpu() for n, g in readings["grads"].items()}
+                                    if r == 0 else None)}
+        del state, readings
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(result, f"{out}.rank{rank()}")
+    torch.distributed.destroy_process_group()
+
+
+def run_ddp_ranks(out_dir: Path, world: int, families: list[str], per_rank: list[int],
+                  backend: str, one_card: bool, timed: int = 0,
+                  timeout: float = 600) -> list[dict]:
+    """``world`` processes of :func:`ddp_rank_worker` (on card 0 each when
+    ``one_card``, else on card r; ``timed`` steps timed after the checked
+    one); their results in rank order.  A failed worker's peers are
+    killed."""
+    import torch
+
+    port = free_port()
+    out = str(out_dir / "ddp")
+    code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
+            f"chip_smoke.ddp_rank_worker({out!r}, {','.join(families)!r}, "
+            f"{','.join(map(str, per_rank))!r}, {backend!r}, {timed})")
+    procs = []
+    try:
+        for r in range(world):
+            env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(world),
+                   "LOCAL_RANK": str(0 if one_card else r), "MASTER_ADDR": "localhost",
+                   "MASTER_PORT": str(port)}
+            procs.append(subprocess.Popen([sys.executable, "-c", code], env=env, cwd=str(REPO),
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True))
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"ddp rank {r} of {world} exited {p.returncode}:\n"
+                                     f"{log[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    return [torch.load(f"{out}.rank{r}", weights_only=False) for r in range(world)]
+
+
+def phase_ddp(card: str, train_B: int, root: Path, simclr_jpg: str) -> dict:
+    """Data parallel on the card (slice 7a).  (a) World 1 over NCCL: the
+    DDP-wrapped VideoMAE-B step at ``train_B`` with ``grad_accum=2`` and the
+    V-JEPA step at B=64, each against the unwrapped step on the same batch
+    and masks (loss 1e-4 relative, gradient cosine 0.9995 per tensor), the
+    NCCL all-reduces a step (each bucket once, by a comm hook), launches
+    equal to the unwrapped step's, clips/s beside it (timed in turns:
+    unwrapped, DDP, DDP, unwrapped).  (b) Two ranks on the
+    one card over gloo: VideoMAE-B at ``train_B / 2`` clips a rank and
+    V-JEPA at 32, each against one process at the global batch ((a)'s
+    unwrapped steps), under the same limits; each rank's launches the
+    one-GPU step's.  (c) The entry points at ``--mesh data=1`` under
+    torchrun's variables (NCCL): ``pretrain_simclr`` for 3 steps over the
+    JPEGs at ``simclr_jpg`` (no kernel) and
+    ``compute_embeddings --quantize int8`` (24 ``gemm_s8`` and 12
+    ``flash_fwd`` a call).  With more than one card visible, also world =
+    ``device_count()`` over NCCL against one card at the global batch, with
+    per-card clips/s and the scaling efficiency.  Returns the records and,
+    under ``"launches"``, each run's counts."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    videomae, videomae_ref = ddp_world1(card, "videomae", train_B, 2)
+    jepa, jepa_ref = ddp_world1(card, "jepa", DDP_JEPA_B, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b): the references are (a)'s unwrapped steps at the global batch
+    per_rank = {"videomae": train_B // 2, "jepa": DDP_JEPA_B // 2}
+    ranks = run_ddp_ranks(root, 2, list(per_rank), list(per_rank.values()), "gloo",
+                          one_card=True)
+    gloo = {}
+    for family, ref, per_step in (("videomae", videomae_ref, videomae["launches"]),
+                                  ("jepa", jepa_ref, jepa["launches"])):
+        what = f"ddp world 2 over gloo on one card [{family}, {per_rank[family]} a rank]"
+        gloo[family] = check_ddp_against(what, ranks[0][family], ref)
+        # a rank's launches: the one-GPU step's (grad_accum 1: half (a)'s at grad_accum 2)
+        want = {k: v // (2 if family == "videomae" else 1) for k, v in per_step.items()}
+        for r, out in enumerate(ranks):
+            check(out[family]["launches"] == want,
+                  f"{what}: rank {r} launched {out[family]['launches']}, want {want}")
+        gloo[family].update({"B_per_rank": per_rank[family], "launches_per_rank": want})
+    del ranks, videomae_ref, jepa_ref
+    gc.collect()
+
+    # (c): the entry points at --mesh data=1, NCCL from torchrun's variables
+    from bvc_tpu_torch.cli import compute_embeddings, pretrain_simclr
+    from bvc_tpu_torch.training.checkpoint import load_meta
+
+    cifar = write_cifar(root / "ddp_cifar")
+    with rendezvous():
+        out = root / "ddp_simclr"
+        summary, simclr_launches, simclr_wall = run_cli_stage(pretrain_simclr.main, [
+            "-jpg_root", simclr_jpg, "-savedir", str(out), "--mesh", "data=1", "--batch_size",
+            str(DDP_SIMCLR_B), "--n_trainsamples", str(DDP_SIMCLR_B * 3), "--max_epoch_iters",
+            "3", "--run_id", "dev_1_g0_default_0_0"], "pretrain_simclr --mesh data=1")
+        check(torch.distributed.is_initialized()
+              and torch.distributed.get_backend() == "nccl",
+              "pretrain_simclr --mesh data=1 under torchrun's variables made no NCCL group")
+        check_cli_launches(simclr_launches, {}, 3, "pretrain_simclr --mesh data=1")
+        check_csv(out / "csvlog_dev_1_g0_default_0_0.csv", 3, 2, "pretrain_simclr --mesh data=1")
+        check(load_meta(summary["checkpoint"])["world_size"] == 1, "world_size in the meta")
+        results, int8_launches, int8_wall = run_cli_stage(compute_embeddings.main, [
+            "-ds_task", "cifar10", "-vid_root", cifar, "-savedir", str(root / "ddp_emb"),
+            "--family", "videomae", "--dataset_split", "test", "--mesh", "data=1",
+            "--quantize", "int8"], "compute_embeddings --mesh data=1 --quantize int8")
+        check_cli_launches(int8_launches, {"gemm_s8": 24, "flash_fwd": 12}, 1,
+                           "compute_embeddings --mesh data=1 --quantize int8")
+        check(len(results) == 1 and results[0]["rows"] == 10, f"int8 rows: {results}")
+    entry = {"simclr_wall_s": simclr_wall, "int8_wall_s": int8_wall}
+
+    multi = None
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        multi = ddp_multi_card(card, n_cards, train_B, root)
+    wall = time.perf_counter() - t0
+    print(f"ddp: phase in {wall:.1f} s", flush=True)
+    return {"world1": {"videomae": {k: v for k, v in videomae.items() if k != "launches"},
+                       "jepa": {k: v for k, v in jepa.items() if k != "launches"}},
+            "gloo_two_ranks": gloo, "entry_points": entry, "multi_card": multi,
+            "wall_s": wall,
+            "launches": {"videomae_step": videomae["launches"], "jepa_step": jepa["launches"],
+                         "int8_call": int8_launches, "simclr_stage": simclr_launches}}
+
+
+def ddp_multi_card(card: str, n: int, B: int, root: Path) -> dict:
+    """World ``n`` over NCCL, a card a rank, VideoMAE-B at ``B`` clips a
+    card, against one card at the global batch (``grad_accum`` 2n, the same
+    mean): loss and gradient limits as (a); per-card clips/s (the slowest
+    rank's CUDA-event time) and the scaling efficiency against one card's
+    rate at ``B`` (the unwrapped step, this call)."""
+    import gc
+
+    import torch
+
+    new_state, step, args = ddp_family("videomae", B * n, grad_accum=2 * n)
+    ref_state = new_state()
+    ref = step_readings("videomae", step, ref_state, {k: v.cuda() for k, v in args.items()})
+    ref["grads"] = {k: v.cpu() for k, v in ref["grads"].items()}
+    del ref_state, args
+    one_new, one_step, one_args = ddp_family("videomae", B)
+    one_state = one_new()
+    one_args = {k: v.cuda() for k, v in one_args.items()}
+    ddp_call("videomae", one_step, one_state, one_args)  # warm-up
+    one_card_clips_s = B / (steps_ms("videomae", one_step, one_state, one_args) / 1e3)
+    del one_state, one_args
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = run_ddp_ranks(root, n, ["videomae"], [B], "nccl", one_card=False,
+                          timed=DDP_TIMED_STEPS)
+    what = f"ddp world {n} over NCCL, a card a rank [videomae, {B} a card]"
+    record = check_ddp_against(what, ranks[0]["videomae"], ref)
+    ms = [r["videomae"]["ms"] for r in ranks]
+    per_card = B / (max(ms) / 1e3)
+    record.update({"world": n, "B_per_card": B, "ms": ms, "clips_s_per_card": per_card,
+                   "clips_s": per_card * n, "one_card_clips_s": one_card_clips_s,
+                   "scaling_efficiency": per_card / one_card_clips_s})
+    print(f"{what} [{card}]: {per_card:.1f} clips/s a card ({n * per_card:.1f} in all) against "
+          f"one card's {one_card_clips_s:.1f}: scaling efficiency "
+          f"{record['scaling_efficiency']:.3f}", flush=True)
+    return record
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", nargs="?", const="", default=None, metavar="FILE",
@@ -3684,6 +4126,7 @@ def main() -> None:
     simclr_embed = phase_simclr_embed(smi)
     with tempfile.TemporaryDirectory() as d:
         simclr_cli = phase_pretrain_cli_simclr(smi, simclr_rate["B"], Path(d))
+        ddp = phase_ddp(smi, train_B, Path(d), str(Path(d) / "simclr_corpus"))
     with tempfile.TemporaryDirectory() as d:
         curriculum = phase_curriculum(smi, Path(d), train_launches, embed_launches,
                                       jepa_launches, w8a8_launches["jepa"])
@@ -3755,7 +4198,15 @@ def main() -> None:
     simclr_launches = sum_launches(*(phase.pop("launches") for phase in (
         simclr_step, simclr_rate, simclr_embed, simclr_cli)), curriculum["simclr"]["launches"])
     runs = [k for k in curriculum if k != "wall_s"]
+    ddp_launches = ddp.pop("launches")
     for r in records:
+        r["launches_per_ddp_step"] = {
+            "videomae_world1_grad_accum2": ddp_launches["videomae_step"][r["name"]],
+            "jepa_world1": ddp_launches["jepa_step"][r["name"]],
+            **{f"{k}_per_gloo_rank": v["launches_per_rank"][r["name"]]
+               for k, v in ddp["gloo_two_ranks"].items()},
+            "int8_call_mesh_data1": ddp_launches["int8_call"][r["name"]],
+            "simclr_stage_mesh_data1": ddp_launches["simclr_stage"][r["name"]]}
         r["launches_on_simclr_paths"] = simclr_launches[r["name"]]
         r["launches_per_curriculum"] = {k: curriculum[k]["launches"][r["name"]] for k in runs}
         r["launches_per_artifact_call"] = {k: a["launches"].get(r["name"], 0)
@@ -3769,6 +4220,7 @@ def main() -> None:
                           "step_ms_without": remat["ms"][False],
                           "step_ms_with": remat["ms"][True],
                           "min_grad_cosine": remat["min_cosine"]},
+                "ddp": ddp,
                 "simclr_cli": simclr_cli, "simclr_step": {**simclr_rate, **simclr_step},
                 "simclr_embed": simclr_embed,
                 "export": {k: {f: v for f, v in a.items() if f != "launches"}

@@ -137,16 +137,27 @@ def test_log_grad_stats_suffix_is_jax_format_gstats(family, frame_corpus, tmp_pa
 
 
 @pytest.mark.parametrize("family", ["videomae", "jepa", "simclr"])
-@pytest.mark.parametrize("flags,env,match", [
-    (("--mesh", "data=2"), {}, "slice 7"),
-    (("--param_sharding", "zero1"), {}, "slice 7"),
-    ((), {"WORLD_SIZE": "2"}, "slice 7"),
-], ids=["mesh", "param_sharding", "world_size"])
-def test_unported_flags_raise(family, flags, env, match, frame_corpus, tmp_path, monkeypatch):
+@pytest.mark.parametrize("flags,env,error,match", [
+    (("--mesh", "data=2"), {}, ValueError, "needs 2 processes, this run has 1"),
+    (("--param_sharding", "zero1"), {}, NotImplementedError, "slice 7b"),
+    ((), {"WORLD_SIZE": "2"}, RuntimeError, "RANK, LOCAL_RANK, MASTER_ADDR, MASTER_PORT not"),
+    (("--mesh", "data=1,model=2"), {}, NotImplementedError, "slice 7b"),
+    (("--mesh", "seq=2"), {}, NotImplementedError, "slice 7c"),
+    (("--mesh", "pipe=2"), {}, NotImplementedError, "slice 7d"),
+], ids=["mesh", "param_sharding", "world_size", "model", "seq", "pipe"])
+def test_unported_flags_raise(family, flags, env, error, match, frame_corpus, tmp_path,
+                              monkeypatch):
+    """Since data parallelism came to the port, ``--mesh data=2`` raises only
+    for a world of 1, and ``WORLD_SIZE`` without the other rendezvous
+    variables raises in ``distributed_init``; sharded parameters and the
+    other mesh axes still raise, naming their slice (SimCLR refuses
+    ``seq`` and ``pipe`` first, as the JAX trainer does)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if family == "simclr" and flags[-1:] in (("seq=2",), ("pipe=2",)):
+        error, match = ValueError, "videomae-only"
     port, _ = CLIS[family]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         port.main(_argv(family, frame_corpus, tmp_path, *flags), device="cpu")
     assert not (tmp_path / "csvlog_dev_1_g0_default_0_0.csv").exists()
 

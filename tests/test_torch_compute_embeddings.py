@@ -233,7 +233,8 @@ def test_sweep_resume_untrained_and_mesh(tmp_path, capsys):
     """``--checkpoint_dir`` embeds with every ``model_*.pth.tar`` in it (not
     other files), ``--resume y`` skips the (checkpoint, split) pairs whose
     CSV exists, ``-init_checkpoint_path na`` embeds the untrained model, and
-    a ``--mesh`` raises, naming the multi-GPU slice."""
+    ``--mesh data=2`` in one process raises (it needs two ranks), as a
+    ``seq`` mesh does, naming its slice."""
     flags, ckpt, _ = _family_setup("simclr", tmp_path)
     shutil.copy(ckpt, ckpt.with_name("model_dev_2_g1_default_0_0.pth.tar"))
     (ckpt.parent / "model_dev_3_g2_default_0_0.ckpt").mkdir()  # a JAX Orbax dir: not read
@@ -252,8 +253,10 @@ def test_sweep_resume_untrained_and_mesh(tmp_path, capsys):
     assert Path(untrained[0]["csv"]).name == "embeddings_untrained_0_na_na_0_3.csv"
     assert pd.read_csv(untrained[0]["csv"]).shape == (10, 513)
     capsys.readouterr()
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(ValueError, match="needs 2 processes, this run has 1"):
         compute_embeddings.main(base + ["--mesh", "data=2"], device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 7c"):
+        compute_embeddings.main(base + ["--mesh", "data=1,seq=2"], device="cpu")
     with pytest.raises(ValueError, match="resnet conv trunk"):
         compute_embeddings.main(base + ["--quantize", "int8"], device="cpu")
 

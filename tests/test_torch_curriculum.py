@@ -266,19 +266,25 @@ def test_driver_wiring_matches_jax(preset, tmp_path, monkeypatch):
     assert calls[0][1] == ["na"] and calls[1][1] == chain[1:]
 
 
-@pytest.mark.parametrize("field,value", [("mesh_shape", {"data": 2}),
-                                         ("param_sharding", "zero1")])
-def test_multi_gpu_layouts_raise(field, value, tmp_path, monkeypatch):
-    """A mesh or a sharding raises before any stage trains or extracts,
-    naming the multi-GPU slice; so does the CLI's ``--mesh``."""
+@pytest.mark.parametrize("field,value,flag,error,match", [
+    ("mesh_shape", {"data": 2}, ["--mesh", "data=2"], ValueError, "needs 2 processes"),
+    ("param_sharding", "zero1", ["--param_sharding", "zero1"], NotImplementedError,
+     "slice 7b"),
+    ("mesh_shape", {"data": 1, "seq": 2}, ["--mesh", "data=1,seq=2"], NotImplementedError,
+     "slice 7c"),
+    ("mesh_shape", {"pipe": 2}, ["--mesh", "pipe=2"], NotImplementedError, "slice 7d"),
+], ids=["mesh_shape-value0", "param_sharding-value1", "seq", "pipe"])
+def test_multi_gpu_layouts_raise(field, value, flag, error, match, tmp_path, monkeypatch):
+    """A layout the run cannot take raises before any stage trains or
+    extracts: ``data=2`` in one process (it needs two ranks), and a
+    sharding or another mesh axis, naming its slice; so does the CLI."""
     monkeypatch.setattr(driver, "_trainer_for", lambda family: pytest.fail("trained"))
     base = TrainConfig(savedir=str(tmp_path))
     setattr(base, field, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 7"):
+    with pytest.raises(error, match=match):
         driver.run_curriculum("dev", "generative", base, extraction=[{}],
                               untrained_baseline=True, device="cpu")
-    flag = ["--mesh", "data=2"] if field == "mesh_shape" else ["--param_sharding", "zero1"]
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 7"):
+    with pytest.raises(error, match=match):
         cli.main(["-jpg_root", "/d", "-savedir", str(tmp_path)] + flag, device="cpu")
     assert not any(tmp_path.iterdir())
 

@@ -42,6 +42,14 @@ SLICE_8A = ["curriculum/__init__.py", "curriculum/presets.py", "curriculum/drive
 # the export slice and the image ViT
 SLICE_8B = ["serving/__init__.py", "serving/export.py", "cli/export_serving.py",
             "models/vit_image.py"]
+# data-parallel training and extraction, and the modules that learnt about ranks
+SLICE_7A = ["parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
+            "parallel/sharding.py", "utils/device.py", "data/loader.py", "models/resnet.py",
+            "objectives/contrastive.py", "training/steps.py", "training/state.py",
+            "training/optim.py", "training/trainer_videomae.py", "training/trainer_jepa.py",
+            "training/trainer_simclr.py", "training/async_checkpoint.py",
+            "evalbench/extract.py", "cli/common.py", "cli/compute_embeddings.py",
+            "cli/run_curriculum.py", "curriculum/driver.py"]
 
 
 def test_slice_8a_modules_are_checked():
@@ -50,6 +58,10 @@ def test_slice_8a_modules_are_checked():
 
 def test_slice_8b_modules_are_checked():
     assert {PACKAGE / name for name in SLICE_8B} <= set(PY_FILES)
+
+
+def test_slice_7a_modules_are_checked():
+    assert {PACKAGE / name for name in SLICE_7A} <= set(PY_FILES)
 
 
 def test_import_pulls_in_no_jax_and_no_bvc_tpu():

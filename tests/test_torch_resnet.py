@@ -276,11 +276,57 @@ def test_batch_norm_matches_jax(dtype, training):
                                rtol=0, atol=STATS_ATOL)
 
 
+def _grouped_forward(dtype: str):
+    """JAX's ``apply(..., bn_groups=2)`` in train mode and the port's ResNet
+    with ``bn_groups = 2`` on the same weights and input: (got, want,
+    the port's model, the running statistics JAX moved to)."""
+    params, stats = jax_weights("resnet18")
+    x = np.random.default_rng(2).normal(0, 1, (4, 48, 48, 3)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want, new_stats = jax_resnet.apply(params, stats, jnp.asarray(x), "resnet18", training=True,
+                                       dtype=jdt, bn_groups=2)
+    model = port_model("resnet18", params, stats, dtype=dtype)
+    model.bn_groups = 2
+    with torch.no_grad():
+        got = model.train()(torch.from_numpy(x)).float().numpy()
+    ref = running_stats(port_model("resnet18", params,
+                                   jax.tree_util.tree_map(np.asarray, new_stats)))
+    return got, np.asarray(want.astype(jnp.float32)), model, ref, (params, stats, x)
+
+
 def test_bn_groups_need_several_gpus():
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        resnet.ResNet("resnet18", bn_groups=2)
+    """``bn_groups`` once raised in the port (name kept).  Now G = 2 takes
+    train mode's batch statistics over each half of the batch and moves the
+    running ones by the first half's, as JAX's ``apply(..., bn_groups=2)``
+    (the reference's per-rank DDP BatchNorm in one process): the f32 output
+    within the forward test's limits, the running statistics also within
+    rtol 1e-5 (chunks of 8 values at 48 px in ``layer4``, summed in another
+    order); a G that does not divide the batch, G < 1 and an unknown
+    architecture raise."""
+    got, want, model, ref, (params, stats, x) = _grouped_forward("float32")
+    assert_close(got, want)
+    for k, v in running_stats(model).items():
+        np.testing.assert_allclose(v, ref[k], rtol=1e-5, atol=STATS_ATOL, err_msg=k)
+    # one group is not two: the statistics differ from the whole batch's
+    whole = port_model("resnet18", params, stats)
+    with torch.no_grad():
+        assert not np.allclose(whole.train()(torch.from_numpy(x)).numpy(), got, atol=1e-3)
+    model.bn_groups = 3
+    with pytest.raises(ValueError, match="does not divide"):
+        model(torch.from_numpy(x))
+    with pytest.raises(ValueError, match="bn_groups"):
+        resnet.ResNet("resnet18", bn_groups=0)
     with pytest.raises(ValueError, match="resnet101"):
         resnet.ResNet("resnet101")
+
+
+def test_bn_groups_in_bf16():
+    """The same in bf16: cosine 0.999 per row, running statistics 1e-2."""
+    got, want, model, ref, _ = _grouped_forward("bfloat16")
+    cos = (got * want).sum(1) / np.linalg.norm(got, axis=1) / np.linalg.norm(want, axis=1)
+    assert cos.min() >= 0.999, cos
+    for k, v in running_stats(model).items():
+        np.testing.assert_allclose(v, ref[k], rtol=0, atol=1e-2, err_msg=k)
 
 
 def test_convolutions_run_channels_last():
