@@ -7,12 +7,15 @@ reference entry points (``pretrain_videomae.py:383-499``,
 ``pretrain_jepa.py:486-607``, ``pretrain_simclr.py:390-495``) so existing
 slurm invocations port over mechanically.  The multi-GPU flags (``--mesh``,
 ``--param_sharding``) are parsed as the JAX CLIs parse them: ``--mesh
-data=N`` runs data parallel over N processes, one a GPU, launched by
-torchrun (``torchrun --nproc_per_node N -m bvc_tpu_torch.cli.pretrain_videomae
---mesh data=N ...``), and raises unless N is the world size; the trainers
-refuse the other axes and shardings, naming the slice of the port that
-brings them (7b-7d).  ``--pipe_microbatches``, which acts only on a pipe
-mesh, is accepted and unused.
+data=N[,model=M]`` runs over N*M processes, one a GPU, launched by torchrun
+(``torchrun --nproc_per_node 4 -m bvc_tpu_torch.cli.pretrain_videomae --mesh
+data=2,model=2 --param_sharding tp ...``), and raises unless N*M is the
+world size; ``--param_sharding`` lays the parameters out as ``replicated``
+(DDP), ``zero1`` (partitioned optimizer state), ``fsdp`` (FSDP2) or ``tp``
+(attention heads and MLP columns over ``model``).  The trainers refuse a
+``seq`` or ``pipe`` axis, naming the slice of the port that brings it
+(7c, 7d).  ``--pipe_microbatches``, which acts only on a pipe mesh, is
+accepted and unused.
 """
 
 from __future__ import annotations
@@ -47,12 +50,13 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--num_workers", type=int, default=6)
     p.add_argument("--image_size", type=int, default=224)
     p.add_argument("--mesh", type=str, default="",
-                   help="process layout, e.g. data=4 under torchrun --nproc_per_node 4; "
-                        "empty: every process on data (model/seq/pipe: slices 7b-7d)")
+                   help="process layout, e.g. data=2,model=2 under torchrun "
+                        "--nproc_per_node 4; empty: every process on data "
+                        "(seq/pipe: slices 7c-7d)")
     p.add_argument("--param_sharding", type=str, default="replicated",
                    choices=["replicated", "zero1", "fsdp", "tp"],
-                   help="parameter sharding; 'replicated' (DDP) runs, the others come "
-                        "with slice 7b")
+                   help="parameter layout: replicated (DDP), zero1 (optimizer state "
+                        "over data), fsdp (parameters over data), tp (heads over model)")
     p.add_argument("--control_data_root", type=str, default="")
     p.add_argument("--pack_root", type=str, default="",
                    help="packed-corpus root (bvc_tpu_torch.data.packed); plain "

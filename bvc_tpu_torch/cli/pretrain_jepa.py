@@ -1,5 +1,6 @@
 """CLI: (V-)JEPA pretraining, one curriculum stage, on one GPU
-or data parallel over several under torchrun (``--mesh data=N``) (counterpart
+or over several under torchrun (``--mesh data=N[,model=M]``,
+``--param_sharding``) (counterpart
 of :mod:`bvc_tpu.cli.pretrain_jepa`, the same flags).
 
 Scale flags mirror the reference's squashed parameterisation:

@@ -1,5 +1,6 @@
 """CLI: SimCLR pretraining, one curriculum stage, on one GPU
-or data parallel over several under torchrun (``--mesh data=N``) (counterpart of
+or over several under torchrun (``--mesh data=N[,model=M]``,
+``--param_sharding``) (counterpart of
 :mod:`bvc_tpu.cli.pretrain_simclr`, the same flags).
 
 Example::

@@ -1,5 +1,6 @@
 """CLI: VideoMAE tube-masked pretraining, one curriculum stage, on one GPU
-or data parallel over several under torchrun (``--mesh data=N``)
+or over several under torchrun (``--mesh data=N[,model=M]``,
+``--param_sharding``)
 (counterpart of :mod:`bvc_tpu.cli.pretrain_videomae`, the same flags).
 
 Example::

@@ -1,5 +1,5 @@
 """CLI: run a full curriculum experiment (the slurmscripts replacement) on
-one GPU, or data parallel over several under torchrun with ``--mesh data=N``
+one GPU, or over several under torchrun with ``--mesh data=N[,model=M]``
 (counterpart of :mod:`bvc_tpu.cli.run_curriculum`, its flags and
 ``--pack_root``).
 
@@ -15,9 +15,11 @@ control variants, and ``--init_checkpoint_path`` to resume a chain.  The
 kernels build at their first use (``bvc_tpu_torch/ops/_build.py``).
 ``torchrun --nproc_per_node N -m bvc_tpu_torch.cli.run_curriculum --mesh
 data=N ...`` runs every stage and the sweep data parallel (rank 0 writes the
-manifest); ``--emit_script`` with ``--mesh data=N`` writes commands that
-launch each stage under torchrun.  A ``model``/``seq``/``pipe`` axis or a
-``--param_sharding`` other than ``replicated`` raises, naming slices 7b-7d.
+manifest), ``--mesh data=N,model=M --param_sharding tp`` over N*M ranks
+with the heads split over ``model``; ``--param_sharding zero1|fsdp|tp``
+reaches every stage.  ``--emit_script`` with a mesh writes commands that
+launch each stage under torchrun.  A ``seq``/``pipe`` axis raises, naming
+slices 7c-7d.
 
 Runs on ``cuda``; ``main(argv, device="cpu")`` runs on the CPU.
 """
@@ -53,7 +55,8 @@ def build_parser():
     p.add_argument("--mesh", type=str, default="",
                    help="data=N under torchrun --nproc_per_node N (every stage and the "
                         "sweep data parallel); with --emit_script, the commands' layout")
-    p.add_argument("--param_sharding", type=str, default="replicated")
+    p.add_argument("--param_sharding", type=str, default="replicated",
+                   help="every stage's parameter layout: replicated, zero1, fsdp or tp")
     p.add_argument("--segment_minutes", type=float, default=30.0)
     p.add_argument("--pack_root", type=str, default="",
                    help="packed-corpus root (python -m bvc_tpu_torch.cli.pack_corpus): "
@@ -145,6 +148,7 @@ def main(argv=None, device: str | torch.device | None = None):
             sbatch=args.sbatch == "y",
             job_name=args.job_name or None,
             mesh=args.mesh,
+            param_sharding=args.param_sharding,
         )
         with open(args.emit_script, "w") as f:
             f.write(script)

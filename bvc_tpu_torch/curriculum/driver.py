@@ -1,5 +1,5 @@
 """Curriculum driver: the reference's bash stage loop as a Python L5, on
-one GPU or data parallel over several (counterpart of
+one GPU or over several (counterpart of
 :mod:`bvc_tpu.curriculum.driver`).
 
 Replaces ``slurmscripts/*/slurm_*_*.bash`` (SURVEY.md §2.8, §3.5):
@@ -24,11 +24,13 @@ per-family behavior, the driver just wires paths.
 The port's stages run the port's trainers (``training/trainer_*.py``) and
 write ``model_{run_id}.pth.tar``; the sweep runs ``evalbench/extract.py``.
 Under a process group (torchrun) every rank runs the curriculum: the stages
-and the sweep data parallel over ``base.mesh_shape``'s ``data`` axis, which
-must equal the world size, and rank 0 writes the manifest and the CSVs.
-Other mesh axes and parameter shardings raise before anything runs,
-naming slices 7b-7d.  :func:`emit_script` launches each stage and sweep
-under ``torchrun --nproc_per_node N`` when its ``mesh`` asks for N > 1.
+over ``base.mesh_shape`` (``data``, or ``data`` and ``model``, whose sizes
+multiply to the world size) with ``base.param_sharding``'s layout, the
+sweep over its ``data`` axis, and rank 0 writes the manifest and the CSVs.
+A ``seq`` or ``pipe`` axis, or a layout the mesh cannot take, raises
+before anything runs.  :func:`emit_script` launches each stage and sweep
+under ``torchrun --nproc_per_node N`` when its ``mesh`` asks for N > 1
+ranks.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import shlex
 from pathlib import Path
 from typing import Any
@@ -49,7 +52,7 @@ from bvc_tpu_torch.curriculum.presets import (
     FAMILY_PRESETS,
     FamilyPreset,
 )
-from bvc_tpu_torch.parallel.mesh import DATA_AXIS, refuse_unported_axes
+from bvc_tpu_torch.parallel.mesh import refuse_unported_axes
 from bvc_tpu_torch.training.trainer_videomae import refuse_unported
 from bvc_tpu_torch.utils.config import VIT_DIMS, RunId, TrainConfig
 from bvc_tpu_torch.utils.device import resolve_device
@@ -165,6 +168,7 @@ def emit_script(
     sbatch: bool = False,
     job_name: str | None = None,
     mesh: str = "",
+    param_sharding: str = "replicated",
 ) -> str:
     """The curriculum as a runnable shell script — the reference ships its
     grids as bash (``slurmscripts/*``); this emits the equivalent over
@@ -191,10 +195,12 @@ def emit_script(
 
     The script runs the port's CLIs and threads ``model_{run_id}.pth.tar``
     from stage to stage; it is otherwise the JAX package's, line for line.
-    ``mesh`` (the CLI's ``--mesh``, e.g. ``'data=4'``) reaches every
-    command; when it asks for more than one rank, each command runs under
-    ``torchrun --nproc_per_node N`` (and the ``#SBATCH`` header asks for N
-    GPUs).
+    ``mesh`` (the CLI's ``--mesh``, e.g. ``'data=4'`` or
+    ``'data=2,model=2'``) reaches every command; when it asks for more than
+    one rank, each command runs under ``torchrun --nproc_per_node N`` with
+    N the product of its sizes (and the ``#SBATCH`` header asks for N
+    GPUs).  ``param_sharding`` other than ``replicated`` reaches every
+    stage's command.
     """
     from bvc_tpu_torch.data.factory import CONTROL_CONDITIONS
 
@@ -206,9 +212,11 @@ def emit_script(
     cli = _FAMILY_CLI[preset.family]
     mesh_shape = parse_mesh(mesh)
     refuse_unported_axes(mesh_shape)
-    ranks = mesh_shape.get(DATA_AXIS, 1)
+    ranks = math.prod(max(n, 1) for n in mesh_shape.values())
     launch = (f"torchrun --nproc_per_node {ranks} -m" if ranks > 1 else "python -m")
     mesh_flag = f" --mesh {mesh}" if mesh else ""
+    shard_flag = (f" --param_sharding {param_sharding}"
+                  if param_sharding != "replicated" else "")
     # 'static' also routes through the control root once one is
     # configured (data/factory.py); emitting the env-backed flag for it
     # keeps script semantics identical to the live run either way
@@ -272,7 +280,7 @@ def emit_script(
         cfg = build_stage_config(preset, info, base)
         o, d, m = cfg.optim, cfg.data, cfg.model
         cmd = [
-            f"{launch} bvc_tpu_torch.cli.{cli}{mesh_flag}",
+            f"{launch} bvc_tpu_torch.cli.{cli}{mesh_flag}{shard_flag}",
             f'-train_group {info["train_group"]} -jpg_root "$JPG_ROOT" '
             f'-savedir "$SAVEDIR" -init_checkpoint_path "$INIT"',
             f'--run_id {info["run_id"]} --fold {info["fold"]} '
@@ -426,8 +434,9 @@ def run_curriculum(
     logger = get_logger("bvc_tpu_torch.curriculum")
     if isinstance(preset, str):
         preset = FAMILY_PRESETS[preset]
-    # before any stage trains: an unported mesh axis or sharding would reach
-    # the trainers (which refuse it) only after the untrained baseline ran
+    # before any stage trains: an unported mesh axis or a layout the mesh
+    # cannot take would reach the trainers (which refuse it) only after the
+    # untrained baseline ran
     refuse_unported(base)
     device = resolve_device(device)
     base = copy.deepcopy(base)

@@ -57,7 +57,7 @@ from bvc_tpu_torch.models.resnet import ResNet
 from bvc_tpu_torch.models.videomae import VideoMAEEncoder
 from bvc_tpu_torch.ops.quant import quantize_encoder
 from bvc_tpu_torch.parallel.collectives import all_gather_objects
-from bvc_tpu_torch.parallel.mesh import rank, world_size
+from bvc_tpu_torch.parallel.mesh import data_rank, data_size
 from bvc_tpu_torch.utils.config import ModelConfig
 from bvc_tpu_torch.utils.device import resolve_device
 
@@ -228,16 +228,17 @@ def extract_embeddings(embed_fn: Callable, dataset, batch_size: int = 64,
     Samples are read by a thread pool; unreadable ones (clip None) are
     dropped.  The short last batch runs as it is: the JAX package pads it
     only to a multiple of the device count, which is one a rank here.
-    Under a process group each rank embeds ``idxs[rank::world]``; the
-    count of calls comes from the global n, so every rank makes the same
-    number (a rank whose chunk is empty or unreadable embeds a one-clip
-    dummy batch and keeps no row), and the rows of every rank are gathered
-    in rank order (:func:`merge_gathered`).
+    Under a process group each data rank embeds ``idxs[rank::world]`` of
+    the mesh's ``data`` axis (the ``model`` ranks of a data row embed the
+    same samples); the count of calls comes from the global n, so every
+    rank makes the same number (a rank whose chunk is empty or unreadable
+    embeds a one-clip dummy batch and keeps no row), and the rows of every
+    data rank are gathered in data order (:func:`merge_gathered`).
     """
     fnames: list[str] = []
     embs: list[np.ndarray] = []
-    n, world = len(dataset), world_size()
-    idxs = list(range(n))[rank()::world]
+    n, world = len(dataset), data_size()
+    idxs = list(range(n))[data_rank()::world]
     largest_slice = -(-n // world)
     n_iters = -(-largest_slice // batch_size)
     with cf.ThreadPoolExecutor(max_workers=num_workers) as pool:

@@ -47,7 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bvc_tpu_torch.parallel.collectives import all_reduce_grad
-from bvc_tpu_torch.parallel.mesh import world_size
+from bvc_tpu_torch.parallel.mesh import data_size
 
 BLOCKS = {
     "resnet18": ("basic", (2, 2, 2, 2)),
@@ -93,7 +93,7 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, groups: int = 1,
         return all_reduce_grad(t) if across_ranks else t
 
     xf = x.float().reshape(groups, B // groups, C, H, W)
-    n = B // groups * H * W * (world_size() if across_ranks else 1)
+    n = B // groups * H * W * (data_size() if across_ranks else 1)
     mean = total(xf) / n
     dev = xf - mean[:, None, :, None, None]
     var = total(dev.square()) / n
@@ -111,6 +111,8 @@ class _Block(nn.Module):
     """A basic (two 3x3) or bottleneck (1x1, 3x3, 1x1 at 4x width) block,
     the stride on its first 3x3, a 1x1 projection of the identity where the
     shape changes."""
+
+    shard_unit = True  # FSDP2 shards the model block by block
 
     def __init__(self, kind: str, cin: int, width: int, stride: int):
         super().__init__()
@@ -142,8 +144,10 @@ class _Block(nn.Module):
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     """``conv`` in ``x``'s dtype: the f32 weight cast per call, as the JAX
-    package's ``w.astype(dtype)``."""
-    return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding)
+    package's ``w.astype(dtype)``, in ``channels_last`` memory (FSDP2
+    holds its weights contiguous)."""
+    w = conv.weight.to(x.dtype, memory_format=torch.channels_last)
+    return F.conv2d(x, w, None, conv.stride, conv.padding)
 
 
 class ResNet(nn.Module):
@@ -204,7 +208,7 @@ class ResNet(nn.Module):
         chunks) when ``'per_replica'``."""
         if bn_stats not in ("global", "per_replica"):
             raise ValueError(f"bn_stats must be 'global' or 'per_replica', got {bn_stats!r}")
-        across = bn_stats == "global" and world_size() > 1
+        across = bn_stats == "global" and data_size() > 1
 
         def norm(bn, y):
             return batch_norm(bn, y, self.bn_groups, across)

@@ -13,6 +13,17 @@ A block's ``qkv``, ``proj``, ``fc1`` and ``fc2`` may be a
 :func:`~bvc_tpu_torch.ops.quant.qdense` with the bias added in f32, as the
 JAX package's ``qdense`` does.
 
+Under tensor parallelism (``--param_sharding tp``,
+:meth:`Block.split_heads`) a block holds its
+rank's heads: the rows of ``qkv`` that are its heads of q, k and v, its
+columns of ``proj``, its rows of ``fc1`` and columns of ``fc2``.  The
+attention runs on the local heads, through the same kernels and routing;
+Megatron's "f" (:func:`~bvc_tpu_torch.parallel.collectives.copy_to_model`)
+enters each half of the block and "g" (:func:`~bvc_tpu_torch.parallel.
+collectives.reduce_from_model`) sums the row-parallel products over the
+model ranks, the biases of ``proj`` and ``fc2`` added once after the sum,
+as the JAX package's TP block adds them.
+
 Stochastic depth (:func:`drop_path`, JEPA only, off in every reference
 config) and activation checkpointing (``remat``: each block's activations
 recomputed in the backward, as the JAX package's ``run_blocks(..., remat)``)
@@ -32,6 +43,8 @@ from bvc_tpu_torch.ops.attention import multi_head_attention
 from bvc_tpu_torch.ops.flash_attention import key_bias
 from bvc_tpu_torch.ops.gelu import gelu
 from bvc_tpu_torch.ops.quant import QuantLinear, qdense
+from bvc_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
+from bvc_tpu_torch.parallel.sharding import TP_RULES, TPSplit
 
 
 def drop_path(x: torch.Tensor, keep: torch.Tensor | None, keep_prob: float = 1.0
@@ -81,8 +94,17 @@ def _dense(x: torch.Tensor, layer: nn.Linear | QuantLinear) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype), bias)
 
 
+def _row_parallel(x: torch.Tensor, layer: nn.Linear, group) -> torch.Tensor:
+    """A row-parallel layer over the model ranks: this rank's product,
+    summed over the ranks, then the (whole) bias."""
+    out = reduce_from_model(F.linear(x, layer.weight.to(x.dtype)), group)
+    return out + layer.bias.to(x.dtype)
+
+
 class Block(nn.Module):
     """One pre-LN transformer block on ``[B, N, D]`` (``block_apply``)."""
+
+    shard_unit = True  # FSDP2 shards the model block by block
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, ln_eps: float = 1e-6,
@@ -90,6 +112,8 @@ class Block(nn.Module):
         super().__init__()
         hidden = int(dim * mlp_ratio)
         self.num_heads = num_heads
+        # the model ranks' group and count once split_heads split the block
+        self.tp_group, self.tp_size = None, 1
         self.ln1 = LayerNorm(dim, ln_eps)
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
@@ -101,6 +125,27 @@ class Block(nn.Module):
         for layer in (self.qkv, self.proj, self.fc1, self.fc2):
             init_linear(layer, init_std, generator)
 
+    def split_heads(self, group, size: int, rank: int) -> None:
+        """Keep model rank ``rank``'s part of each parameter that
+        :data:`~bvc_tpu_torch.parallel.sharding.TP_RULES` splits over the
+        ``size`` ranks of ``group`` (tagged ``tp_split``): its heads of q, k
+        and v, its rows of ``fc1``, its columns of ``proj`` and ``fc2``.
+        Heads or an MLP width that do not divide by ``size`` leave the
+        block whole (the JAX package splits its columns anyway and GSPMD
+        reshards them: the numbers are the same)."""
+        if self.num_heads % size or self.fc1.out_features % size:
+            return
+        for name, dim, parts in TP_RULES:
+            layer, attr = name.split(".")
+            old = getattr(getattr(self, layer), attr)
+            if old is None:
+                continue
+            spec = TPSplit(dim, parts, size, rank, group)
+            new = nn.Parameter(spec.split(old.detach()), requires_grad=old.requires_grad)
+            new.tp_split = spec
+            setattr(getattr(self, layer), attr, new)
+        self.tp_group, self.tp_size = group, size
+
     def forward(self, x: torch.Tensor, attn_impl: str = "auto",
                 bias: torch.Tensor | None = None, drop_keep: torch.Tensor | None = None,
                 keep_prob: float = 1.0) -> torch.Tensor:
@@ -109,13 +154,21 @@ class Block(nn.Module):
         draws (Bernoulli(``keep_prob``)) of the attention and MLP branches,
         or None."""
         B, N, D = x.shape
+        heads, hd = self.num_heads // self.tp_size, D // self.num_heads
+        tp = self.tp_size > 1
         h = self.ln1(x)
-        qkv = _dense(h, self.qkv).reshape(B, N, 3, self.num_heads, D // self.num_heads)
+        if tp:
+            h = copy_to_model(h, self.tp_group)
+        qkv = _dense(h, self.qkv).reshape(B, N, 3, heads, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        attn = multi_head_attention(q, k, v, impl=attn_impl, bias=bias)
-        attn = _dense(attn.reshape(B, N, D), self.proj)
+        attn = multi_head_attention(q, k, v, impl=attn_impl, bias=bias).reshape(B, N, heads * hd)
+        attn = _row_parallel(attn, self.proj, self.tp_group) if tp else _dense(attn, self.proj)
         x = x + drop_path(attn, None if drop_keep is None else drop_keep[0], keep_prob)
-        h = _dense(gelu(_dense(self.ln2(x), self.fc1)), self.fc2)
+        h = self.ln2(x)
+        if tp:
+            h = copy_to_model(h, self.tp_group)
+        h = gelu(_dense(h, self.fc1))
+        h = _row_parallel(h, self.fc2, self.tp_group) if tp else _dense(h, self.fc2)
         return x + drop_path(h, None if drop_keep is None else drop_keep[1], keep_prob)
 
 

@@ -28,6 +28,7 @@ from typing import Any
 
 import torch
 
+from bvc_tpu_torch.parallel.sharding import full_tensor, local_part
 from bvc_tpu_torch.utils.logging import is_main_process
 
 
@@ -121,14 +122,55 @@ def load_meta(path: str | Path) -> dict[str, Any]:
     return torch.load(file, map_location="cpu", weights_only=True, mmap=True).get("meta", {})
 
 
+def _indexed_params(optimizer: torch.optim.Optimizer) -> list[torch.Tensor]:
+    """The parameters in ``state_dict`` index order: group by group."""
+    return [p for group in optimizer.param_groups for p in group["params"]]
+
+
+def _is_zero(optimizer: torch.optim.Optimizer) -> bool:
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+
+    return isinstance(optimizer, ZeroRedundancyOptimizer)
+
+
+def optimizer_state_dict(optimizer: torch.optim.Optimizer) -> dict | None:
+    """``optimizer.state_dict()`` with whole tensors, whatever the layout:
+    the one file format of every ``--param_sharding``.  A collective under
+    a process group: ``zero1`` consolidates the partitions on rank 0
+    (``consolidate_state_dict(to=0)``) and returns None on the other ranks;
+    ``fsdp`` and ``tp`` gather each state tensor in its parameter's layout
+    on every rank."""
+    if _is_zero(optimizer):
+        optimizer.consolidate_state_dict(to=0)
+        return optimizer.state_dict() if is_main_process() else None
+    sd = optimizer.state_dict()
+    params = _indexed_params(optimizer)
+    sd["state"] = {i: {k: full_tensor(params[i], v) if torch.is_tensor(v) and v.ndim else v
+                       for k, v in st.items()}
+                   for i, st in sd["state"].items()}
+    return sd
+
+
 def load_optimizer_state(optimizer: torch.optim.Optimizer, saved: dict) -> None:
     """Load a saved optimizer ``state_dict``'s per-parameter state (e.g.
-    momentum) into ``optimizer``, keeping its own hyper-parameters: as
-    optax's state, which holds no learning rate, a stage chained with other
-    flags runs at its own."""
-    current = optimizer.state_dict()
-    current["state"] = saved["state"]
-    optimizer.load_state_dict(current)
+    momentum, whole tensors) into ``optimizer``, keeping its own
+    hyper-parameters: as optax's state, which holds no learning rate, a
+    stage chained with other flags runs at its own.  Each rank takes its
+    parts in its parameters' layout; a ``ZeroRedundancyOptimizer`` keeps
+    the partition it owns."""
+    params = _indexed_params(optimizer)
+    groups, start = [], 0
+    for group in optimizer.param_groups:
+        n = len(group["params"])
+        groups.append({**{k: v for k, v in group.items() if k != "params"},
+                       "params": list(range(start, start + n))})
+        start += n
+    zero = _is_zero(optimizer)  # takes whole tensors and keeps the ones it owns
+    state = {int(i): {k: local_part(params[int(i)], v)
+                      if torch.is_tensor(v) and v.ndim and not zero else v
+                      for k, v in st.items()}
+             for i, st in saved["state"].items()}
+    optimizer.load_state_dict({"state": state, "param_groups": groups})
 
 
 def checkpoint_saver(cfg) -> tuple[Any, Any]:

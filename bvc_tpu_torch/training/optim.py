@@ -17,6 +17,13 @@ param group without weight decay (:func:`wd_mask`).  The two schedules,
 :func:`warmup_cosine_lr` and :func:`cosine_wd`, are functions of the count
 of updates taken; :func:`apply_schedules` writes their values into the param
 groups before each update.
+
+Under ``--param_sharding zero1`` the optimizer is a
+``ZeroRedundancyOptimizer`` over the ``data`` ranks (``zero_group``): its
+``param_groups`` (which :func:`apply_schedules` writes) reach the rank's
+local optimizer at every ``step``, which updates the whole tensors the rank
+owns and broadcasts them.  Under ``fsdp`` the same optimizers step the
+``DTensor`` shards, under ``tp`` the rank's parts of the split tensors.
 """
 
 from __future__ import annotations
@@ -62,14 +69,17 @@ def cosine_wd(ref: float, final: float, total_steps: int) -> Callable[[int], flo
 
 
 def make_optimizer(cfg: OptimConfig, named_params: Iterable[tuple[str, torch.nn.Parameter]],
-                   steps: tuple[int, int] | None = None) -> torch.optim.Optimizer:
+                   steps: tuple[int, int] | None = None, zero_group=None
+                   ) -> torch.optim.Optimizer:
     """The optimizer of ``cfg`` over ``named_params`` (e.g.
     ``model.named_parameters()``).
 
     ``steps = (warmup_steps, total_steps)`` is required when
     ``cfg.schedule`` or ``cfg.final_wd`` enables a schedule; the optimizer
     then carries ``lr_fn`` and ``wd_fn`` (None when off) for
-    :func:`apply_schedules`."""
+    :func:`apply_schedules`.  ``zero_group`` (a process group, or the
+    world's as ``torch.distributed.group.WORLD``) partitions the state over
+    its ranks in a ``ZeroRedundancyOptimizer``."""
     named_params = list(named_params)
     wd = cfg.weight_decay
     lr_fn = wd_fn = None
@@ -100,14 +110,21 @@ def make_optimizer(cfg: OptimConfig, named_params: Iterable[tuple[str, torch.nn.
     groups = [g for g in groups if g["params"]]
     lr = lr_fn(0) if lr_fn is not None else cfg.lr
     if cfg.name == "sgd":
-        opt = torch.optim.SGD(groups, lr=lr, momentum=cfg.momentum,
-                              nesterov=cfg.nesterov and cfg.momentum > 0)
+        cls, kwargs = torch.optim.SGD, {"momentum": cfg.momentum,
+                                        "nesterov": cfg.nesterov and cfg.momentum > 0}
     elif cfg.name == "adamw":
-        opt = torch.optim.AdamW(groups, lr=lr, betas=(cfg.adam_b1, cfg.adam_b2), eps=1e-8)
+        cls, kwargs = torch.optim.AdamW, {"betas": (cfg.adam_b1, cfg.adam_b2), "eps": 1e-8}
     elif cfg.name == "adam":
-        opt = torch.optim.Adam(groups, lr=lr, eps=1e-8)
+        cls, kwargs = torch.optim.Adam, {"eps": 1e-8}
     else:
         raise ValueError(f"invalid optimizer {cfg.name!r}")
+    if zero_group is None:
+        opt = cls(groups, lr=lr, **kwargs)
+    else:
+        from torch.distributed.optim import ZeroRedundancyOptimizer
+
+        opt = ZeroRedundancyOptimizer(groups, optimizer_class=cls, process_group=zero_group,
+                                      lr=lr, **kwargs)
     opt.lr_fn, opt.wd_fn = lr_fn, wd_fn
     apply_schedules(opt, 0)
     return opt

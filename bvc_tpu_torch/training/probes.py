@@ -14,6 +14,13 @@ per-layer gradient norms (the reference meter's ``avg (min, max)``), and
 package's: VideoMAE's patch embedding, ``enc_to_dec`` and decoder head;
 every JEPA weight (:func:`per_layer_weight_norms`); SimCLR's stem
 convolution and its head's first layer.
+
+Under a split layout (``fsdp``: ``DTensor`` shards over the ``data``
+ranks; ``tp``: the heads' parts over the ``model`` ranks) a rank holds part
+of some gradients: each rank sums the squares of its parts, one all-reduce
+a group adds the sums of the split tensors over their ranks, and a tensor
+every rank holds whole counts once, so every probe reads one process's
+value.
 """
 
 from __future__ import annotations
@@ -21,6 +28,9 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.distributed as dist
+
+from bvc_tpu_torch.parallel.sharding import local_tensor, shard_group
 
 
 def _sumsqs(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -33,13 +43,33 @@ def _sumsqs(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
     return [t.square().sum() for t in tensors]
 
 
+def _whole_sumsqs(params: list[torch.Tensor], grads: list[torch.Tensor]
+                  ) -> list[torch.Tensor]:
+    """The squared norms of the whole ``grads`` (each in its parameter's
+    layout): the rank's parts' sums, added over the ranks of each split
+    tensor's group in one all-reduce a group."""
+    sums = _sumsqs([local_tensor(g) for g in grads])
+    split: dict = {}
+    for i, p in enumerate(params):
+        is_split, group = shard_group(p)
+        if is_split:
+            split.setdefault(group, []).append(i)
+    for group, idx in split.items():
+        total = torch.stack([sums[i] for i in idx])
+        dist.all_reduce(total, group=group)
+        for j, i in enumerate(idx):
+            sums[i] = total[j]
+    return sums
+
+
 def _grad_sumsqs(model: torch.nn.Module, select: Callable[[str, torch.Tensor], bool]
                  = lambda name, p: True) -> list[tuple[str, torch.Tensor]]:
     """(name, squared gradient norm) of every selected parameter with a
     gradient."""
-    named = [(n, p.grad) for n, p in model.named_parameters()
+    named = [(n, p) for n, p in model.named_parameters()
              if p.grad is not None and select(n, p)]
-    return list(zip([n for n, _ in named], _sumsqs([g for _, g in named])))
+    return list(zip([n for n, _ in named],
+                    _whole_sumsqs([p for _, p in named], [p.grad for _, p in named])))
 
 
 def _norm_of(sumsqs: list[tuple[str, torch.Tensor]], prefix: str, device) -> torch.Tensor:
@@ -105,7 +135,7 @@ def per_layer_weight_norms(model: torch.nn.Module) -> torch.Tensor:
     if not weights:
         return torch.zeros((1,), device=next(model.parameters()).device)
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for _, p in weights]
-    return torch.stack(_sumsqs(grads)).sqrt()
+    return torch.stack(_whole_sumsqs([p for _, p in weights], grads)).sqrt()
 
 
 def _meter(norms_fn: Callable[[torch.nn.Module], torch.Tensor]

@@ -20,19 +20,24 @@ PyTorch runs eagerly, so there is no jit: a step is a plain function that
 updates the state in place.  Its metrics stay device tensors, so the step
 never waits for the device; the caller reads them when it needs them.
 
-Data parallel (a process group, ``state.ddp``): a step takes this rank's
-block of the global batch and calls the model through
-``DistributedDataParallel``, whose hooks average the gradients over the
-ranks during the backward, so the update is the one process's at the
+Under a process group a step takes this rank's block of the global batch
+(its ``data`` coordinate's; the ``model`` ranks of a data row hold the same
+block) and calls ``state.forward``: ``DistributedDataParallel`` over the
+``data`` ranks, whose hooks average the gradients during the backward
+(``replicated``, ``zero1``, ``tp``), or the FSDP2 module, which
+reduce-scatters them (``fsdp``); so the update is the one process's at the
 global batch (every sample weighs the same in each family's loss).  Under
-``grad_accum > 1`` every microbatch but the last runs under ``no_sync()``:
-one gradient all-reduce per optimizer step, as JAX's sharded accumulation.
-The masks are drawn for the global batch on every rank from the same
-generator, each rank keeping its rows; the metrics are averaged over the
-ranks (one all-reduce) before the caller reads them, and the gradient
-probes read the averaged gradients.  Drop-path (0 in every reference
-configuration) is drawn per rank from the rank's generator, so it differs
-from one process's draws at the global batch.
+``grad_accum > 1`` every microbatch but the last runs without the gradient
+reduction (``no_sync()``, or FSDP2's ``set_requires_gradient_sync(False)``):
+one reduction per optimizer step, as JAX's sharded accumulation.  The masks
+are drawn for the global batch on every rank from the same generator, each
+rank keeping its rows; the metrics are averaged over the data ranks (one
+all-reduce) before the caller reads them, and the gradient probes read the
+reduced gradients, whole (:mod:`~bvc_tpu_torch.training.probes`).
+Drop-path (0 in every reference configuration) is drawn per rank from the
+rank's generator, so it differs from one process's draws at the global
+batch.  The eval steps call the model (``state.model``) rather than its
+methods, so that FSDP2's hooks gather its parameters.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ from bvc_tpu_torch.models.videomae import normalize_on_device
 from bvc_tpu_torch.objectives.contrastive import (global_info_nce, info_nce_loss,
                                                   per_replica_info_nce_sharded)
 from bvc_tpu_torch.parallel.collectives import psum_scalar
-from bvc_tpu_torch.parallel.mesh import rank, world_size
+from bvc_tpu_torch.parallel.mesh import data_rank, data_size
 from bvc_tpu_torch.training.optim import apply_schedules
 from bvc_tpu_torch.training.probes import (jepa_grad_metrics, simclr_grad_metrics,
                                            videomae_grad_metrics)
@@ -77,26 +82,41 @@ def _probed(metrics: dict[str, torch.Tensor], model: torch.nn.Module,
 
 
 def mean_over_ranks(metrics: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """Scalar metrics averaged over the ranks in one all-reduce, each in
-    its own dtype; unchanged in one process."""
-    if world_size() == 1:
+    """Scalar metrics averaged over the data ranks in one all-reduce, each
+    in its own dtype; unchanged on a data axis of one."""
+    if data_size() == 1:
         return metrics
     mean = psum_scalar(torch.stack([v.detach().float() for v in metrics.values()]))
     return {k: m.to(v.dtype) for (k, v), m in zip(metrics.items(), mean)}
 
 
+@contextlib.contextmanager
+def _fsdp_no_sync(model):
+    model.set_requires_gradient_sync(False)
+    try:
+        yield
+    finally:
+        model.set_requires_gradient_sync(True)
+
+
 def _sync_unless(state: TrainState, last: bool):
-    """``state.ddp.no_sync()`` for every microbatch but the last, so the
-    gradients are all-reduced once per optimizer step."""
-    return contextlib.nullcontext() if last or state.ddp is None else state.ddp.no_sync()
+    """No gradient reduction for every microbatch but the last
+    (``state.ddp.no_sync()``, or FSDP2's), so the gradients are reduced
+    once per optimizer step."""
+    if last:
+        return contextlib.nullcontext()
+    if state.fsdp:
+        return _fsdp_no_sync(state.model)
+    return contextlib.nullcontext() if state.ddp is None else state.ddp.no_sync()
 
 
 def global_rows(draw: Callable[[int], torch.Tensor], local_batch: int) -> torch.Tensor:
     """This rank's rows of ``draw(global_batch)``: every rank draws for the
-    whole global batch from a generator in the same state, so the masks are
-    one process's at the global batch."""
-    r = rank()
-    return draw(local_batch * world_size())[r * local_batch:(r + 1) * local_batch]
+    whole global batch (``local_batch`` times the data ranks) from a
+    generator in the same state, so the masks are one process's at the
+    global batch, and the ranks of a data row draw the same rows."""
+    r = data_rank()
+    return draw(local_batch * data_size())[r * local_batch:(r + 1) * local_batch]
 
 
 def make_videomae_train_step(model_cfg: ModelConfig, mask_cfg: MaskConfig,
@@ -167,8 +187,7 @@ def make_videomae_train_step(model_cfg: ModelConfig, mask_cfg: MaskConfig,
             gen.manual_seed(hash((state.generator.initial_seed(), step_idx)) % 2**63)
             mask = global_rows(functools.partial(sampler, gen), video.shape[0])
         mask = mask.to(state.device, non_blocking=True)
-        return mean_over_ranks(
-            {"loss": state.model.pretrain_loss(video, mask, num_visible, attn_impl)})
+        return mean_over_ranks({"loss": state.model(video, mask, num_visible, attn_impl)})
 
     step.eval_step = eval_step
     return step
@@ -258,10 +277,7 @@ def make_jepa_train_step(model_cfg: ModelConfig, total_steps: int,
         i = state.step
         m = (ema[0] + i * (ema[1] - ema[0]) / max(total_steps, 1)
              if i < total_steps + 5 else ema_fallback)
-        with torch.no_grad():
-            target = list(state.target.parameters())
-            torch._foreach_mul_(target, m)
-            torch._foreach_add_(target, list(model.encoder.parameters()), alpha=1.0 - m)
+        state.ema_update(m)
         state.step += 1
         return _probed({"loss": loss, **jepa_grad_metrics(model),
                         "mask_a": (enc_idx[0] >= 0).sum(),

@@ -13,10 +13,12 @@ exports), plus ``opt``, ``epoch``, ``step``, ``rng``, the export's ``loss``,
 ``batch_size``, ``world_size`` and ``lr``, and ``meta`` (with the
 collator's ``collator_step``).
 
-Data parallel, the collator draws the masks of the whole global batch on
-every rank and each rank keeps its rows: the collator cuts every row to the
-smallest kept counts over the batch it draws, so drawing a rank's rows alone
-would give other caps than one process at the global batch.
+Over several ranks, the collator draws the masks of the whole global batch
+on every rank and each rank keeps its ``data`` coordinate's rows: the
+collator cuts every row to the smallest kept counts over the batch it
+draws, so drawing a rank's rows alone would give other caps than one
+process at the global batch.  The target encoder takes the online
+encoder's layout under every ``--param_sharding``.
 """
 
 from __future__ import annotations
@@ -36,10 +38,10 @@ from bvc_tpu_torch.models.convert import (jepa_encoder_from_reference_state_dict
                                           jepa_predictor_to_reference)
 from bvc_tpu_torch.models.jepa import JEPA
 from bvc_tpu_torch.parallel.collectives import sync_hosts
-from bvc_tpu_torch.parallel.mesh import rank
+from bvc_tpu_torch.parallel.mesh import data_rank, data_size
 from bvc_tpu_torch.training.checkpoint import (checkpoint_exists, checkpoint_path,
                                                checkpoint_saver, load_checkpoint, load_meta,
-                                               load_optimizer_state)
+                                               load_optimizer_state, optimizer_state_dict)
 from bvc_tpu_torch.training.metrics_pipe import MetricsPipe
 from bvc_tpu_torch.training.optim import schedule_steps
 from bvc_tpu_torch.training.probes import format_gstats, full_grad_probes
@@ -52,11 +54,11 @@ from bvc_tpu_torch.utils.logging import AverageMeter, CSVLogger, get_logger, is_
 from bvc_tpu_torch.utils.profiling import StepTraceWindow
 
 
-def make_mask_collate(cfg: TrainConfig, batches_per_epoch: int, world: int = 1):
+def make_mask_collate(cfg: TrainConfig, batches_per_epoch: int):
     """``(collate_fn, collator)``: ``collate_fn(batch, epoch, batch_idx)``
     attaches the enc/pred mask indices of collator step ``epoch *
     batches_per_epoch + batch_idx`` to each batch: this rank's rows of the
-    indices drawn for the global batch of ``world`` ranks' blocks."""
+    indices drawn for the global batch of every data rank's block."""
     m = cfg.model
     collator = MultiBlockMaskCollator(
         input_size=m.image_size,
@@ -75,8 +77,8 @@ def make_mask_collate(cfg: TrainConfig, batches_per_epoch: int, world: int = 1):
 
     def collate(batch: np.ndarray, epoch: int, batch_idx: int):
         step = epoch * batches_per_epoch + batch_idx
-        b, r = batch.shape[0], rank()
-        enc_idx, pred_idx = collator(b * world, step=step)
+        b, r = batch.shape[0], data_rank()
+        enc_idx, pred_idx = collator(b * data_size(), step=step)
         enc_idx, pred_idx = (x[:, r * b:(r + 1) * b] for x in (enc_idx, pred_idx))
         lift = (m.image_size, m.patch_size, m.num_frames, m.tubelet_size)
         enc_idx = update_mask_indices(enc_idx, *lift, isencoder=True)
@@ -88,6 +90,15 @@ def make_mask_collate(cfg: TrainConfig, batches_per_epoch: int, world: int = 1):
         }
 
     return collate, collator
+
+
+def prefixed(prefix: str, sd: dict) -> dict:
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def unprefixed(prefix: str, sd: dict) -> dict:
+    """The entries of ``sd`` under ``prefix``, the prefix dropped."""
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
 
 def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) -> dict:
@@ -130,14 +141,16 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
     model = JEPA(cfg.model, seed=cfg.seed)
     state = TrainState.create(model, cfg.optim, seed=cfg.seed + 1, device=device,
                               steps=schedule_steps(cfg, world),
-                              target=copy.deepcopy(model.encoder))
+                              target=copy.deepcopy(model.encoder),
+                              param_sharding=cfg.param_sharding)
 
     def restore(ckpt: dict) -> None:
-        state.model.encoder.load_state_dict(
-            jepa_encoder_from_reference_state_dict(ckpt["encoder"], cfg.model))
-        state.model.predictor.load_state_dict(
-            jepa_predictor_from_reference_state_dict(ckpt["predictor"], cfg.model))
-        state.target.load_state_dict(
+        state.load_model_state_dict({
+            **prefixed("encoder.", jepa_encoder_from_reference_state_dict(ckpt["encoder"],
+                                                                          cfg.model)),
+            **prefixed("predictor.", jepa_predictor_from_reference_state_dict(
+                ckpt["predictor"], cfg.model))})
+        state.load_target_state_dict(
             jepa_encoder_from_reference_state_dict(ckpt["target_encoder"], cfg.model))
         load_optimizer_state(state.optimizer, ckpt["opt"])
 
@@ -165,7 +178,7 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
     n_batches = len(datasets["train"]) // global_batch
     if cfg.max_epoch_iters:
         n_batches = min(n_batches, cfg.max_epoch_iters)
-    collate, collator = make_mask_collate(cfg, n_batches, world)
+    collate, collator = make_mask_collate(cfg, n_batches)
     # the EMA momentum ramps over the real iteration count (reference
     # pretrain_jepa.py:309-311 uses ipe*num_epochs)
     total_steps = max(n_batches, 1) * cfg.n_epoch
@@ -189,12 +202,12 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
     loss_meter = AverageMeter()
 
     def save(epoch_done: int):
-        m = state.model
+        sd = state.model_state_dict()
         save_fn(own_ckpt, {
-            "encoder": jepa_encoder_to_reference(m.encoder.state_dict(), cfg.model),
-            "predictor": jepa_predictor_to_reference(m.predictor.state_dict(), cfg.model),
-            "target_encoder": jepa_encoder_to_reference(state.target.state_dict(), cfg.model),
-            "opt": state.optimizer.state_dict(),
+            "encoder": jepa_encoder_to_reference(unprefixed("encoder.", sd), cfg.model),
+            "predictor": jepa_predictor_to_reference(unprefixed("predictor.", sd), cfg.model),
+            "target_encoder": jepa_encoder_to_reference(state.target_state_dict(), cfg.model),
+            "opt": optimizer_state_dict(state.optimizer),
             "scaler": None,
             "epoch": epoch_done,
             "step": state.step,

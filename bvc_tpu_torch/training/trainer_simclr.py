@@ -11,7 +11,9 @@ CSV schema (epoch, itr, train loss, grad-conv1, grad-fc0, time (ms)),
 statistics (:func:`~bvc_tpu_torch.models.convert.resnet_to_torchvision_state_dict`),
 ``opt``, ``epoch``, ``step``, ``rng``, the export's ``train_loss``,
 ``batch_size``, ``world_size`` and ``lr``, and ``meta`` (``family:
-simclr``, ``architecture``).
+simclr``, ``architecture``).  Under ``--param_sharding tp`` the ResNet
+matches no tensor-parallel rule: it stays whole on every ``model`` rank and
+the batch is split over ``data`` only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from bvc_tpu_torch.models.resnet import ResNet
 from bvc_tpu_torch.parallel.collectives import sync_hosts
 from bvc_tpu_torch.training.checkpoint import (checkpoint_exists, checkpoint_path,
                                                checkpoint_saver, load_checkpoint, load_meta,
-                                               load_optimizer_state)
+                                               load_optimizer_state, optimizer_state_dict)
 from bvc_tpu_torch.training.metrics_pipe import MetricsPipe
 from bvc_tpu_torch.training.optim import schedule_steps
 from bvc_tpu_torch.training.probes import format_gstats, full_grad_probes
@@ -90,14 +92,15 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
         model.load_state_dict(resnet_from_torchvision_state_dict(
             load_checkpoint(cfg.init_checkpoint_path)["model_state_dict"]))
     state = TrainState.create(model, cfg.optim, seed=cfg.seed + 1, device=device,
-                              steps=schedule_steps(cfg, world))
+                              steps=schedule_steps(cfg, world),
+                              param_sharding=cfg.param_sharding)
     start_epoch = 0
     if resuming:
         # mid-stage preemption recovery: weights with the running
         # statistics, optimizer, epoch, step and generator
         logger.info("resuming from %s", own_ckpt)
         restored = load_checkpoint(own_ckpt)
-        state.model.load_state_dict(resnet_from_torchvision_state_dict(
+        state.load_model_state_dict(resnet_from_torchvision_state_dict(
             restored["model_state_dict"]))
         load_optimizer_state(state.optimizer, restored["opt"])
         state.step = int(restored["step"])
@@ -129,8 +132,8 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
 
     def save(epoch_done: int):
         save_fn(own_ckpt, {
-            "model_state_dict": resnet_to_torchvision_state_dict(state.model.state_dict()),
-            "opt": state.optimizer.state_dict(),
+            "model_state_dict": resnet_to_torchvision_state_dict(state.model_state_dict()),
+            "opt": optimizer_state_dict(state.optimizer),
             "epoch": epoch_done,
             "step": state.step,
             "rng": state.generator.get_state(),

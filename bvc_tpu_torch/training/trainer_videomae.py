@@ -13,12 +13,17 @@ thirds of the qkv biases, which HF's layout drops), ``opt``, ``epoch``,
 ``val_loss``, ``batch_size``, ``world_size`` and ``lr``, and ``meta``.
 
 Under a process group (torchrun, :func:`bvc_tpu_torch.parallel.distributed_init`)
-the trainers run data parallel over a pure ``data`` mesh of the world's
-size: the global batch is ``batch_size * world`` (the flag is per GPU), each
-rank loads its block of it, the steps average the gradients and the metrics
-over the ranks, and rank 0 alone writes the CSV, ``params_{run_id}.yaml``,
-the checkpoints (synchronously: the async writer waits at world > 1) and the
-profiler trace, with a barrier after each checkpoint write.
+the trainers run over the mesh of ``cfg.mesh_shape`` (``data``, or ``data``
+and ``model``) with the parameters laid out by ``cfg.param_sharding``
+(:class:`~bvc_tpu_torch.training.state.TrainState`): the global batch is
+``batch_size * world`` (the flag is per GPU, as the JAX CLIs' per-device
+flag), each rank loads its ``data`` coordinate's block of it, the steps
+reduce the gradients and average the metrics over the data ranks, and rank
+0 alone writes the CSV, ``params_{run_id}.yaml``, the checkpoints
+(synchronously: the async writer waits at world > 1) and the profiler
+trace, with a barrier after each checkpoint write.  A checkpoint holds whole
+tensors in the same layout under every mode, so a stage resumes or chains
+under any other.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from bvc_tpu_torch.parallel.mesh import Mesh, make_mesh
 from bvc_tpu_torch.parallel.sharding import param_shardings
 from bvc_tpu_torch.training.checkpoint import (checkpoint_exists, checkpoint_path,
                                                checkpoint_saver, load_checkpoint, load_meta,
-                                               load_optimizer_state)
+                                               load_optimizer_state, optimizer_state_dict)
 from bvc_tpu_torch.training.metrics_pipe import MetricsPipe
 from bvc_tpu_torch.training.optim import schedule_steps
 from bvc_tpu_torch.training.probes import format_gstats, full_grad_probes
@@ -53,12 +58,14 @@ from bvc_tpu_torch.utils.profiling import StepTraceWindow, device_memory_stats
 
 def refuse_unported(cfg: TrainConfig) -> Mesh:
     """The run's mesh (:func:`~bvc_tpu_torch.parallel.make_mesh` of
-    ``cfg.mesh_shape``): a pure ``data`` mesh of the world's size.  Raises
-    for what the port does not run yet, naming its slice: a ``model``,
-    ``seq`` or ``pipe`` axis (7b-7d) and a parameter sharding other than
-    ``replicated`` (7b); and for a ``data`` size other than the world's."""
-    param_shardings(cfg.param_sharding)
-    return make_mesh(cfg.mesh_shape)
+    ``cfg.mesh_shape``, over the world), its parameter layout checked
+    (:func:`~bvc_tpu_torch.parallel.sharding.param_shardings`).  Raises for
+    what the port does not run yet, naming its slice: a ``seq`` or
+    ``pipe`` axis (7c, 7d); for ``zero1`` or ``fsdp`` beside a ``model``
+    axis; and for axes whose sizes do not multiply to the world's."""
+    mesh = make_mesh(cfg.mesh_shape)
+    param_shardings(cfg.param_sharding, mesh)
+    return mesh
 
 
 def videomae_model_state(ckpt: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
@@ -107,14 +114,15 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
         model.load_state_dict(videomae_model_state(load_checkpoint(cfg.init_checkpoint_path),
                                                    cfg.model))
     state = TrainState.create(model, cfg.optim, seed=cfg.seed + 1, device=device,
-                              steps=schedule_steps(cfg, world))
+                              steps=schedule_steps(cfg, world),
+                              param_sharding=cfg.param_sharding)
     start_epoch = 0
     if cfg.resume and checkpoint_exists(own_ckpt):
         # mid-stage preemption recovery: weights, optimizer, epoch and
         # step/generator (so the mask stream continues, not replays)
         logger.info("resuming from %s", own_ckpt)
         restored = load_checkpoint(own_ckpt)
-        state.model.load_state_dict(videomae_model_state(restored, cfg.model))
+        state.load_model_state_dict(videomae_model_state(restored, cfg.model))
         load_optimizer_state(state.optimizer, restored["opt"])
         state.step = int(restored["step"])
         state.generator.set_state(restored["rng"])
@@ -152,11 +160,11 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
     def save(epoch_done: int):
         train_loss = loss_meter.get("train", AverageMeter()).avg
         val_loss = loss_meter.get("val", AverageMeter()).avg
-        model_sd = state.model.state_dict()
+        model_sd = state.model_state_dict()
         save_fn(own_ckpt, {
             "model_state_dict": videomae_pretrain_to_hf_state_dict(model_sd, cfg.model),
             "qkv_k_bias": qkv_key_biases(model_sd),
-            "opt": state.optimizer.state_dict(),
+            "opt": optimizer_state_dict(state.optimizer),
             "epoch": epoch_done,
             "step": state.step,
             "rng": state.generator.get_state(),

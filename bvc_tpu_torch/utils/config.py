@@ -248,10 +248,12 @@ class OptimConfig:
 @dataclass
 class TrainConfig:
     """One curriculum stage's run: the JAX package's fields, so
-    ``params_{run_id}.yaml`` holds the same keys.  ``mesh_shape``,
-    ``param_sharding`` and ``pipe_microbatches`` belong to the multi-GPU
-    slice: the trainers refuse a mesh and a sharding other than
-    ``replicated``."""
+    ``params_{run_id}.yaml`` holds the same keys.  ``mesh_shape`` (the
+    CLI's ``--mesh``: ``{'data': N}`` or ``{'data': N, 'model': M}`` over
+    N*M ranks) and ``param_sharding`` (``replicated``, ``zero1``, ``fsdp``
+    or ``tp``) lay the run out over the GPUs; a ``seq`` or ``pipe`` axis
+    raises until slices 7c and 7d, and ``pipe_microbatches`` acts only on
+    one."""
 
     run_id: str = ""
     savedir: str = ""

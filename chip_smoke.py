@@ -9,6 +9,9 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
                                             # VideoMAE and one JEPA training step,
                                             # written to FILE, profile_w8a8.txt,
                                             # profile_train.txt and profile_jepa.txt
+    python3 chip_smoke.py --repeat-shard-ranks N  # only the sharding phase's two-rank
+                                                  # gloo jobs, N times each, and how
+                                                  # each run ended (a diagnostic)
 
 1. Build every CUDA kernel of the port from ``bvc_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print the card, its power
@@ -228,16 +231,36 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    VideoMAE-B at 10's batch a card, against one card at the global batch,
    with per-card clips/s and the scaling efficiency (alone:
    ``c.ddp_multi_card(smi, n, 48, Path(d))`` after ``_build.build_all``).
+24. Parameter sharding (slice 7b, ``phase_sharding``).  (a) World 1 over
+   NCCL, ``--param_sharding`` ``zero1``, ``fsdp`` and ``tp`` (at
+   ``model=1``): 23's VideoMAE-B and V-JEPA steps against the unwrapped
+   step (loss within 1e-4 relative, every gradient, gathered whole, at
+   cosine >= 0.9995 per tensor), launches equal to the unwrapped step's,
+   clips/s of every layout in turns.  (b) Two ranks on the one card over
+   gloo: ``tp`` at ``data=1,model=2`` (each rank the whole batch and half
+   the heads), ``zero1`` and ``fsdp`` at ``data=2``, against (a)'s
+   unwrapped steps under the same limits; each rank's launches the
+   one-GPU step's.  (c) The forward and backward kernels at ``tp``'s head
+   counts (``[8,160,6,64]``, ``[8,1568,3,64]``; with a key bias
+   ``[64,169,6,64]``, ``[256,199,6,32]``) against their plain versions.
+   (d) Each rank's bytes of parameters, gradients and optimizer state
+   under each mode at world 2.  (e) ``pretrain_videomae --mesh data=1
+   --param_sharding fsdp`` for 3 steps, resumed under ``replicated`` for 3
+   more, against an uninterrupted run's losses.  With more than one card,
+   (f) ``fsdp`` at ``data=n`` and ``tp`` at ``data=n/2,model=2`` over NCCL
+   against one card at the global batch, per-card clips/s and the scaling
+   efficiency (alone: ``c.shard_multi_card(smi, n, 48, Path(d))``).
 
 Every path runs with every launch count set to 0 just before it and read
 just after, and fails if a kernel other than its own launched (no SimCLR
 path launches one: each kernel's ``launches_on_simclr_paths`` is the sum of
 the counts read over them).
 Prints the host's CUDA device and CPU core counts, one JSON
-``{"trainers": {...}}`` line (14-18 and 20-23), one JSON ``{"kernels":
+``{"trainers": {...}}`` line (14-18 and 20-24), one JSON ``{"kernels":
 [...]}`` line (with each kernel's ``launches_per_cli_step``,
 ``launches_per_curriculum``, ``launches_per_artifact_call``,
-``launches_per_vit_image_embed`` and ``launches_per_ddp_step``),
+``launches_per_vit_image_embed``, ``launches_per_ddp_step`` and
+``launches_per_sharded_step``),
 the script's wall time and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that last line,
 when there is no CUDA device, when run outside a checkout, or when any phase
@@ -3667,8 +3690,9 @@ def ddp_family(family: str, B: int, grad_accum: int = 1):
     """``(new_state, step, args)`` of a family's full-width step at global
     batch ``B``: VideoMAE-B with a tube mask (0.9) drawn once from a CPU
     generator, or V-JEPA ViT-B with the collator's indices of the global
-    batch; clips from seed 0, on the host.  ``new_state()`` builds the state
-    from seed 0 (DDP-wrapped under a process group)."""
+    batch; clips from seed 0, on the host.  ``new_state(mode='replicated')``
+    builds the state from seed 0, laid out by ``mode`` (``--param_sharding``)
+    under a process group (DDP-wrapped under ``replicated``)."""
     import copy
 
     import numpy as np
@@ -3691,7 +3715,8 @@ def ddp_family(family: str, B: int, grad_accum: int = 1):
         grid = (cfg.num_time_steps, cfg.image_size // cfg.patch_size,
                 cfg.image_size // cfg.patch_size)
         mask = tube_mask(torch.Generator().manual_seed(0), B, grid, 0.9)
-        return (lambda: TrainState.create(VideoMAEPretrain(cfg, seed=0), optim, seed=1),
+        return (lambda mode="replicated": TrainState.create(
+                    VideoMAEPretrain(cfg, seed=0), optim, seed=1, param_sharding=mode),
                 make_videomae_train_step(cfg, mask_cfg, grad_accum=grad_accum),
                 {"video": torch.from_numpy(video), "mask": mask})
     from bvc_tpu_torch.masks.multiblock import mask_collate
@@ -3704,9 +3729,10 @@ def ddp_family(family: str, B: int, grad_accum: int = 1):
     batch = {k: torch.from_numpy(x) for k, x in
              {"video": video, **mask_collate(cfg, mask_cfg, seed=0)(B, 0)}.items()}
 
-    def new_state():
+    def new_state(mode="replicated"):
         model = JEPA(cfg, seed=0)
-        return TrainState.create(model, optim, seed=1, target=copy.deepcopy(model.encoder))
+        return TrainState.create(model, optim, seed=1, target=copy.deepcopy(model.encoder),
+                                 param_sharding=mode)
 
     return (new_state, make_jepa_train_step(cfg, JEPA_TOTAL_STEPS, optim.ema, optim.ema_fallback,
                                             grad_accum=grad_accum), batch)
@@ -3728,14 +3754,19 @@ def rank_rows(args: dict, world: int, rank: int) -> dict:
 
 def step_readings(family: str, step, state, args: dict) -> dict:
     """One step with the launch counts set to 0 just before it: its loss,
-    every parameter's gradient (on the card) and the launches."""
+    the launches and every parameter's gradient, whole (on the card;
+    gathered from the ranks' parts under ``fsdp`` and ``tp``: a
+    collective)."""
     import torch
+
+    from bvc_tpu_torch.parallel.sharding import full_tensor
 
     reset_launches()
     metrics = ddp_call(family, step, state, args)
     torch.cuda.synchronize()
-    return {"loss": metrics["loss"].item(), "launches": read_launches(),
-            "grads": {n: p.grad.detach().flatten().clone()
+    launches = read_launches()
+    return {"loss": metrics["loss"].item(), "launches": launches,
+            "grads": {n: full_tensor(p, p.grad).detach().flatten().clone()
                       for n, p in state.model.named_parameters()}}
 
 
@@ -3884,39 +3915,52 @@ def ddp_rank_worker(out: str, families: str, per_rank: str, backend: str,
     torch.distributed.destroy_process_group()
 
 
-def run_ddp_ranks(out_dir: Path, world: int, families: list[str], per_rank: list[int],
-                  backend: str, one_card: bool, timed: int = 0,
-                  timeout: float = 600) -> list[dict]:
-    """``world`` processes of :func:`ddp_rank_worker` (on card 0 each when
-    ``one_card``, else on card r; ``timed`` steps timed after the checked
-    one); their results in rank order.  A failed worker's peers are
-    killed."""
-    import torch
-
+def rank_processes(world: int, call: str, one_card: bool,
+                   timeout: float = 600) -> list[tuple[int, str]]:
+    """``world`` processes running ``call`` (a call of this module's, as
+    torchrun would start it: its variables in the environment), on card 0
+    each when ``one_card``, else on card r; each one's exit code and
+    output, in rank order.  A failed worker's peers are killed."""
     port = free_port()
-    out = str(out_dir / "ddp")
-    code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
-            f"chip_smoke.ddp_rank_worker({out!r}, {','.join(families)!r}, "
-            f"{','.join(map(str, per_rank))!r}, {backend!r}, {timed})")
+    code = f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; chip_smoke.{call}"
     procs = []
     try:
         for r in range(world):
             env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(world),
                    "LOCAL_RANK": str(0 if one_card else r), "MASTER_ADDR": "localhost",
                    "MASTER_PORT": str(port)}
-            procs.append(subprocess.Popen([sys.executable, "-c", code], env=env, cwd=str(REPO),
-                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                          text=True))
+            # faulthandler: a rank that dies on a signal prints its Python stack
+            procs.append(subprocess.Popen([sys.executable, "-X", "faulthandler", "-c", code],
+                                          env=env, cwd=str(REPO), stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
         logs = [p.communicate(timeout=timeout)[0] for p in procs]
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            check(p.returncode == 0, f"ddp rank {r} of {world} exited {p.returncode}:\n"
-                                     f"{log[-3000:]}")
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait(timeout=30)
+    return [(p.returncode, log) for p, log in zip(procs, logs)]
+
+
+def run_rank_workers(world: int, call: str, out: str, one_card: bool) -> list[dict]:
+    """:func:`rank_processes` of ``call``, each of which must exit 0; the
+    results each wrote to ``{out}.rank{r}``, in rank order."""
+    import torch
+
+    for r, (code, log) in enumerate(rank_processes(world, call, one_card)):
+        check(code == 0, f"rank {r} of {world} ({call.split('(')[0]}) exited {code}:\n"
+                         f"{log[-3000:]}")
     return [torch.load(f"{out}.rank{r}", weights_only=False) for r in range(world)]
+
+
+def run_ddp_ranks(out_dir: Path, world: int, families: list[str], per_rank: list[int],
+                  backend: str, one_card: bool, timed: int = 0) -> list[dict]:
+    """``world`` processes of :func:`ddp_rank_worker` (``timed`` steps timed
+    after the checked one); their results in rank order."""
+    out = str(out_dir / "ddp")
+    call = (f"ddp_rank_worker({out!r}, {','.join(families)!r}, "
+            f"{','.join(map(str, per_rank))!r}, {backend!r}, {timed})")
+    return run_rank_workers(world, call, out, one_card)
 
 
 def phase_ddp(card: str, train_B: int, root: Path, simclr_jpg: str) -> dict:
@@ -3962,7 +4006,8 @@ def phase_ddp(card: str, train_B: int, root: Path, simclr_jpg: str) -> dict:
         for r, out in enumerate(ranks):
             check(out[family]["launches"] == want,
                   f"{what}: rank {r} launched {out[family]['launches']}, want {want}")
-        gloo[family].update({"B_per_rank": per_rank[family], "launches_per_rank": want})
+        gloo[family].update({"B_per_rank": per_rank[family],
+                             "launches_per_rank": ranks[0][family]["launches"]})
     del ranks, videomae_ref, jepa_ref
     gc.collect()
 
@@ -4044,6 +4089,401 @@ def ddp_multi_card(card: str, n: int, B: int, root: Path) -> dict:
     return record
 
 
+SHARD_MODES = ("zero1", "fsdp", "tp")
+SHARD_TIMED_STEPS = 3  # steps a turn of (a)'s timing
+SHARD_JEPA_B = 64
+# the attention shapes of a tp step at model=2: each rank's heads
+SHARD_TP_SHAPES = (("VideoMAE-B encoder", (8, 160, 6, 64), None),
+                   ("VideoMAE-B decoder", (8, 1568, 3, 64), None),
+                   ("V-JEPA context", (64, 169, 6, 64), "context"),
+                   ("V-JEPA predictor", (256, 199, 6, 32), "predictor"))
+
+
+def state_bytes(state) -> dict:
+    """Bytes this rank holds of the parameters, their gradients and the
+    optimizer state (ZeRO: its partition; FSDP: the local shards), and of
+    the EMA target where there is one."""
+    from bvc_tpu_torch.parallel.sharding import local_tensor
+
+    def nbytes(tensors):
+        return sum(local_tensor(t).numel() * local_tensor(t).element_size() for t in tensors)
+
+    opt = getattr(state.optimizer, "optim", state.optimizer)  # ZeRO's local optimizer
+    params = list(state.model.parameters())
+    out = {"params": nbytes(params), "grads": nbytes(p.grad for p in params
+                                                     if p.grad is not None),
+           "optimizer": nbytes(v for st in opt.state.values() for v in st.values()
+                               if hasattr(v, "numel") and v.ndim)}
+    out["total"] = sum(out.values())
+    if state.target is not None:
+        out["target"] = nbytes(state.target.parameters())
+    return out
+
+
+def shard_world1(card: str, family: str, B: int, grad_accum: int) -> tuple[dict, dict]:
+    """(a) Each of ``zero1``, ``fsdp`` and ``tp`` (at ``model=1``) at world 1
+    over NCCL against the unwrapped step on the same batch and masks (loss,
+    every whole gradient, launches), then every layout's clips/s in turns
+    (unwrapped, zero1, fsdp, tp, tp, fsdp, zero1, unwrapped; CUDA events over
+    ``SHARD_TIMED_STEPS`` steps a turn).  Returns (the records, the unwrapped
+    step's readings with its gradients on the host and its state's bytes)."""
+    import gc
+
+    import torch
+
+    from bvc_tpu_torch.parallel import distributed_init, make_mesh
+
+    new_state, step, args = ddp_family(family, B, grad_accum)
+    args = {k: v.cuda() for k, v in args.items()}
+    states = {"plain": new_state()}
+    want = step_readings(family, step, states["plain"], args)
+    want["bytes"] = state_bytes(states["plain"])
+    records: dict = {}
+    with rendezvous():
+        distributed_init()
+        check(torch.distributed.get_backend() == "nccl"
+              and torch.distributed.get_world_size() == 1,
+              f"world 1 on cuda: backend {torch.distributed.get_backend()}")
+        make_mesh({"data": 1, "model": 1})
+        for mode in SHARD_MODES:
+            states[mode] = new_state(mode)
+            got = step_readings(family, step, states[mode], args)
+            what = f"{mode} world 1 [{family}, B={B}, grad_accum {grad_accum}]"
+            records[mode] = check_ddp_against(what, got, want)
+            check(got["launches"] == want["launches"],
+                  f"{what}: launches {got['launches']} vs the unwrapped step's "
+                  f"{want['launches']}")
+            records[mode]["launches"] = got["launches"]
+        times: dict[str, list[float]] = {k: [] for k in states}
+        for turn in ("plain", *SHARD_MODES, *SHARD_MODES[::-1], "plain"):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(SHARD_TIMED_STEPS):
+                ddp_call(family, step, states[turn], args)
+            end.record()
+            torch.cuda.synchronize()
+            times[turn].append(start.elapsed_time(end) / SHARD_TIMED_STEPS)
+        del states
+        gc.collect()
+    torch.cuda.empty_cache()
+    plain_ms = sum(times["plain"]) / 2
+    for mode in SHARD_MODES:
+        ms = sum(times[mode]) / 2
+        records[mode].update({"ms": ms, "ms_turns": times[mode], "clips_s": B / (ms / 1e3),
+                              "of_unwrapped": plain_ms / ms})
+        print(f"{mode} world 1 [{family}, B={B}] [{card}]: {records[mode]['clips_s']:.1f} clips/s "
+              f"({ms:.3f} ms; turns {times[mode]}), {plain_ms / ms:.3f} of the unwrapped "
+              f"step's {B / (plain_ms / 1e3):.1f} ({plain_ms:.3f} ms; turns {times['plain']})",
+              flush=True)
+    records["plain"] = {"ms": plain_ms, "ms_turns": times["plain"],
+                        "clips_s": B / (plain_ms / 1e3)}
+    want["grads"] = {n: g.cpu() for n, g in want["grads"].items()}
+    return records, want
+
+
+def shard_rank_worker(out: str, job: str, backend: str) -> None:
+    """One rank of a sharded run started by :func:`run_shard_ranks`
+    (torchrun's variables in the environment): the job's mesh, then for each
+    mode and family one step on this rank's data block of the global batch
+    and ``timed`` timed ones; the loss, launches, step time and state bytes
+    of every rank, and rank 0's whole gradients, to ``out``."""
+    import gc
+
+    import torch
+
+    from bvc_tpu_torch.parallel import distributed_init, make_mesh, rank
+
+    job = json.loads(job)
+    distributed_init(backend=backend)
+    mesh = make_mesh(job["mesh"])
+    result: dict = {}
+    for mode in job["modes"]:
+        for family, B, grad_accum in job["families"]:
+            new_state, step, args = ddp_family(family, B, grad_accum)
+            args = {k: v.cuda() for k, v in rank_rows(args, mesh.axis_size("data"),
+                                                      mesh.coord("data")).items()}
+            state = new_state(mode)
+            readings = step_readings(family, step, state, args)
+            ms = steps_ms(family, step, state, args, job["timed"]) if job["timed"] else None
+            result[mode, family] = {
+                "launches": readings["launches"], "ms": ms, "loss": readings["loss"],
+                "bytes": state_bytes(state),
+                "grads": ({n: g.cpu() for n, g in readings["grads"].items()}
+                          if rank() == 0 else None)}
+            del state, readings
+            gc.collect()
+            torch.cuda.empty_cache()
+    torch.save(result, f"{out}.rank{rank()}")
+    torch.distributed.destroy_process_group()
+
+
+def run_shard_ranks(out_dir: Path, world: int, job: dict, backend: str,
+                    one_card: bool) -> list[dict]:
+    """``world`` processes of :func:`shard_rank_worker` on ``job`` (``mesh``,
+    ``modes``, ``families`` as ``[family, global batch, grad_accum]``,
+    ``timed``); their results in rank order."""
+    out = str(out_dir / "shard")
+    return run_rank_workers(world, f"shard_rank_worker({out!r}, {json.dumps(job)!r}, "
+                                   f"{backend!r})", out, one_card)
+
+
+def shard_two_rank_jobs(train_B: int) -> dict[str, dict]:
+    """(b)'s jobs: ``tp`` at ``data=1,model=2`` (each rank on the whole
+    batch), ``zero1`` and ``fsdp`` at ``data=2``."""
+    return {"tp": {"mesh": {"data": 1, "model": 2}, "modes": ["tp"],
+                   "families": [["videomae", train_B, 2], ["jepa", SHARD_JEPA_B, 1]],
+                   "timed": 0},
+            "zero1_fsdp": {"mesh": {"data": 2}, "modes": ["zero1", "fsdp"],
+                           "families": [["videomae", train_B, 1], ["jepa", SHARD_JEPA_B, 1]],
+                           "timed": 0}}
+
+
+def repeat_shard_ranks(n: int, train_B: int, root: Path) -> None:
+    """``--repeat-shard-ranks N``: each of (b)'s two-rank jobs over gloo on
+    the one card ``n`` times, in turns, printing each run's exit codes and
+    wall time and the output's end of a rank that did not exit 0 (each rank
+    runs under ``-X faulthandler``); exits 1 if any run failed."""
+    failed = 0
+    for i in range(n):
+        for name, job in shard_two_rank_jobs(train_B).items():
+            t0 = time.perf_counter()
+            ended = rank_processes(2, f"shard_rank_worker({str(root / name)!r}, "
+                                      f"{json.dumps(job)!r}, 'gloo')", one_card=True)
+            codes = [code for code, _ in ended]
+            print(f"repeat {i + 1}/{n} {name}: exit codes {codes} in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            for r, (code, log) in enumerate(ended):
+                if code != 0:
+                    failed += 1
+                    print(f"  rank {r} exited {code}:\n{log[-3000:]}", flush=True)
+    print(f"repeat: {failed} ranks failed in {n} runs of each job (two ranks a run)",
+          flush=True)
+    sys.exit(1 if failed else 0)
+
+
+def phase_tp_kernels() -> dict:
+    """(c) The forward and backward kernels at the shapes a ``tp`` step at
+    ``model=2`` gives them (each rank's half of the heads): unmasked at the
+    VideoMAE-B encoder's and decoder's, with a key bias (the collator's
+    masks at B=64) at V-JEPA's context and predictor; against their plain
+    versions under phases 2-4's limits.  Returns each shape's errors."""
+    import torch
+
+    from bvc_tpu_torch.masks.multiblock import mask_collate
+    from bvc_tpu_torch.ops.flash_attention import (flash_attention_bwd_ref,
+                                                   flash_attention_fwd_ref, flash_bwd_cuda,
+                                                   flash_fwd_cuda, key_bias)
+
+    cfg, mask_cfg, _ = jepa_config()
+    masks = dict(zip(("context", "predictor"),
+                     jepa_key_masks(mask_collate(cfg, mask_cfg, seed=0)(SHARD_JEPA_B, 0))))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for label, (B, N, h, d), mask_of in SHARD_TP_SHAPES:
+        _, qs, k, v = qkv_inputs(B, N, h, d, seed=5 * N + h)
+        bias = None if mask_of is None else key_bias(masks[mask_of])
+        do = torch.randn((B, N, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        o, lse = flash_fwd_cuda(qs, k, v, bias)
+        o_ref, lse_ref = flash_attention_fwd_ref(qs, k, v, bias)
+        grads = flash_bwd_cuda(qs, k, v, o, lse, do, bias)
+        refs = flash_attention_bwd_ref(qs, k, v, o, lse, do, bias)
+        torch.cuda.synchronize()
+        rows = torch.isfinite(lse_ref)
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_lse = (lse[rows] - lse_ref[rows]).abs().max().item()
+        check(torch.allclose(o.float(), o_ref.float(), atol=O_TOL, rtol=O_TOL)
+              and torch.allclose(lse[rows], lse_ref[rows], atol=LSE_TOL, rtol=LSE_TOL),
+              f"tp shape {label} [{B},{N},{h},{d}]: forward O {err_o}, LSE {err_lse}")
+        rec = {"shape": [B, N, h, d], "bias": bias is not None, "o": err_o, "lse": err_lse}
+        for name, x, ref in zip(("dq", "dk", "dv"), grads, refs):
+            diff = x.float() - ref.float()
+            err, scale = diff.abs().max().item(), ref.float().abs().max().item()
+            rel = (diff.norm() / ref.float().norm()).item()
+            check(err <= BWD_TOL * scale and rel <= BWD_REL_TOL,
+                  f"tp shape {label} [{B},{N},{h},{d}]: {name} err {err} rel {rel}")
+            rec[name] = err
+            rec[f"{name}_rel"] = rel
+        print(f"tp shape {label} [{B},{N},{h},{d}]{' key bias' if bias is not None else ''}: "
+              f"max|dO| {err_o:.3e}, max|dLSE| {err_lse:.3e}; |err|/|ref| dq "
+              f"{rec['dq_rel']:.3e} dk {rec['dk_rel']:.3e} dv {rec['dv_rel']:.3e}", flush=True)
+        out[label] = rec
+        del o_ref, lse_ref, refs, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_rank_launches(what: str, ranks: list[dict], key, want: dict) -> None:
+    for r, res in enumerate(ranks):
+        check(res[key]["launches"] == want,
+              f"{what}: rank {r} launched {res[key]['launches']}, want {want}")
+
+
+def sharding_entry_point(root: Path, corpus: tuple[str, str], per_step: dict) -> dict:
+    """(e) ``pretrain_videomae --mesh data=1 --param_sharding fsdp`` for one
+    3-step epoch (world 1 over NCCL under torchrun's variables), then the
+    same stage resumed for a second epoch under ``replicated``, against an
+    uninterrupted 2-epoch stage: the second epoch's losses within
+    ``DDP_LOSS_RTOL``, each stage's launches its steps'."""
+    import torch
+
+    from bvc_tpu_torch.cli import pretrain_videomae
+    from bvc_tpu_torch.training.checkpoint import load_checkpoint
+
+    B, rid = 16, "dev_1_g0_default_0_0"
+    jpg, pack = corpus
+    base = ["-jpg_root", jpg, "--pack_root", pack, "--batch_size", str(B), "--n_trainsamples",
+            str(3 * B), "--max_epoch_iters", "3", "--run_id", rid, "--mesh", "data=1"]
+    walls = {}
+    with rendezvous():
+        split, straight = root / "shard_split", root / "shard_straight"
+        argv = base + ["-savedir", str(split), "--n_epoch", "1", "--param_sharding", "fsdp"]
+        _, launches, walls["fsdp"] = run_cli_stage(pretrain_videomae.main, argv,
+                                                   "pretrain_videomae --param_sharding fsdp")
+        check(torch.distributed.get_backend() == "nccl", "no NCCL group under torchrun's variables")
+        check_cli_launches(launches, per_step, 3, "pretrain_videomae --param_sharding fsdp")
+        ckpt = load_checkpoint(split / f"model_{rid}.pth.tar")
+        n_params = sum(len(g["params"]) for g in ckpt["opt"]["param_groups"])
+        check(ckpt["epoch"] == 1 and ckpt["step"] == 3 and "qkv_k_bias" in ckpt
+              and len(ckpt["opt"]["state"]) == n_params,
+              "the fsdp stage's checkpoint lacks the export layout or its optimizer state")
+        argv = base + ["-savedir", str(split), "--n_epoch", "2", "--resume", "y"]
+        _, launches, walls["resumed"] = run_cli_stage(pretrain_videomae.main, argv,
+                                                      "resumed under replicated")
+        check_cli_launches(launches, per_step, 3, "resumed under replicated")
+        argv = base + ["-savedir", str(straight), "--n_epoch", "2"]
+        _, launches, walls["straight"] = run_cli_stage(pretrain_videomae.main, argv,
+                                                       "uninterrupted under replicated")
+    got = check_csv(split / f"csvlog_{rid}.csv", 6, 2, "fsdp then replicated")
+    want = check_csv(straight / f"csvlog_{rid}.csv", 6, 2, "uninterrupted")
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    print(f"entry point: fsdp 3 steps, resumed under replicated: losses {got} against the "
+          f"uninterrupted run's {want} (max rel {rel:.2e})", flush=True)
+    check(rel <= DDP_LOSS_RTOL, f"resumed losses {got} vs uninterrupted {want}: rel {rel}")
+    return {"max_loss_rel": rel, "wall_s": walls}
+
+
+def phase_sharding(card: str, train_B: int, root: Path, corpus: tuple[str, str],
+                   per_step: dict) -> dict:
+    """Parameter sharding on the card (slice 7b).  (a) World 1 over NCCL,
+    ``zero1``, ``fsdp`` and ``tp`` at ``model=1``: VideoMAE-B at ``train_B``
+    with ``grad_accum=2`` and V-JEPA at B=64, each against the unwrapped step
+    on the same batch and masks (loss 1e-4 relative, whole gradients at
+    cosine >= 0.9995 per tensor), launches equal, clips/s in turns.  (b) Two
+    ranks on the one card over gloo: ``tp`` at ``data=1,model=2`` (each rank
+    the whole batch and half the heads), ``zero1`` and ``fsdp`` at
+    ``data=2``, against (a)'s unwrapped steps at the global batch under the
+    same limits, each rank's launches the one-GPU step's.  (c) The kernels at
+    the ``tp`` shapes against their plain versions.  (d) Each rank's bytes
+    of parameters, gradients and optimizer state under each mode at world 2.
+    (e) The entry point: ``pretrain_videomae --param_sharding fsdp``
+    resumed under ``replicated``.  (f) With more than one card: world =
+    ``device_count()`` over NCCL, ``tp`` at ``data=n/2,model=2`` and
+    ``fsdp`` at ``data=n``, against one card at the global batch, per-card
+    clips/s and the scaling efficiency.  Returns the records and, under
+    ``"launches"``, each run's counts."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    world1, refs = {}, {}
+    for family, B, accum in (("videomae", train_B, 2), ("jepa", SHARD_JEPA_B, 1)):
+        world1[family], refs[family] = shard_world1(card, family, B, accum)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b): tp with each rank on the whole batch; zero1 and fsdp at data=2 (gloo
+    # carries FSDP2's all_gather_into_tensor and reduce_scatter_tensor on CUDA
+    # tensors too)
+    jobs = shard_two_rank_jobs(train_B)
+    two = {"tp": run_shard_ranks(root, 2, jobs["tp"], "gloo", one_card=True)}
+    ranks = run_shard_ranks(root, 2, jobs["zero1_fsdp"], "gloo", one_card=True)
+    two.update(zero1=ranks, fsdp=ranks)
+    gloo, launches, nbytes = {}, {}, {}
+    for mode, ranks in two.items():
+        for family in ("videomae", "jepa"):
+            what = (f"{mode} over gloo, two ranks on one card "
+                    f"[{family}, {'data=1,model=2' if mode == 'tp' else 'data=2'}]")
+            gloo[f"{mode}_{family}"] = check_ddp_against(what, ranks[0][mode, family],
+                                                         refs[family])
+            want = refs[family]["launches"]
+            if mode != "tp" and family == "videomae":  # half the batch in one pass
+                want = {k: v // 2 for k, v in want.items()}
+            check_rank_launches(what, ranks, (mode, family), want)
+            launches[f"{mode}_{family}_per_rank"] = ranks[0][mode, family]["launches"]
+        nbytes[mode] = [r[mode, "videomae"]["bytes"] for r in ranks]
+    nbytes["replicated"] = [refs["videomae"]["bytes"]]
+    gib = {m: [b["total"] / 2**30 for b in v] for m, v in nbytes.items()}
+    print(f"per-rank state of VideoMAE-B (parameters, gradients, optimizer state), GiB at "
+          f"world 2 [{card}]: {json.dumps(gib)}", flush=True)
+    del two, ranks
+    gc.collect()
+
+    tp_kernels = phase_tp_kernels()
+    entry = sharding_entry_point(root, corpus, per_step)
+    multi = None
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        multi = shard_multi_card(card, n_cards, train_B, root)
+    wall = time.perf_counter() - t0
+    print(f"sharding: phase in {wall:.1f} s", flush=True)
+    for family in world1:
+        for mode in SHARD_MODES:
+            launches[f"{mode}_{family}_world1"] = world1[family][mode].pop("launches")
+    return {"world1": world1, "gloo_two_ranks": gloo, "bytes": nbytes, "tp_kernels": tp_kernels,
+            "entry_point": entry, "multi_card": multi, "wall_s": wall, "launches": launches}
+
+
+def shard_multi_card(card: str, n: int, B: int, root: Path) -> dict:
+    """(f) World ``n`` over NCCL, a card a rank: ``fsdp`` at ``data=n`` with
+    VideoMAE-B at ``B`` clips a card, and ``tp`` at ``data=n/2,model=2`` with
+    ``B`` clips a data row (each of its two cards on the whole block), each
+    against one card at the global batch (``grad_accum`` keeping 24 clips a
+    microbatch): loss and gradient limits as (a); per-card clips/s (the
+    slowest rank's CUDA events over ``DDP_TIMED_STEPS`` steps, clips of the
+    global batch over the cards) and the scaling efficiency against one
+    card's unwrapped rate at ``B``."""
+    import gc
+
+    import torch
+
+    one_new, one_step, one_args = ddp_family("videomae", B)
+    one_state = one_new()
+    one_args = {k: v.cuda() for k, v in one_args.items()}
+    ddp_call("videomae", one_step, one_state, one_args)  # warm-up
+    one_card = B / (steps_ms("videomae", one_step, one_state, one_args) / 1e3)
+    del one_state, one_args
+    out = {"one_card_clips_s": one_card}
+    for mode, mesh in (("fsdp", {"data": n}), ("tp", {"data": n // 2, "model": 2})):
+        global_B = B * mesh["data"]
+        new_state, step, args = ddp_family("videomae", global_B, grad_accum=global_B // 24)
+        ref_state = new_state()
+        ref = step_readings("videomae", step, ref_state, {k: v.cuda() for k, v in args.items()})
+        ref["grads"] = {k: v.cpu() for k, v in ref["grads"].items()}
+        del ref_state, args
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = run_shard_ranks(root, n, {"mesh": mesh, "modes": [mode],
+                                          "families": [["videomae", global_B, B // 24]],
+                                          "timed": DDP_TIMED_STEPS}, "nccl", one_card=False)
+        what = f"{mode} world {n} over NCCL, a card a rank [videomae, {mesh}]"
+        record = check_ddp_against(what, ranks[0][mode, "videomae"], ref)
+        ms = [r[mode, "videomae"]["ms"] for r in ranks]
+        per_card = global_B / n / (max(ms) / 1e3)
+        record.update({"mesh": mesh, "global_B": global_B, "ms": ms,
+                       "clips_s_per_card": per_card, "clips_s": per_card * n,
+                       "scaling_efficiency": per_card / one_card,
+                       "bytes": [r[mode, "videomae"]["bytes"] for r in ranks]})
+        print(f"{what} [{card}]: {per_card:.1f} clips/s a card ({n * per_card:.1f} in all) "
+              f"against one card's {one_card:.1f}: scaling efficiency "
+              f"{record['scaling_efficiency']:.3f}", flush=True)
+        out[mode] = record
+        del ranks
+        gc.collect()
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", nargs="?", const="", default=None, metavar="FILE",
@@ -4051,6 +4491,10 @@ def main() -> None:
                              "embed call and one VideoMAE and one JEPA training step "
                              "(and write them to FILE and to profile_w8a8.txt, "
                              "profile_train.txt and profile_jepa.txt beside it if given)")
+    parser.add_argument("--repeat-shard-ranks", type=int, default=0, metavar="N",
+                        help="only build the kernels and run the sharding phase's two-rank "
+                             "gloo jobs (tp at data=1,model=2; zero1 and fsdp at data=2) N "
+                             "times each at B=48, printing how each run ended")
     args = parser.parse_args()
     if not (REPO / "bvc_tpu_torch" / "csrc").is_dir():
         fail(f"no bvc_tpu_torch package beside {Path(__file__).name}: run it from "
@@ -4076,6 +4520,9 @@ def main() -> None:
     kernels = ["flash_fwd", "flash_bwd_sm90", "gemm", "softmax_probe"]
     _build.build_all(kernels)
     print(f"built {kernels} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.repeat_shard_ranks:
+        with tempfile.TemporaryDirectory() as d:
+            repeat_shard_ranks(args.repeat_shard_ranks, 48, Path(d))
     for name in kernels:
         for line in _build.build_log(name).splitlines():
             if any(w in line for w in ("registers", "spill", "serialized", "Compiling entry")):
@@ -4120,6 +4567,7 @@ def main() -> None:
         corpus = write_corpus(Path(d))
         cli = phase_pretrain_cli_videomae(smi, corpus, train_B, train_launches)
         jepa_cli = phase_pretrain_cli_jepa(smi, corpus, 64, jepa_launches)
+        sharding = phase_sharding(smi, train_B, Path(d), corpus, train_launches)
     remat = phase_remat(smi, train_B)
     simclr_step = phase_simclr_step(smi)
     simclr_rate = phase_simclr_rate(smi)
@@ -4199,6 +4647,7 @@ def main() -> None:
         simclr_step, simclr_rate, simclr_embed, simclr_cli)), curriculum["simclr"]["launches"])
     runs = [k for k in curriculum if k != "wall_s"]
     ddp_launches = ddp.pop("launches")
+    shard_launches = sharding.pop("launches")
     for r in records:
         r["launches_per_ddp_step"] = {
             "videomae_world1_grad_accum2": ddp_launches["videomae_step"][r["name"]],
@@ -4207,6 +4656,7 @@ def main() -> None:
                for k, v in ddp["gloo_two_ranks"].items()},
             "int8_call_mesh_data1": ddp_launches["int8_call"][r["name"]],
             "simclr_stage_mesh_data1": ddp_launches["simclr_stage"][r["name"]]}
+        r["launches_per_sharded_step"] = {k: v[r["name"]] for k, v in shard_launches.items()}
         r["launches_on_simclr_paths"] = simclr_launches[r["name"]]
         r["launches_per_curriculum"] = {k: curriculum[k]["launches"][r["name"]] for k in runs}
         r["launches_per_artifact_call"] = {k: a["launches"].get(r["name"], 0)
@@ -4220,7 +4670,7 @@ def main() -> None:
                           "step_ms_without": remat["ms"][False],
                           "step_ms_with": remat["ms"][True],
                           "min_grad_cosine": remat["min_cosine"]},
-                "ddp": ddp,
+                "ddp": ddp, "sharding": sharding,
                 "simclr_cli": simclr_cli, "simclr_step": {**simclr_rate, **simclr_step},
                 "simclr_embed": simclr_embed,
                 "export": {k: {f: v for f, v in a.items() if f != "launches"}

@@ -1,8 +1,9 @@
 """The port's pretraining CLIs: ``main(argv, device="cpu")`` writes the
 artifacts with the JAX trainers' schemas, the same flags give the JAX CLIs'
 configuration (``params_{run_id}.yaml`` loads to the same dict), the
-multi-GPU flags raise, ``--log_grad_stats y`` appends the grad-stats
-table's suffix that JAX's ``format_gstats`` writes for the run's metrics,
+multi-GPU flags that need more processes or a later slice raise,
+``--log_grad_stats y`` appends the grad-stats table's suffix that JAX's
+``format_gstats`` writes for the run's metrics,
 and with no device named and no GPU ``main`` raises.
 
 Tolerance: none; the yaml dumps load to equal dicts and the CSV headers and
@@ -139,27 +140,36 @@ def test_log_grad_stats_suffix_is_jax_format_gstats(family, frame_corpus, tmp_pa
 @pytest.mark.parametrize("family", ["videomae", "jepa", "simclr"])
 @pytest.mark.parametrize("flags,env,error,match", [
     (("--mesh", "data=2"), {}, ValueError, "needs 2 processes, this run has 1"),
-    (("--param_sharding", "zero1"), {}, NotImplementedError, "slice 7b"),
+    (("--param_sharding", "zero1"), {}, None, None),
     ((), {"WORLD_SIZE": "2"}, RuntimeError, "RANK, LOCAL_RANK, MASTER_ADDR, MASTER_PORT not"),
-    (("--mesh", "data=1,model=2"), {}, NotImplementedError, "slice 7b"),
+    (("--mesh", "data=1,model=2"), {}, ValueError, "needs 2 processes, this run has 1"),
     (("--mesh", "seq=2"), {}, NotImplementedError, "slice 7c"),
     (("--mesh", "pipe=2"), {}, NotImplementedError, "slice 7d"),
 ], ids=["mesh", "param_sharding", "world_size", "model", "seq", "pipe"])
 def test_unported_flags_raise(family, flags, env, error, match, frame_corpus, tmp_path,
-                              monkeypatch):
-    """Since data parallelism came to the port, ``--mesh data=2`` raises only
-    for a world of 1, and ``WORLD_SIZE`` without the other rendezvous
-    variables raises in ``distributed_init``; sharded parameters and the
-    other mesh axes still raise, naming their slice (SimCLR refuses
-    ``seq`` and ``pipe`` first, as the JAX trainer does)."""
+                              monkeypatch, request):
+    """The multi-GPU flags in one process: ``--mesh data=2`` and ``--mesh
+    data=1,model=2`` raise, naming the 2 processes they need, and
+    ``WORLD_SIZE`` without the other rendezvous variables raises in
+    ``distributed_init``; the ``seq`` and ``pipe`` axes still raise, naming
+    their slice (SimCLR refuses them first, as the JAX trainer does).
+    ``--param_sharding zero1`` (slice 7b) runs: one process holds the whole
+    optimizer state, and the stage writes its CSV."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     if family == "simclr" and flags[-1:] in (("seq=2",), ("pipe=2",)):
         error, match = ValueError, "videomae-only"
     port, _ = CLIS[family]
+    csv = tmp_path / "csvlog_dev_1_g0_default_0_0.csv"
+    if error is None:
+        if family == "videomae":
+            request.getfixturevalue("tiny_videomae")
+        port.main(_argv(family, frame_corpus, tmp_path, *flags), device="cpu")
+        assert len(csv.read_text().splitlines()) == 3
+        return
     with pytest.raises(error, match=match):
         port.main(_argv(family, frame_corpus, tmp_path, *flags), device="cpu")
-    assert not (tmp_path / "csvlog_dev_1_g0_default_0_0.csv").exists()
+    assert not csv.exists()
 
 
 @pytest.mark.parametrize("family", ["videomae", "jepa", "simclr"])

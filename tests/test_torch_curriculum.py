@@ -268,16 +268,18 @@ def test_driver_wiring_matches_jax(preset, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("field,value,flag,error,match", [
     ("mesh_shape", {"data": 2}, ["--mesh", "data=2"], ValueError, "needs 2 processes"),
-    ("param_sharding", "zero1", ["--param_sharding", "zero1"], NotImplementedError,
-     "slice 7b"),
+    ("param_sharding", "sharded", ["--param_sharding", "sharded"], ValueError,
+     "unknown param_sharding 'sharded'"),
     ("mesh_shape", {"data": 1, "seq": 2}, ["--mesh", "data=1,seq=2"], NotImplementedError,
      "slice 7c"),
     ("mesh_shape", {"pipe": 2}, ["--mesh", "pipe=2"], NotImplementedError, "slice 7d"),
 ], ids=["mesh_shape-value0", "param_sharding-value1", "seq", "pipe"])
 def test_multi_gpu_layouts_raise(field, value, flag, error, match, tmp_path, monkeypatch):
     """A layout the run cannot take raises before any stage trains or
-    extracts: ``data=2`` in one process (it needs two ranks), and a
-    sharding or another mesh axis, naming its slice; so does the CLI."""
+    extracts: ``data=2`` in one process (it needs two ranks), a sharding
+    mode that does not exist (``zero1``, ``fsdp`` and ``tp`` run since
+    slice 7b), and a ``seq`` or ``pipe`` axis, naming its slice; so does
+    the CLI."""
     monkeypatch.setattr(driver, "_trainer_for", lambda family: pytest.fail("trained"))
     base = TrainConfig(savedir=str(tmp_path))
     setattr(base, field, value)

@@ -27,8 +27,8 @@ from bvc_tpu_torch.cli import compute_embeddings
 from bvc_tpu_torch.cli.common import parse_mesh
 from bvc_tpu_torch.data.loader import EpochSampler
 from bvc_tpu_torch.evalbench.extract import _check_quantize, extract_embeddings
-from bvc_tpu_torch.parallel import (distributed_init, host_local_batch_slice, make_mesh,
-                                    param_shardings)
+from bvc_tpu_torch.parallel import (Mesh, ShardingPlan, distributed_init,
+                                    host_local_batch_slice, make_mesh, param_shardings)
 from bvc_tpu_torch.parallel import sharding
 from test_torch_compute_embeddings import write_cifar
 from torch_ranks import OddClips, run_ranks, simclr_embed_fn
@@ -43,8 +43,10 @@ def _one_thread():
 
 
 def _as_rank(monkeypatch, world: int, r: int) -> None:
-    monkeypatch.setattr(sharding, "world_size", lambda: world)
-    monkeypatch.setattr(sharding, "rank", lambda: r)
+    """This process as data rank ``r`` of ``world`` (the batch is split
+    over the mesh's data axis)."""
+    monkeypatch.setattr(sharding, "data_size", lambda: world)
+    monkeypatch.setattr(sharding, "data_rank", lambda: r)
 
 
 @pytest.mark.parametrize("n,batch,world,shuffle,drop_last", [
@@ -92,15 +94,21 @@ def test_parse_mesh_errors(spec, match):
 
 
 def test_make_mesh_in_one_process(monkeypatch):
-    """Every form of a world of 1 gives ``{'data': 1}``; ``data=2`` raises
-    (no run quietly uses one rank of two); the other axes name their
-    slice; ``WORLD_SIZE`` > 1 without a process group raises."""
+    """Every form of a world of 1 gives ``{'data': 1}``; ``data=2`` and
+    ``data=1,model=2`` raise, naming the 2 processes they need (no run
+    quietly uses one rank of two); ``model=1`` beside ``data=-1`` is a
+    world of 1; ``seq`` and ``pipe`` name their slice; ``WORLD_SIZE`` > 1
+    without a process group raises."""
     for shape in (None, {}, {"data": 1}, {"data": -1}):
         mesh = make_mesh(shape)
         assert mesh.shape == {"data": 1} and mesh.size == 1 and mesh.axis_names == ("data",)
     with pytest.raises(ValueError, match="needs 2 processes, this run has 1"):
         make_mesh({"data": 2})
-    for axis, piece in (("model", "7b"), ("seq", "7c"), ("pipe", "7d")):
+    with pytest.raises(ValueError, match="needs 2 processes, this run has 1"):
+        make_mesh({"data": 1, "model": 2})
+    mesh = make_mesh({"data": -1, "model": 1})
+    assert mesh.shape == {"data": 1, "model": 1} and mesh.axis_names == ("data", "model")
+    for axis, piece in (("seq", "7c"), ("pipe", "7d")):
         with pytest.raises(NotImplementedError, match=f"slice {piece}"):
             make_mesh({"data": 1, axis: 2})
     with pytest.raises(ValueError, match="unknown mesh axis"):
@@ -112,9 +120,20 @@ def test_make_mesh_in_one_process(monkeypatch):
 
 @pytest.mark.parametrize("mode", ["zero1", "fsdp", "tp"])
 def test_param_shardings_name_slice_7b(mode):
-    assert param_shardings("replicated") == "replicated"
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        param_shardings(mode)
+    """Since slice 7b each mode returns its plan: which axis splits the
+    parameters and the optimizer state.  ``tp`` without a model axis of
+    more than one rank is the replicated layout (as in the JAX package);
+    ``zero1`` and ``fsdp`` beside ``model > 1`` raise."""
+    assert param_shardings("replicated") == ShardingPlan("replicated")
+    want = {"zero1": ShardingPlan("zero1", optimizer="data"),
+            "fsdp": ShardingPlan("fsdp", params="data"), "tp": ShardingPlan("tp")}[mode]
+    assert param_shardings(mode) == want
+    two = Mesh(("data", "model"), {"data": 1, "model": 2}, {"data": 0, "model": 0})
+    if mode == "tp":
+        assert param_shardings(mode, two) == ShardingPlan("tp", params="model")
+    else:
+        with pytest.raises(NotImplementedError, match=f"'{mode}' on a mesh with model=2"):
+            param_shardings(mode, two)
     with pytest.raises(ValueError, match="unknown param_sharding"):
         param_shardings("sharded")
 
@@ -201,6 +220,21 @@ def test_collectives_at_world_2(tmp_path):
         assert torch.equal(out["x_grad"], 2 * weights[2 * r:2 * r + 2])
         assert out["s"].item() == 6.0 and out["y_grad"].item() == 6.0
         assert out["mean"] == 0.5
+
+
+def test_make_mesh_reuses_its_groups_at_world_2(tmp_path):
+    """``data=1,model=2`` creates one group per model column (a rank each);
+    asked again for the same layout, as every curriculum stage asks,
+    ``make_mesh`` returns the mesh it holds and creates none; another
+    layout, and then the first again, build anew."""
+    model2 = {"data": 1, "model": 2}
+    results = run_ranks("mesh_groups", {"shapes": [model2, model2, {"data": 2}, model2]},
+                        tmp_path)
+    for r, out in enumerate(results):
+        assert out == [(2, False, model2, {"data": 0, "model": r}),
+                       (0, True, model2, {"data": 0, "model": r}),
+                       (0, False, {"data": 2}, {"data": r}),
+                       (2, False, model2, {"data": 0, "model": r})]
 
 
 def test_extraction_at_world_2(tmp_path):

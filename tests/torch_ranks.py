@@ -1,4 +1,5 @@
-"""Run a function of this module in ``world`` processes joined by a gloo
+"""Run a function of this module (or of another module of ``tests/``, such
+as ``test_torch_sharding_ranks``) in ``world`` processes joined by a gloo
 process group on the CPU, as torchrun would start them: the rendezvous
 variables set, ``bvc_tpu_torch.parallel.distributed_init(device="cpu")``
 called, one thread a process.  Each worker writes its result with
@@ -10,13 +11,15 @@ kills the survivors in ``finally`` (the pattern of
 ``tests/test_multihost.py``).
 
 The worker functions (``videomae_steps``, ``jepa_steps``, ``simclr_steps``,
-``extract``, ``compute_embeddings``, ``gather_objects``, ``collectives``)
+``extract``, ``compute_embeddings``, ``gather_objects``, ``collectives``,
+``mesh_groups``)
 take one spec dict, which the test writes with ``torch.save``.
 """
 
 from __future__ import annotations
 
 import copy
+import importlib
 import os
 import socket
 import subprocess
@@ -36,15 +39,16 @@ def _free_port() -> int:
 
 
 def run_ranks(fn: str, spec: dict, tmp: Path, world: int = 2, timeout: float = 120.0,
-              env: dict | None = None) -> list:
-    """``fn(spec)`` of this module on each of ``world`` ranks; their results."""
+              env: dict | None = None, module: str = "torch_ranks") -> list:
+    """``fn(spec)`` of ``module`` (a module of ``tests/``, this one by
+    default) on each of ``world`` ranks; their results."""
     tmp = Path(tmp)
     tmp.mkdir(parents=True, exist_ok=True)
     spec_path = tmp / f"{fn}_spec.pt"
     torch.save(spec, spec_path)
     port = _free_port()
     code = ("import sys; sys.path[:0] = [{tests!r}, {repo!r}]; import torch_ranks; "
-            "torch_ranks._worker({fn!r}, {spec!r}, {out!r})")
+            "torch_ranks._worker({module!r}, {fn!r}, {spec!r}, {out!r})")
     procs = []
     try:
         for r in range(world):
@@ -54,8 +58,9 @@ def run_ranks(fn: str, spec: dict, tmp: Path, world: int = 2, timeout: float = 1
                           **(env or {})}
             out = tmp / f"{fn}_rank{r}.pt"
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", code.format(tests=str(TESTS), repo=str(REPO), fn=fn,
-                                                   spec=str(spec_path), out=str(out))],
+                [sys.executable, "-c", code.format(tests=str(TESTS), repo=str(REPO),
+                                                   module=module, fn=fn, spec=str(spec_path),
+                                                   out=str(out))],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=str(tmp),
                 env=worker_env))
         logs = []
@@ -72,13 +77,13 @@ def run_ranks(fn: str, spec: dict, tmp: Path, world: int = 2, timeout: float = 1
     return [torch.load(tmp / f"{fn}_rank{r}.pt", weights_only=False) for r in range(world)]
 
 
-def _worker(fn: str, spec_path: str, out: str) -> None:
+def _worker(module: str, fn: str, spec_path: str, out: str) -> None:
     torch.set_num_threads(1)
     from bvc_tpu_torch.parallel import distributed_init
 
     distributed_init(device="cpu")
     spec = torch.load(spec_path, weights_only=False)
-    result = globals()[fn](spec)
+    result = getattr(importlib.import_module(module), fn)(spec)
     torch.save(result, out)
     torch.distributed.destroy_process_group()
 
@@ -240,6 +245,31 @@ def collectives(spec: dict) -> dict:
     return {"world": world_size(), "gathered": gathered, "names": names, "rows": rows_,
             "g": g.detach(), "x_grad": x.grad, "s": s.detach(), "y_grad": y.grad,
             "mean": psum_scalar(torch.tensor(float(r))).item()}
+
+
+def mesh_groups(spec: dict) -> list:
+    """``make_mesh`` of each shape of ``spec['shapes']`` in turn; for each,
+    the process groups it created, whether it returned the mesh before it,
+    and the mesh's shape and this rank's coordinates."""
+    import torch.distributed as dist
+
+    from bvc_tpu_torch.parallel import make_mesh
+
+    created: list[int] = []
+    new_group = dist.new_group
+
+    def counting(*args, **kwargs):
+        created[-1] += 1
+        return new_group(*args, **kwargs)
+
+    dist.new_group = counting
+    out, last = [], None
+    for shape in spec["shapes"]:
+        created.append(0)
+        mesh = make_mesh(shape)
+        out.append((created[-1], mesh is last, mesh.shape, mesh.coords))
+        last = mesh
+    return out
 
 
 class OddClips:
