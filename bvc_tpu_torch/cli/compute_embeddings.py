@@ -11,7 +11,10 @@ port's checkpoints, and ``bvc_tpu/cli/export_torch.py``'s; the JAX CLI
 sweeps its Orbax ``model_*.ckpt``).  ``--mesh data=N`` under ``torchrun
 --nproc_per_node N`` embeds each rank's strided slice of every split and
 rank 0 writes the CSVs; with ``--resume y`` every rank adopts rank 0's list
-of splits still to run.  A ``seq`` mesh comes with slice 7c.
+of splits still to run.  ``--mesh data=D,seq=S`` (VideoMAE and V-JEPA)
+splits each clip's time axis over S ranks, each embedding its slice over
+the ring (``torchrun --nproc_per_node 4 -m bvc_tpu_torch.cli.compute_embeddings
+--mesh data=2,seq=2 ...``).
 
 Example::
 
@@ -67,7 +70,8 @@ def build_parser():
                    help="UCF101 train/test fold (dsdatasets.py:238)")
     p.add_argument("--mesh", type=str, default="",
                    help="data=N under torchrun --nproc_per_node N: data-parallel "
-                        "extraction; empty: every process on data")
+                        "extraction; data=D,seq=S: each clip's time axis over S "
+                        "ranks (videomae, jepa); empty: every process on data")
     p.add_argument("--quantize", type=str, default="none",
                    help="'int8': the W8A8 path of the ViT families (ops/quant.py); "
                         "'none' keeps bf16")

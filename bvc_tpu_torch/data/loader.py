@@ -36,6 +36,11 @@ batch (the JAX loader's host slice); a global batch the world does not
 divide raises.  A collator (JEPA's masks) sees the rank's block, with the
 batch's index for drawing over the global batch
 (``training/trainer_jepa.py``).
+
+Sequence parallel: ``frames`` keeps a time slice of every sample before
+the copy to the device (a rank of a ``seq`` ring takes its frames,
+:func:`bvc_tpu_torch.parallel.seqpar.time_slice`); the S ranks of a ring
+read and decode the same clips, each keeping its slice.
 """
 
 from __future__ import annotations
@@ -147,6 +152,7 @@ class DataLoader:
         to_device: bool = True,
         collate_fn=None,
         device: str | torch.device | None = None,
+        frames: slice | None = None,
     ):
         # collate_fn(stacked_batch, epoch, batch_idx) -> batch or dict; the
         # JEPA path attaches multi-block masks per batch, seeded from
@@ -164,6 +170,7 @@ class DataLoader:
         self.seed = seed
         self.to_device = to_device
         self.collate_fn = collate_fn
+        self.frames = frames  # the time slice kept of each sample (None: all)
         self.device = resolve_device(device) if to_device else None
         self._cuda = self.device is not None and self.device.type == "cuda"
         self._ring = _PinnedRing(self.prefetch + 1) if self._cuda else None
@@ -189,19 +196,21 @@ class DataLoader:
             first = self._sample(epoch, idxs[0])
             self._sample_spec = (first.shape, first.dtype)
         shape, dtype = self._sample_spec
+        kept = shape if self.frames is None else (
+            len(range(*self.frames.indices(shape[0]))), *shape[1:])
         slot = None
         if self._cuda:
-            slot = self._ring.acquire(batch_idx, (len(idxs), *shape), dtype)
+            slot = self._ring.acquire(batch_idx, (len(idxs), *kept), dtype)
             host = slot[0].numpy()
         else:
-            host = np.empty((len(idxs), *shape), dtype)
+            host = np.empty((len(idxs), *kept), dtype)
 
         def fill(i: int) -> None:
             sample = self._sample(epoch, idxs[i]) if i or first is None else first
             if sample.shape != shape or sample.dtype != dtype:
                 raise ValueError(f"sample {int(idxs[i])} is {sample.dtype}{sample.shape}, "
                                  f"the batch's samples {dtype}{shape}")
-            host[i] = sample
+            host[i] = sample if self.frames is None else sample[self.frames]
 
         try:
             for f in [pool.submit(fill, i) for i in range(len(idxs))]:

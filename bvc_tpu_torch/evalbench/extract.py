@@ -33,8 +33,14 @@ Data parallel (a process group of several ranks): every rank holds the
 whole model on its own GPU and embeds its strided slice of the dataset,
 ``idxs[rank::world]``; every rank gathers the rows with
 :func:`~bvc_tpu_torch.parallel.all_gather_objects`, and the callers write
-them on rank 0.  Sequence-parallel
-extraction comes with slice 7c of the port.
+them on rank 0.
+
+Sequence parallel (a mesh with ``seq``, :mod:`bvc_tpu_torch.parallel.seqpar`):
+the ranks of a ring embed the same clips, each its time slice (cut on the
+host before the copy to the card), the attention over the ring, and the
+token sums added over it (:func:`~bvc_tpu_torch.parallel.seqpar.seq_embed`);
+the rows gather over ``data`` as above.  VideoMAE and V-JEPA only: SimCLR
+embeds one frame and is refused, as the JAX package refuses it.
 """
 
 from __future__ import annotations
@@ -57,7 +63,8 @@ from bvc_tpu_torch.models.resnet import ResNet
 from bvc_tpu_torch.models.videomae import VideoMAEEncoder
 from bvc_tpu_torch.ops.quant import quantize_encoder
 from bvc_tpu_torch.parallel.collectives import all_gather_objects
-from bvc_tpu_torch.parallel.mesh import data_rank, data_size
+from bvc_tpu_torch.parallel.mesh import SEQ_AXIS, data_rank, data_size
+from bvc_tpu_torch.parallel.seqpar import seq_embed, time_slice
 from bvc_tpu_torch.utils.config import ModelConfig
 from bvc_tpu_torch.utils.device import resolve_device
 
@@ -119,18 +126,34 @@ def _check_quantize(family: str, quantize: str | None,
     return True
 
 
-def _embed_fn(model: VideoMAEEncoder | JEPAEncoder | ResNet, device: torch.device
-              ) -> Callable:
+def _is_seq_mesh(mesh_shape: dict[str, int] | None) -> bool:
+    return SEQ_AXIS in (mesh_shape or {})
+
+
+def _require_videomae_for_seq(family: str, mesh_shape: dict[str, int] | None) -> None:
+    if _is_seq_mesh(mesh_shape) and family not in ("videomae", "jepa"):
+        raise ValueError(
+            "sequence-parallel extraction supports videomae and jepa "
+            f"(simclr embeds ONE frame — there is no sequence axis to "
+            f"shard; got family={family!r} on a 'seq' mesh). Use a "
+            "pure-data mesh for simclr.")
+
+
+def _embed_fn(model: VideoMAEEncoder | JEPAEncoder | ResNet, device: torch.device,
+              seq: bool = False) -> Callable:
     """``fn(video_batch) -> [B, D]`` f32 numpy; ``fn.model`` is the module
-    (in eval mode), ``fn.feature_dim`` the embedding width."""
+    (in eval mode), ``fn.feature_dim`` the embedding width.  ``seq``: this
+    rank's time slice of the clips, embedded over the ``seq`` ring."""
     model = model.to(device).eval()
-    # SimCLR reads the last frame only: the others stay on the host
-    frames = slice(-1, None) if isinstance(model, ResNet) else slice(None)
+    # SimCLR reads the last frame only, a seq rank its time slice: the
+    # others stay on the host
+    frames = (slice(-1, None) if isinstance(model, ResNet)
+              else time_slice(model.cfg) if seq else slice(None))
 
     @torch.inference_mode()
     def fn(video) -> np.ndarray:
         x = torch.as_tensor(np.asarray(video)[:, frames]).to(device)
-        return model.embed(x).cpu().numpy()
+        return (seq_embed(model, x) if seq else model.embed(x)).cpu().numpy()
 
     fn.model = model
     fn.feature_dim = model.feature_dim if isinstance(model, ResNet) else model.cfg.hidden_size
@@ -175,11 +198,14 @@ def make_embed_fn(family: str, ckpt_path: str, cfg: ModelConfig,
     """Load a checkpoint's model (:func:`load_family_model`) and return the
     embedding function on ``device`` (``cuda`` when None; the rank's GPU
     under a process group); ``quantize="int8"`` quantizes the loaded blocks
-    (see :func:`_check_quantize`, which reads the run's ``mesh_shape``)."""
+    (see :func:`_check_quantize`, which reads the run's ``mesh_shape``).
+    On a ``mesh_shape`` with ``seq`` the function embeds this rank's time
+    slice of each clip over the ring (VideoMAE and V-JEPA)."""
     q = _check_quantize(family, quantize, mesh_shape)
+    _require_videomae_for_seq(family, mesh_shape)
     device = resolve_device(device)
     model = load_family_model(family, ckpt_path, cfg)
-    return _embed_fn(quantize_encoder(model) if q else model, device)
+    return _embed_fn(quantize_encoder(model) if q else model, device, _is_seq_mesh(mesh_shape))
 
 
 def untrained_embed_fn(family: str, cfg: ModelConfig, seed: int = 0,
@@ -189,9 +215,10 @@ def untrained_embed_fn(family: str, cfg: ModelConfig, seed: int = 0,
     """Random-init model from ``seed``: the stage-0 untrained baseline;
     ``quantize="int8"`` quantizes its blocks."""
     q = _check_quantize(family, quantize, mesh_shape)
+    _require_videomae_for_seq(family, mesh_shape)
     device = resolve_device(device)
     model = init_family_model(family, cfg, seed)
-    return _embed_fn(quantize_encoder(model) if q else model, device)
+    return _embed_fn(quantize_encoder(model) if q else model, device, _is_seq_mesh(mesh_shape))
 
 
 def save_results(fnames: list[str], embeddings: np.ndarray, phase: str,

@@ -86,23 +86,33 @@ class JEPAEncoder(nn.Module):
             persistent=False)
 
     def forward(self, video: torch.Tensor, keep_idx: torch.Tensor | None = None,
-                attn_impl: str = "auto", generator: torch.Generator | None = None
-                ) -> torch.Tensor:
+                attn_impl: str = "auto", generator: torch.Generator | None = None,
+                token_offset: int | None = None) -> torch.Tensor:
         """Encode uint8 (normalized here) or normalized ``[B, T, H, W, C]``
         video.  ``keep_idx``: optional ``[B, K]`` token indices, ``-1``
         padded.  ``generator``: the drop-path draws (training; none without
-        it).  Returns ``[B, K, D]`` (``[B, N, D]`` without ``keep_idx``),
-        final-normed, in the compute dtype."""
+        it).  ``token_offset``: the video is a time slice of the clip (a
+        rank of a ``seq`` ring) whose first token sits there, and its
+        tokens take the position table's rows from it; the slice must have
+        the configured spatial size.  Returns ``[B, K, D]`` (``[B, N, D]``
+        without ``keep_idx``), final-normed, in the compute dtype."""
         cfg = self.cfg
         dtype = _DTYPES[cfg.dtype]
         t, h, w = _grid(cfg)
         t_in = video.shape[1] // cfg.tubelet_size
         h_in, w_in = video.shape[2] // cfg.patch_size, video.shape[3] // cfg.patch_size
-        if t_in != t:
+        pos = self.pos_embed
+        if token_offset is not None:
+            if (h_in, w_in) != (h, w):
+                raise ValueError(
+                    f"a time slice of {h_in}x{w_in} patches: the sequence-parallel "
+                    f"encoder reads the configured {h}x{w} grid's table (the resized "
+                    "position table is not supported on a 'seq' mesh)")
+            pos = pos[token_offset:token_offset + t_in * h * w]
+        elif t_in != t:
             raise ValueError(f"time grid {t_in} != configured {t}: positional tables "
                              "only interpolate spatially")
-        pos = self.pos_embed
-        if (h_in, w_in) != (h, w):
+        elif (h_in, w_in) != (h, w):
             pos = torch.from_numpy(interpolate_pos_table_3d(
                 positional_encoding_3d(t, h, w, cfg.hidden_size), t, h, w, h_in, w_in)
             ).to(pos.device)

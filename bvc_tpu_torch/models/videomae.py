@@ -56,7 +56,11 @@ class VideoMAEEncoder(nn.Module):
     """Patch embedding plus encoder blocks of VideoMAE.
 
     The methods' ``attn_impl`` is the attention routing of every block (see
-    :func:`bvc_tpu_torch.ops.attention.multi_head_attention`).
+    :func:`bvc_tpu_torch.ops.attention.multi_head_attention`).  Their
+    ``token_offset`` is the position of the video's first token in the
+    whole clip: a rank of a ``seq`` ring holds a slice of the time axis,
+    whose tokens are the position table's rows from that offset on
+    (:mod:`bvc_tpu_torch.parallel.seqpar`).
     """
 
     def __init__(self, cfg: ModelConfig, seed: int = 0,
@@ -82,7 +86,7 @@ class VideoMAEEncoder(nn.Module):
             persistent=False)
 
     def encode_visible(self, video: torch.Tensor, visible_idx: torch.Tensor,
-                       attn_impl: str = "auto") -> torch.Tensor:
+                       attn_impl: str = "auto", token_offset: int = 0) -> torch.Tensor:
         """Gather the pixel blocks of the ``visible_idx`` tokens (``[B, V]``),
         embed them, add their positions, run the encoder.  ``video`` is
         normalized ``[B, T, H, W, C]``.  Returns ``[B, V, D]``."""
@@ -93,16 +97,21 @@ class VideoMAEEncoder(nn.Module):
         x = patches.gather(1, idx.expand(-1, -1, patches.shape[-1])).to(dtype)
         pe = self.patch_embed
         x = nn.functional.linear(x, pe.weight.to(dtype), pe.bias.to(dtype))
-        pos = self.pos_embed.to(dtype).expand(x.shape[0], -1, -1)
+        pos = self.pos_embed[token_offset:token_offset + patches.shape[1]].to(dtype)
+        pos = pos.expand(x.shape[0], -1, -1)
         x = x + pos.gather(1, idx.expand(-1, -1, pos.shape[-1]))
         return self.blocks(x, attn_impl)
 
-    def forward_features(self, video: torch.Tensor, attn_impl: str = "auto") -> torch.Tensor:
+    def forward_features(self, video: torch.Tensor, attn_impl: str = "auto",
+                         token_offset: int = 0) -> torch.Tensor:
         """Unmasked encoder pass over all tokens, ``[B, N, D]``; ``video``
         may be uint8 (normalized here) or already normalized."""
-        all_idx = torch.arange(self.cfg.seq_len, device=video.device)
+        cfg = self.cfg
+        n = (video.shape[1] // cfg.tubelet_size) * (video.shape[2] // cfg.patch_size) * (
+            video.shape[3] // cfg.patch_size)
+        all_idx = torch.arange(n, device=video.device)
         return self.encode_visible(normalize_on_device(video),
-                                   all_idx.expand(video.shape[0], -1), attn_impl)
+                                   all_idx.expand(video.shape[0], -1), attn_impl, token_offset)
 
     def embed(self, video: torch.Tensor, attn_impl: str = "auto") -> torch.Tensor:
         """Pooled embedding ``[B, D]`` in f32: ``LayerNorm(mean(tokens))``
@@ -137,7 +146,9 @@ def patch_targets(video: torch.Tensor, cfg: ModelConfig,
 class VideoMAEPretrain(nn.Module):
     """VideoMAE for masked pretraining: :class:`VideoMAEEncoder` plus the
     decoder side.  The methods' ``attn_impl`` is the attention routing of
-    every block, encoder and decoder."""
+    every block, encoder and decoder, and their ``token_offset`` the
+    position of the video's first token in the whole clip (see
+    :class:`VideoMAEEncoder`)."""
 
     def __init__(self, cfg: ModelConfig, seed: int = 0):
         """Random weights from one generator seeded with ``seed``: the
@@ -163,11 +174,13 @@ class VideoMAEPretrain(nn.Module):
             torch.from_numpy(sinusoid_table_1d(cfg.seq_len, dec_d)), persistent=False)
 
     def decode_masked(self, encoded: torch.Tensor, visible_idx: torch.Tensor,
-                      masked_idx: torch.Tensor, attn_impl: str = "auto") -> torch.Tensor:
+                      masked_idx: torch.Tensor, attn_impl: str = "auto",
+                      token_offset: int = 0) -> torch.Tensor:
         """Pixel predictions of the masked tokens, ``[B, M, C*ts*p*p]``, from
         the encoder output ``[B, V, D]``."""
         dtype = encoded.dtype
-        pos = self.decoder_pos_embed.to(dtype)
+        n = visible_idx.shape[1] + masked_idx.shape[1]
+        pos = self.decoder_pos_embed[token_offset:token_offset + n].to(dtype)
         z = F.linear(encoded, self.enc_to_dec.weight.to(dtype))
         x = torch.cat([z + pos[visible_idx],
                        self.mask_token.to(dtype) + pos[masked_idx]], dim=1)
@@ -177,16 +190,18 @@ class VideoMAEPretrain(nn.Module):
         return F.linear(x, head.weight.to(dtype), head.bias.to(dtype))
 
     def pretrain_loss(self, video: torch.Tensor, mask: torch.Tensor, num_visible: int,
-                      attn_impl: str = "auto") -> torch.Tensor:
+                      attn_impl: str = "auto", token_offset: int = 0) -> torch.Tensor:
         """Masked reconstruction loss, a scalar f32 tensor: the mean squared
         error of the masked tokens' predictions against their norm-pix
         targets.  ``video`` is uint8 (normalized here) or normalized
         ``[B, T, H, W, C]``; ``mask`` ``[B, N]`` bool, True = masked, with
-        ``num_visible`` False entries in every row."""
+        ``num_visible`` False entries in every row.  On a rank of a ``seq``
+        ring, ``video`` and ``mask`` are its time slice, ``token_offset``
+        its first token, and the loss its tokens' mean."""
         video = normalize_on_device(video)
         visible_idx, masked_idx = mask_partition(mask, num_visible)
-        encoded = self.encoder.encode_visible(video, visible_idx, attn_impl)
-        preds = self.decode_masked(encoded, visible_idx, masked_idx, attn_impl)
+        encoded = self.encoder.encode_visible(video, visible_idx, attn_impl, token_offset)
+        preds = self.decode_masked(encoded, visible_idx, masked_idx, attn_impl, token_offset)
         targets = patch_targets(video, self.cfg, masked_idx)
         return (preds.float() - targets).square().mean()
 

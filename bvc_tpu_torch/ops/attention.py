@@ -8,7 +8,10 @@ v of shape ``[B, N, h, d]``.  Two implementations:
   bf16-stored logits;
 - :func:`bvc_tpu_torch.ops.flash_attention.flash_attention`: the CUDA
   kernels, forward and backward, without a key mask or with a key bias
-  (their plain versions for CPU tensors).
+  (their plain versions for CPU tensors);
+- :func:`bvc_tpu_torch.ops.ring_attention.ring_attention` (``impl=
+  'ring:seq'``): the same kernels once per hop of a ring over the ``seq``
+  ranks of the process's mesh, for a sequence split across them.
 
 :func:`attention_route` is the rule ``'auto'`` and ``'xla_bf16'`` follow.
 """
@@ -19,6 +22,8 @@ import torch
 
 from bvc_tpu_torch.ops.flash_attention import (BIAS_HEAD_DIMS, HEAD_DIM, flash_attention,
                                                resolve_bias)
+from bvc_tpu_torch.ops.ring_attention import ring_attention
+from bvc_tpu_torch.parallel.mesh import SEQ_AXIS, current_mesh
 
 # The flash kernels take an attention of at least this many tokens.  Set
 # from the H100 timing of the unmasked kernels against plain_attention at
@@ -89,7 +94,11 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       flash regime;
     - ``'flash'``: the kernels for CUDA tensors (the backward kernels when a
       gradient is taken), their plain versions for CPU tensors; on CUDA it
-      raises for anything but bf16 at a width the kernels take.
+      raises for anything but bf16 at a width the kernels take;
+    - ``'ring:seq'`` (the JAX package's name): q, k, v are this rank's
+      block of a sequence split over the ``seq`` ranks of the process's
+      mesh (a ring of one without them); every hop runs the kernels (their
+      plain versions on CPU tensors), whatever the block's length.
 
     ``key_mask``: ``[B, N]`` bool, True = attendable; or ``bias``, that
     mask's f32 key bias already built (a stack of blocks builds it once,
@@ -99,6 +108,10 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = q.shape[-1] ** -0.5
     bias = resolve_bias(key_mask, bias)
+    if impl == f"ring:{SEQ_AXIS}":
+        mesh = current_mesh()
+        return ring_attention(q, k, v, mesh.group(SEQ_AXIS), mesh.axis_size(SEQ_AXIS),
+                              scale=scale, bias=bias)
     score_dtype = torch.float32
     if impl in ("auto", "xla_bf16"):
         if impl == "xla_bf16":

@@ -23,6 +23,15 @@ Over a ``model`` group, for the head-parallel blocks of ``tp``
 - :func:`reduce_from_model`: a sum over the model ranks forward, identity
   backward (Megatron's "g", JAX's ``_psum_fwd_ident_bwd``).
 
+Over the ``seq`` ring (:mod:`bvc_tpu_torch.ops.ring_attention`,
+:mod:`bvc_tpu_torch.parallel.seqpar`):
+
+- :func:`ring_shift`: each rank's tensors to the next rank of the ring,
+  the previous rank's received (JAX's ``ppermute`` over ``seq``), with
+  :func:`ring_shift_start` to overlap the transfer with other work;
+- :func:`sum_over_ring`: a sum over the ring's ranks (JAX's ``psum`` over
+  ``seq``: the token sums of the sequence-parallel embeds).
+
 :func:`sync_hosts` is a barrier of the whole world around checkpoint
 writes.  Each runs the same collectives on every rank of its group,
 whatever a rank holds, so a rank with nothing to send cannot leave its
@@ -42,6 +51,7 @@ import torch
 import torch.distributed as dist
 
 from bvc_tpu_torch.parallel.mesh import DATA_AXIS, current_mesh, world_size
+
 
 def axis_group(axis: str) -> tuple[Any, int, int]:
     """``(group, size, rank in it)`` of this rank's group on ``axis`` of
@@ -173,3 +183,67 @@ def sync_hosts() -> None:
     """Barrier across every rank (a no-op without a group)."""
     if world_size() > 1:
         dist.barrier()
+
+
+class RingShift:
+    """A :func:`ring_shift` in flight: :meth:`wait` returns the tensors the
+    previous rank sent, on the senders' device.
+
+    NCCL sends device tensors itself; over gloo the tensors of a CUDA
+    group go through pinned host buffers (a copy to the host before the
+    send, and back to the card after the receive), since gloo's send and
+    receive read and write host memory.  That copy is the gloo group's
+    transport, chosen by the group's backend: the ring's kernels run on
+    the card either way."""
+
+    def __init__(self, tensors: list[torch.Tensor], group):
+        group = group if group is not None else dist.group.WORLD
+        size, r = dist.get_world_size(group), dist.get_rank(group)
+        nxt = dist.get_global_rank(group, (r + 1) % size)
+        prv = dist.get_global_rank(group, (r - 1) % size)
+        tensors = [t.contiguous() for t in tensors]
+        self.device = tensors[0].device
+        self.host = self.device.type == "cuda" and dist.get_backend(group) == "gloo"
+        if self.host:
+            send = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+                    for t in tensors]
+            self.recv = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+        else:
+            send, self.recv = tensors, [torch.empty_like(t) for t in tensors]
+        # a tag a tensor: gloo matches each receive to its send by source and tag
+        ops = [dist.P2POp(dist.isend, t, nxt, group, tag=i) for i, t in enumerate(send)]
+        ops += [dist.P2POp(dist.irecv, t, prv, group, tag=i) for i, t in enumerate(self.recv)]
+        self.requests = dist.batch_isend_irecv(ops)
+        self._send = send  # alive until the sends are done
+
+    def wait(self) -> list[torch.Tensor]:
+        for req in self.requests:
+            req.wait()
+        self._send = None
+        if self.host:
+            return [t.to(self.device, non_blocking=True) for t in self.recv]
+        return self.recv
+
+
+def ring_shift_start(tensors: list[torch.Tensor], group) -> RingShift:
+    """Start sending ``tensors`` to the next rank of ``group`` (a ``seq``
+    ring; None: the world) and receiving as many from the previous one;
+    every rank of the ring calls it with tensors of the same shapes, in
+    the same order."""
+    return RingShift(list(tensors), group)
+
+
+def ring_shift(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
+    """``tensors`` sent to the next rank of ``group`` and the previous
+    rank's received, peers named by their global ranks
+    (``batch_isend_irecv``)."""
+    return ring_shift_start(tensors, group).wait()
+
+
+def sum_over_ring(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over this rank's ``seq`` ring; ``x`` itself on a
+    ring of one rank (no gradient)."""
+    mesh = current_mesh()
+    if mesh.axis_size("seq") == 1:
+        return x
+    return _summed(x.detach(), mesh.group("seq"))

@@ -17,17 +17,22 @@ Launch with torchrun, which sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 or, as the JAX package's launcher, with ``BVC_COORDINATOR=host:port``,
 ``SLURM_NTASKS`` and ``SLURM_PROCID`` (``SLURM_LOCALID`` names the GPU).
 
-The mesh carries up to two axes, ``data`` and ``model`` (``--mesh
-data=N,model=M`` over N*M processes).  A rank's coordinates follow the
-JAX package's row-major layout of the devices: ``model`` varies fastest, so
-rank ``r`` sits at ``data = r // M``, ``model = r % M``.  :func:`make_mesh`
-builds one process group per model column (the ranks that share a
-``model`` coordinate: the batch is split and the gradients averaged over
-it) and one per data row (the ranks that share a ``data`` coordinate: they
-hold the same batch and split the heads under ``tp``), and records the mesh
-as the process's own (:func:`current_mesh`), which the collectives, the
-batch slicing and the steps read.  The JAX package's other axes, ``seq``
-and ``pipe``, come with slices 7c and 7d of the port and raise until then.
+The mesh carries up to three axes, ``data``, ``seq`` and ``model``
+(``--mesh data=N[,seq=S][,model=M]`` over N*S*M processes).  A rank's
+coordinates follow the JAX package's row-major layout of the devices:
+``data`` outermost, then ``seq``, ``model`` fastest, so rank ``r`` sits at
+``data = r // (S*M)``, ``seq = (r // M) % S``, ``model = r % M``.
+:func:`make_mesh` builds, for each axis, one process group of the ranks
+that share every other coordinate: the ``data`` group (the batch is split
+over it), the ``seq`` ring (the ranks of one block of batch rows and one
+block of heads, each holding a slice of the time axis) and the ``model``
+group (the ranks that hold the same tokens and split the heads under
+``tp``); on a mesh with ``seq``, also the gradient group of the ranks that
+share a ``model`` coordinate (``data`` x ``seq``: the JAX package ``pmean``s
+the gradients over both).  It records the mesh as the process's own
+(:func:`current_mesh`), which the collectives, the batch slicing and the
+steps read.  The JAX package's ``pipe`` axis comes with slice 7d of the
+port and raises until then.
 """
 
 from __future__ import annotations
@@ -42,9 +47,12 @@ import torch.distributed as dist
 from bvc_tpu_torch.utils.device import resolve_device
 
 DATA_AXIS = "data"
+SEQ_AXIS = "seq"
 MODEL_AXIS = "model"
-# the JAX package's other mesh axes, and the slice of the port that brings each
-UNPORTED_AXES = {"seq": "7c (sequence parallelism)", "pipe": "7d (the pipeline)"}
+AXES = (DATA_AXIS, SEQ_AXIS, MODEL_AXIS)  # in the order of the ranks' layout
+GRADIENT = "gradient"  # the key of the gradient group (data x seq) in Mesh.groups
+# the JAX package's other mesh axis, and the slice of the port that brings it
+UNPORTED_AXES = {"pipe": "7d (the pipeline)"}
 _TORCHRUN = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
@@ -111,9 +119,10 @@ def distributed_init(backend: str | None = None,
 @dataclass(frozen=True)
 class Mesh:
     """The layout of the processes: axis names and sizes (``data``, and
-    ``model`` when one was asked for), this rank's coordinate on each axis,
-    and the process group of each axis that this rank belongs to (None
-    where the axis spans the whole world, or where there is no group)."""
+    ``seq`` and ``model`` when they were asked for), this rank's coordinate
+    on each axis, and the process group of each axis that this rank belongs
+    to (None where the axis spans the whole world, or where there is no
+    group)."""
 
     axis_names: tuple[str, ...]
     shape: dict[str, int]
@@ -135,6 +144,16 @@ class Mesh:
         """The process group of ``axis`` that holds this rank (None: the
         world's, or no group at all)."""
         return self.groups.get(axis)
+
+    def gradient_group(self):
+        """The group the gradients are averaged over: the ranks that share
+        this rank's ``model`` coordinate, ``data`` x ``seq`` (the ``data``
+        group on a mesh without ``seq``)."""
+        return self.groups.get(GRADIENT) if SEQ_AXIS in self.shape else self.group(DATA_AXIS)
+
+    def gradient_size(self) -> int:
+        """Ranks in :meth:`gradient_group`."""
+        return self.axis_size(DATA_AXIS) * self.axis_size(SEQ_AXIS)
 
 
 _CURRENT: Mesh | None = None
@@ -171,38 +190,54 @@ def refuse_unported_axes(shape: dict[str, int]) -> None:
         if axis in UNPORTED_AXES:
             raise NotImplementedError(
                 f"mesh axis {axis!r} ({shape}): it comes with slice {UNPORTED_AXES[axis]} "
-                "of the port; this slice runs data and model axes (--mesh data=N,model=M)")
-        if axis not in (DATA_AXIS, MODEL_AXIS):
+                "of the port; this slice runs data, seq and model axes "
+                "(--mesh data=N,seq=S,model=M)")
+        if axis not in AXES:
             raise ValueError(f"unknown mesh axis {axis!r} in {shape}")
 
 
-def _axis_groups(sizes: tuple[int, int]) -> dict[str, object]:
+def _axis_groups(sizes: dict[str, int]) -> dict[str, object]:
     """The process group of each axis holding this rank, over a world laid
-    out ``data``-major (``model`` fastest).  Every rank creates every group,
-    in the same order, as ``new_group`` requires; an axis that spans the
-    world takes the world's group (None), and a ``model`` axis of 1 none."""
-    n_data, n_model = sizes
-    r = rank()
+    out ``data``-major (``model`` fastest): for each axis, the ranks that
+    share every other coordinate, and on a mesh with ``seq`` the gradient
+    group of the ranks that share the ``model`` coordinate.  Every rank
+    creates every group, in the same order, as ``new_group`` requires; a
+    group that spans the world is the world's (None), and a ``seq`` or
+    ``model`` axis of 1 gets none (nothing runs over it)."""
+    names = [a for a in AXES if a in sizes]
+    world, r = math.prod(sizes.values()), rank()
+
+    def coords(rk: int) -> dict[str, int]:
+        out = {}
+        for a in reversed(names):
+            rk, out[a] = divmod(rk, sizes[a])
+        return out
+
     groups: dict[str, object] = {}
-    if n_model == 1:
-        return {DATA_AXIS: None}
-    for m in range(n_model):  # model columns: the ranks that share a model coordinate
-        g = dist.new_group([d * n_model + m for d in range(n_data)])
-        if r % n_model == m:
-            groups[DATA_AXIS] = g
-    if n_data == 1:
-        groups[MODEL_AXIS] = None
-        return groups
-    for d in range(n_data):  # data rows: the ranks that share a data coordinate
-        g = dist.new_group([d * n_model + m for m in range(n_model)])
-        if r // n_model == d:
-            groups[MODEL_AXIS] = g
+    for key, vary in ((DATA_AXIS, {DATA_AXIS}), (SEQ_AXIS, {SEQ_AXIS}),
+                      (MODEL_AXIS, {MODEL_AXIS}), (GRADIENT, {DATA_AXIS, SEQ_AXIS})):
+        if not vary <= set(names):
+            continue
+        if math.prod(sizes[a] for a in vary) == world:
+            groups[key] = None
+            continue
+        if key in (SEQ_AXIS, MODEL_AXIS) and sizes[key] == 1:
+            continue
+        members: dict[tuple, list[int]] = {}
+        for rk in range(world):
+            c = coords(rk)
+            members.setdefault(tuple(c[a] for a in names if a not in vary), []).append(rk)
+        for ranks in members.values():  # insertion order: the same on every rank
+            g = dist.new_group(ranks)
+            if r in ranks:
+                groups[key] = g
     return groups
 
 
 def make_mesh(shape: dict[str, int] | None = None) -> Mesh:
-    """The mesh of ``shape`` (e.g. ``{'data': 2, 'model': 2}``) over the
-    process group, recorded as the process's mesh (:func:`current_mesh`).
+    """The mesh of ``shape`` (e.g. ``{'data': 2, 'model': 2}`` or
+    ``{'data': 1, 'seq': 2}``) over the process group, recorded as the
+    process's mesh (:func:`current_mesh`).
 
     Empty or None puts every rank on ``data``; a missing ``data`` axis is
     ``-1``, and one ``-1`` is inferred from the world size, as the JAX
@@ -220,7 +255,7 @@ def make_mesh(shape: dict[str, int] | None = None) -> Mesh:
     if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
         raise RuntimeError(f"WORLD_SIZE={os.environ['WORLD_SIZE']} but no process group is "
                            "initialised: call bvc_tpu_torch.parallel.distributed_init() first")
-    names = (DATA_AXIS, MODEL_AXIS) if MODEL_AXIS in shape else (DATA_AXIS,)
+    names = tuple(a for a in AXES if a == DATA_AXIS or a in shape)
     sizes = {a: shape.get(a, -1) for a in names}
     if list(sizes.values()).count(-1) > 1:
         raise ValueError(f"mesh {shape}: at most one axis may be -1")
@@ -239,11 +274,13 @@ def make_mesh(shape: dict[str, int] | None = None) -> Mesh:
                          f"with torchrun --nproc_per_node {need} (one process per GPU)")
     if _live(_CURRENT) and (_CURRENT.axis_names, _CURRENT.shape) == (names, sizes):
         return _CURRENT  # the same layout: its groups serve (new ones would leak)
-    n_model = sizes.get(MODEL_AXIS, 1)
+    n_seq, n_model = sizes.get(SEQ_AXIS, 1), sizes.get(MODEL_AXIS, 1)
     r = rank()
-    coords = {DATA_AXIS: r // n_model}
+    coords = {DATA_AXIS: r // (n_seq * n_model)}
+    if SEQ_AXIS in sizes:
+        coords[SEQ_AXIS] = (r // n_model) % n_seq
     if MODEL_AXIS in sizes:
         coords[MODEL_AXIS] = r % n_model
-    groups = _axis_groups((sizes[DATA_AXIS], n_model)) if dist.is_initialized() else {}
+    groups = _axis_groups(sizes) if dist.is_initialized() else {}
     _CURRENT = Mesh(names, sizes, coords, groups, dist.group.WORLD)
     return _CURRENT

@@ -141,10 +141,11 @@ def apply_schedules(opt: torch.optim.Optimizer, count: int) -> None:
 
 
 def schedule_steps(cfg, world: int = 1) -> tuple[int, int] | None:
-    """``(warmup_steps, total_steps)`` for a ``TrainConfig`` over ``world``
-    ranks, or None when no schedule is configured (counterpart of
-    :func:`bvc_tpu.training.optim.schedule_steps`, whose mesh's device
-    count is ``world`` here).
+    """``(warmup_steps, total_steps)`` for a ``TrainConfig`` whose global
+    batch is ``batch_size * world``, or None when no schedule is configured
+    (counterpart of :func:`bvc_tpu.training.optim.schedule_steps`: ``world``
+    is its mesh's device count, or its ``data`` axis on a mesh with ``seq``,
+    where a whole ring carries each batch row).
 
     The reference's horizon ``ipe_scale * n_epoch * iterations_per_epoch``
     (``predictive/helper.py:148-161``), iterations per epoch as the

@@ -11,7 +11,9 @@ state's :class:`~bvc_tpu_torch.parallel.sharding.ShardingPlan` (the
 
 - ``replicated``, ``zero1`` and ``tp``: the state also holds the model in
   ``DistributedDataParallel`` over the ``data`` ranks (``ddp``), which the
-  steps call, so that the gradients are averaged over them; ``model`` stays
+  steps call, so that the gradients are averaged over them (on a mesh with
+  ``seq``, over the ``data`` x ``seq`` ranks of the gradient group:
+  :mod:`bvc_tpu_torch.parallel.seqpar`); ``model`` stays
   the plain module (under ``tp`` its blocks hold the rank's heads).  Under
   ``zero1`` the optimizer is a ``ZeroRedundancyOptimizer``;
 - ``fsdp``: ``model`` itself is the ``fully_shard``-ed module, and the
@@ -86,7 +88,8 @@ class TrainState:
 
         Under an initialised process group: ``replicated``, ``zero1`` and
         ``tp`` put the model into ``DistributedDataParallel`` over the
-        ``data`` ranks (:func:`wrap_data_parallel`), which broadcasts the
+        gradient group (the ``data`` ranks; ``data`` x ``seq`` on a mesh
+        with ``seq``; :func:`wrap_data_parallel`), which broadcasts the
         first data rank's weights; ``tp`` splits the blocks over the
         ``model`` ranks first (:func:`shard_heads`), ``fsdp`` shards the
         model over the ``data`` ranks instead (:func:`shard_fully`).  Every
@@ -111,7 +114,7 @@ class TrainState:
             zero_group = mesh.group(DATA_AXIS) or dist.group.WORLD
         ddp = None
         if grouped and plan.params != DATA_AXIS:
-            ddp = wrap_data_parallel(model, device, mesh.group(DATA_AXIS))
+            ddp = wrap_data_parallel(model, device, mesh.gradient_group())
         return TrainState(step=0, model=model,
                           optimizer=make_optimizer(optim_cfg, model.named_parameters(), steps,
                                                    zero_group),

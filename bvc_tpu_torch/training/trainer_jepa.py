@@ -106,6 +106,13 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
     is none); returns a summary with the final loss and the checkpoint
     path."""
     logger = get_logger("bvc_tpu_torch.jepa")
+    for axis in ("seq", "pipe"):
+        if axis in cfg.mesh_shape:
+            raise ValueError(
+                f"'{axis}' parallelism is videomae-only (this family's "
+                "clips fit one chip; the axis would replicate the whole "
+                "step across it and inflate global_batch with no "
+                "speedup) -- use a pure-data mesh")
     world = refuse_unported(cfg).size
     device = resolve_device(device)
     if not cfg.savedir:

@@ -17,7 +17,11 @@ the trainers run over the mesh of ``cfg.mesh_shape`` (``data``, or ``data``
 and ``model``) with the parameters laid out by ``cfg.param_sharding``
 (:class:`~bvc_tpu_torch.training.state.TrainState`): the global batch is
 ``batch_size * world`` (the flag is per GPU, as the JAX CLIs' per-device
-flag), each rank loads its ``data`` coordinate's block of it, the steps
+flag), each rank loads its ``data`` coordinate's block of it.  VideoMAE also
+runs on a mesh with ``seq`` (``data=D,seq=S[,model=M]``,
+:mod:`bvc_tpu_torch.parallel.seqpar`): the global batch is ``batch_size *
+D``, every rank of a ring loads its data block and keeps its time slice of
+each clip, and the step splits the attention over the ring.  The steps
 reduce the gradients and average the metrics over the data ranks, and rank
 0 alone writes the CSV, ``params_{run_id}.yaml``, the checkpoints
 (synchronously: the async writer waits at world > 1) and the profiler
@@ -29,6 +33,7 @@ under any other.
 from __future__ import annotations
 
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -40,7 +45,9 @@ from bvc_tpu_torch.models.convert import (qkv_key_biases,
                                           with_qkv_key_biases)
 from bvc_tpu_torch.models.videomae import VideoMAEPretrain
 from bvc_tpu_torch.parallel.collectives import sync_hosts
-from bvc_tpu_torch.parallel.mesh import Mesh, make_mesh
+from bvc_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, make_mesh
+from bvc_tpu_torch.parallel.seqpar import (make_seq_tp_videomae_train_step,
+                                           make_seq_videomae_train_step)
 from bvc_tpu_torch.parallel.sharding import param_shardings
 from bvc_tpu_torch.training.checkpoint import (checkpoint_exists, checkpoint_path,
                                                checkpoint_saver, load_checkpoint, load_meta,
@@ -59,13 +66,37 @@ from bvc_tpu_torch.utils.profiling import StepTraceWindow, device_memory_stats
 def refuse_unported(cfg: TrainConfig) -> Mesh:
     """The run's mesh (:func:`~bvc_tpu_torch.parallel.make_mesh` of
     ``cfg.mesh_shape``, over the world), its parameter layout checked
-    (:func:`~bvc_tpu_torch.parallel.sharding.param_shardings`).  Raises for
-    what the port does not run yet, naming its slice: a ``seq`` or
-    ``pipe`` axis (7c, 7d); for ``zero1`` or ``fsdp`` beside a ``model``
-    axis; and for axes whose sizes do not multiply to the world's."""
+    (:func:`~bvc_tpu_torch.parallel.sharding.param_shardings`; on a mesh
+    with ``seq`` by the sequence-parallel steps' rules, :func:`seq_layout`).
+    Raises for what the port does not run yet, naming its slice: a ``pipe``
+    axis (7d); for ``zero1`` or ``fsdp`` beside a ``model`` axis; and for
+    axes whose sizes do not multiply to the world's."""
     mesh = make_mesh(cfg.mesh_shape)
-    param_shardings(cfg.param_sharding, mesh)
+    if SEQ_AXIS in mesh.axis_names:
+        seq_layout(cfg, mesh)
+    else:
+        param_shardings(cfg.param_sharding, mesh)
     return mesh
+
+
+def seq_layout(cfg: TrainConfig, mesh: Mesh) -> tuple[str, Callable]:
+    """``(param_sharding, step)`` of a run on a mesh with ``seq`` (the JAX
+    trainer's seq branches): with a ``model`` axis the seq x TP step, whose
+    flag must stay ``replicated`` while the state holds the blocks' heads
+    over ``model`` (``tp``); else the seq step under the flag's layout
+    (``replicated`` or ``zero1``)."""
+    probes = full_grad_probes("videomae") if cfg.log_grad_stats else None
+    accum = cfg.optim.grad_accum_steps
+    if MODEL_AXIS in mesh.axis_names:
+        if cfg.param_sharding != "replicated":
+            raise ValueError(
+                "the seq x tp step keeps params canonical and replicated "
+                "(TP shards COMPUTE over heads, not storage) -- "
+                f"--param_sharding must stay 'replicated' "
+                f"(got {cfg.param_sharding!r})")
+        return "tp", make_seq_tp_videomae_train_step(cfg.model, cfg.mask, probes, accum, mesh)
+    return cfg.param_sharding, make_seq_videomae_train_step(
+        cfg.model, cfg.mask, cfg.param_sharding, accum, probes, mesh)
 
 
 def videomae_model_state(ckpt: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
@@ -80,7 +111,12 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
     is none); returns a summary with the final losses and the checkpoint
     path."""
     logger = get_logger("bvc_tpu_torch.videomae")
-    world = refuse_unported(cfg).size
+    mesh = refuse_unported(cfg)
+    world = mesh.size
+    seq = SEQ_AXIS in mesh.axis_names
+    # a whole seq ring carries each batch row: the global batch scales with
+    # the data axis only, as the JAX trainer's seq branch
+    batch_ranks = mesh.axis_size(DATA_AXIS) if seq else world
     device = resolve_device(device)
     if not cfg.savedir:
         raise ValueError("savedir is required")
@@ -113,9 +149,10 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
         logger.info("init from checkpoint %s", cfg.init_checkpoint_path)
         model.load_state_dict(videomae_model_state(load_checkpoint(cfg.init_checkpoint_path),
                                                    cfg.model))
+    layout, step = seq_layout(cfg, mesh) if seq else (cfg.param_sharding, None)
     state = TrainState.create(model, cfg.optim, seed=cfg.seed + 1, device=device,
-                              steps=schedule_steps(cfg, world),
-                              param_sharding=cfg.param_sharding)
+                              steps=schedule_steps(cfg, batch_ranks),
+                              param_sharding=layout)
     start_epoch = 0
     if cfg.resume and checkpoint_exists(own_ckpt):
         # mid-stage preemption recovery: weights, optimizer, epoch and
@@ -127,13 +164,14 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
         state.step = int(restored["step"])
         state.generator.set_state(restored["rng"])
         start_epoch = int(restored["epoch"])
-    step = make_videomae_train_step(
-        cfg.model, cfg.mask, grad_accum=cfg.optim.grad_accum_steps,
-        grad_probes=full_grad_probes("videomae") if cfg.log_grad_stats else None)
+    if step is None:
+        step = make_videomae_train_step(
+            cfg.model, cfg.mask, grad_accum=cfg.optim.grad_accum_steps,
+            grad_probes=full_grad_probes("videomae") if cfg.log_grad_stats else None)
 
     # data ---------------------------------------------------------------------
     datasets = make_dataset("videomae", cfg.data)
-    global_batch = cfg.data.batch_size * world
+    global_batch = cfg.data.batch_size * batch_ranks
     loaders = {
         phase: DataLoader(
             ds, global_batch, shuffle=(phase == "train"), seed=cfg.seed,
@@ -141,14 +179,16 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
             max_batches=cfg.max_epoch_iters,
             # val keeps every sample by padding the last batch
             drop_last=(phase == "train"), device=device,
+            # a seq rank keeps its time slice of each clip
+            frames=step.time_slice if seq else None,
         )
         for phase, ds in datasets.items()
         if ds is not None
     }
-    logger.info("datasets: train=%d val=%s, global batch %d over %d ranks, %d iters/epoch, "
-                "on %s", len(datasets["train"]),
+    logger.info("datasets: train=%d val=%s, global batch %d over %d ranks (mesh %s), "
+                "%d iters/epoch, on %s", len(datasets["train"]),
                 len(datasets["val"]) if datasets.get("val") else 0, global_batch, world,
-                len(loaders["train"]), device)
+                mesh.shape, len(loaders["train"]), device)
     if len(loaders["train"]) == 0:
         raise ValueError(
             f"dataset ({len(datasets['train'])} samples) is smaller than the "

@@ -250,17 +250,42 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    (f) ``fsdp`` at ``data=n`` and ``tp`` at ``data=n/2,model=2`` over NCCL
    against one card at the global batch, per-card clips/s and the scaling
    efficiency (alone: ``c.shard_multi_card(smi, n, 48, Path(d))``).
+25. Sequence parallelism (slice 7c, ``phase_seqpar``), VideoMAE-B at 64
+   frames (6272 tokens, 640 visible).  (a) ``ring_attention_chunks`` at S =
+   4 and 2 over ``[2,6272,12,64]`` and ``[2,6272,6,64]``, and with a key
+   mask at ``[64,200,12,32]`` (hops whose keys are all masked, samples with
+   no key), forward and backward, against ``flash_attention`` over the
+   whole sequence (O, LSE, dQ, dK, dV within phases 2-4's max-abs limits)
+   and against f32 math (the ring's |err|/|ref| at most twice flash's: it
+   rounds each hop's O and gradients to bf16 before summing them); S
+   launches of each kernel a call; the hop times at 80 and 160 tokens
+   against the plain hop.  (b) World 1 over NCCL at ``data=1,seq=1``: the
+   seq step against the unwrapped step at B=4 (loss 1e-6 relative, cosine
+   0.99995 per tensor, launches equal).  (c) Two gloo ranks on the card at
+   ``data=1,seq=2`` against one process at B=4 (loss 1e-4 relative, cosine
+   0.9995 per tensor), per-rank peak memory beside the one process's, each
+   rank's launches (twice the step's: two hops), the K/V shift's time over
+   the ring (through pinned host memory: gloo does not send CUDA tensors);
+   the VideoMAE-B and V-JEPA seq embeds against one process's at cosine
+   0.999 per row.  (d) Four gloo ranks at ``data=1,seq=2,model=2``, the same
+   reference and limits.  (e) ``pretrain_videomae --mesh data=1,seq=2
+   --num_frames 64`` on two gloo ranks for 3 steps, its checkpoint through
+   ``make_embed_fn`` at cosine 0.999 to the trained model.  With more than
+   one card, ``data=1,seq=n``, ``data=2,seq=n/2`` and
+   ``data=1,seq=n/2,model=2`` over NCCL against one card at the global
+   batch: per-card clips/s and peak memory (alone:
+   ``c.seq_multi_card(smi, n, Path(d))``).
 
 Every path runs with every launch count set to 0 just before it and read
 just after, and fails if a kernel other than its own launched (no SimCLR
 path launches one: each kernel's ``launches_on_simclr_paths`` is the sum of
 the counts read over them).
 Prints the host's CUDA device and CPU core counts, one JSON
-``{"trainers": {...}}`` line (14-18 and 20-24), one JSON ``{"kernels":
+``{"trainers": {...}}`` line (14-18 and 20-25), one JSON ``{"kernels":
 [...]}`` line (with each kernel's ``launches_per_cli_step``,
 ``launches_per_curriculum``, ``launches_per_artifact_call``,
-``launches_per_vit_image_embed``, ``launches_per_ddp_step`` and
-``launches_per_sharded_step``),
+``launches_per_vit_image_embed``, ``launches_per_ddp_step``,
+``launches_per_sharded_step`` and ``launches_per_seq_step``),
 the script's wall time and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that last line,
 when there is no CUDA device, when run outside a checkout, or when any phase
@@ -4484,6 +4509,675 @@ def shard_multi_card(card: str, n: int, B: int, root: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- slice 7c
+
+SEQ_FRAMES = 64  # VideoMAE-B at 64 frames, tubelet 2, 224 px: 6272 tokens, 640 visible at 0.9
+SEQ_B = 4  # clips a ring in (b)-(d)
+SEQ_WORLD1_LOSS_RTOL = 1e-6  # the seq step at seq=1 against the unwrapped step
+SEQ_WORLD1_COSINE_MIN = 0.99995  # per parameter tensor
+# The ring rounds each hop's O and each hop's dQ, dK, dV partial to bf16
+# before its f32 merge or sum (S + 1 roundings against flash's one), so
+# phase 3's 1e-3 |err|/|ref| between two single roundings of one f32 sum
+# does not apply to it (the card read 5.0e-3 for dQ at S = 4 against flash
+# over the whole sequence).  Both are held instead against the same
+# attention in f32 math: the ring's |err|/|ref| at most this multiple of
+# flash's own (the CPU emulation in bf16 read 3.0e-3 against flash's 2.4e-3
+# at N = 1024)
+RING_REL_FACTOR = 2.0
+SEQ_RING_CASES = ((2, 6272, 12, 64), (2, 6272, 6, 64))  # encoder's and decoder's heads
+SEQ_MASKED_CASE = (64, 200, 12, 32)  # 4 chunks of 50 keys, key bias at d = 32
+SEQ_HOP_SHAPES = ((8, 80, 12, 64), (8, 160, 12, 64))  # the encoder's visible block at S = 8, 4
+SEQ_TIMED_STEPS = 3
+SEQ_CLI_STEPS = 3
+
+
+def seq_config(frames: int = SEQ_FRAMES):
+    """VideoMAE-B at ``frames`` frames (tubelet 2, 224 px, bf16), the tube
+    mask at 0.9 and SGD with momentum."""
+    from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig
+
+    return (ModelConfig(num_frames=frames), MaskConfig(sampler="tube", mask_ratio=0.9),
+            OptimConfig(name="sgd", lr=0.1, momentum=0.9))
+
+
+def seq_batch(B: int, frames: int = SEQ_FRAMES):
+    """``(video, mask)`` on the host: ``B`` uint8 clips from seed 0 and the
+    tube mask of the whole clips' ``[B, N]`` tokens drawn from a CPU
+    generator seeded 0."""
+    import numpy as np
+    import torch
+
+    from bvc_tpu_torch.masks.tube import tube_mask
+
+    cfg = seq_config(frames)[0]
+    g = cfg.image_size // cfg.patch_size
+    video = np.random.default_rng(0).integers(0, 256, (B, frames, cfg.image_size,
+                                                       cfg.image_size, 3), dtype=np.uint8)
+    mask = tube_mask(torch.Generator().manual_seed(0), B, (cfg.num_time_steps, g, g), 0.9)
+    return torch.from_numpy(video), mask
+
+
+def seq_state(mode: str = "replicated", frames: int = SEQ_FRAMES):
+    """VideoMAE-B from seed 0 on the card, laid out by ``mode`` over the
+    process's mesh."""
+    from bvc_tpu_torch.models.videomae import VideoMAEPretrain
+    from bvc_tpu_torch.training.state import TrainState
+
+    cfg, _, optim = seq_config(frames)
+    return TrainState.create(VideoMAEPretrain(cfg, seed=0), optim, seed=1, param_sharding=mode)
+
+
+def seq_step_for(mesh, frames: int = SEQ_FRAMES):
+    """``(layout, step)`` on ``mesh``: the seq x TP step (state ``tp``)
+    where it has a ``model`` axis, else the seq step (``replicated``)."""
+    from bvc_tpu_torch.parallel.seqpar import (make_seq_tp_videomae_train_step,
+                                               make_seq_videomae_train_step)
+
+    cfg, mask_cfg, _ = seq_config(frames)
+    if "model" in mesh.axis_names:
+        return "tp", make_seq_tp_videomae_train_step(cfg, mask_cfg, mesh=mesh)
+    return "replicated", make_seq_videomae_train_step(cfg, mask_cfg, mesh=mesh)
+
+
+def call_readings(call, state) -> dict:
+    """``call()`` (one step) with the launch counts set to 0 just before it:
+    its loss, launches and every parameter's whole gradient on the card."""
+    import torch
+
+    from bvc_tpu_torch.parallel.sharding import full_tensor
+
+    reset_launches()
+    metrics = call()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    return {"loss": metrics["loss"].item(), "launches": launches,
+            "grads": {n: full_tensor(p, p.grad).detach().flatten().clone()
+                      for n, p in state.model.named_parameters()}}
+
+
+def events_ms(fn, n: int) -> float:
+    """Device time of one ``fn()``, ms, by CUDA events over ``n`` calls."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def dispatch_ms(fn) -> float:
+    """Host time to dispatch one ``fn()`` (a step) into an empty queue, ms:
+    beside the step's device time, how far the host's pace holds it."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def rel_err(x, ref) -> tuple[float, float, float]:
+    """(max |x - ref|, max |ref|, |x - ref| / |ref|) in f32."""
+    diff = x.float() - ref.float()
+    return diff.abs().max().item(), ref.float().abs().max().item(), (
+        diff.norm() / ref.float().norm()).item()
+
+
+def ring_case(label: str, B: int, N: int, h: int, d: int, S: int, key_mask=None) -> dict:
+    """``ring_attention_chunks`` over ``S`` chunks, forward and backward,
+    against ``flash_attention`` over the whole sequence on the same inputs:
+    O and the merged LSE within phase 2's limits, dQ, dK and dV within
+    phase 3's ``BWD_TOL`` of max|ref|, rows without a key +inf in both; O
+    and the gradients of both against the same attention in f32 math, the
+    ring's |err|/|ref| within ``RING_REL_FACTOR`` times flash's; and the
+    call's launches: S of the forward kernel and S of each backward kernel
+    (the key-bias ones with a mask)."""
+    import torch
+
+    from bvc_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd_ref,
+                                                   flash_attention_fwd,
+                                                   flash_attention_fwd_ref, key_bias)
+    from bvc_tpu_torch.ops.ring_attention import ring_attention_chunks
+
+    q, qs, k, v = qkv_inputs(B, N, h, d, seed=7 * N + h + S)
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    do = torch.randn((B, N, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    reset_launches()
+    o, lse = ring_attention_chunks(*leaves, S, key_mask=key_mask, return_lse=True)
+    o.backward(do)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    grads = [x.grad for x in leaves]
+    refs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    o_ref = flash_attention(*refs, key_mask=key_mask)
+    o_ref.backward(do)
+    bias = None if key_mask is None else key_bias(key_mask)
+    lse_ref = flash_attention_fwd(qs, k, v, bias)[1]
+    torch.cuda.synchronize()
+    suffix = "" if key_mask is None else "_bias"
+    want = {f"flash_fwd{suffix}": S, **{f"flash_bwd{p}{suffix}": S for p in ("_prep", "", "_post")}}
+    want = {**{name: 0 for name in launches}, **want}
+    check(launches == want, f"ring {label}: launches {launches}, want {want}")
+    # the same attention in f32 math on the same (bf16) inputs
+    f32 = [x.float() for x in (qs, k, v)]
+    o32, lse32 = flash_attention_fwd_ref(*f32, bias)
+    exact = [o32, *flash_attention_bwd_ref(*f32, o32, lse32, do.float(), bias)]
+    exact[1] = exact[1] * d ** -0.5  # dQ from dQs
+    rows = torch.isfinite(lse_ref)
+    check(bool(torch.equal(rows, torch.isfinite(lse))), f"ring {label}: rows without a key differ")
+    err_lse = (lse[rows] - lse_ref[rows]).abs().max().item() if rows.any() else 0.0
+    err_o = rel_err(o, o_ref)[0]
+    check(torch.allclose(o.float(), o_ref.float(), atol=O_TOL, rtol=O_TOL)
+          and torch.allclose(lse[rows], lse_ref[rows], atol=LSE_TOL, rtol=LSE_TOL),
+          f"ring {label}: O max {err_o}, LSE {err_lse}")
+    rec = {"shape": [B, N, h, d], "S": S, "bias": key_mask is not None, "o": err_o,
+           "lse": err_lse, "launches": launches}
+    for i, (name, x, ref) in enumerate(zip(("o", "dq", "dk", "dv"), [o, *grads],
+                                           [o_ref, *(r.grad for r in refs)])):
+        if name != "o":
+            err, scale, _ = rel_err(x, ref)
+            check(err <= BWD_TOL * scale,
+                  f"ring {label}: {name} max {err} against flash's (max|ref| {scale})")
+            rec[name] = err
+        ring_rel, flash_rel = rel_err(x, exact[i])[2], rel_err(ref, exact[i])[2]
+        check(ring_rel <= RING_REL_FACTOR * flash_rel,
+              f"ring {label}: {name} |err|/|ref| {ring_rel} against f32 math, flash's {flash_rel}")
+        rec[f"{name}_rel_f32"], rec[f"{name}_flash_rel_f32"] = ring_rel, flash_rel
+    del exact, o32, lse32, f32
+    print(f"ring {label} [{B},{N},{h},{d}] S={S}: O max {err_o:.3e}, LSE {err_lse:.3e} against "
+          f"flash; |err|/|ref| against f32 math, ring (flash): " + ", ".join(
+              f"{n} {rec[f'{n}_rel_f32']:.3e} ({rec[f'{n}_flash_rel_f32']:.3e})"
+              for n in ("o", "dq", "dk", "dv")) + f"; launches {S} of each kernel", flush=True)
+    return rec
+
+
+def ring_masks(B: int, N: int):
+    """A ``[B, N]`` key mask on the card: 60% of the keys kept, then
+    elements 0-7 with every key of chunk ``b % 4`` (of 4) masked, 8-11 with
+    the first half masked (every key of a hop at S = 2 and of two at S =
+    4), 12 and 13 with every key masked."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    keep = torch.rand((B, N), generator=gen, device="cuda") < 0.6
+    c = N // 4
+    for b in range(8):
+        keep[b, (b % 4) * c:(b % 4 + 1) * c] = False
+    keep[8:12, :N // 2] = False
+    keep[12:14] = False
+    return keep
+
+
+def seq_hop_times(card: str) -> dict:
+    """A forward hop (the kernel, then the merge into f32 accumulators) and
+    a backward hop (the three kernels, then the f32 sums) at the encoder's
+    visible block of 80 and 160 tokens, against the same hops through the
+    plain versions, by CUDA events (the host's launch pace: a hop is a
+    dozen small launches) and in a CUDA graph (the device's time)."""
+    import math as _math
+
+    import torch
+
+    from bvc_tpu_torch.ops.flash_attention import (flash_attention_bwd_ref,
+                                                   flash_attention_fwd_ref, flash_bwd_cuda,
+                                                   flash_fwd_cuda)
+    from bvc_tpu_torch.ops.ring_attention import merge_hop
+
+    out = {}
+    for B, n, h, d in SEQ_HOP_SHAPES:
+        _, qs, k, v = qkv_inputs(B, n, h, d, seed=n)
+        acc = torch.zeros((B, n, h, d), dtype=torch.float32, device="cuda")
+        lse0 = torch.full((B, h, n), -_math.inf, dtype=torch.float32, device="cuda")
+        o, lse = flash_fwd_cuda(qs, k, v)
+        do = torch.randn_like(o)
+        sums = [torch.zeros((B, n, h, d), dtype=torch.float32, device="cuda") for _ in range(3)]
+
+        def bwd_hop(fn):
+            for s, g in zip(sums, fn(qs, k, v, o, lse, do)):
+                s += g.float()
+
+        hops = {"fwd": lambda: merge_hop(acc, lse0, *flash_fwd_cuda(qs, k, v), 1),
+                "fwd_plain": lambda: merge_hop(acc, lse0, *flash_attention_fwd_ref(qs, k, v), 1),
+                "bwd": lambda: bwd_hop(flash_bwd_cuda),
+                "bwd_plain": lambda: bwd_hop(flash_attention_bwd_ref)}
+        rec = {"shape": [B, n, h, d]}
+        for name, fn in hops.items():  # events (the host's pace) and in a CUDA graph
+            rec[f"{name}_ms"], rec[f"{name}_graph_ms"] = time_ms(fn), graph_ms(fn)
+        print(f"ring hop [{B},{n},{h},{d}] [{card}], ms by events / in a graph: forward "
+              f"{rec['fwd_ms']:.4f} / {rec['fwd_graph_ms']:.4f} (plain "
+              f"{rec['fwd_plain_ms']:.4f} / {rec['fwd_plain_graph_ms']:.4f}), backward "
+              f"{rec['bwd_ms']:.4f} / {rec['bwd_graph_ms']:.4f} (plain "
+              f"{rec['bwd_plain_ms']:.4f} / {rec['bwd_plain_graph_ms']:.4f})", flush=True)
+        out[f"{n}_tokens"] = rec
+    return out
+
+
+def seq_ring_phase(card: str) -> dict:
+    """(a) The ring's hop math at full width in one process
+    (``ring_attention_chunks``): S = 4 and 2 over the encoder's and the
+    decoder's heads at 6272 tokens, and with a key mask at d = 32; then the
+    hop times."""
+    import torch
+
+    out = {}
+    for B, N, h, d in SEQ_RING_CASES:
+        for S in (4, 2):
+            out[f"{B}x{N}x{h}x{d}_S{S}"] = ring_case("unmasked", B, N, h, d, S)
+            torch.cuda.empty_cache()
+    B, N, h, d = SEQ_MASKED_CASE
+    mask = ring_masks(B, N)
+    for S in (4, 2):
+        out[f"{B}x{N}x{h}x{d}_S{S}_bias"] = ring_case("key mask", B, N, h, d, S, mask)
+    out["hops"] = seq_hop_times(card)
+    return out
+
+
+def seq_reference(B: int, frames: int = SEQ_FRAMES) -> dict:
+    """One process on the card, no process group: the unwrapped VideoMAE-B
+    step at ``B`` clips of ``frames`` frames on :func:`seq_batch`'s clips
+    and mask; its loss, launches, gradients (on the host), peak memory
+    (above what the process held before: earlier phases' tensors do not
+    count, as a rank's fresh process holds none) and step time (CUDA events
+    over ``SEQ_TIMED_STEPS`` further steps)."""
+    import gc
+
+    import torch
+
+    from bvc_tpu_torch.training.steps import make_videomae_train_step
+
+    cfg, mask_cfg, _ = seq_config(frames)
+    held = torch.cuda.memory_allocated()
+    video, mask = (x.cuda() for x in seq_batch(B, frames))
+    state = seq_state(frames=frames)
+    step = make_videomae_train_step(cfg, mask_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    want = call_readings(lambda: step(state, video, mask), state)
+    want["peak_bytes"] = torch.cuda.max_memory_allocated() - held
+    want["ms"] = events_ms(lambda: step(state, video, mask), SEQ_TIMED_STEPS)
+    want["dispatch_ms"] = dispatch_ms(lambda: step(state, video, mask))
+    want["grads"] = {n: g.cpu() for n, g in want["grads"].items()}
+    del state, video, mask
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want
+
+
+def seq_world1(card: str, want: dict, B: int) -> dict:
+    """(b) World 1 over NCCL at ``--mesh data=1,seq=1``: the seq step (a
+    ring of one, DDP over the world) against the unwrapped step on the
+    same clips and mask: loss within ``SEQ_WORLD1_LOSS_RTOL``, gradient
+    cosine >= ``SEQ_WORLD1_COSINE_MIN`` per tensor, launches equal; its
+    step time beside the seq step's without a process group (no DDP) and
+    the unwrapped step's."""
+    import gc
+
+    import torch
+
+    from bvc_tpu_torch.parallel import distributed_init, make_mesh
+
+    video, mask = (x.cuda() for x in seq_batch(B))
+    # the seq step without a process group (no DDP): what the ring of one
+    # costs apart from DDP's
+    _, step = seq_step_for(make_mesh({"data": 1, "seq": 1}))
+    alone = seq_state()
+    step(alone, video, mask)
+    alone_ms = events_ms(lambda: step(alone, video, mask), SEQ_TIMED_STEPS)
+    del alone
+    gc.collect()
+    with rendezvous():
+        distributed_init()
+        check(torch.distributed.get_backend() == "nccl", "world 1 on cuda: not NCCL")
+        mesh = make_mesh({"data": 1, "seq": 1})
+        _, step = seq_step_for(mesh)
+        state = seq_state()
+        check(state.ddp is not None, "no DDP wrapper under a process group")
+        got = call_readings(lambda: step(state, video[:, step.time_slice], mask), state)
+        ms = events_ms(lambda: step(state, video[:, step.time_slice], mask), SEQ_TIMED_STEPS)
+        del state
+        gc.collect()
+    torch.cuda.empty_cache()
+    what = f"seq world 1 over NCCL [data=1,seq=1, B={B}, {SEQ_FRAMES} frames]"
+    rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    cos = min((torch.nn.functional.cosine_similarity(
+        got["grads"][n].float(), g.float().cuda(), dim=0).item(), n)
+        for n, g in want["grads"].items())
+    print(f"{what} [{card}]: loss {got['loss']:.7f} vs {want['loss']:.7f} (rel {rel:.2e}), "
+          f"lowest gradient cosine {cos[1]} {cos[0]:.7f}, launches {got['launches']}; step "
+          f"{ms:.1f} ms (without DDP {alone_ms:.1f}) against the unwrapped step's "
+          f"{want['ms']:.1f}", flush=True)
+    check(rel <= SEQ_WORLD1_LOSS_RTOL, f"{what}: loss rel {rel} > {SEQ_WORLD1_LOSS_RTOL}")
+    check(cos[0] >= SEQ_WORLD1_COSINE_MIN, f"{what}: gradient cosine {cos}")
+    check(got["launches"] == want["launches"],
+          f"{what}: launches {got['launches']} vs the unwrapped step's {want['launches']}")
+    return {"loss_rel": rel, "min_cosine": cos[0], "min_cosine_tensor": cos[1],
+            "launches": got["launches"], "ms": ms, "no_ddp_ms": alone_ms,
+            "unwrapped_ms": want["ms"]}
+
+
+def shift_ms(tensors: list, group, reps: int = 5) -> float:
+    """Host time of one ``ring_shift`` of ``tensors`` over ``group`` after a
+    synchronisation, to its received tensors on the card; the median of
+    ``reps``."""
+    import torch
+
+    from bvc_tpu_torch.parallel.collectives import ring_shift
+
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ring_shift(tensors, group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times[1:])[reps // 2]
+
+
+def seq_rank_worker(out: str, job: str, backend: str) -> None:
+    """One rank of a sequence-parallel run (torchrun's variables in the
+    environment): the job's mesh; with ``train``, one step of VideoMAE-B on
+    this rank's data block and time slice of :func:`seq_batch` (loss,
+    launches, peak memory, the whole gradients on rank 0), ``timed`` timed
+    steps, and the transport time of the encoder's and decoder's K/V blocks
+    over the ring; with ``embeds``, the VideoMAE-B and V-JEPA seq embeds of
+    the clips (rows and launches of a call).  Writes its result to
+    ``{out}.rank{r}``."""
+    import gc
+
+    import torch
+
+    from bvc_tpu_torch.models.jepa import JEPAEncoder
+    from bvc_tpu_torch.models.videomae import VideoMAEEncoder
+    from bvc_tpu_torch.parallel import distributed_init, make_mesh, rank
+    from bvc_tpu_torch.parallel.seqpar import seq_embed, time_slice
+
+    job = json.loads(job)
+    distributed_init(backend=backend)
+    mesh = make_mesh(job["mesh"])
+    B = job["B"]
+    D, d_rank = mesh.axis_size("data"), mesh.coord("data")
+    b = B // D
+    video, mask = seq_batch(B)
+    video, mask = video[d_rank * b:(d_rank + 1) * b], mask[d_rank * b:(d_rank + 1) * b]
+    result: dict = {"coords": mesh.coords}
+    if job["train"]:
+        layout, step = seq_step_for(mesh)
+        local = video[:, step.time_slice].cuda()
+        state = seq_state(layout)
+        torch.cuda.reset_peak_memory_stats()
+        readings = call_readings(lambda: step(state, local, mask), state)
+        result["peak_bytes"] = torch.cuda.max_memory_allocated()
+        result["ms"] = result["dispatch_ms"] = None
+        if job["timed"]:
+            result["ms"] = events_ms(lambda: step(state, local, mask), job["timed"])
+            result["dispatch_ms"] = dispatch_ms(lambda: step(state, local, mask))
+        result.update(loss=readings["loss"], launches=readings["launches"],
+                      grads=({n: g.cpu() for n, g in readings["grads"].items()}
+                             if rank() == 0 else None))
+        del state, readings
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = seq_config()[0]
+        S, M = mesh.axis_size("seq"), mesh.axis_size("model")
+        n_vis, n_all = cfg.seq_len // 10 // S, cfg.seq_len // S
+        blocks = {"encoder": (b, n_vis, 12 // M, 64), "decoder": (b, n_all, 6 // M, 64)}
+        result["shift_ms"] = {
+            k: shift_ms([torch.zeros(s, dtype=torch.bfloat16, device="cuda")] * 2,
+                        mesh.group("seq")) for k, s in blocks.items()}
+    if job["embeds"]:
+        cfg = seq_config()[0]
+        jcfg = jepa_config()[0]
+        result["embeds"] = {}
+        for family, enc_cfg, clips in (("videomae", cfg, video),
+                                       ("jepa", jcfg, video[:, :jcfg.num_frames])):
+            encoder = (VideoMAEEncoder if family == "videomae" else JEPAEncoder)(
+                enc_cfg, seed=0).cuda().eval()
+            x = clips[:, time_slice(enc_cfg, mesh)].cuda()
+            reset_launches()
+            with torch.inference_mode():
+                emb = seq_embed(encoder, x, mesh)
+            torch.cuda.synchronize()
+            result["embeds"][family] = {"rows": emb.cpu(), "launches": read_launches()}
+            del encoder
+    torch.save(result, f"{out}.rank{rank()}")
+    torch.distributed.destroy_process_group()
+
+
+def run_seq_ranks(out_dir: Path, world: int, job: dict, backend: str,
+                  one_card: bool) -> list[dict]:
+    out = str(out_dir / "seq")
+    return run_rank_workers(world, f"seq_rank_worker({out!r}, {json.dumps(job)!r}, "
+                                   f"{backend!r})", out, one_card)
+
+
+def check_seq_ranks(what: str, ranks: list[dict], want: dict, per_rank: dict) -> dict:
+    """Rank 0's loss and whole gradients against ``want`` under the DDP
+    limits (every rank's loss is the mean over the gradient group), each
+    rank's launches ``per_rank``; returns the readings with each rank's
+    peak memory."""
+    rec = check_ddp_against(what, ranks[0], want)
+    for r, res in enumerate(ranks):
+        check(res["launches"] == per_rank,
+              f"{what}: rank {r} launched {res['launches']}, want {per_rank}")
+        check(abs(res["loss"] - ranks[0]["loss"]) <= 1e-6 * abs(ranks[0]["loss"]),
+              f"{what}: rank {r}'s loss {res['loss']} differs from rank 0's")
+    rec.update(launches_per_rank=ranks[0]["launches"],
+               peak_gib_per_rank=[res["peak_bytes"] / 2**30 for res in ranks],
+               peak_gib_one_process=want["peak_bytes"] / 2**30,
+               shift_ms=ranks[0]["shift_ms"], ms_per_rank=[res["ms"] for res in ranks],
+               dispatch_ms_per_rank=[res["dispatch_ms"] for res in ranks])
+    print(f"{what}: peak memory a rank {rec['peak_gib_per_rank']} GiB against one process's "
+          f"{rec['peak_gib_one_process']:.2f}; K/V shift over the ring {rec['shift_ms']} ms",
+          flush=True)
+    return rec
+
+
+def seq_launches(per_step: dict, hops: int) -> dict:
+    """The launches of a seq rank's step: the unwrapped step's, each
+    attention ``hops`` times."""
+    return {k: v * hops for k, v in per_step.items()}
+
+
+def seq_cli_worker(out: str, argv: str) -> None:
+    """One rank of ``pretrain_videomae`` (torchrun's variables in the
+    environment, gloo): ``main(argv)`` with the launch counts set to 0
+    before; rank 0 then embeds clips through ``make_embed_fn`` of the
+    stage's checkpoint and through the trained encoder in memory (captured
+    from the step)."""
+    import numpy as np
+    import torch
+
+    from bvc_tpu_torch.cli import pretrain_videomae
+    from bvc_tpu_torch.evalbench.extract import make_embed_fn
+    from bvc_tpu_torch.parallel import distributed_init, rank
+    from bvc_tpu_torch.training import trainer_videomae
+
+    distributed_init(backend="gloo")
+    seen: dict = {}
+    make = trainer_videomae.make_seq_videomae_train_step
+
+    def patched(*args, **kw):
+        step = make(*args, **kw)
+
+        def wrapped(state, batch):
+            seen["state"] = state
+            return step(state, batch)
+
+        wrapped.eval_step, wrapped.time_slice = step.eval_step, step.time_slice
+        return wrapped
+
+    trainer_videomae.make_seq_videomae_train_step = patched
+    argv = json.loads(argv)
+    reset_launches()
+    summary = pretrain_videomae.main(argv)
+    torch.cuda.synchronize()
+    result = {"summary": summary, "launches": read_launches()}
+    if rank() == 0:
+        cfg = pretrain_videomae.config_from_args(pretrain_videomae.build_parser().parse_args(argv))
+        clips = np.random.default_rng(5).integers(0, 256, (2, SEQ_FRAMES, 224, 224, 3),
+                                                  dtype=np.uint8)
+        emb = make_embed_fn("videomae", summary["checkpoint"], cfg.model)(clips)
+        with torch.inference_mode():
+            ref = seen["state"].model.encoder.embed(torch.from_numpy(clips).cuda()).cpu().numpy()
+        result["cosine"] = float(((emb * ref).sum(1) / (np.linalg.norm(emb, axis=1)
+                                                        * np.linalg.norm(ref, axis=1))).min())
+    torch.save(result, f"{out}.rank{rank()}")
+    torch.distributed.destroy_process_group()
+
+
+def seq_entry_point(root: Path, corpus: tuple[str, str], per_step: dict) -> dict:
+    """(e) ``pretrain_videomae --mesh data=1,seq=2 --num_frames 64`` on two
+    gloo ranks on the card, 3 steps: the CSV's losses finite, each rank's
+    launches its steps', and the checkpoint through ``make_embed_fn`` at
+    cosine >= 0.999 to the trained model in memory."""
+    jpg, pack = corpus
+    rid = "dev_1_g0_default_0_0"
+    argv = ["-jpg_root", jpg, "--pack_root", pack, "-savedir", str(root / "seq_cli"),
+            "--batch_size", "2", "--n_trainsamples", str(2 * SEQ_CLI_STEPS),
+            "--max_epoch_iters", str(SEQ_CLI_STEPS), "--run_id", rid, "--num_frames",
+            str(SEQ_FRAMES), "--mesh", "data=1,seq=2", "--num_workers", "2"]
+    out = str(root / "seq_cli_rank")
+    t0 = time.perf_counter()
+    ranks = run_rank_workers(2, f"seq_cli_worker({out!r}, {json.dumps(argv)!r})", out, True)
+    wall = time.perf_counter() - t0
+    losses = check_csv(root / "seq_cli" / f"csvlog_{rid}.csv", SEQ_CLI_STEPS, 2,
+                       "pretrain_videomae --mesh data=1,seq=2")
+    for r, res in enumerate(ranks):
+        check_cli_launches(res["launches"], per_step, SEQ_CLI_STEPS,
+                           f"pretrain_videomae --mesh data=1,seq=2, rank {r}")
+    cos = ranks[0]["cosine"]
+    print(f"pretrain_videomae --mesh data=1,seq=2 --num_frames {SEQ_FRAMES}: losses {losses}, "
+          f"launches a rank {ranks[0]['launches']}, checkpoint embed cosine min {cos:.6f}, "
+          f"{wall:.1f} s", flush=True)
+    check(cos >= COSINE_MIN, f"seq cli: checkpoint embed cosine {cos}")
+    return {"losses": losses, "cosine": cos, "wall_s": wall}
+
+
+def seq_one_process_embeds(video) -> dict:
+    """The VideoMAE-B and V-JEPA embeds of one process (no ring) on the
+    clips (V-JEPA on their first frames), on the host."""
+    import torch
+
+    from bvc_tpu_torch.models.jepa import JEPAEncoder
+    from bvc_tpu_torch.models.videomae import VideoMAEEncoder
+
+    cfg, jcfg = seq_config()[0], jepa_config()[0]
+    out = {}
+    with torch.inference_mode():
+        for family, enc_cfg, clips in (("videomae", cfg, video),
+                                       ("jepa", jcfg, video[:, :jcfg.num_frames])):
+            encoder = (VideoMAEEncoder if family == "videomae" else JEPAEncoder)(
+                enc_cfg, seed=0).cuda().eval()
+            out[family] = encoder.embed(clips.cuda()).cpu()
+            del encoder
+    return out
+
+
+def phase_seqpar(card: str, root: Path, corpus: tuple[str, str], per_step: dict) -> dict:
+    """Sequence parallelism on the card (slice 7c).  (a) The ring's hop
+    math at full width in one process, and the hop times.  (b) World 1
+    over NCCL at ``data=1,seq=1`` against the unwrapped step.  (c) Two gloo
+    ranks on the card at ``data=1,seq=2``, VideoMAE-B at 64 frames, B=4,
+    against one process at the same batch (the DDP limits), per-rank peak
+    memory, launches and the K/V shift time; the VideoMAE-B (64 frames) and
+    V-JEPA (2 frames) seq embeds against one process's, cosine >= 0.999 per
+    row.  (d) Four gloo ranks at ``data=1,seq=2,model=2`` against the same
+    reference.  (e) The CLI at ``--mesh data=1,seq=2``.  With more than one
+    card, :func:`seq_multi_card`.  Returns the records and, under
+    ``"launches"``, each run's counts."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    ring = seq_ring_phase(card)
+    want = seq_reference(SEQ_B)
+    world1 = seq_world1(card, want, SEQ_B)
+    video, _ = seq_batch(SEQ_B)
+    embeds_want = seq_one_process_embeds(video)
+    gc.collect()
+    torch.cuda.empty_cache()
+    records, launches = {}, {"world1": world1["launches"]}
+    for name, world, mesh, embeds in (("seq2", 2, {"data": 1, "seq": 2}, True),
+                                      ("seq2_tp2", 4, {"data": 1, "seq": 2, "model": 2}, False)):
+        job = {"mesh": mesh, "B": SEQ_B, "train": True, "embeds": embeds, "timed": 0}
+        ranks = run_seq_ranks(root, world, job, "gloo", one_card=True)
+        what = f"seq over gloo, {world} ranks on one card [{mesh}, B={SEQ_B}, {SEQ_FRAMES} frames]"
+        records[name] = check_seq_ranks(what, ranks, want, seq_launches(want["launches"], 2))
+        launches[f"{name}_per_rank"] = ranks[0]["launches"]
+        if embeds:
+            for family, ref in embeds_want.items():
+                rows = [res["embeds"][family]["rows"] for res in ranks]
+                cos = min(torch.nn.functional.cosine_similarity(r.float(), ref.float(), dim=1)
+                          .min().item() for r in rows)
+                call = ranks[0]["embeds"][family]["launches"]
+                print(f"{family} seq embed at seq=2: cosine min {cos:.6f} against one process, "
+                      f"launches a call a rank {call}", flush=True)
+                check(cos >= COSINE_MIN, f"{family} seq embed cosine {cos}")
+                check(call["flash_fwd"] == 24 and sum(call.values()) == 24,
+                      f"{family} seq embed launches {call}: want 24 flash_fwd (12 layers, 2 hops)")
+                records[f"{family}_embed"] = {"min_cosine": cos}
+                launches[f"{family}_embed_per_rank"] = call
+        del ranks
+        gc.collect()
+    entry = seq_entry_point(root, corpus, seq_launches(per_step, 2))
+    multi = None
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        multi = seq_multi_card(card, n_cards, root)
+    wall = time.perf_counter() - t0
+    print(f"seqpar: phase in {wall:.1f} s", flush=True)
+    return {"ring": ring, "world1": world1, "gloo": records, "entry_point": entry,
+            "one_process": {"peak_gib": want["peak_bytes"] / 2**30, "ms": want["ms"]},
+            "multi_card": multi, "wall_s": wall, "launches": launches}
+
+
+def seq_multi_card(card: str, n: int, root: Path) -> dict:
+    """With ``n`` > 1 cards (a host with four), over NCCL, a card a
+    rank, VideoMAE-B at 64 frames: ``data=1,seq=n`` at B=4 a ring,
+    ``data=2,seq=n/2`` (B=8 in all) and ``data=1,seq=n/2,model=2`` (B=4),
+    each against one card at the global batch (the DDP limits); per-card
+    clips/s (the slowest rank's CUDA events over ``SEQ_TIMED_STEPS`` steps)
+    and peak memory beside one card's."""
+    import gc
+
+    import torch
+
+    out = {}
+    refs = {}
+    for name, mesh, B in (("seq", {"data": 1, "seq": n}, SEQ_B),
+                          ("data_seq", {"data": 2, "seq": n // 2}, 2 * SEQ_B),
+                          ("seq_tp", {"data": 1, "seq": n // 2, "model": 2}, SEQ_B)):
+        if B not in refs:
+            refs[B] = seq_reference(B)
+        want = refs[B]
+        ranks = run_seq_ranks(root, n, {"mesh": mesh, "B": B, "train": True, "embeds": False,
+                                        "timed": SEQ_TIMED_STEPS}, "nccl", one_card=False)
+        what = f"seq over NCCL, {n} cards [{mesh}, B={B}, {SEQ_FRAMES} frames]"
+        hops = mesh["seq"]
+        rec = check_seq_ranks(what, ranks, want, seq_launches(want["launches"], hops))
+        ms = max(rec["ms_per_rank"])
+        one_card = B / (want["ms"] / 1e3)
+        rec.update(mesh=mesh, B=B, clips_s=B / (ms / 1e3), clips_s_per_card=B / (ms / 1e3) / n,
+                   one_card_clips_s=one_card, one_card_ms=want["ms"],
+                   one_card_dispatch_ms=want["dispatch_ms"])
+        print(f"{what} [{card}]: {rec['clips_s']:.2f} clips/s ({rec['clips_s_per_card']:.2f} a "
+              f"card) against one card's {one_card:.2f}; a step {ms:.1f} ms on the slowest "
+              f"card, its dispatch {max(rec['dispatch_ms_per_rank']):.1f} ms (one card "
+              f"{want['ms']:.1f} and {want['dispatch_ms']:.1f}); peak a card "
+              f"{max(rec['peak_gib_per_rank']):.2f} GiB against one card's "
+              f"{rec['peak_gib_one_process']:.2f}", flush=True)
+        out[name] = rec
+        del ranks
+        gc.collect()
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", nargs="?", const="", default=None, metavar="FILE",
@@ -4568,6 +5262,7 @@ def main() -> None:
         cli = phase_pretrain_cli_videomae(smi, corpus, train_B, train_launches)
         jepa_cli = phase_pretrain_cli_jepa(smi, corpus, 64, jepa_launches)
         sharding = phase_sharding(smi, train_B, Path(d), corpus, train_launches)
+        seqpar = phase_seqpar(smi, Path(d), corpus, train_launches)
     remat = phase_remat(smi, train_B)
     simclr_step = phase_simclr_step(smi)
     simclr_rate = phase_simclr_rate(smi)
@@ -4648,6 +5343,7 @@ def main() -> None:
     runs = [k for k in curriculum if k != "wall_s"]
     ddp_launches = ddp.pop("launches")
     shard_launches = sharding.pop("launches")
+    seq_launches_read = seqpar.pop("launches")
     for r in records:
         r["launches_per_ddp_step"] = {
             "videomae_world1_grad_accum2": ddp_launches["videomae_step"][r["name"]],
@@ -4657,6 +5353,7 @@ def main() -> None:
             "int8_call_mesh_data1": ddp_launches["int8_call"][r["name"]],
             "simclr_stage_mesh_data1": ddp_launches["simclr_stage"][r["name"]]}
         r["launches_per_sharded_step"] = {k: v[r["name"]] for k, v in shard_launches.items()}
+        r["launches_per_seq_step"] = {k: v[r["name"]] for k, v in seq_launches_read.items()}
         r["launches_on_simclr_paths"] = simclr_launches[r["name"]]
         r["launches_per_curriculum"] = {k: curriculum[k]["launches"][r["name"]] for k in runs}
         r["launches_per_artifact_call"] = {k: a["launches"].get(r["name"], 0)
@@ -4670,7 +5367,7 @@ def main() -> None:
                           "step_ms_without": remat["ms"][False],
                           "step_ms_with": remat["ms"][True],
                           "min_grad_cosine": remat["min_cosine"]},
-                "ddp": ddp, "sharding": sharding,
+                "ddp": ddp, "sharding": sharding, "seqpar": seqpar,
                 "simclr_cli": simclr_cli, "simclr_step": {**simclr_rate, **simclr_step},
                 "simclr_embed": simclr_embed,
                 "export": {k: {f: v for f, v in a.items() if f != "launches"}

@@ -138,8 +138,12 @@ def test_routing():
     mask[0, 5] = False
     torch.testing.assert_close(multi_head_attention(q, k, v, impl="flash", key_mask=mask),
                                plain_attention(q, k, v, 8 ** -0.5, mask), rtol=TOL, atol=TOL)
-    with pytest.raises(ValueError, match="unknown attention impl"):
-        multi_head_attention(q, k, v, impl="ring:seq")
+    # 'ring:seq' (slice 7c) in one process is a ring of one: the whole attention
+    torch.testing.assert_close(multi_head_attention(q, k, v, impl="ring:seq"), plain,
+                               rtol=TOL, atol=TOL)
+    for impl in ("ring:data", "sparse"):
+        with pytest.raises(ValueError, match="unknown attention impl"):
+            multi_head_attention(q, k, v, impl=impl)
 
 
 def test_key_mask_matches_jax():

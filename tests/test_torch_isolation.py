@@ -51,6 +51,11 @@ SLICE_7A = ["parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py
             "evalbench/extract.py", "cli/common.py", "cli/compute_embeddings.py",
             "cli/run_curriculum.py", "curriculum/driver.py"]
 
+# sequence parallelism: the ring, the seq steps and embeds, and the modules
+# that learnt about a time slice
+SLICE_7C = ["ops/ring_attention.py", "parallel/seqpar.py", "ops/attention.py",
+            "models/videomae.py", "models/jepa.py"]
+
 
 def test_slice_8a_modules_are_checked():
     assert {PACKAGE / name for name in SLICE_8A} <= set(PY_FILES)
@@ -62,6 +67,10 @@ def test_slice_8b_modules_are_checked():
 
 def test_slice_7a_modules_are_checked():
     assert {PACKAGE / name for name in SLICE_7A} <= set(PY_FILES)
+
+
+def test_slice_7c_modules_are_checked():
+    assert {PACKAGE / name for name in SLICE_7C} <= set(PY_FILES)
 
 
 def test_import_pulls_in_no_jax_and_no_bvc_tpu():

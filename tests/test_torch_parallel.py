@@ -97,8 +97,9 @@ def test_make_mesh_in_one_process(monkeypatch):
     """Every form of a world of 1 gives ``{'data': 1}``; ``data=2`` and
     ``data=1,model=2`` raise, naming the 2 processes they need (no run
     quietly uses one rank of two); ``model=1`` beside ``data=-1`` is a
-    world of 1; ``seq`` and ``pipe`` name their slice; ``WORLD_SIZE`` > 1
-    without a process group raises."""
+    world of 1; so is ``seq=1`` (``data`` x ``seq`` x ``model`` laid out in
+    that order), while ``seq=2`` needs 2 processes; ``pipe`` names its
+    slice; ``WORLD_SIZE`` > 1 without a process group raises."""
     for shape in (None, {}, {"data": 1}, {"data": -1}):
         mesh = make_mesh(shape)
         assert mesh.shape == {"data": 1} and mesh.size == 1 and mesh.axis_names == ("data",)
@@ -108,9 +109,13 @@ def test_make_mesh_in_one_process(monkeypatch):
         make_mesh({"data": 1, "model": 2})
     mesh = make_mesh({"data": -1, "model": 1})
     assert mesh.shape == {"data": 1, "model": 1} and mesh.axis_names == ("data", "model")
-    for axis, piece in (("seq", "7c"), ("pipe", "7d")):
-        with pytest.raises(NotImplementedError, match=f"slice {piece}"):
-            make_mesh({"data": 1, axis: 2})
+    mesh = make_mesh({"model": 1, "seq": 1})
+    assert mesh.axis_names == ("data", "seq", "model") and mesh.size == 1
+    assert mesh.coords == {"data": 0, "seq": 0, "model": 0} and mesh.gradient_size() == 1
+    with pytest.raises(ValueError, match="needs 2 processes, this run has 1"):
+        make_mesh({"data": 1, "seq": 2})
+    with pytest.raises(NotImplementedError, match="slice 7d"):
+        make_mesh({"data": 1, "pipe": 2})
     with pytest.raises(ValueError, match="unknown mesh axis"):
         make_mesh({"rows": 2})
     monkeypatch.setenv("WORLD_SIZE", "2")
@@ -293,7 +298,8 @@ def test_emit_script_launches_under_torchrun(tmp_path):
     """``--emit_script`` with ``--mesh data=4`` (in one process: the script
     runs later, under torchrun) writes each stage and the sweep as a
     torchrun command of 4 ranks, and asks SBATCH for 4 GPUs; without a mesh
-    the commands stay ``python -m``; a ``seq`` mesh raises."""
+    the commands stay ``python -m``; a ``seq`` mesh launches as many ranks
+    as its sizes multiply to; a ``pipe`` mesh raises."""
     from bvc_tpu_torch.cli import run_curriculum
     from bvc_tpu_torch.curriculum.driver import emit_script
 
@@ -309,8 +315,11 @@ def test_emit_script_launches_under_torchrun(tmp_path):
     assert "#SBATCH --gres=gpu:4" in text and "python -m" not in text
     plain = emit_script("dev", "generative", 0, extract={"ssv2": "/v"})
     assert "torchrun" not in plain and plain.count("python -m bvc_tpu_torch.cli.") == 4
-    with pytest.raises(NotImplementedError, match="slice 7c"):
-        emit_script("dev", "generative", 0, mesh="data=2,seq=2")
+    seq = emit_script("dev", "generative", 0, mesh="data=2,seq=2", extract={"ssv2": "/v"})
+    assert seq.count("torchrun --nproc_per_node 4 -m bvc_tpu_torch.cli.pretrain_videomae "
+                     "--mesh data=2,seq=2") == 3
+    with pytest.raises(NotImplementedError, match="slice 7d"):
+        emit_script("dev", "generative", 0, mesh="data=2,pipe=2")
 
 
 def test_per_replica_blocks_hold_whole_pairs():

@@ -47,3 +47,20 @@ def tiny_cfg(Cfg, family: str, frame_corpus: str, savedir: str, run_id: str,
     for k, v in top.items():
         setattr(cfg, k, v)
     return cfg
+
+
+def shrink_videomae(cli_module) -> None:
+    """Give the VideoMAE CLI module's parsed configs ``VIDEOMAE_MODEL``'s
+    widths and patch 8 (the CLI has no width flags; frames and image size
+    stay the flags')."""
+    parse = cli_module.config_from_args
+
+    def tiny(args):
+        cfg = parse(args)
+        for k, v in VIDEOMAE_MODEL.items():
+            if k not in ("image_size", "num_frames", "tubelet_size", "patch_size"):
+                setattr(cfg.model, k, v)
+        cfg.model.patch_size = 8
+        return cfg
+
+    cli_module.config_from_args = tiny
