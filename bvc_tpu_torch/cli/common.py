@@ -6,18 +6,18 @@ Flag names, defaults and single-dash/double-dash spelling follow the
 reference entry points (``pretrain_videomae.py:383-499``,
 ``pretrain_jepa.py:486-607``, ``pretrain_simclr.py:390-495``) so existing
 slurm invocations port over mechanically.  The multi-GPU flags (``--mesh``,
-``--param_sharding``) are parsed as the JAX CLIs parse them: ``--mesh
-data=N[,seq=S][,model=M]`` runs over N*S*M processes, one a GPU, launched by
-torchrun (``torchrun --nproc_per_node 4 -m bvc_tpu_torch.cli.pretrain_videomae
---mesh data=2,model=2 --param_sharding tp ...``, or ``--mesh data=1,seq=4
---num_frames 64`` to split each clip's time axis over 4 GPUs, VideoMAE
-only), and raises unless the product is the world size;
+``--param_sharding``, ``--pipe_microbatches``) are parsed as the JAX CLIs
+parse them: ``--mesh data=N[,seq=S][,model=M]`` runs over N*S*M processes,
+one a GPU, launched by torchrun (``torchrun --nproc_per_node 4 -m
+bvc_tpu_torch.cli.pretrain_videomae --mesh data=2,model=2 --param_sharding
+tp ...``, or ``--mesh data=1,seq=4 --num_frames 64`` to split each clip's
+time axis over 4 GPUs, VideoMAE only), ``--mesh data=N,pipe=P`` over N*P
+(VideoMAE's block stacks in P pipeline stages, ``--pipe_microbatches``
+microbatches a step), and raises unless the product is the world size;
 ``--param_sharding`` lays the parameters out as ``replicated`` (DDP),
 ``zero1`` (partitioned optimizer state), ``fsdp`` (FSDP2) or ``tp``
-(attention heads and MLP columns over ``model``).  The trainers refuse a
-``pipe`` axis, naming the slice of the port that brings it (7d).
-``--pipe_microbatches``, which acts only on a pipe mesh, is accepted and
-unused.
+(attention heads and MLP columns over ``model``); on a pipe mesh it stays
+``replicated``.
 """
 
 from __future__ import annotations
@@ -52,9 +52,9 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--num_workers", type=int, default=6)
     p.add_argument("--image_size", type=int, default=224)
     p.add_argument("--mesh", type=str, default="",
-                   help="process layout, e.g. data=2,model=2 or data=1,seq=4 under "
-                        "torchrun --nproc_per_node 4; empty: every process on data "
-                        "(pipe: slice 7d)")
+                   help="process layout, e.g. data=2,model=2, data=1,seq=4 or "
+                        "data=2,pipe=2 under torchrun --nproc_per_node 4; empty: every "
+                        "process on data")
     p.add_argument("--param_sharding", type=str, default="replicated",
                    choices=["replicated", "zero1", "fsdp", "tp"],
                    help="parameter layout: replicated (DDP), zero1 (optimizer state "
@@ -87,7 +87,7 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help=">1: sequential microbatches per optimizer step "
                         "(same effective batch, less activation memory)")
     p.add_argument("--pipe_microbatches", type=int, default=4,
-                   help="GPipe microbatches on a 'pipe' mesh (unused on one GPU)")
+                   help="GPipe microbatches per step on a 'pipe' mesh")
     return p
 
 

@@ -1,5 +1,5 @@
 """CLI: run a full curriculum experiment (the slurmscripts replacement) on
-one GPU, or over several under torchrun with ``--mesh data=N[,model=M]``
+one GPU, or over several under torchrun with ``--mesh``
 (counterpart of :mod:`bvc_tpu.cli.run_curriculum`, its flags and
 ``--pack_root``).
 
@@ -16,10 +16,11 @@ kernels build at their first use (``bvc_tpu_torch/ops/_build.py``).
 ``torchrun --nproc_per_node N -m bvc_tpu_torch.cli.run_curriculum --mesh
 data=N ...`` runs every stage and the sweep data parallel (rank 0 writes the
 manifest), ``--mesh data=N,model=M --param_sharding tp`` over N*M ranks
-with the heads split over ``model``; ``--param_sharding zero1|fsdp|tp``
+with the heads split over ``model``, ``--mesh data=D,seq=S`` with each
+clip's time axis over a ring, ``--mesh data=D,pipe=P`` with the block
+stacks in pipeline stages (VideoMAE both); ``--param_sharding zero1|fsdp|tp``
 reaches every stage.  ``--emit_script`` with a mesh writes commands that
-launch each stage under torchrun.  A ``seq``/``pipe`` axis raises, naming
-slices 7c-7d.
+launch each stage under torchrun.
 
 Runs on ``cuda``; ``main(argv, device="cpu")`` runs on the CPU.
 """

@@ -24,13 +24,16 @@ per-family behavior, the driver just wires paths.
 The port's stages run the port's trainers (``training/trainer_*.py``) and
 write ``model_{run_id}.pth.tar``; the sweep runs ``evalbench/extract.py``.
 Under a process group (torchrun) every rank runs the curriculum: the stages
-over ``base.mesh_shape`` (``data``, or ``data`` and ``model``, whose sizes
+over ``base.mesh_shape`` (``data``; ``data`` and ``model``; ``data`` and
+``seq``, with or without ``model``; or ``data`` and ``pipe``: sizes that
 multiply to the world size) with ``base.param_sharding``'s layout, the
 sweep over its ``data`` axis, and rank 0 writes the manifest and the CSVs.
-A ``seq`` or ``pipe`` axis, or a layout the mesh cannot take, raises
-before anything runs.  :func:`emit_script` launches each stage and sweep
-under ``torchrun --nproc_per_node N`` when its ``mesh`` asks for N > 1
-ranks.
+The ranks of the other axes (``model``, ``pipe``) of a data row extract
+the same clips, as the JAX sweep replicates its embed over them; a
+``seq`` ring splits each clip's time axis.  A layout the mesh cannot take
+raises before anything runs.  :func:`emit_script` launches each stage and
+sweep under ``torchrun --nproc_per_node N`` when its ``mesh`` asks for
+N > 1 ranks.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ from bvc_tpu_torch.curriculum.presets import (
     FAMILY_PRESETS,
     FamilyPreset,
 )
-from bvc_tpu_torch.parallel.mesh import refuse_unported_axes
+from bvc_tpu_torch.parallel.mesh import check_axes
 from bvc_tpu_torch.training.trainer_videomae import refuse_unported
 from bvc_tpu_torch.utils.config import VIT_DIMS, RunId, TrainConfig
 from bvc_tpu_torch.utils.device import resolve_device
@@ -195,8 +198,8 @@ def emit_script(
 
     The script runs the port's CLIs and threads ``model_{run_id}.pth.tar``
     from stage to stage; it is otherwise the JAX package's, line for line.
-    ``mesh`` (the CLI's ``--mesh``, e.g. ``'data=4'`` or
-    ``'data=2,model=2'``) reaches every command; when it asks for more than
+    ``mesh`` (the CLI's ``--mesh``, e.g. ``'data=4'``, ``'data=2,model=2'``
+    or ``'data=2,pipe=2'``) reaches every command; when it asks for more than
     one rank, each command runs under ``torchrun --nproc_per_node N`` with
     N the product of its sizes (and the ``#SBATCH`` header asks for N
     GPUs).  ``param_sharding`` other than ``replicated`` reaches every
@@ -211,7 +214,7 @@ def emit_script(
     plan = stage_plan(curriculum, preset, seed, condition, n_stages)
     cli = _FAMILY_CLI[preset.family]
     mesh_shape = parse_mesh(mesh)
-    refuse_unported_axes(mesh_shape)
+    check_axes(mesh_shape)
     ranks = math.prod(max(n, 1) for n in mesh_shape.values())
     launch = (f"torchrun --nproc_per_node {ranks} -m" if ranks > 1 else "python -m")
     mesh_flag = f" --mesh {mesh}" if mesh else ""
@@ -434,9 +437,8 @@ def run_curriculum(
     logger = get_logger("bvc_tpu_torch.curriculum")
     if isinstance(preset, str):
         preset = FAMILY_PRESETS[preset]
-    # before any stage trains: an unported mesh axis or a layout the mesh
-    # cannot take would reach the trainers (which refuse it) only after the
-    # untrained baseline ran
+    # before any stage trains: a layout the mesh cannot take would reach the
+    # trainers (which refuse it) only after the untrained baseline ran
     refuse_unported(base)
     device = resolve_device(device)
     base = copy.deepcopy(base)

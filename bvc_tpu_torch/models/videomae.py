@@ -90,6 +90,13 @@ class VideoMAEEncoder(nn.Module):
         """Gather the pixel blocks of the ``visible_idx`` tokens (``[B, V]``),
         embed them, add their positions, run the encoder.  ``video`` is
         normalized ``[B, T, H, W, C]``.  Returns ``[B, V, D]``."""
+        return self.blocks(self.embed_visible(video, visible_idx, token_offset), attn_impl)
+
+    def embed_visible(self, video: torch.Tensor, visible_idx: torch.Tensor,
+                      token_offset: int = 0) -> torch.Tensor:
+        """The encoder's input ``[B, V, D]``: :meth:`encode_visible` up to
+        its blocks (a pipeline's first stage runs it,
+        :mod:`bvc_tpu_torch.parallel.pipeline`)."""
         cfg = self.cfg
         dtype = _DTYPES[cfg.dtype]
         patches = patchify_pixels(video, cfg.tubelet_size, cfg.patch_size)
@@ -99,8 +106,7 @@ class VideoMAEEncoder(nn.Module):
         x = nn.functional.linear(x, pe.weight.to(dtype), pe.bias.to(dtype))
         pos = self.pos_embed[token_offset:token_offset + patches.shape[1]].to(dtype)
         pos = pos.expand(x.shape[0], -1, -1)
-        x = x + pos.gather(1, idx.expand(-1, -1, pos.shape[-1]))
-        return self.blocks(x, attn_impl)
+        return x + pos.gather(1, idx.expand(-1, -1, pos.shape[-1]))
 
     def forward_features(self, video: torch.Tensor, attn_impl: str = "auto",
                          token_offset: int = 0) -> torch.Tensor:
@@ -178,16 +184,27 @@ class VideoMAEPretrain(nn.Module):
                       token_offset: int = 0) -> torch.Tensor:
         """Pixel predictions of the masked tokens, ``[B, M, C*ts*p*p]``, from
         the encoder output ``[B, V, D]``."""
+        x = self.bridge(encoded, visible_idx, masked_idx, token_offset)
+        return self.predict(self.decoder(x, attn_impl), masked_idx.shape[1])
+
+    def bridge(self, encoded: torch.Tensor, visible_idx: torch.Tensor,
+               masked_idx: torch.Tensor, token_offset: int = 0) -> torch.Tensor:
+        """The decoder's input ``[B, V + M, Dd]``: the encoder output taken
+        to the decoder's width, then the mask tokens, each with its
+        decoder position (:meth:`decode_masked` up to its blocks)."""
         dtype = encoded.dtype
         n = visible_idx.shape[1] + masked_idx.shape[1]
         pos = self.decoder_pos_embed[token_offset:token_offset + n].to(dtype)
         z = F.linear(encoded, self.enc_to_dec.weight.to(dtype))
-        x = torch.cat([z + pos[visible_idx],
-                       self.mask_token.to(dtype) + pos[masked_idx]], dim=1)
-        x = self.decoder(x, attn_impl)
-        x = self.decoder_norm(x[:, -masked_idx.shape[1]:])
+        return torch.cat([z + pos[visible_idx],
+                          self.mask_token.to(dtype) + pos[masked_idx]], dim=1)
+
+    def predict(self, decoded: torch.Tensor, n_masked: int) -> torch.Tensor:
+        """The decoder norm and head on the last ``n_masked`` tokens of the
+        decoder's output (:meth:`decode_masked` after its blocks)."""
+        x = self.decoder_norm(decoded[:, -n_masked:])
         head = self.decoder_head
-        return F.linear(x, head.weight.to(dtype), head.bias.to(dtype))
+        return F.linear(x, head.weight.to(decoded.dtype), head.bias.to(decoded.dtype))
 
     def pretrain_loss(self, video: torch.Tensor, mask: torch.Tensor, num_visible: int,
                       attn_impl: str = "auto", token_offset: int = 0) -> torch.Tensor:

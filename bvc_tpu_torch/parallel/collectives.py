@@ -32,6 +32,15 @@ Over the ``seq`` ring (:mod:`bvc_tpu_torch.ops.ring_attention`,
 - :func:`sum_over_ring`: a sum over the ring's ranks (JAX's ``psum`` over
   ``seq``: the token sums of the sequence-parallel embeds).
 
+Over a ``pipe`` group (:mod:`bvc_tpu_torch.parallel.pipeline`):
+
+- :func:`hop`: one stage's activation (or its gradient) to a neighbouring
+  stage, the other neighbour's received in the same call (JAX's
+  ``ppermute`` over ``pipe``).
+
+Both the ring and the hop are an :class:`Exchange`, the one point-to-point
+transport of the package.
+
 :func:`sync_hosts` is a barrier of the whole world around checkpoint
 writes.  Each runs the same collectives on every rank of its group,
 whatever a rank holds, so a rank with nothing to send cannot leave its
@@ -185,36 +194,53 @@ def sync_hosts() -> None:
         dist.barrier()
 
 
-class RingShift:
-    """A :func:`ring_shift` in flight: :meth:`wait` returns the tensors the
-    previous rank sent, on the senders' device.
+class Exchange:
+    """Point-to-point transfers in flight over ``group``: ``sends``, each a
+    tensor and the rank in ``group`` it goes to, and ``recvs``, each the
+    shape and dtype of a tensor and the rank it comes from, posted together
+    (``batch_isend_irecv``) so that two neighbours that send to each other
+    cannot wait on each other.  :meth:`wait` returns the received tensors
+    on ``device``.
 
     NCCL sends device tensors itself; over gloo the tensors of a CUDA
     group go through pinned host buffers (a copy to the host before the
     send, and back to the card after the receive), since gloo's send and
-    receive read and write host memory.  That copy is the gloo group's
-    transport, chosen by the group's backend: the ring's kernels run on
-    the card either way."""
+    receive read and write host memory ("writev: Bad address" otherwise).
+    That copy is the gloo group's transport, chosen by the group's backend:
+    the kernels run on the card either way.  Both ends of a transfer must
+    post it in the same order; the i-th send to a peer and the i-th receive
+    from it carry tag i, which gloo matches them by."""
 
-    def __init__(self, tensors: list[torch.Tensor], group):
+    def __init__(self, sends: list[tuple[torch.Tensor, int]],
+                 recvs: list[tuple[tuple, torch.dtype, int]], group,
+                 device: torch.device):
         group = group if group is not None else dist.group.WORLD
-        size, r = dist.get_world_size(group), dist.get_rank(group)
-        nxt = dist.get_global_rank(group, (r + 1) % size)
-        prv = dist.get_global_rank(group, (r - 1) % size)
-        tensors = [t.contiguous() for t in tensors]
-        self.device = tensors[0].device
+        self.device = torch.device(device)
         self.host = self.device.type == "cuda" and dist.get_backend(group) == "gloo"
-        if self.host:
-            send = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
-                    for t in tensors]
-            self.recv = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
-        else:
-            send, self.recv = tensors, [torch.empty_like(t) for t in tensors]
-        # a tag a tensor: gloo matches each receive to its send by source and tag
-        ops = [dist.P2POp(dist.isend, t, nxt, group, tag=i) for i, t in enumerate(send)]
-        ops += [dist.P2POp(dist.irecv, t, prv, group, tag=i) for i, t in enumerate(self.recv)]
-        self.requests = dist.batch_isend_irecv(ops)
-        self._send = send  # alive until the sends are done
+        pinned = self.host
+        ops, tags = [], {}
+
+        def tag(kind: str, peer: int) -> int:
+            tags[kind, peer] = tags.get((kind, peer), -1) + 1
+            return tags[kind, peer]
+
+        keep = []
+        for t, peer in sends:
+            t = t.contiguous()
+            if pinned:
+                t = torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+            keep.append(t)
+            ops.append(dist.P2POp(dist.isend, t, dist.get_global_rank(group, peer), group,
+                                  tag=tag("send", peer)))
+        self.recv = []
+        for shape, dtype, peer in recvs:
+            t = torch.empty(shape, dtype=dtype, pin_memory=pinned,
+                            device="cpu" if pinned else self.device)
+            self.recv.append(t)
+            ops.append(dist.P2POp(dist.irecv, t, dist.get_global_rank(group, peer), group,
+                                  tag=tag("recv", peer)))
+        self.requests = dist.batch_isend_irecv(ops) if ops else []
+        self._send = keep  # alive until the sends are done
 
     def wait(self) -> list[torch.Tensor]:
         for req in self.requests:
@@ -223,6 +249,19 @@ class RingShift:
         if self.host:
             return [t.to(self.device, non_blocking=True) for t in self.recv]
         return self.recv
+
+
+class RingShift(Exchange):
+    """A :func:`ring_shift` in flight: :meth:`wait` returns the tensors the
+    previous rank sent, on the senders' device (an :class:`Exchange` with
+    the next rank of the ring and the previous one)."""
+
+    def __init__(self, tensors: list[torch.Tensor], group):
+        g = group if group is not None else dist.group.WORLD
+        size, r = dist.get_world_size(g), dist.get_rank(g)
+        nxt, prv = (r + 1) % size, (r - 1) % size
+        super().__init__([(t, nxt) for t in tensors],
+                         [(t.shape, t.dtype, prv) for t in tensors], group, tensors[0].device)
 
 
 def ring_shift_start(tensors: list[torch.Tensor], group) -> RingShift:
@@ -238,6 +277,22 @@ def ring_shift(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
     rank's received, peers named by their global ranks
     (``batch_isend_irecv``)."""
     return ring_shift_start(tensors, group).wait()
+
+
+def hop(send: torch.Tensor | None, to: int | None, recv: tuple | None,
+        source: int | None, group, device: torch.device) -> torch.Tensor | None:
+    """One pipeline hop over ``group`` (a ``pipe`` group; None: the
+    world): ``send`` to rank ``to`` of the group and, at the same time, a
+    tensor of ``recv = (shape, dtype)`` from rank ``source``; either may be
+    None.  Returns the received tensor on ``device`` (None when nothing was
+    received).  The peers post the matching halves in the same hop (JAX's
+    ``ppermute`` between two neighbouring stages)."""
+    if send is None and recv is None:
+        return None
+    sends = [] if send is None else [(send, to)]
+    recvs = [] if recv is None else [(*recv, source)]
+    got = Exchange(sends, recvs, group, device).wait()
+    return got[0] if got else None
 
 
 def sum_over_ring(x: torch.Tensor) -> torch.Tensor:

@@ -17,22 +17,31 @@ Launch with torchrun, which sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 or, as the JAX package's launcher, with ``BVC_COORDINATOR=host:port``,
 ``SLURM_NTASKS`` and ``SLURM_PROCID`` (``SLURM_LOCALID`` names the GPU).
 
-The mesh carries up to three axes, ``data``, ``seq`` and ``model``
-(``--mesh data=N[,seq=S][,model=M]`` over N*S*M processes).  A rank's
-coordinates follow the JAX package's row-major layout of the devices:
-``data`` outermost, then ``seq``, ``model`` fastest, so rank ``r`` sits at
-``data = r // (S*M)``, ``seq = (r // M) % S``, ``model = r % M``.
-:func:`make_mesh` builds, for each axis, one process group of the ranks
-that share every other coordinate: the ``data`` group (the batch is split
-over it), the ``seq`` ring (the ranks of one block of batch rows and one
-block of heads, each holding a slice of the time axis) and the ``model``
-group (the ranks that hold the same tokens and split the heads under
-``tp``); on a mesh with ``seq``, also the gradient group of the ranks that
-share a ``model`` coordinate (``data`` x ``seq``: the JAX package ``pmean``s
-the gradients over both).  It records the mesh as the process's own
-(:func:`current_mesh`), which the collectives, the batch slicing and the
-steps read.  The JAX package's ``pipe`` axis comes with slice 7d of the
-port and raises until then.
+The mesh carries up to four axes, ``data``, ``seq``, ``model`` and
+``pipe`` (``--mesh data=N[,seq=S][,model=M]`` over N*S*M processes, or
+``--mesh data=N,pipe=P`` over N*P).  A rank's coordinates follow the JAX
+package's row-major layout of the devices: ``data`` outermost, then
+``seq``, ``model``, and ``pipe`` fastest (``make_pipe_mesh`` puts it
+innermost, so neighbouring stages are neighbouring ranks), so rank ``r``
+sits at ``data = r // (S*M)``, ``seq = (r // M) % S``, ``model = r % M``
+on a mesh without ``pipe``, and at ``data = r // P``, ``pipe = r % P`` on a
+pipe mesh.  :func:`make_mesh` builds, for each axis, one process group of
+the ranks that share every other coordinate: the ``data`` group (the batch
+is split over it), the ``seq`` ring (the ranks of one block of batch rows
+and one block of heads, each holding a slice of the time axis), the
+``model`` group (the ranks that hold the same tokens and split the heads
+under ``tp``) and the ``pipe`` group (the stages of one block of batch
+rows, :mod:`bvc_tpu_torch.parallel.pipeline`); on a mesh with ``seq``,
+also the gradient group of the ranks that share a ``model`` coordinate
+(``data`` x ``seq``: the JAX package ``pmean``s the gradients over both).
+It records the mesh as the process's own (:func:`current_mesh`), which the
+collectives, the batch slicing and the steps read.
+
+A ``pipe`` axis runs beside ``data`` only.  The JAX package's steps leave
+a ``seq`` or ``model`` axis beside ``pipe`` out of their ``shard_map``, so
+every device on it repeats the whole step (and its trainer takes the seq
+step, ignoring ``pipe``, when both are there): :func:`check_axes` refuses
+the combination rather than copy that accident.
 """
 
 from __future__ import annotations
@@ -49,10 +58,9 @@ from bvc_tpu_torch.utils.device import resolve_device
 DATA_AXIS = "data"
 SEQ_AXIS = "seq"
 MODEL_AXIS = "model"
-AXES = (DATA_AXIS, SEQ_AXIS, MODEL_AXIS)  # in the order of the ranks' layout
+PIPE_AXIS = "pipe"
+AXES = (DATA_AXIS, SEQ_AXIS, MODEL_AXIS, PIPE_AXIS)  # in the order of the ranks' layout
 GRADIENT = "gradient"  # the key of the gradient group (data x seq) in Mesh.groups
-# the JAX package's other mesh axis, and the slice of the port that brings it
-UNPORTED_AXES = {"pipe": "7d (the pipeline)"}
 _TORCHRUN = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
@@ -119,7 +127,7 @@ def distributed_init(backend: str | None = None,
 @dataclass(frozen=True)
 class Mesh:
     """The layout of the processes: axis names and sizes (``data``, and
-    ``seq`` and ``model`` when they were asked for), this rank's coordinate
+    ``seq``, ``model`` or ``pipe`` when they were asked for), this rank's coordinate
     on each axis, and the process group of each axis that this rank belongs
     to (None where the axis spans the whole world, or where there is no
     group)."""
@@ -184,48 +192,54 @@ def data_rank() -> int:
     return current_mesh().coord(DATA_AXIS)
 
 
-def refuse_unported_axes(shape: dict[str, int]) -> None:
-    """Raise for a mesh axis the port does not run yet, naming its slice."""
+def check_axes(shape: dict[str, int]) -> None:
+    """Raise for an axis the port does not know, and for a ``pipe`` axis
+    beside ``seq`` or ``model`` (see the module's doc)."""
     for axis in shape:
-        if axis in UNPORTED_AXES:
-            raise NotImplementedError(
-                f"mesh axis {axis!r} ({shape}): it comes with slice {UNPORTED_AXES[axis]} "
-                "of the port; this slice runs data, seq and model axes "
-                "(--mesh data=N,seq=S,model=M)")
         if axis not in AXES:
             raise ValueError(f"unknown mesh axis {axis!r} in {shape}")
+    if PIPE_AXIS in shape and (SEQ_AXIS in shape or MODEL_AXIS in shape):
+        raise ValueError(
+            f"mesh {shape}: a '{PIPE_AXIS}' axis runs beside '{DATA_AXIS}' only "
+            f"(--mesh data=N,pipe=P).  The JAX package's steps leave a '{SEQ_AXIS}' or "
+            f"'{MODEL_AXIS}' axis beside '{PIPE_AXIS}' out of their shard_map, so every "
+            "device on it repeats the whole step (its trainer takes the seq step and "
+            f"ignores '{PIPE_AXIS}' when both are there): there is no layout to port")
+
+
+def _coords(rk: int, names: list[str], sizes: dict[str, int]) -> dict[str, int]:
+    """Rank ``rk``'s coordinate on each axis of ``names`` (the last fastest)."""
+    out = {}
+    for a in reversed(names):
+        rk, out[a] = divmod(rk, sizes[a])
+    return {a: out[a] for a in names}
 
 
 def _axis_groups(sizes: dict[str, int]) -> dict[str, object]:
     """The process group of each axis holding this rank, over a world laid
-    out ``data``-major (``model`` fastest): for each axis, the ranks that
-    share every other coordinate, and on a mesh with ``seq`` the gradient
-    group of the ranks that share the ``model`` coordinate.  Every rank
-    creates every group, in the same order, as ``new_group`` requires; a
-    group that spans the world is the world's (None), and a ``seq`` or
-    ``model`` axis of 1 gets none (nothing runs over it)."""
+    out ``data``-major (the last axis of :data:`AXES` fastest): for each
+    axis, the ranks that share every other coordinate, and on a mesh with
+    ``seq`` the gradient group of the ranks that share the ``model``
+    coordinate.  Every rank creates every group, in the same order, as
+    ``new_group`` requires; a group that spans the world is the world's
+    (None), and a ``seq``, ``model`` or ``pipe`` axis of 1 gets none
+    (nothing runs over it)."""
     names = [a for a in AXES if a in sizes]
     world, r = math.prod(sizes.values()), rank()
-
-    def coords(rk: int) -> dict[str, int]:
-        out = {}
-        for a in reversed(names):
-            rk, out[a] = divmod(rk, sizes[a])
-        return out
-
     groups: dict[str, object] = {}
     for key, vary in ((DATA_AXIS, {DATA_AXIS}), (SEQ_AXIS, {SEQ_AXIS}),
-                      (MODEL_AXIS, {MODEL_AXIS}), (GRADIENT, {DATA_AXIS, SEQ_AXIS})):
+                      (MODEL_AXIS, {MODEL_AXIS}), (PIPE_AXIS, {PIPE_AXIS}),
+                      (GRADIENT, {DATA_AXIS, SEQ_AXIS})):
         if not vary <= set(names):
             continue
         if math.prod(sizes[a] for a in vary) == world:
             groups[key] = None
             continue
-        if key in (SEQ_AXIS, MODEL_AXIS) and sizes[key] == 1:
+        if key in (SEQ_AXIS, MODEL_AXIS, PIPE_AXIS) and sizes[key] == 1:
             continue
         members: dict[tuple, list[int]] = {}
         for rk in range(world):
-            c = coords(rk)
+            c = _coords(rk, names, sizes)
             members.setdefault(tuple(c[a] for a in names if a not in vary), []).append(rk)
         for ranks in members.values():  # insertion order: the same on every rank
             g = dist.new_group(ranks)
@@ -235,22 +249,22 @@ def _axis_groups(sizes: dict[str, int]) -> dict[str, object]:
 
 
 def make_mesh(shape: dict[str, int] | None = None) -> Mesh:
-    """The mesh of ``shape`` (e.g. ``{'data': 2, 'model': 2}`` or
-    ``{'data': 1, 'seq': 2}``) over the process group, recorded as the
+    """The mesh of ``shape`` (e.g. ``{'data': 2, 'model': 2}``,
+    ``{'data': 1, 'seq': 2}`` or ``{'data': 2, 'pipe': 2}``) over the process group, recorded as the
     process's mesh (:func:`current_mesh`).
 
     Empty or None puts every rank on ``data``; a missing ``data`` axis is
     ``-1``, and one ``-1`` is inferred from the world size, as the JAX
     package infers it.  The sizes must multiply to the world size:
     ``--mesh data=2`` or ``data=1,model=2`` in one process raises rather
-    than running one rank.  A ``seq`` or ``pipe`` axis raises and names the
-    slice of the port that brings it.  The axes are always laid out
+    than running one rank.  A ``pipe`` axis beside ``seq`` or ``model``
+    raises (:func:`check_axes`).  The axes are always laid out
     ``data``-major.  Asked again for the layout it holds, in the same live
     process group, it returns that mesh and builds no new groups (every
     stage of a curriculum asks)."""
     global _CURRENT
     shape = dict(shape or {DATA_AXIS: -1})
-    refuse_unported_axes(shape)
+    check_axes(shape)
     world = world_size()
     if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
         raise RuntimeError(f"WORLD_SIZE={os.environ['WORLD_SIZE']} but no process group is "
@@ -274,13 +288,7 @@ def make_mesh(shape: dict[str, int] | None = None) -> Mesh:
                          f"with torchrun --nproc_per_node {need} (one process per GPU)")
     if _live(_CURRENT) and (_CURRENT.axis_names, _CURRENT.shape) == (names, sizes):
         return _CURRENT  # the same layout: its groups serve (new ones would leak)
-    n_seq, n_model = sizes.get(SEQ_AXIS, 1), sizes.get(MODEL_AXIS, 1)
-    r = rank()
-    coords = {DATA_AXIS: r // (n_seq * n_model)}
-    if SEQ_AXIS in sizes:
-        coords[SEQ_AXIS] = (r // n_model) % n_seq
-    if MODEL_AXIS in sizes:
-        coords[MODEL_AXIS] = r % n_model
+    coords = _coords(rank(), list(names), sizes)
     groups = _axis_groups(sizes) if dist.is_initialized() else {}
     _CURRENT = Mesh(names, sizes, coords, groups, dist.group.WORLD)
     return _CURRENT

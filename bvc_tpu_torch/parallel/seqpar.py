@@ -57,7 +57,8 @@ from bvc_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh,
 from bvc_tpu_torch.training.optim import apply_schedules
 from bvc_tpu_torch.training.probes import videomae_grad_metrics
 from bvc_tpu_torch.training.state import TrainState
-from bvc_tpu_torch.training.steps import GradProbes, _sync_unless, global_rows, microbatches
+from bvc_tpu_torch.training.steps import (GradProbes, _sync_unless, eval_generator,
+                                          global_rows, microbatches)
 from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig
 
 RING = f"ring:{SEQ_AXIS}"  # the attention routing inside a ring
@@ -173,9 +174,7 @@ def _make_step(model_cfg: ModelConfig, mask_cfg: MaskConfig, grad_accum: int,
     @torch.no_grad()
     def eval_step(state: TrainState, video: torch.Tensor, step_idx: int = 0,
                   mask: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
-        gen = torch.Generator(device=state.device)
-        gen.manual_seed(hash((state.generator.initial_seed(), step_idx)) % 2**63)
-        video, mask = local(state, video, mask, gen)
+        video, mask = local(state, video, mask, eval_generator(state, step_idx))
         return mean_over_gradient_group(
             {"loss": state.model(video, mask, num_visible, RING, offset)})
 

@@ -18,6 +18,14 @@ by one of the JAX package's four modes (:func:`param_shardings`):
   under FSDP2's ``fully_shard`` over the ``data`` ranks: each parameter a
   ``DTensor`` sharded on dim 0, gathered around its use, its gradient
   reduce-scattered; no DDP;
+- ``zero1`` and ``fsdp`` beside a ``model`` axis: the same over each model
+  coordinate's ``data`` ranks, the ``model`` ranks of a data block holding
+  replicas (the JAX package's layout, where ``model`` is then a replica
+  axis): DDP over ``data`` x ``model`` with ZeRO over ``data``, or FSDP2
+  on a ``(model, data)`` device mesh (HSDP).  Two replicas' gradients may
+  differ in the last bit (the attention backward's dQ sums in a
+  run-to-run order), so they are averaged over ``model`` too rather than
+  trusted to match;
 - ``tp``: the blocks' attention heads and MLP columns split over the
   ``model`` ranks (:data:`TP_RULES`, the JAX package's ``_TP_RULES`` in
   ``nn.Linear`` layout, which each block applies to itself:
@@ -40,8 +48,8 @@ import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
-from bvc_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh, current_mesh, data_rank,
-                                         data_size)
+from bvc_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS, Mesh, current_mesh,
+                                         data_rank, data_size)
 
 PARAM_SHARDINGS = ("replicated", "zero1", "fsdp", "tp")
 
@@ -65,12 +73,17 @@ TP_RULES: tuple[tuple[str, int, int], ...] = (
 class ShardingPlan:
     """Which mesh axis splits what under a mode: ``params`` the parameters
     (and their gradients and optimizer state: ``'data'`` under ``fsdp``,
-    ``'model'`` under ``tp``), ``optimizer`` the optimizer state alone
-    (``'data'`` under ``zero1``); None keeps it whole on every rank."""
+    ``'model'`` under ``tp``, ``'pipe'`` on a pipe mesh, whose stages hold
+    their chunks of the block stacks), ``optimizer`` the optimizer state
+    alone (``'data'`` under ``zero1``); None keeps it whole on every rank.
+    ``replicas``: an axis whose ranks hold the same parameters and data
+    (``'model'`` under ``zero1`` or ``fsdp`` beside a ``model`` axis), over
+    which the gradients are averaged too."""
 
     mode: str
     params: str | None = None
     optimizer: str | None = None
+    replicas: str | None = None
 
 
 def param_shardings(mode: str = "replicated", mesh: Mesh | None = None) -> ShardingPlan:
@@ -78,23 +91,27 @@ def param_shardings(mode: str = "replicated", mesh: Mesh | None = None) -> Shard
 
     ``tp`` without a ``model`` axis of more than one rank is the replicated
     layout, as in the JAX package, whose rules then shard over nothing.
-    ``zero1`` and ``fsdp`` on a mesh with ``model > 1`` raise: the JAX
-    package accepts the combination (sharding over ``data`` while ``model``
-    replicates), but nothing runs it and the port has no layout for it."""
+    ``zero1`` and ``fsdp`` beside ``model > 1`` shard over ``data`` as on a
+    data mesh, the ``model`` ranks of a data block being replicas (JAX's
+    layout: ``model`` is then a replica axis).  On a mesh with ``pipe`` the
+    stages define the layout and ``mode`` must stay ``replicated``, as the
+    JAX trainer requires."""
     if mode not in PARAM_SHARDINGS:
         raise ValueError(f"unknown param_sharding {mode!r} (expected one of {PARAM_SHARDINGS})")
     mesh = mesh if mesh is not None else current_mesh()
-    n_model = mesh.axis_size(MODEL_AXIS)
-    if mode in ("zero1", "fsdp") and n_model > 1:
-        raise NotImplementedError(
-            f"param_sharding {mode!r} on a mesh with model={n_model}: the port splits "
-            f"{mode}'s state over 'data' only; use --mesh data=N with {mode}, or "
-            "--param_sharding tp with a model axis")
+    if PIPE_AXIS in mesh.axis_names:
+        if mode != "replicated":
+            raise ValueError(
+                "a 'pipe' mesh defines its own stage sharding (block "
+                "stacks P('pipe') on depth); --param_sharding must stay "
+                f"'replicated' (got {mode!r})")
+        return ShardingPlan("pipe", params=PIPE_AXIS)
+    replicas = MODEL_AXIS if mesh.axis_size(MODEL_AXIS) > 1 else None
     if mode == "zero1":
-        return ShardingPlan(mode, optimizer=DATA_AXIS)
+        return ShardingPlan(mode, optimizer=DATA_AXIS, replicas=replicas)
     if mode == "fsdp":
-        return ShardingPlan(mode, params=DATA_AXIS)
-    if mode == "tp" and n_model > 1:
+        return ShardingPlan(mode, params=DATA_AXIS, replicas=replicas)
+    if mode == "tp" and replicas:
         return ShardingPlan(mode, params=MODEL_AXIS)
     return ShardingPlan(mode)
 
@@ -184,13 +201,25 @@ def shard_fully(module: torch.nn.Module, device: torch.device, mesh: Mesh) -> to
     block of ``module`` (each module whose class sets ``shard_unit``: the
     transformer and ResNet blocks), then on ``module`` (which takes the
     rest: embeddings, norms, heads), its weights in contiguous memory
-    first.  Returns ``module``, now an ``FSDPModule``: call it (its hooks
-    gather the parameters), not its methods."""
+    first.  Beside a ``model`` axis of more than one rank the device mesh is
+    2-D, ``(model, data)``: sharded over ``data``, replicated over
+    ``model`` (HSDP), so each gradient is reduce-scattered over ``data``
+    and then averaged over the ``model`` replicas.  Returns ``module``, now
+    an ``FSDPModule``: call it (its hooks gather the parameters), not its
+    methods."""
     from torch.distributed.device_mesh import DeviceMesh
     from torch.distributed.fsdp import fully_shard
 
     group = mesh.group(DATA_AXIS) or dist.group.WORLD
-    dm = DeviceMesh.from_group(group, torch.device(device).type, mesh_dim_names=(DATA_AXIS,))
+    kind = torch.device(device).type
+    n_model, n_data = mesh.axis_size(MODEL_AXIS), mesh.axis_size(DATA_AXIS)
+    if n_model > 1:
+        # ranks data-major, model fastest: rank d * M + m sits at [m, d]
+        layout = torch.arange(n_data * n_model).reshape(n_data, n_model).T
+        dm = DeviceMesh.from_group([mesh.group(MODEL_AXIS) or dist.group.WORLD, group], kind,
+                                   mesh=layout, mesh_dim_names=(MODEL_AXIS, DATA_AXIS))
+    else:
+        dm = DeviceMesh.from_group(group, kind, mesh_dim_names=(DATA_AXIS,))
     module.to(memory_format=torch.contiguous_format)  # FSDP2 takes no channels_last weight
     for block in [m for m in module.modules() if getattr(m, "shard_unit", False)]:
         fully_shard(block, mesh=dm)
@@ -222,12 +251,24 @@ def local_tensor(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, _dtensor_cls()) else t
 
 
+def _sharded_over(t) -> object:
+    """The process group of the mesh dimension a ``DTensor`` is split over
+    on dim 0 (FSDP2's layout: ``(Shard(0),)``, or ``(Replicate(),
+    Shard(0))`` under HSDP)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    placements = tuple(t.placements)
+    if placements not in ((Shard(0),), (Replicate(), Shard(0))):
+        raise NotImplementedError(f"a DTensor placed {t.placements}: only Shard(0) is gathered")
+    return t.device_mesh.get_group(len(placements) - 1)
+
+
 def shard_group(p: torch.Tensor):
     """``(True, group)`` when ``p`` is split over the ranks of ``group``
-    (``fsdp``: its mesh's; ``tp``: the model ranks'), ``(False, None)``
-    when every rank holds it whole."""
+    (``fsdp``: its mesh's ``data`` ranks; ``tp``: the model ranks'),
+    ``(False, None)`` when every rank holds it whole."""
     if isinstance(p, _dtensor_cls()):
-        return True, p.device_mesh.get_group()
+        return True, _sharded_over(p)
     spec = getattr(p, "tp_split", None)
     return (True, spec.group) if spec is not None else (False, None)
 
@@ -241,14 +282,11 @@ def _dim0_rows(n: int, size: int, r: int) -> tuple[int, int]:
 
 
 def _gather_dim0(t, group) -> torch.Tensor:
-    """The whole tensor of a ``DTensor`` split on dim 0 (FSDP2's layout),
+    """The whole tensor of a ``DTensor`` split on dim 0 over ``group``
+    (FSDP2's layout),
     by one ``all_gather_into_tensor`` of the parts padded to equal rows.
     DTensor's own ``full_tensor`` goes through functional collectives,
     which crash over gloo on CUDA tensors (torch 2.11)."""
-    from torch.distributed.tensor import Shard
-
-    if tuple(t.placements) != (Shard(0),):
-        raise NotImplementedError(f"a DTensor placed {t.placements}: only Shard(0) is gathered")
     local, n = t.to_local(), t.shape[0]
     size = dist.get_world_size(group)
     per = -(-n // size)
@@ -265,7 +303,7 @@ def full_tensor(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     collective over ``p``'s ranks when ``p`` is split, ``t`` itself when
     not."""
     if isinstance(t, _dtensor_cls()):
-        return _gather_dim0(t, t.device_mesh.get_group())
+        return _gather_dim0(t, _sharded_over(t))
     spec = getattr(p, "tp_split", None)
     return t if spec is None else spec.gather(t)
 
@@ -276,7 +314,7 @@ def local_part(p: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
     holds ``full``, so no collective runs."""
     full = full.to(p.device)
     if isinstance(p, _dtensor_cls()):
-        group = p.device_mesh.get_group()
+        group = _sharded_over(p)
         lo, hi = _dim0_rows(full.shape[0], dist.get_world_size(group), dist.get_rank(group))
         return _dtensor_cls().from_local(full[lo:hi].contiguous(), p.device_mesh, p.placements,
                                          run_check=False, shape=full.shape,

@@ -139,10 +139,14 @@ def optimizer_state_dict(optimizer: torch.optim.Optimizer) -> dict | None:
     a process group: ``zero1`` consolidates the partitions on rank 0
     (``consolidate_state_dict(to=0)``) and returns None on the other ranks;
     ``fsdp`` and ``tp`` gather each state tensor in its parameter's layout
-    on every rank."""
+    on every rank; a pipeline stage's optimizer gathers every stage's state
+    over ``pipe`` (:mod:`bvc_tpu_torch.parallel.pipeline`)."""
     if _is_zero(optimizer):
         optimizer.consolidate_state_dict(to=0)
         return optimizer.state_dict() if is_main_process() else None
+    stage = getattr(optimizer, "pipe_stage", None)
+    if stage is not None:
+        return stage.whole_optimizer_state(optimizer)
     sd = optimizer.state_dict()
     params = _indexed_params(optimizer)
     sd["state"] = {i: {k: full_tensor(params[i], v) if torch.is_tensor(v) and v.ndim else v
@@ -157,7 +161,11 @@ def load_optimizer_state(optimizer: torch.optim.Optimizer, saved: dict) -> None:
     hyper-parameters: as optax's state, which holds no learning rate, a
     stage chained with other flags runs at its own.  Each rank takes its
     parts in its parameters' layout; a ``ZeroRedundancyOptimizer`` keeps
-    the partition it owns."""
+    the partition it owns, a pipeline stage's optimizer its parameters'
+    state."""
+    stage = getattr(optimizer, "pipe_stage", None)
+    if stage is not None:
+        saved = stage.stage_optimizer_state(saved)
     params = _indexed_params(optimizer)
     groups, start = [], 0
     for group in optimizer.param_groups:

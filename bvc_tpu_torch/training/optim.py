@@ -41,6 +41,21 @@ def wd_mask(named_params: Iterable[tuple[str, torch.Tensor]]) -> dict[str, bool]
     return {name: p.ndim >= 2 for name, p in named_params}
 
 
+def grouped_names(cfg: OptimConfig, named_params: Iterable[tuple[str, torch.Tensor]]
+                  ) -> list[tuple[bool, list[str]]]:
+    """The optimizer's parameter groups as ``(decay, names)``, in the
+    order of its ``state_dict`` indices: the tensors that take weight
+    decay, then the others (biases and norms, when
+    ``cfg.exclude_bias_and_norm_from_wd``), each in ``named_params``'
+    order; an empty group is left out."""
+    named_params = list(named_params)
+    decays = (wd_mask(named_params) if cfg.exclude_bias_and_norm_from_wd
+              else {name: True for name, _ in named_params})
+    groups = [(decay, [n for n, _ in named_params if decays[n] == decay])
+              for decay in (True, False)]
+    return [(decay, names) for decay, names in groups if names]
+
+
 def warmup_cosine_lr(start: float, peak: float, final: float, warmup_steps: int,
                      total_steps: int) -> Callable[[int], float]:
     """``count -> lr``: linear ``start -> peak`` over ``warmup_steps``, then
@@ -102,12 +117,10 @@ def make_optimizer(cfg: OptimConfig, named_params: Iterable[tuple[str, torch.nn.
                     "decoupled decay is not scheduled")
             wd_fn = cosine_wd(wd, cfg.final_wd, total_steps)
 
-    decays = (wd_mask(named_params) if cfg.exclude_bias_and_norm_from_wd
-              else {name: True for name, _ in named_params})
-    groups = [{"params": [p for n, p in named_params if decays[n] == decay],
-               "weight_decay": wd if decay else 0.0, "decay": decay}
-              for decay in (True, False)]
-    groups = [g for g in groups if g["params"]]
+    by_name = dict(named_params)
+    groups = [{"params": [by_name[n] for n in names], "weight_decay": wd if decay else 0.0,
+               "decay": decay}
+              for decay, names in grouped_names(cfg, named_params)]
     lr = lr_fn(0) if lr_fn is not None else cfg.lr
     if cfg.name == "sgd":
         cls, kwargs = torch.optim.SGD, {"momentum": cfg.momentum,

@@ -79,14 +79,15 @@ def _norm_of(sumsqs: list[tuple[str, torch.Tensor]], prefix: str, device) -> tor
     return torch.stack(parts).sum().sqrt() if parts else torch.zeros((), device=device)
 
 
-def videomae_grad_metrics(model: torch.nn.Module) -> dict[str, torch.Tensor]:
-    """``grad_norm`` over every parameter with a gradient, and the norms of
-    the patch embedding (``grad_efl``), the last encoder layer
-    (``grad_ell``) and the decoder head (``grad_dll``) of a
-    :class:`~bvc_tpu_torch.models.videomae.VideoMAEPretrain`."""
-    last = f"encoder.blocks.layers.{len(model.encoder.blocks.layers) - 1}."
+def videomae_grad_sumsqs(model: torch.nn.Module,
+                         select: Callable[[str, torch.Tensor], bool] = lambda name, p: True
+                         ) -> dict[str, torch.Tensor]:
+    """The squares of :func:`videomae_grad_metrics`' norms over the
+    selected parameters with a gradient (a pipeline stage adds its own to
+    the other stages', :mod:`bvc_tpu_torch.parallel.pipeline`)."""
+    last = f"encoder.blocks.layers.{model.cfg.depth - 1}."
     parts = {"grad_norm": [], "grad_efl": [], "grad_ell": [], "grad_dll": []}
-    for name, s in _grad_sumsqs(model):
+    for name, s in _grad_sumsqs(model, select):
         parts["grad_norm"].append(s)
         if name.startswith("encoder.patch_embed."):
             parts["grad_efl"].append(s)
@@ -95,8 +96,16 @@ def videomae_grad_metrics(model: torch.nn.Module) -> dict[str, torch.Tensor]:
         elif name.startswith("decoder_head."):
             parts["grad_dll"].append(s)
     device = next(model.parameters()).device
-    return {k: torch.stack(v).sum().sqrt() if v else torch.zeros((), device=device)
+    return {k: torch.stack(v).sum() if v else torch.zeros((), device=device)
             for k, v in parts.items()}
+
+
+def videomae_grad_metrics(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """``grad_norm`` over every parameter with a gradient, and the norms of
+    the patch embedding (``grad_efl``), the last encoder layer
+    (``grad_ell``) and the decoder head (``grad_dll``) of a
+    :class:`~bvc_tpu_torch.models.videomae.VideoMAEPretrain`."""
+    return {k: v.sqrt() for k, v in videomae_grad_sumsqs(model).items()}
 
 
 def jepa_grad_metrics(model: torch.nn.Module) -> dict[str, torch.Tensor]:

@@ -17,7 +17,14 @@ state's :class:`~bvc_tpu_torch.parallel.sharding.ShardingPlan` (the
   the plain module (under ``tp`` its blocks hold the rank's heads).  Under
   ``zero1`` the optimizer is a ``ZeroRedundancyOptimizer``;
 - ``fsdp``: ``model`` itself is the ``fully_shard``-ed module, and the
-  steps call it; there is no ``ddp``.
+  steps call it; there is no ``ddp``;
+- beside a ``model`` axis, ``zero1`` and ``fsdp`` keep replicas over it:
+  the DDP of ``zero1`` spans ``data`` x ``model``, and FSDP2 runs on a
+  ``(model, data)`` device mesh;
+- on a mesh with ``pipe`` (:mod:`bvc_tpu_torch.parallel.pipeline`):
+  ``model`` keeps the rank's stage of the block stacks and every edge
+  parameter (``model.pipe_stage``), the optimizer holds those, and there
+  is no ``ddp``: the pipeline step reduces the gradients itself.
 
 The target encoder takes the online encoder's layout (the JAX package
 shards ``target_params`` by the same mode), so the EMA update runs on
@@ -34,7 +41,7 @@ from dataclasses import dataclass, field
 import torch
 import torch.distributed as dist
 
-from bvc_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, current_mesh
+from bvc_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, Mesh, current_mesh
 from bvc_tpu_torch.parallel.sharding import (ShardingPlan, full_state_dict,
                                              load_full_state_dict, local_tensor,
                                              param_shardings, resharded, shard_fully,
@@ -75,7 +82,8 @@ class TrainState:
                device: str | torch.device | None = None,
                steps: tuple[int, int] | None = None,
                target: torch.nn.Module | None = None,
-               param_sharding: str = "replicated") -> "TrainState":
+               param_sharding: str = "replicated", mesh: Mesh | None = None
+               ) -> "TrainState":
         """Move ``model`` to ``device`` (``cuda`` when None; raises when
         there is none, see :func:`resolve_device`), lay it out by
         ``param_sharding`` over the process's mesh, build its optimizer
@@ -94,11 +102,19 @@ class TrainState:
         ``model`` ranks first (:func:`shard_heads`), ``fsdp`` shards the
         model over the ``data`` ranks instead (:func:`shard_fully`).  Every
         rank builds the same weights from the same seed before the split.
-        Without a group every mode is the one-process layout."""
+        Without a group every mode is the one-process layout.  ``mesh`` is
+        the process's (:func:`current_mesh`) when None; a trainer passes
+        the one it made, which in one process may carry a ``pipe`` axis of
+        one stage."""
         device = resolve_device(device)
-        mesh = current_mesh()
+        mesh = mesh if mesh is not None else current_mesh()
         plan = param_shardings(param_sharding, mesh)
         grouped = dist.is_initialized()
+        stage = None
+        if plan.params == PIPE_AXIS:  # the stage's blocks only, before they reach the device
+            from bvc_tpu_torch.parallel.pipeline import lay_out_stage
+
+            stage = lay_out_stage(model, optim_cfg, mesh)
         model = model.to(device)
         if target is not None:
             target = target.to(device).requires_grad_(False)
@@ -113,11 +129,13 @@ class TrainState:
         if grouped and plan.optimizer == DATA_AXIS:
             zero_group = mesh.group(DATA_AXIS) or dist.group.WORLD
         ddp = None
-        if grouped and plan.params != DATA_AXIS:
-            ddp = wrap_data_parallel(model, device, mesh.gradient_group())
-        return TrainState(step=0, model=model,
-                          optimizer=make_optimizer(optim_cfg, model.named_parameters(), steps,
-                                                   zero_group),
+        if grouped and plan.params not in (DATA_AXIS, PIPE_AXIS):
+            # replicas over model: the gradients averaged over data x model (the world)
+            ddp = wrap_data_parallel(model, device, None if plan.replicas else
+                                     mesh.gradient_group())
+        optimizer = make_optimizer(optim_cfg, model.named_parameters(), steps, zero_group)
+        optimizer.pipe_stage = stage  # checkpoints gather a stage's state over pipe
+        return TrainState(step=0, model=model, optimizer=optimizer,
                           generator=torch.Generator(device=device).manual_seed(seed),
                           target=target, ddp=ddp, plan=plan)
 
@@ -132,7 +150,11 @@ class TrainState:
 
     def model_state_dict(self) -> dict[str, torch.Tensor]:
         """The model's state dict with whole tensors, whatever the layout
-        (a collective under ``fsdp`` and ``tp``: every rank calls it)."""
+        (a collective under ``fsdp``, ``tp`` and on a pipe mesh, where every
+        stage's blocks are gathered to the CPU: every rank calls it)."""
+        stage = getattr(self.model, "pipe_stage", None)
+        if stage is not None:
+            return stage.whole_state_dict(self.model)
         return full_state_dict(self.model)
 
     def target_state_dict(self) -> dict[str, torch.Tensor]:
@@ -141,8 +163,12 @@ class TrainState:
 
     def load_model_state_dict(self, sd: dict[str, torch.Tensor]) -> None:
         """Load whole tensors (a checkpoint's) into the model, each rank
-        taking its parts."""
-        load_full_state_dict(self.model, sd)
+        taking its parts (a pipeline stage its blocks and the edge)."""
+        stage = getattr(self.model, "pipe_stage", None)
+        if stage is not None:
+            stage.load_whole_state_dict(self.model, sd)
+        else:
+            load_full_state_dict(self.model, sd)
 
     def load_target_state_dict(self, sd: dict[str, torch.Tensor]) -> None:
         load_full_state_dict(self.target, sd)

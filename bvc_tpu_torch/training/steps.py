@@ -119,6 +119,34 @@ def global_rows(draw: Callable[[int], torch.Tensor], local_batch: int) -> torch.
     return draw(local_batch * data_size())[r * local_batch:(r + 1) * local_batch]
 
 
+def mask_sampler(model_cfg: ModelConfig, mask_cfg: MaskConfig
+                 ) -> tuple[Callable[[torch.Generator, int], torch.Tensor], int]:
+    """``(draw, num_visible)``: ``draw(generator, batch)`` samples the
+    ``[batch, N]`` tube or random masks of ``mask_cfg``, each row with
+    ``num_visible`` False entries."""
+    grid = (model_cfg.num_time_steps, model_cfg.image_size // model_cfg.patch_size,
+            model_cfg.image_size // model_cfg.patch_size)
+    n_space = grid[1] * grid[2]
+    if mask_cfg.sampler == "tube":
+        n_masked = int(mask_cfg.mask_ratio * n_space) * grid[0]
+        sampler = functools.partial(tube_mask, grid=grid, mask_ratio=mask_cfg.mask_ratio)
+    elif mask_cfg.sampler == "random":
+        n_masked = int(mask_cfg.mask_ratio * grid[0] * n_space)
+        sampler = functools.partial(random_mask, grid=grid, mask_ratio=mask_cfg.mask_ratio)
+    else:
+        raise ValueError(f"unknown mask sampler {mask_cfg.sampler!r}")
+    return sampler, model_cfg.seq_len - n_masked
+
+
+def eval_generator(state: TrainState, step_idx: int) -> torch.Generator:
+    """The eval step's mask generator: seeded from the state's seed and
+    ``step_idx`` (the counterpart of ``fold_in(state.rng, step_idx)``),
+    the state's own untouched."""
+    gen = torch.Generator(device=state.device)
+    gen.manual_seed(hash((state.generator.initial_seed(), step_idx)) % 2**63)
+    return gen
+
+
 def make_videomae_train_step(model_cfg: ModelConfig, mask_cfg: MaskConfig,
                              grad_accum: int = 1, attn_impl: str = "auto",
                              grad_probes: GradProbes | None = None
@@ -145,18 +173,7 @@ def make_videomae_train_step(model_cfg: ModelConfig, mask_cfg: MaskConfig,
     state: its mask comes from a generator seeded from the state's seed and
     ``step_idx``, the counterpart of ``fold_in(state.rng, step_idx)``.
     """
-    grid = (model_cfg.num_time_steps, model_cfg.image_size // model_cfg.patch_size,
-            model_cfg.image_size // model_cfg.patch_size)
-    n_space = grid[1] * grid[2]
-    if mask_cfg.sampler == "tube":
-        n_masked = int(mask_cfg.mask_ratio * n_space) * grid[0]
-        sampler = functools.partial(tube_mask, grid=grid, mask_ratio=mask_cfg.mask_ratio)
-    elif mask_cfg.sampler == "random":
-        n_masked = int(mask_cfg.mask_ratio * grid[0] * n_space)
-        sampler = functools.partial(random_mask, grid=grid, mask_ratio=mask_cfg.mask_ratio)
-    else:
-        raise ValueError(f"unknown mask sampler {mask_cfg.sampler!r}")
-    num_visible = model_cfg.seq_len - n_masked
+    sampler, num_visible = mask_sampler(model_cfg, mask_cfg)
 
     def step(state: TrainState, video: torch.Tensor,
              mask: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
@@ -183,9 +200,8 @@ def make_videomae_train_step(model_cfg: ModelConfig, mask_cfg: MaskConfig,
                   mask: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
         video = video.to(state.device, non_blocking=True)
         if mask is None:
-            gen = torch.Generator(device=state.device)
-            gen.manual_seed(hash((state.generator.initial_seed(), step_idx)) % 2**63)
-            mask = global_rows(functools.partial(sampler, gen), video.shape[0])
+            mask = global_rows(functools.partial(sampler, eval_generator(state, step_idx)),
+                               video.shape[0])
         mask = mask.to(state.device, non_blocking=True)
         return mean_over_ranks({"loss": state.model(video, mask, num_visible, attn_impl)})
 

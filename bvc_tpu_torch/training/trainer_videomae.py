@@ -21,7 +21,11 @@ flag), each rank loads its ``data`` coordinate's block of it.  VideoMAE also
 runs on a mesh with ``seq`` (``data=D,seq=S[,model=M]``,
 :mod:`bvc_tpu_torch.parallel.seqpar`): the global batch is ``batch_size *
 D``, every rank of a ring loads its data block and keeps its time slice of
-each clip, and the step splits the attention over the ring.  The steps
+each clip, and the step splits the attention over the ring; and on a mesh
+with ``pipe`` (``data=D,pipe=P``, :mod:`bvc_tpu_torch.parallel.pipeline`):
+the global batch is ``batch_size * D``, every stage of a data row loads
+the same block, and the GPipe step runs ``cfg.pipe_microbatches``
+microbatches through the stages.  The steps
 reduce the gradients and average the metrics over the data ranks, and rank
 0 alone writes the CSV, ``params_{run_id}.yaml``, the checkpoints
 (synchronously: the async writer waits at world > 1) and the profiler
@@ -45,7 +49,9 @@ from bvc_tpu_torch.models.convert import (qkv_key_biases,
                                           with_qkv_key_biases)
 from bvc_tpu_torch.models.videomae import VideoMAEPretrain
 from bvc_tpu_torch.parallel.collectives import sync_hosts
-from bvc_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, make_mesh
+from bvc_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, Mesh,
+                                         make_mesh)
+from bvc_tpu_torch.parallel.pipeline import make_pipe_videomae_train_step
 from bvc_tpu_torch.parallel.seqpar import (make_seq_tp_videomae_train_step,
                                            make_seq_videomae_train_step)
 from bvc_tpu_torch.parallel.sharding import param_shardings
@@ -67,10 +73,11 @@ def refuse_unported(cfg: TrainConfig) -> Mesh:
     """The run's mesh (:func:`~bvc_tpu_torch.parallel.make_mesh` of
     ``cfg.mesh_shape``, over the world), its parameter layout checked
     (:func:`~bvc_tpu_torch.parallel.sharding.param_shardings`; on a mesh
-    with ``seq`` by the sequence-parallel steps' rules, :func:`seq_layout`).
-    Raises for what the port does not run yet, naming its slice: a ``pipe``
-    axis (7d); for ``zero1`` or ``fsdp`` beside a ``model`` axis; and for
-    axes whose sizes do not multiply to the world's."""
+    with ``seq`` by the sequence-parallel steps' rules, :func:`seq_layout`;
+    on a mesh with ``pipe``, where the flag must stay ``replicated``).
+    Raises for a layout the run cannot take: axes whose sizes do not
+    multiply to the world's, a ``pipe`` axis beside ``seq`` or ``model``,
+    a flag the mesh refuses."""
     mesh = make_mesh(cfg.mesh_shape)
     if SEQ_AXIS in mesh.axis_names:
         seq_layout(cfg, mesh)
@@ -99,6 +106,18 @@ def seq_layout(cfg: TrainConfig, mesh: Mesh) -> tuple[str, Callable]:
         cfg.model, cfg.mask, cfg.param_sharding, accum, probes, mesh)
 
 
+def pipe_layout(cfg: TrainConfig, mesh: Mesh) -> tuple[str, Callable]:
+    """``(param_sharding, step)`` of a run on a mesh with ``pipe`` (the JAX
+    trainer's pipe branch): the GPipe step over ``cfg.pipe_microbatches``
+    microbatches, composed with ``grad_accum_steps``; the stages define
+    the layout, so the flag must stay ``replicated`` (:func:`refuse_unported`
+    checks it)."""
+    probes = full_grad_probes("videomae") if cfg.log_grad_stats else None
+    return cfg.param_sharding, make_pipe_videomae_train_step(
+        cfg.model, cfg.mask, num_microbatches=cfg.pipe_microbatches, grad_probes=probes,
+        grad_accum=cfg.optim.grad_accum_steps, mesh=mesh)
+
+
 def videomae_model_state(ckpt: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """A checkpoint's ``model_state_dict`` (HF names) as the pretraining
     model's state dict, with its ``qkv_k_bias`` entries where it has them."""
@@ -113,10 +132,10 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
     logger = get_logger("bvc_tpu_torch.videomae")
     mesh = refuse_unported(cfg)
     world = mesh.size
-    seq = SEQ_AXIS in mesh.axis_names
-    # a whole seq ring carries each batch row: the global batch scales with
-    # the data axis only, as the JAX trainer's seq branch
-    batch_ranks = mesh.axis_size(DATA_AXIS) if seq else world
+    seq, pipe = SEQ_AXIS in mesh.axis_names, PIPE_AXIS in mesh.axis_names
+    # a whole seq ring (pipe group) carries each batch row: the global batch
+    # scales with the data axis only, as the JAX trainer's seq and pipe branches
+    batch_ranks = mesh.axis_size(DATA_AXIS) if seq or pipe else world
     device = resolve_device(device)
     if not cfg.savedir:
         raise ValueError("savedir is required")
@@ -149,10 +168,11 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
         logger.info("init from checkpoint %s", cfg.init_checkpoint_path)
         model.load_state_dict(videomae_model_state(load_checkpoint(cfg.init_checkpoint_path),
                                                    cfg.model))
-    layout, step = seq_layout(cfg, mesh) if seq else (cfg.param_sharding, None)
+    layout, step = (seq_layout(cfg, mesh) if seq else pipe_layout(cfg, mesh) if pipe
+                    else (cfg.param_sharding, None))
     state = TrainState.create(model, cfg.optim, seed=cfg.seed + 1, device=device,
                               steps=schedule_steps(cfg, batch_ranks),
-                              param_sharding=layout)
+                              param_sharding=layout, mesh=mesh)
     start_epoch = 0
     if cfg.resume and checkpoint_exists(own_ckpt):
         # mid-stage preemption recovery: weights, optimizer, epoch and

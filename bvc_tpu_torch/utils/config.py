@@ -249,11 +249,12 @@ class OptimConfig:
 class TrainConfig:
     """One curriculum stage's run: the JAX package's fields, so
     ``params_{run_id}.yaml`` holds the same keys.  ``mesh_shape`` (the
-    CLI's ``--mesh``: ``{'data': N}`` or ``{'data': N, 'model': M}`` over
-    N*M ranks) and ``param_sharding`` (``replicated``, ``zero1``, ``fsdp``
-    or ``tp``) lay the run out over the GPUs; a ``seq`` or ``pipe`` axis
-    raises until slices 7c and 7d, and ``pipe_microbatches`` acts only on
-    one."""
+    CLI's ``--mesh``: ``{'data': N}``, ``{'data': N, 'model': M}``,
+    ``{'data': N, 'seq': S}`` (with or without ``model``) or ``{'data': N,
+    'pipe': P}``, over as many ranks as the sizes multiply to) and
+    ``param_sharding`` (``replicated``, ``zero1``, ``fsdp`` or ``tp``) lay
+    the run out over the GPUs; ``pipe_microbatches`` acts only on a mesh
+    with ``pipe``."""
 
     run_id: str = ""
     savedir: str = ""

@@ -275,17 +275,40 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    ``data=1,seq=n/2,model=2`` over NCCL against one card at the global
    batch: per-card clips/s and peak memory (alone:
    ``c.seq_multi_card(smi, n, Path(d))``).
+26. Pipeline parallelism (slice 7d, ``phase_pipeline``), VideoMAE-B (16
+   frames, 1568 tokens) at B=16, 4 microbatches.  (a) World 1 over NCCL at
+   ``data=1,pipe=1``: the pipe step against the unwrapped step at the same
+   batch (the DDP limits), each kernel launched 4 times the step's (a
+   layer a microbatch).  (b) Two gloo ranks on the card at
+   ``data=1,pipe=2`` against one process (loss 1e-4 relative, cosine
+   0.9995 per tensor, the stages' gradients together), each rank's
+   launches ``16 * M / P`` of each kernel, its peak memory and state bytes
+   beside one process's, the time of a hop of the encoder's and the
+   decoder's activations (through pinned host memory), and the share of a
+   step each rank waits in its hops beside the schedule's bubble
+   ``(P - 1) / (M + P - 1)`` (on one card the two ranks share it: the
+   reading is the schedule's and the transport's, not the card's idle
+   share).  (c) With more than one card, ``pipe=2`` (and on four,
+   ``data=2,pipe=2`` and ``pipe=4``) over NCCL against one card at the
+   global batch: clips/s a card (alone: ``c.pipe_multi_card(smi, n,
+   Path(d))``).  (d) ``pretrain_videomae --mesh data=1,pipe=2
+   --pipe_microbatches 4`` on two gloo ranks for 3 steps: each rank's
+   launches its steps', and the checkpoint whole (it loads strictly into
+   the whole model, and each rank's stage equals its part of it).  (e)
+   ``zero1`` and ``fsdp`` at ``data=1,model=2`` (the model ranks replicas)
+   on two gloo ranks against (b)'s one process.
 
 Every path runs with every launch count set to 0 just before it and read
 just after, and fails if a kernel other than its own launched (no SimCLR
 path launches one: each kernel's ``launches_on_simclr_paths`` is the sum of
 the counts read over them).
 Prints the host's CUDA device and CPU core counts, one JSON
-``{"trainers": {...}}`` line (14-18 and 20-25), one JSON ``{"kernels":
+``{"trainers": {...}}`` line (14-18 and 20-26), one JSON ``{"kernels":
 [...]}`` line (with each kernel's ``launches_per_cli_step``,
 ``launches_per_curriculum``, ``launches_per_artifact_call``,
 ``launches_per_vit_image_embed``, ``launches_per_ddp_step``,
-``launches_per_sharded_step`` and ``launches_per_seq_step``),
+``launches_per_sharded_step``, ``launches_per_seq_step`` and
+``launches_per_pipe_step``),
 the script's wall time and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that last line,
 when there is no CUDA device, when run outside a checkout, or when any phase
@@ -3945,15 +3968,20 @@ def rank_processes(world: int, call: str, one_card: bool,
     """``world`` processes running ``call`` (a call of this module's, as
     torchrun would start it: its variables in the environment), on card 0
     each when ``one_card``, else on card r; each one's exit code and
-    output, in rank order.  A failed worker's peers are killed."""
-    port = free_port()
+    output, in rank order.  This process hosts the job's ``TCPStore`` and
+    the ranks join it as clients (``TORCHELASTIC_USE_AGENT_STORE``, as
+    under torchrun's agent).  A failed worker's peers are killed."""
+    import torch
+
+    # the job's store, held here until the ranks end: no other job can take its port
+    store = torch.distributed.TCPStore("localhost", 0, is_master=True, wait_for_workers=False)
     code = f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; chip_smoke.{call}"
     procs = []
     try:
         for r in range(world):
             env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(world),
                    "LOCAL_RANK": str(0 if one_card else r), "MASTER_ADDR": "localhost",
-                   "MASTER_PORT": str(port)}
+                   "MASTER_PORT": str(store.port), "TORCHELASTIC_USE_AGENT_STORE": "True"}
             # faulthandler: a rank that dies on a signal prints its Python stack
             procs.append(subprocess.Popen([sys.executable, "-X", "faulthandler", "-c", code],
                                           env=env, cwd=str(REPO), stdout=subprocess.PIPE,
@@ -3964,6 +3992,7 @@ def rank_processes(world: int, call: str, one_card: bool,
             if p.poll() is None:
                 p.kill()
                 p.wait(timeout=30)
+        del store
     return [(p.returncode, log) for p, log in zip(procs, logs)]
 
 
@@ -5178,6 +5207,405 @@ def seq_multi_card(card: str, n: int, root: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- slice 7d
+
+PIPE_B = 16  # VideoMAE-B clips a step in (a)-(c) and (e)
+PIPE_M = 4  # microbatches a step
+PIPE_TIMED_STEPS = 3
+PIPE_CLI_STEPS = 3
+PIPE_CLI_B = 4
+
+
+def pipe_bubble(P: int, M: int) -> float:
+    """GPipe's bubble: the share of a stage's ticks without work."""
+    return (P - 1) / (M + P - 1)
+
+
+def pipe_reference(B: int) -> dict:
+    """One process on the card, no process group: the unwrapped VideoMAE-B
+    step at ``B`` on :func:`ddp_family`'s clips and mask; its loss,
+    launches, gradients (on the host), peak memory above what the process
+    held before, state bytes and step time (CUDA events over
+    ``PIPE_TIMED_STEPS`` further steps)."""
+    import gc
+
+    import torch
+
+    held = torch.cuda.memory_allocated()
+    new_state, step, args = ddp_family("videomae", B)
+    args = {k: v.cuda() for k, v in args.items()}
+    state = new_state()
+    torch.cuda.reset_peak_memory_stats()
+    want = step_readings("videomae", step, state, args)
+    want["peak_bytes"] = torch.cuda.max_memory_allocated() - held
+    want["bytes"] = state_bytes(state)
+    want["ms"] = steps_ms("videomae", step, state, args, PIPE_TIMED_STEPS)
+    want["grads"] = {n: g.cpu() for n, g in want["grads"].items()}
+    del state, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want
+
+
+def pipe_step_for(mesh, M: int = PIPE_M):
+    """The pipe step of :func:`ddp_family`'s VideoMAE-B on ``mesh``."""
+    from bvc_tpu_torch.parallel.pipeline import make_pipe_videomae_train_step
+    from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig
+
+    return make_pipe_videomae_train_step(ModelConfig(), MaskConfig(sampler="tube",
+                                                                   mask_ratio=0.9),
+                                         num_microbatches=M, mesh=mesh)
+
+
+def pipe_launches(per_step: dict, M: int, P: int) -> dict:
+    """A stage's launches a step: each of its ``16 / P`` layers once a
+    microbatch, so the one-card step's times ``M / P``."""
+    return {k: v * M // P for k, v in per_step.items()}
+
+
+def hop_wait_share(step, state, args: dict) -> tuple[float, float]:
+    """One step with every hop timed on the host after the rank's own work
+    has drained (``torch.cuda.synchronize`` before and after each):
+    ``(share of the step's wall time spent in hops, the step's wall ms)``,
+    the time this stage waits for its neighbours plus the transport."""
+    import torch
+
+    from bvc_tpu_torch.parallel import pipeline
+
+    real, spent = pipeline.hop, [0.0]
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    pipeline.hop = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ddp_call("videomae", step, state, args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pipeline.hop = real
+    return spent[0] / wall, wall * 1e3
+
+
+def pipe_hop_ms(mesh, b: int, reps: int = 5) -> dict:
+    """Host time of one hop from stage 0 to stage 1 of the encoder's
+    (``[b/M, 160, 768]``) and the decoder's (``[b/M, 1568, 384]``) bf16
+    activations, to the received tensor on the card; the median of
+    ``reps`` on the receiving stage, None elsewhere."""
+    import torch
+
+    from bvc_tpu_torch.parallel.collectives import hop
+
+    s, group, mb = mesh.coord("pipe"), mesh.group("pipe"), b // PIPE_M
+    out = {}
+    for name, shape in (("encoder", (mb, 160, 768)), ("decoder", (mb, 1568, 384))):
+        x = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hop(x if s == 0 else None, 1, (shape, x.dtype) if s == 1 else None, 0, group,
+                x.device)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = sorted(times[1:])[reps // 2] if s == 1 else None
+    return out
+
+
+def pipe_rank_worker(out: str, job: str, backend: str) -> None:
+    """One rank of a pipeline run started by :func:`run_pipe_ranks`
+    (torchrun's variables in the environment): the job's ``(data, pipe)``
+    mesh, one step of VideoMAE-B on this rank's data block of
+    :func:`ddp_family`'s batch (loss, launches, the stage's gradients, peak
+    memory, state bytes), then ``timed`` timed steps, one step with its
+    hops timed and, on a mesh of two stages or more, the hop times.
+    Writes its result to ``{out}.rank{r}``."""
+    import torch
+
+    from bvc_tpu_torch.parallel import distributed_init, rank
+    from bvc_tpu_torch.parallel.pipeline import make_pipe_mesh
+
+    job = json.loads(job)
+    distributed_init(backend=backend)
+    mesh = make_pipe_mesh(job["data"], job["pipe"])
+    new_state, _, args = ddp_family("videomae", job["B"])
+    args = {k: v.cuda() for k, v in rank_rows(args, mesh.axis_size("data"),
+                                              mesh.coord("data")).items()}
+    step = pipe_step_for(mesh, job["M"])
+    torch.cuda.reset_peak_memory_stats()
+    state = new_state()
+    readings = step_readings("videomae", step, state, args)
+    result = {"coords": mesh.coords, "loss": readings["loss"], "launches": readings["launches"],
+              "grads": {n: g.cpu() for n, g in readings["grads"].items()},
+              "peak_bytes": torch.cuda.max_memory_allocated(), "bytes": state_bytes(state),
+              "ms": None, "wait_share": None, "hop_ms": None}
+    if job["timed"]:
+        result["ms"] = steps_ms("videomae", step, state, args, job["timed"])
+        result["wait_share"], result["instrumented_ms"] = hop_wait_share(step, state, args)
+    if job["pipe"] > 1:
+        result["hop_ms"] = pipe_hop_ms(mesh, args["video"].shape[0])
+    torch.save(result, f"{out}.rank{rank()}")
+    torch.distributed.destroy_process_group()
+
+
+def run_pipe_ranks(out_dir: Path, world: int, job: dict, backend: str,
+                   one_card: bool) -> list[dict]:
+    out = str(out_dir / "pipe")
+    return run_rank_workers(world, f"pipe_rank_worker({out!r}, {json.dumps(job)!r}, "
+                                   f"{backend!r})", out, one_card)
+
+
+def check_pipe_ranks(what: str, ranks: list[dict], want: dict, per_rank: dict) -> dict:
+    """Every stage's gradients together (rank 0's data row) against
+    ``want``'s under the DDP limits, every rank's loss rank 0's, every
+    rank's launches ``per_rank``; returns the readings with each rank's
+    peak memory, state bytes, hop times and hop-wait share."""
+    grads: dict = {}
+    for res in ranks:
+        if res["coords"]["data"] == 0:
+            grads.update(res["grads"])
+    rec = check_ddp_against(what, {"loss": ranks[0]["loss"], "grads": grads}, want)
+    for r, res in enumerate(ranks):
+        check(res["launches"] == per_rank,
+              f"{what}: rank {r} launched {res['launches']}, want {per_rank}")
+        check(abs(res["loss"] - ranks[0]["loss"]) <= 1e-6 * abs(ranks[0]["loss"]),
+              f"{what}: rank {r}'s loss {res['loss']} differs from rank 0's")
+    rec.update(launches_per_rank=ranks[0]["launches"],
+               peak_gib_per_rank=[res["peak_bytes"] / 2**30 for res in ranks],
+               peak_gib_one_process=want["peak_bytes"] / 2**30,
+               state_gib_per_rank=[res["bytes"]["total"] / 2**30 for res in ranks],
+               state_gib_one_process=want["bytes"]["total"] / 2**30,
+               ms_per_rank=[res["ms"] for res in ranks],
+               wait_share_per_rank=[res["wait_share"] for res in ranks],
+               hop_ms=next((res["hop_ms"] for res in ranks
+                            if res["hop_ms"] and res["hop_ms"]["encoder"] is not None), None))
+    print(f"{what}: peak memory a rank {rec['peak_gib_per_rank']} GiB against one process's "
+          f"{rec['peak_gib_one_process']:.3f}; state a rank {rec['state_gib_per_rank']} GiB "
+          f"against one process's {rec['state_gib_one_process']:.3f}; a hop {rec['hop_ms']} "
+          f"ms; share of a step waiting in hops {rec['wait_share_per_rank']}", flush=True)
+    return rec
+
+
+def pipe_world1(card: str, want: dict, B: int) -> dict:
+    """(a) World 1 over NCCL at ``data=1,pipe=1``: the pipe step (one
+    stage, ``PIPE_M`` microbatches, no DDP) against the unwrapped step on
+    the same clips and mask under the DDP limits; its launches the step's
+    times ``PIPE_M``; its step time beside the unwrapped step's."""
+    import gc
+
+    import torch
+
+    from bvc_tpu_torch.parallel import distributed_init
+    from bvc_tpu_torch.parallel.pipeline import make_pipe_mesh
+
+    new_state, _, args = ddp_family("videomae", B)
+    args = {k: v.cuda() for k, v in args.items()}
+    with rendezvous():
+        distributed_init()
+        check(torch.distributed.get_backend() == "nccl", "world 1 on cuda: not NCCL")
+        step = pipe_step_for(make_pipe_mesh(1, 1))
+        state = new_state()
+        check(state.ddp is None and state.plan.params == "pipe",
+              f"pipe state: ddp {state.ddp}, plan {state.plan}")
+        got = step_readings("videomae", step, state, args)
+        ms = steps_ms("videomae", step, state, args, PIPE_TIMED_STEPS)
+        del state
+        gc.collect()
+    torch.cuda.empty_cache()
+    what = f"pipe world 1 over NCCL [data=1,pipe=1, B={B}, M={PIPE_M}]"
+    rec = check_ddp_against(what, got, want)
+    per = pipe_launches(want["launches"], PIPE_M, 1)
+    check(got["launches"] == per, f"{what}: launches {got['launches']}, want {per}")
+    print(f"{what} [{card}]: step {ms:.1f} ms against the unwrapped step's {want['ms']:.1f}",
+          flush=True)
+    rec.update(launches=got["launches"], ms=ms, unwrapped_ms=want["ms"])
+    return rec
+
+
+def pipe_cli_worker(out: str, argv: str) -> None:
+    """One rank of ``pretrain_videomae`` (torchrun's variables in the
+    environment, gloo): ``main(argv)`` with the launch counts set to 0
+    before; then the stage's checkpoint: it must load strictly into the
+    whole model, and each of this rank's tensors must equal the
+    checkpoint's."""
+    import torch
+
+    from bvc_tpu_torch.cli import pretrain_videomae
+    from bvc_tpu_torch.models.videomae import VideoMAEPretrain
+    from bvc_tpu_torch.parallel import distributed_init, rank
+    from bvc_tpu_torch.training import trainer_videomae
+    from bvc_tpu_torch.training.checkpoint import load_checkpoint
+
+    distributed_init(backend="gloo")
+    seen: dict = {}
+    make = trainer_videomae.make_pipe_videomae_train_step
+
+    def patched(*args, **kw):
+        step = make(*args, **kw)
+
+        def wrapped(state, batch):
+            seen["state"] = state
+            return step(state, batch)
+
+        wrapped.eval_step = step.eval_step
+        return wrapped
+
+    trainer_videomae.make_pipe_videomae_train_step = patched
+    argv = json.loads(argv)
+    reset_launches()
+    summary = pretrain_videomae.main(argv)
+    torch.cuda.synchronize()
+    result = {"summary": summary, "launches": read_launches()}
+    cfg = pretrain_videomae.config_from_args(pretrain_videomae.build_parser().parse_args(argv))
+    whole = trainer_videomae.videomae_model_state(load_checkpoint(summary["checkpoint"]),
+                                                  cfg.model)
+    VideoMAEPretrain(cfg.model).load_state_dict(whole)  # strict: every tensor, whole
+    own = seen["state"].model.state_dict()
+    result["own_tensors"] = len(own)
+    result["whole_tensors"] = len(whole)
+    result["max_diff"] = max((v.float().cpu() - whole[k].float()).abs().max().item()
+                             for k, v in own.items())
+    torch.save(result, f"{out}.rank{rank()}")
+    torch.distributed.destroy_process_group()
+
+
+def pipe_entry_point(root: Path, corpus: tuple[str, str], per_step: dict) -> dict:
+    """(d) ``pretrain_videomae --mesh data=1,pipe=2 --pipe_microbatches 4``
+    on two gloo ranks on the card, 3 steps: the CSV's losses finite, each
+    rank's launches its steps', the checkpoint whole and equal to the
+    ranks' stages."""
+    jpg, pack = corpus
+    rid = "dev_1_g0_default_0_0"
+    argv = ["-jpg_root", jpg, "--pack_root", pack, "-savedir", str(root / "pipe_cli"),
+            "--batch_size", str(PIPE_CLI_B), "--n_trainsamples", str(PIPE_CLI_B * PIPE_CLI_STEPS),
+            "--max_epoch_iters", str(PIPE_CLI_STEPS), "--run_id", rid, "--mesh", "data=1,pipe=2",
+            "--pipe_microbatches", str(PIPE_M), "--num_workers", "2"]
+    out = str(root / "pipe_cli_rank")
+    t0 = time.perf_counter()
+    ranks = run_rank_workers(2, f"pipe_cli_worker({out!r}, {json.dumps(argv)!r})", out, True)
+    wall = time.perf_counter() - t0
+    what = "pretrain_videomae --mesh data=1,pipe=2"
+    losses = check_csv(root / "pipe_cli" / f"csvlog_{rid}.csv", PIPE_CLI_STEPS, 2, what)
+    for r, res in enumerate(ranks):
+        check_cli_launches(res["launches"], per_step, PIPE_CLI_STEPS, f"{what}, rank {r}")
+        check(res["max_diff"] == 0.0 and res["own_tensors"] < res["whole_tensors"],
+              f"{what}: rank {r}'s stage against the checkpoint: {res['own_tensors']} of "
+              f"{res['whole_tensors']} tensors, max diff {res['max_diff']}")
+    print(f"{what} --pipe_microbatches {PIPE_M}: losses {losses}, launches a rank "
+          f"{ranks[0]['launches']}, checkpoint whole ({ranks[0]['whole_tensors']} tensors; "
+          f"the stages hold {[res['own_tensors'] for res in ranks]}), {wall:.1f} s", flush=True)
+    return {"losses": losses, "wall_s": wall}
+
+
+def pipe_replica_shards(root: Path, want: dict, B: int) -> dict:
+    """(e) ``zero1`` and ``fsdp`` at ``data=1,model=2`` on two gloo ranks
+    on the card (the model ranks replicas, each on the whole batch)
+    against the unwrapped step under the DDP limits, launches equal;
+    each rank's state bytes."""
+    job = {"mesh": {"data": 1, "model": 2}, "modes": ["zero1", "fsdp"],
+           "families": [["videomae", B, 1]], "timed": 0}
+    ranks = run_shard_ranks(root, 2, job, "gloo", one_card=True)
+    out = {}
+    for mode in job["modes"]:
+        what = f"{mode} beside model=2 over gloo, 2 ranks on one card [B={B}]"
+        got = ranks[0][mode, "videomae"]
+        rec = check_ddp_against(what, got, want)
+        for r, res in enumerate(ranks):
+            check(res[mode, "videomae"]["launches"] == want["launches"],
+                  f"{what}: rank {r} launched {res[mode, 'videomae']['launches']}")
+        rec.update(launches=got["launches"],
+                   state_gib_per_rank=[res[mode, "videomae"]["bytes"]["total"] / 2**30
+                                       for res in ranks])
+        print(f"{what}: state a rank {rec['state_gib_per_rank']} GiB", flush=True)
+        out[mode] = rec
+    return out
+
+
+def phase_pipeline(card: str, root: Path, corpus: tuple[str, str], per_step: dict) -> dict:
+    """Pipeline parallelism on the card (slice 7d), (a)-(e) of the module's
+    item 26.  Returns the records and, under ``"launches"``, each run's
+    counts."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    want = pipe_reference(PIPE_B)
+    check(want["launches"] == per_step,
+          f"the unwrapped step at B={PIPE_B} launched {want['launches']}, want {per_step}")
+    world1 = pipe_world1(card, want, PIPE_B)
+    job = {"data": 1, "pipe": 2, "B": PIPE_B, "M": PIPE_M, "timed": PIPE_TIMED_STEPS}
+    ranks = run_pipe_ranks(root, 2, job, "gloo", one_card=True)
+    what = f"pipe over gloo, 2 ranks on one card [data=1,pipe=2, B={PIPE_B}, M={PIPE_M}]"
+    gloo = check_pipe_ranks(what, ranks, want, pipe_launches(per_step, PIPE_M, 2))
+    gloo["bubble"] = pipe_bubble(2, PIPE_M)
+    print(f"{what} [{card}]: step {max(gloo['ms_per_rank']):.1f} ms on the slower rank "
+          f"against one process's {want['ms']:.1f}; waiting in hops "
+          f"{gloo['wait_share_per_rank']} of a step against the bubble {gloo['bubble']:.2f}",
+          flush=True)
+    del ranks
+    gc.collect()
+    entry = pipe_entry_point(root, corpus, pipe_launches(per_step, PIPE_M, 2))
+    replicas = pipe_replica_shards(root, want, PIPE_B)
+    multi = None
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        multi = pipe_multi_card(card, n_cards, root, want)
+    wall = time.perf_counter() - t0
+    print(f"pipeline: phase in {wall:.1f} s", flush=True)
+    return {"world1": world1, "gloo": gloo, "entry_point": entry, "replicas": replicas,
+            "one_process": {"peak_gib": want["peak_bytes"] / 2**30,
+                            "state_gib": want["bytes"]["total"] / 2**30, "ms": want["ms"]},
+            "multi_card": multi, "wall_s": wall,
+            "launches": {"world1": world1["launches"], "pipe2_per_rank": gloo["launches_per_rank"],
+                         "zero1_model2": replicas["zero1"]["launches"],
+                         "fsdp_model2": replicas["fsdp"]["launches"]}}
+
+
+def pipe_multi_card(card: str, n: int, root: Path, want16: dict | None = None) -> dict:
+    """(c) With ``n`` > 1 cards, over NCCL, a card a rank: ``pipe=2`` at
+    B=16, and on four cards ``data=2,pipe=2`` at B=32 and ``pipe=4`` at
+    B=16, each against one card at the global batch (the DDP limits, the
+    launches ``16 * M / P``); clips/s a card (the slowest rank's CUDA events
+    over ``PIPE_TIMED_STEPS`` steps) against one card's, each rank's share
+    of a step waiting in hops, peak memory a card."""
+    import gc
+
+    out, refs = {}, {PIPE_B: want16} if want16 else {}
+    cases = [("pipe2", 1, 2, PIPE_B)]
+    if n >= 4:
+        cases += [("data2_pipe2", 2, 2, 2 * PIPE_B), ("pipe4", 1, 4, PIPE_B)]
+    for name, data, pipe, B in cases:
+        if B not in refs:
+            refs[B] = pipe_reference(B)
+        want = refs[B]
+        world = data * pipe
+        ranks = run_pipe_ranks(root, world, {"data": data, "pipe": pipe, "B": B, "M": PIPE_M,
+                                             "timed": PIPE_TIMED_STEPS}, "nccl", one_card=False)
+        what = f"pipe over NCCL, {world} cards [data={data},pipe={pipe}, B={B}, M={PIPE_M}]"
+        rec = check_pipe_ranks(what, ranks, want, pipe_launches(want["launches"], PIPE_M, pipe))
+        ms = max(rec["ms_per_rank"])
+        one_card = B / (want["ms"] / 1e3)
+        rec.update(data=data, pipe=pipe, B=B, clips_s=B / (ms / 1e3),
+                   clips_s_per_card=B / (ms / 1e3) / world, one_card_clips_s=one_card,
+                   one_card_ms=want["ms"], bubble=pipe_bubble(pipe, PIPE_M))
+        print(f"{what} [{card}]: {rec['clips_s']:.2f} clips/s ({rec['clips_s_per_card']:.2f} a "
+              f"card, {rec['clips_s_per_card'] / one_card:.3f} of one card's {one_card:.2f}); a "
+              f"step {ms:.1f} ms on the slowest card; waiting in hops "
+              f"{rec['wait_share_per_rank']} against the bubble {rec['bubble']:.2f}", flush=True)
+        out[name] = rec
+        del ranks
+        gc.collect()
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", nargs="?", const="", default=None, metavar="FILE",
@@ -5263,6 +5691,7 @@ def main() -> None:
         jepa_cli = phase_pretrain_cli_jepa(smi, corpus, 64, jepa_launches)
         sharding = phase_sharding(smi, train_B, Path(d), corpus, train_launches)
         seqpar = phase_seqpar(smi, Path(d), corpus, train_launches)
+        pipeline = phase_pipeline(smi, Path(d), corpus, train_launches)
     remat = phase_remat(smi, train_B)
     simclr_step = phase_simclr_step(smi)
     simclr_rate = phase_simclr_rate(smi)
@@ -5344,6 +5773,7 @@ def main() -> None:
     ddp_launches = ddp.pop("launches")
     shard_launches = sharding.pop("launches")
     seq_launches_read = seqpar.pop("launches")
+    pipe_launches_read = pipeline.pop("launches")
     for r in records:
         r["launches_per_ddp_step"] = {
             "videomae_world1_grad_accum2": ddp_launches["videomae_step"][r["name"]],
@@ -5354,6 +5784,7 @@ def main() -> None:
             "simclr_stage_mesh_data1": ddp_launches["simclr_stage"][r["name"]]}
         r["launches_per_sharded_step"] = {k: v[r["name"]] for k, v in shard_launches.items()}
         r["launches_per_seq_step"] = {k: v[r["name"]] for k, v in seq_launches_read.items()}
+        r["launches_per_pipe_step"] = {k: v[r["name"]] for k, v in pipe_launches_read.items()}
         r["launches_on_simclr_paths"] = simclr_launches[r["name"]]
         r["launches_per_curriculum"] = {k: curriculum[k]["launches"][r["name"]] for k in runs}
         r["launches_per_artifact_call"] = {k: a["launches"].get(r["name"], 0)
@@ -5367,7 +5798,7 @@ def main() -> None:
                           "step_ms_without": remat["ms"][False],
                           "step_ms_with": remat["ms"][True],
                           "min_grad_cosine": remat["min_cosine"]},
-                "ddp": ddp, "sharding": sharding, "seqpar": seqpar,
+                "ddp": ddp, "sharding": sharding, "seqpar": seqpar, "pipeline": pipeline,
                 "simclr_cli": simclr_cli, "simclr_step": {**simclr_rate, **simclr_step},
                 "simclr_embed": simclr_embed,
                 "export": {k: {f: v for f, v in a.items() if f != "launches"}

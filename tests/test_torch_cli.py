@@ -144,22 +144,23 @@ def test_log_grad_stats_suffix_is_jax_format_gstats(family, frame_corpus, tmp_pa
     ((), {"WORLD_SIZE": "2"}, RuntimeError, "RANK, LOCAL_RANK, MASTER_ADDR, MASTER_PORT not"),
     (("--mesh", "data=1,model=2"), {}, ValueError, "needs 2 processes, this run has 1"),
     (("--mesh", "data=1,seq=1"), {}, None, None),
-    (("--mesh", "pipe=2"), {}, NotImplementedError, "slice 7d"),
+    (("--mesh", "data=1,pipe=1"), {}, None, None),
 ], ids=["mesh", "param_sharding", "world_size", "model", "seq", "pipe"])
 def test_unported_flags_raise(family, flags, env, error, match, frame_corpus, tmp_path,
                               monkeypatch, request):
     """The multi-GPU flags in one process: ``--mesh data=2`` and ``--mesh
     data=1,model=2`` raise, naming the 2 processes they need, and
     ``WORLD_SIZE`` without the other rendezvous variables raises in
-    ``distributed_init``; the ``pipe`` axis still raises, naming its slice.
-    ``--mesh data=1,seq=1`` (slice 7c) runs VideoMAE through the
-    sequence-parallel step (a ring of one), and the JEPA and SimCLR trainers
-    refuse ``seq`` and ``pipe`` with the JAX trainers' reason.
+    ``distributed_init``.  ``--mesh data=1,seq=1`` (slice 7c) runs VideoMAE
+    through the sequence-parallel step (a ring of one), ``--mesh
+    data=1,pipe=1`` (slice 7d) through the pipeline step (one stage), and
+    the JEPA and SimCLR trainers refuse ``seq`` and ``pipe`` with the JAX
+    trainers' reason.
     ``--param_sharding zero1`` (slice 7b) runs: one process holds the whole
     optimizer state, and the stage writes its CSV."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    if family != "videomae" and flags[-1:] in (("data=1,seq=1",), ("pipe=2",)):
+    if family != "videomae" and flags[-1:] in (("data=1,seq=1",), ("data=1,pipe=1",)):
         error, match = ValueError, "videomae-only"
     port, _ = CLIS[family]
     csv = tmp_path / "csvlog_dev_1_g0_default_0_0.csv"

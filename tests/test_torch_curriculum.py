@@ -272,15 +272,16 @@ def test_driver_wiring_matches_jax(preset, tmp_path, monkeypatch):
      "unknown param_sharding 'sharded'"),
     ("mesh_shape", {"data": 1, "seq": 2}, ["--mesh", "data=1,seq=2"], ValueError,
      "needs 2 processes"),
-    ("mesh_shape", {"pipe": 2}, ["--mesh", "pipe=2"], NotImplementedError, "slice 7d"),
+    ("mesh_shape", {"data": 1, "pipe": 2}, ["--mesh", "data=1,pipe=2"], ValueError,
+     "needs 2 processes"),
 ], ids=["mesh_shape-value0", "param_sharding-value1", "seq", "pipe"])
 def test_multi_gpu_layouts_raise(field, value, flag, error, match, tmp_path, monkeypatch):
     """A layout the run cannot take raises before any stage trains or
-    extracts: ``data=2`` or ``data=1,seq=2`` in one process (each needs two
-    ranks; a ``seq`` mesh runs since slice 7c, see
-    ``test_seq_mesh_reaches_every_stage_and_the_sweep``), a sharding mode
-    that does not exist (``zero1``, ``fsdp`` and ``tp`` run since slice 7b),
-    and a ``pipe`` axis, naming its slice; so does the CLI."""
+    extracts: ``data=2``, ``data=1,seq=2`` or ``data=1,pipe=2`` in one
+    process (each needs two ranks; a ``seq`` mesh runs since slice 7c, see
+    ``test_seq_mesh_reaches_every_stage_and_the_sweep``, a ``pipe`` mesh
+    since slice 7d), and a sharding mode that does not exist (``zero1``,
+    ``fsdp`` and ``tp`` run since slice 7b); so does the CLI."""
     monkeypatch.setattr(driver, "_trainer_for", lambda family: pytest.fail("trained"))
     base = TrainConfig(savedir=str(tmp_path))
     setattr(base, field, value)
@@ -311,6 +312,31 @@ def test_seq_mesh_reaches_every_stage_and_the_sweep(tmp_path, monkeypatch):
                           device="cpu")
     assert [c["mesh_shape"] for c in trainer.configs] == [{"data": 1, "seq": 1}] * 3
     assert seen == [{"data": 1, "seq": 1}] and len(sweep.calls) == 1
+
+
+def test_pipe_mesh_reaches_every_stage_and_the_sweep(tmp_path, monkeypatch):
+    """``--mesh data=1,pipe=1`` (a ``pipe`` mesh in one process) passes
+    ``run_curriculum``'s check and reaches every stage's config and the
+    sweep's, as the JAX package's ``run_curriculum`` passes its mesh on (its
+    sweep embeds data parallel, the stages of a data row as replicas)."""
+    trainer, sweep, seen = Recorder(), ExtractionRecorder(), []
+
+    def extraction(task, ckpts, rids, cfg, family, base, where, logger):
+        seen.append(base.mesh_shape)
+        return sweep(task, ckpts, rids, cfg, family, base, where, logger)
+
+    monkeypatch.setattr(driver, "_trainer_for", lambda family: trainer)
+    monkeypatch.setattr(driver, "_run_extraction", extraction)
+    base = TrainConfig(savedir=str(tmp_path), seed=5)
+    base.mesh_shape = {"data": 1, "pipe": 1}
+    driver.run_curriculum("dev", "generative", base, extraction=[{"ds_task": "ssv2",
+                                                                  "vid_root": "/v"}],
+                          device="cpu")
+    assert [c["mesh_shape"] for c in trainer.configs] == [{"data": 1, "pipe": 1}] * 3
+    assert seen == [{"data": 1, "pipe": 1}] and len(sweep.calls) == 1
+    base.param_sharding = "fsdp"
+    with pytest.raises(ValueError, match="defines its own stage sharding"):
+        driver.run_curriculum("dev", "generative", base, device="cpu")
 
 
 def test_no_gpu_and_no_device_raises(tmp_path, monkeypatch):

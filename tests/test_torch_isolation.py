@@ -55,6 +55,7 @@ SLICE_7A = ["parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py
 # that learnt about a time slice
 SLICE_7C = ["ops/ring_attention.py", "parallel/seqpar.py", "ops/attention.py",
             "models/videomae.py", "models/jepa.py"]
+SLICE_7D = ["parallel/pipeline.py", "parallel/collectives.py", "cli/dryrun_multichip.py"]
 
 
 def test_slice_8a_modules_are_checked():
@@ -71,6 +72,10 @@ def test_slice_7a_modules_are_checked():
 
 def test_slice_7c_modules_are_checked():
     assert {PACKAGE / name for name in SLICE_7C} <= set(PY_FILES)
+
+
+def test_slice_7d_modules_are_checked():
+    assert {PACKAGE / name for name in SLICE_7D} <= set(PY_FILES)
 
 
 def test_import_pulls_in_no_jax_and_no_bvc_tpu():

@@ -4,7 +4,8 @@ data-parallel extraction.
 In one process: the loader's rank blocks against ``bvc_tpu``'s
 ``EpochSampler`` cut by hand, ``host_local_batch_slice``, ``--mesh``
 parsing and the layouts that raise (a ``data`` size that is not the
-world's, the axes of slices 7b-7d, rendezvous variables missing), and
+world's, a ``pipe`` axis beside ``seq`` or ``model``, rendezvous
+variables missing), the plans of the parameter layouts, and
 ``distributed_init`` with none set.  At world 2 (two gloo processes,
 ``tests/torch_ranks.py``): the collectives, with one rank holding an empty
 list and zero rows; ``extract_embeddings`` over 11 clips with one
@@ -98,8 +99,9 @@ def test_make_mesh_in_one_process(monkeypatch):
     ``data=1,model=2`` raise, naming the 2 processes they need (no run
     quietly uses one rank of two); ``model=1`` beside ``data=-1`` is a
     world of 1; so is ``seq=1`` (``data`` x ``seq`` x ``model`` laid out in
-    that order), while ``seq=2`` needs 2 processes; ``pipe`` names its
-    slice; ``WORLD_SIZE`` > 1 without a process group raises."""
+    that order), while ``seq=2`` needs 2 processes; so do ``pipe=1`` (laid
+    out after ``data``) and ``pipe=2``, and ``pipe`` beside ``seq`` raises;
+    ``WORLD_SIZE`` > 1 without a process group raises."""
     for shape in (None, {}, {"data": 1}, {"data": -1}):
         mesh = make_mesh(shape)
         assert mesh.shape == {"data": 1} and mesh.size == 1 and mesh.axis_names == ("data",)
@@ -114,8 +116,12 @@ def test_make_mesh_in_one_process(monkeypatch):
     assert mesh.coords == {"data": 0, "seq": 0, "model": 0} and mesh.gradient_size() == 1
     with pytest.raises(ValueError, match="needs 2 processes, this run has 1"):
         make_mesh({"data": 1, "seq": 2})
-    with pytest.raises(NotImplementedError, match="slice 7d"):
+    with pytest.raises(ValueError, match="needs 2 processes, this run has 1"):
         make_mesh({"data": 1, "pipe": 2})
+    mesh = make_mesh({"pipe": 1})
+    assert mesh.axis_names == ("data", "pipe") and mesh.coords == {"data": 0, "pipe": 0}
+    with pytest.raises(ValueError, match="runs beside 'data' only"):
+        make_mesh({"data": 1, "seq": 1, "pipe": 1})
     with pytest.raises(ValueError, match="unknown mesh axis"):
         make_mesh({"rows": 2})
     monkeypatch.setenv("WORLD_SIZE", "2")
@@ -128,7 +134,9 @@ def test_param_shardings_name_slice_7b(mode):
     """Since slice 7b each mode returns its plan: which axis splits the
     parameters and the optimizer state.  ``tp`` without a model axis of
     more than one rank is the replicated layout (as in the JAX package);
-    ``zero1`` and ``fsdp`` beside ``model > 1`` raise."""
+    ``zero1`` and ``fsdp`` beside ``model > 1`` shard over ``data`` with the
+    model ranks as replicas (slice 7d); on a ``pipe`` mesh the stages are
+    the layout and only ``replicated`` is taken."""
     assert param_shardings("replicated") == ShardingPlan("replicated")
     want = {"zero1": ShardingPlan("zero1", optimizer="data"),
             "fsdp": ShardingPlan("fsdp", params="data"), "tp": ShardingPlan("tp")}[mode]
@@ -137,8 +145,13 @@ def test_param_shardings_name_slice_7b(mode):
     if mode == "tp":
         assert param_shardings(mode, two) == ShardingPlan("tp", params="model")
     else:
-        with pytest.raises(NotImplementedError, match=f"'{mode}' on a mesh with model=2"):
-            param_shardings(mode, two)
+        assert param_shardings(mode, two) == ShardingPlan(
+            mode, **{("optimizer" if mode == "zero1" else "params"): "data"},
+            replicas="model")
+    pipe = Mesh(("data", "pipe"), {"data": 1, "pipe": 2}, {"data": 0, "pipe": 0})
+    assert param_shardings("replicated", pipe) == ShardingPlan("pipe", params="pipe")
+    with pytest.raises(ValueError, match="defines its own stage sharding"):
+        param_shardings(mode, pipe)
     with pytest.raises(ValueError, match="unknown param_sharding"):
         param_shardings("sharded")
 
@@ -298,8 +311,9 @@ def test_emit_script_launches_under_torchrun(tmp_path):
     """``--emit_script`` with ``--mesh data=4`` (in one process: the script
     runs later, under torchrun) writes each stage and the sweep as a
     torchrun command of 4 ranks, and asks SBATCH for 4 GPUs; without a mesh
-    the commands stay ``python -m``; a ``seq`` mesh launches as many ranks
-    as its sizes multiply to; a ``pipe`` mesh raises."""
+    the commands stay ``python -m``; a ``seq`` or a ``pipe`` mesh launches as
+    many ranks as its sizes multiply to, and ``pipe`` beside ``model``
+    raises."""
     from bvc_tpu_torch.cli import run_curriculum
     from bvc_tpu_torch.curriculum.driver import emit_script
 
@@ -318,8 +332,13 @@ def test_emit_script_launches_under_torchrun(tmp_path):
     seq = emit_script("dev", "generative", 0, mesh="data=2,seq=2", extract={"ssv2": "/v"})
     assert seq.count("torchrun --nproc_per_node 4 -m bvc_tpu_torch.cli.pretrain_videomae "
                      "--mesh data=2,seq=2") == 3
-    with pytest.raises(NotImplementedError, match="slice 7d"):
-        emit_script("dev", "generative", 0, mesh="data=2,pipe=2")
+    pipe = emit_script("dev", "generative", 0, mesh="data=2,pipe=2", extract={"ssv2": "/v"})
+    assert pipe.count("torchrun --nproc_per_node 4 -m bvc_tpu_torch.cli.pretrain_videomae "
+                      "--mesh data=2,pipe=2") == 3
+    assert "torchrun --nproc_per_node 4 -m bvc_tpu_torch.cli.compute_embeddings " \
+           "--mesh data=2,pipe=2" in pipe
+    with pytest.raises(ValueError, match="runs beside 'data' only"):
+        emit_script("dev", "generative", 0, mesh="data=1,pipe=2,model=2")
 
 
 def test_per_replica_blocks_hold_whole_pairs():

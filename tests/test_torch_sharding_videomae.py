@@ -4,8 +4,9 @@ tiny configuration of ``tests/test_sharding_modes.py`` (32 px, patch 8, 4
 frames, tubelet 2, width 32, depth 2, 4 heads, decoder 16/1/2, f32, SGD lr
 0.05, momentum 0.9):
 
-- ``zero1`` and ``fsdp`` at ``data=2``, ``tp`` at ``data=1,model=2`` and at
-  ``data=2,model=2`` (world 4), against ``bvc_tpu``'s jitted step with the
+- ``zero1`` and ``fsdp`` at ``data=2`` and beside a model axis at
+  ``data=2,model=2`` (world 4: the model ranks hold replicas), ``tp`` at
+  ``data=1,model=2`` and at ``data=2,model=2``, against ``bvc_tpu``'s jitted step with the
   same ``param_mode`` on a JAX mesh of the same shape: losses and final
   weights within rtol 1e-4 (JAX's own tolerance between its modes), atol
   1e-6 for the weights near zero; and against the port in one process at
@@ -69,7 +70,9 @@ OPTIM = dict(name="sgd", lr=0.05, momentum=0.9)
 CASES = {"zero1-data2": ("zero1", {"data": 2}, 4, 1),
          "fsdp-data2": ("fsdp", {"data": 2}, 4, 2),
          "tp-model2": ("tp", {"data": 1, "model": 2}, 2, 1),
-         "tp-data2-model2": ("tp", {"data": 2, "model": 2}, 4, 2)}
+         "tp-data2-model2": ("tp", {"data": 2, "model": 2}, 4, 2),
+         "zero1-data2-model2": ("zero1", {"data": 2, "model": 2}, 4, 2),
+         "fsdp-data2-model2": ("fsdp", {"data": 2, "model": 2}, 4, 1)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -247,25 +250,54 @@ def test_tp_indivisible_heads_stay_whole():
         assert not hasattr(model.decoder.layers[0].fc1.weight, "tp_split")
 
 
-def test_zero1_keeps_params_whole_and_partitions_momentum(case_dir):
-    res = _case("zero1-data2", case_dir)
+def _check_zero1(res: dict) -> None:
+    """Each rank holds every parameter whole and steps the momentum of its
+    partition; the two data ranks of a model column partition the whole
+    model between them, and the columns (replicas) partition it alike."""
     names = set(res["weights"])
+    n_model = res["mesh"].get("model", 1)
     owned = [set(r["layout"]["opt_state"]) for r in res["ranks"]]
     for r in res["ranks"]:
         assert all(kind == "whole" for kind, _ in r["layout"]["params"].values())
         assert r["layout"]["ddp"]
-    assert owned[0] and owned[1] and not owned[0] & owned[1]
-    assert owned[0] | owned[1] == names
+    for m in range(n_model):
+        a, b = owned[m], owned[m + n_model]  # the data ranks of model column m
+        assert a and b and not a & b and a | b == names
+        assert a == owned[0] and b == owned[n_model]
 
 
-def test_fsdp_shards_every_parameter_and_block(case_dir):
-    res = _case("fsdp-data2", case_dir)
+def _check_fsdp(res: dict) -> None:
+    """Every parameter a ``DTensor`` split on dim 0 over the data ranks
+    (``torch.chunk``'s pieces), every block wrapped, no DDP; beside a model
+    axis each model column holds the same pieces (HSDP's replicas)."""
+    n_model = res["mesh"].get("model", 1)
     for r, out in enumerate(res["ranks"]):
         lay = out["layout"]
         assert lay["root_fsdp"] and all(lay["blocks_fsdp"]) and len(lay["blocks_fsdp"]) == 3
         assert not lay["ddp"]
+        d = r // n_model
         for name, (kind, shape) in lay["params"].items():
             full = res["weights"][name].shape
             first = -(-full[0] // 2)  # dim 0 in torch.chunk's pieces
             assert kind == "dtensor", name
-            assert shape == (first if r == 0 else full[0] - first, *full[1:]), (name, shape)
+            assert shape == (first if d == 0 else full[0] - first, *full[1:]), (name, shape)
+
+
+def test_zero1_keeps_params_whole_and_partitions_momentum(case_dir):
+    _check_zero1(_case("zero1-data2", case_dir))
+
+
+def test_zero1_beside_model_partitions_each_column(case_dir):
+    """``zero1`` at ``data=2,model=2``: each model column's data ranks
+    partition the momentum, the columns alike, and DDP spans all four."""
+    _check_zero1(_case("zero1-data2-model2", case_dir))
+
+
+def test_fsdp_shards_every_parameter_and_block(case_dir):
+    _check_fsdp(_case("fsdp-data2", case_dir))
+
+
+def test_fsdp_beside_model_shards_over_data_and_replicates(case_dir):
+    """``fsdp`` at ``data=2,model=2``: HSDP, each model column holding the
+    same data-split pieces."""
+    _check_fsdp(_case("fsdp-data2-model2", case_dir))

@@ -5,6 +5,15 @@ variables set, ``bvc_tpu_torch.parallel.distributed_init(device="cpu")``
 called, one thread a process.  Each worker writes its result with
 ``torch.save``; :func:`run_ranks` returns them in rank order.
 
+The rendezvous cannot collide with another job's: the launcher hosts the
+job's ``TCPStore`` itself, on a port the kernel gives it and that it holds
+until every rank has ended, and the ranks start with
+``TORCHELASTIC_USE_AGENT_STORE=True``, so that ``env://`` connects each of
+them as a client (torchrun's agent does the same).  A port found free,
+closed, and then bound by rank 0 could be taken in between by another
+job's store (several gloo jobs run at once under pytest-xdist), and a rank
+could then join the wrong job.
+
 The workers import only ``torch`` and ``bvc_tpu_torch``.  A failed or hung
 worker never leaves its peer behind: the launcher waits with a timeout and
 kills the survivors in ``finally`` (the pattern of
@@ -21,7 +30,6 @@ from __future__ import annotations
 import copy
 import importlib
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -32,12 +40,6 @@ REPO = Path(__file__).resolve().parent.parent
 TESTS = Path(__file__).resolve().parent
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def run_ranks(fn: str, spec: dict, tmp: Path, world: int = 2, timeout: float = 120.0,
               env: dict | None = None, module: str = "torch_ranks") -> list:
     """``fn(spec)`` of ``module`` (a module of ``tests/``, this one by
@@ -46,7 +48,9 @@ def run_ranks(fn: str, spec: dict, tmp: Path, world: int = 2, timeout: float = 1
     tmp.mkdir(parents=True, exist_ok=True)
     spec_path = tmp / f"{fn}_spec.pt"
     torch.save(spec, spec_path)
-    port = _free_port()
+    # the job's store, bound here for the job's life: no other job can take its port
+    store = torch.distributed.TCPStore("localhost", 0, is_master=True,
+                                       wait_for_workers=False)
     code = ("import sys; sys.path[:0] = [{tests!r}, {repo!r}]; import torch_ranks; "
             "torch_ranks._worker({module!r}, {fn!r}, {spec!r}, {out!r})")
     procs = []
@@ -54,7 +58,8 @@ def run_ranks(fn: str, spec: dict, tmp: Path, world: int = 2, timeout: float = 1
         for r in range(world):
             worker_env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(world),
                           "LOCAL_RANK": str(r), "MASTER_ADDR": "localhost",
-                          "MASTER_PORT": str(port), "OMP_NUM_THREADS": "1",
+                          "MASTER_PORT": str(store.port),
+                          "TORCHELASTIC_USE_AGENT_STORE": "True", "OMP_NUM_THREADS": "1",
                           **(env or {})}
             out = tmp / f"{fn}_rank{r}.pt"
             procs.append(subprocess.Popen(
@@ -74,6 +79,7 @@ def run_ranks(fn: str, spec: dict, tmp: Path, world: int = 2, timeout: float = 1
             if p.poll() is None:
                 p.kill()
                 p.wait(timeout=30)
+        del store
     return [torch.load(tmp / f"{fn}_rank{r}.pt", weights_only=False) for r in range(world)]
 
 
