@@ -23,6 +23,10 @@ microbatches a step), and raises unless the product is the world size;
 from __future__ import annotations
 
 import argparse
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 from bvc_tpu_torch.utils.config import TrainConfig
 
@@ -157,3 +161,38 @@ def to_train_config(args: argparse.Namespace) -> TrainConfig:
     o.grad_accum_steps = args.grad_accum_steps
     cfg.model.image_size = args.image_size
     return cfg
+
+
+def run_local_ranks(module: str, argv: list[str], n: int, timeout: float,
+                    cards: int = 0) -> list[str]:
+    """Start ``n`` processes of ``python -m module argv`` joined by a local
+    rendezvous, as torchrun would (its variables set; rank ``r`` on card ``r
+    % cards`` when ``cards``, else ``r``): this process hosts the job's
+    ``TCPStore`` on a port the kernel gives it, held until every rank has
+    ended, and the ranks join it as clients
+    (``TORCHELASTIC_USE_AGENT_STORE``).  Returns each rank's output in rank
+    order; raises naming the first rank that failed, and kills the others."""
+    import torch
+
+    store = torch.distributed.TCPStore("localhost", 0, is_master=True, wait_for_workers=False)
+    procs = []
+    try:
+        for r in range(n):
+            env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(n),
+                   "LOCAL_RANK": str(r % cards if cards else r), "MASTER_ADDR": "localhost",
+                   "MASTER_PORT": str(store.port), "TORCHELASTIC_USE_AGENT_STORE": "True",
+                   "OMP_NUM_THREADS": os.environ.get("OMP_NUM_THREADS", "1")}
+            procs.append(subprocess.Popen([sys.executable, "-m", module, *argv], env=env,
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True, cwd=Path(__file__).resolve().parents[2]))
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        del store
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"{module} rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    return logs

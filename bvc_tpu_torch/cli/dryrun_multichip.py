@@ -32,12 +32,11 @@ from __future__ import annotations
 import argparse
 import math
 import os
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import torch
+
+from bvc_tpu_torch.cli.common import run_local_ranks
 
 TINY = dict(image_size=32, patch_size=8, num_frames=4, tubelet_size=2, hidden_size=32,
             depth=2, num_heads=4, decoder_hidden_size=16, decoder_depth=1,
@@ -127,30 +126,8 @@ def main(argv=None) -> list[str]:
     if args.device == "cuda" and torch.cuda.device_count() < args.n:
         raise RuntimeError(f"--n {args.n} needs {args.n} GPUs, this host has "
                            f"{torch.cuda.device_count()}; pass --device cpu to run on the CPU")
-    store = torch.distributed.TCPStore("localhost", 0, is_master=True, wait_for_workers=False)
-    cmd = [sys.executable, "-m", "bvc_tpu_torch.cli.dryrun_multichip", "--n", str(args.n),
-           "--device", args.device]
-    procs = []
-    try:
-        for r in range(args.n):
-            env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(args.n),
-                   "LOCAL_RANK": str(r), "MASTER_ADDR": "localhost",
-                   "MASTER_PORT": str(store.port), "TORCHELASTIC_USE_AGENT_STORE": "True",
-                   "OMP_NUM_THREADS": os.environ.get("OMP_NUM_THREADS", "1")}
-            procs.append(subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT, text=True,
-                                          cwd=Path(__file__).resolve().parents[2]))
-        logs = [p.communicate(timeout=args.timeout)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait(timeout=30)
-        del store
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        if p.returncode != 0:
-            raise RuntimeError(f"dryrun_multichip rank {r} exited {p.returncode}:\n"
-                               f"{log[-4000:]}")
+    logs = run_local_ranks("bvc_tpu_torch.cli.dryrun_multichip",
+                           ["--n", str(args.n), "--device", args.device], args.n, args.timeout)
     lines = [line for line in logs[0].splitlines() if line.startswith("dryrun_multichip ok")]
     print("\n".join(lines))
     return lines

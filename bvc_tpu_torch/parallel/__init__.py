@@ -1,7 +1,20 @@
-"""Training and extraction across GPUs: the process group, the mesh
-(``data`` and ``model`` axes), the collectives, and the parameter layouts
-(DDP, ZeRO-1, FSDP2, head-parallel tensor parallelism) (counterpart of
-:mod:`bvc_tpu.parallel`, slices 7a and 7b of the port)."""
+"""Training and extraction across GPUs (counterpart of
+:mod:`bvc_tpu.parallel`): the process group, the mesh (``data``, ``seq``,
+``model`` and ``pipe`` axes), the collectives, the parameter layouts (DDP,
+ZeRO-1, FSDP2, head-parallel tensor parallelism), the sequence-parallel
+steps and embeds (``seqpar``), the GPipe step (``pipeline``), and the
+accounting of what each layout communicates (``analysis``:
+:func:`record_collectives`, :class:`CommReport`, each step's
+``comm_report``)."""
+
+from bvc_tpu_torch.parallel.analysis import (  # noqa: F401
+    CollectiveOp,
+    CommReport,
+    UnrecordedCollective,
+    comm_report,
+    record_collectives,
+    tree_bytes,
+)
 
 from bvc_tpu_torch.parallel.collectives import (  # noqa: F401
     all_gather_grad,

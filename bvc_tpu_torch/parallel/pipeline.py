@@ -62,6 +62,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from bvc_tpu_torch.parallel.analysis import with_comm_report
 from bvc_tpu_torch.parallel.collectives import hop
 from bvc_tpu_torch.parallel.mesh import DATA_AXIS, PIPE_AXIS, Mesh, current_mesh, make_mesh
 from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig
@@ -483,4 +484,4 @@ def make_pipe_videomae_train_step(model_cfg: ModelConfig, mask_cfg: MaskConfig,
         return mean_over_ranks(summed_over_stages({"loss": loss}))
 
     step.eval_step = eval_step
-    return step
+    return with_comm_report(step)

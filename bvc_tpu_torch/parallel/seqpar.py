@@ -51,6 +51,7 @@ import torch
 
 from bvc_tpu_torch.masks.tube import tube_mask
 from bvc_tpu_torch.models.vit import layer_norm
+from bvc_tpu_torch.parallel.analysis import with_comm_report
 from bvc_tpu_torch.parallel.collectives import _summed, sum_over_ring
 from bvc_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh,
                                          current_mesh)
@@ -180,7 +181,8 @@ def _make_step(model_cfg: ModelConfig, mask_cfg: MaskConfig, grad_accum: int,
 
     step.eval_step = eval_step
     step.time_slice = frames
-    return step
+    return with_comm_report(step, "make_seq_tp_videomae_train_step" if tp
+                            else "make_seq_videomae_train_step")
 
 
 def make_seq_videomae_train_step(model_cfg: ModelConfig, mask_cfg: MaskConfig,

@@ -48,6 +48,7 @@ import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
+from bvc_tpu_torch.parallel.analysis import track_ddp
 from bvc_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS, Mesh, current_mesh,
                                          data_rank, data_size)
 
@@ -138,16 +139,27 @@ def wrap_data_parallel(module: torch.nn.Module, device: torch.device, group=None
     on CUDA, none on the CPU.  DDP broadcasts the group's first rank's
     parameters and buffers now, and its buffers again before every forward
     (``broadcast_buffers``, so a per-rank BatchNorm's running statistics
-    follow it); every parameter must take a gradient in every step
-    (``find_unused_parameters=False``)."""
+    follow it), apart from the non-persistent buffers: the position
+    tables, constants every rank computes from the config, which DDP would
+    otherwise broadcast before each step's first forward (inside the
+    accumulation loop under gradient accumulation); every parameter must
+    take a gradient in every step (``find_unused_parameters=False``).  The
+    wrapper is noted for
+    :func:`~bvc_tpu_torch.parallel.analysis.record_collectives`."""
     if not dist.is_initialized():
         raise RuntimeError("wrap_data_parallel needs an initialised process group "
                            "(bvc_tpu_torch.parallel.distributed_init)")
     device = torch.device(device)
     ids = [device.index if device.index is not None else torch.cuda.current_device()] \
         if device.type == "cuda" else None
-    return DistributedDataParallel(module, device_ids=ids, broadcast_buffers=True,
-                                   find_unused_parameters=False, process_group=group)
+    constants = [f"{prefix}{'.' if prefix else ''}{name}"
+                 for prefix, m in module.named_modules()
+                 for name in m._non_persistent_buffers_set]
+    DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(module, constants)
+    ddp = DistributedDataParallel(module, device_ids=ids, broadcast_buffers=True,
+                                  find_unused_parameters=False, process_group=group)
+    track_ddp(ddp)
+    return ddp
 
 
 # ------------------------------------------------------------------ tp

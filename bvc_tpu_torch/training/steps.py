@@ -37,7 +37,9 @@ reduced gradients, whole (:mod:`~bvc_tpu_torch.training.probes`).
 Drop-path (0 in every reference configuration) is drawn per rank from the
 rank's generator, so it differs from one process's draws at the global
 batch.  The eval steps call the model (``state.model``) rather than its
-methods, so that FSDP2's hooks gather its parameters.
+methods, so that FSDP2's hooks gather its parameters.  Every step also has
+``step.comm_report(state, *batch)``: the collectives one step issues
+(:mod:`bvc_tpu_torch.parallel.analysis`), the state left as it was.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from bvc_tpu_torch.models.jepa import target_features
 from bvc_tpu_torch.models.videomae import normalize_on_device
 from bvc_tpu_torch.objectives.contrastive import (global_info_nce, info_nce_loss,
                                                   per_replica_info_nce_sharded)
+from bvc_tpu_torch.parallel.analysis import in_accumulation, with_comm_report
 from bvc_tpu_torch.parallel.collectives import psum_scalar
 from bvc_tpu_torch.parallel.mesh import data_rank, data_size
 from bvc_tpu_torch.training.optim import apply_schedules
@@ -99,15 +102,22 @@ def _fsdp_no_sync(model):
         model.set_requires_gradient_sync(True)
 
 
+@contextlib.contextmanager
 def _sync_unless(state: TrainState, last: bool):
     """No gradient reduction for every microbatch but the last
     (``state.ddp.no_sync()``, or FSDP2's), so the gradients are reduced
-    once per optimizer step."""
+    once per optimizer step; the collectives such a microbatch issues are
+    recorded ``in_loop`` (:func:`~bvc_tpu_torch.parallel.analysis.
+    in_accumulation`)."""
     if last:
-        return contextlib.nullcontext()
+        yield
+        return
     if state.fsdp:
-        return _fsdp_no_sync(state.model)
-    return contextlib.nullcontext() if state.ddp is None else state.ddp.no_sync()
+        no_sync = _fsdp_no_sync(state.model)
+    else:
+        no_sync = contextlib.nullcontext() if state.ddp is None else state.ddp.no_sync()
+    with no_sync, in_accumulation():
+        yield
 
 
 def global_rows(draw: Callable[[int], torch.Tensor], local_batch: int) -> torch.Tensor:
@@ -206,7 +216,7 @@ def make_videomae_train_step(model_cfg: ModelConfig, mask_cfg: MaskConfig,
         return mean_over_ranks({"loss": state.model(video, mask, num_visible, attn_impl)})
 
     step.eval_step = eval_step
-    return step
+    return with_comm_report(step)
 
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
@@ -308,7 +318,7 @@ def make_jepa_train_step(model_cfg: ModelConfig, total_steps: int,
             {"loss": jepa_loss(state, *on_device(state, batch), attn_impl, train=False)})
 
     step.eval_step = eval_step
-    return step
+    return with_comm_report(step)
 
 
 def make_simclr_train_step(temperature: float = 0.1, loss_mode: str = "parity",
@@ -387,4 +397,4 @@ def make_simclr_train_step(temperature: float = 0.1, loss_mode: str = "parity",
             model.train(was_training)
 
     step.eval_step = eval_step
-    return step
+    return with_comm_report(step)

@@ -218,12 +218,13 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    variables: the DDP-wrapped VideoMAE-B step at 10's batch with
    ``grad_accum=2`` and the V-JEPA step at B=64, each against the unwrapped
    step on the same batch and masks (loss within 1e-4 relative, gradient
-   cosine >= 0.9995 per parameter tensor), the NCCL all-reduces a step
-   (every DDP bucket once, counted by a comm hook), launches equal to the
-   unwrapped step's, clips/s of both.  (b) Two ranks on the one card over
-   gloo (two processes, ``LOCAL_RANK`` 0 each): VideoMAE-B at 24 clips a
-   rank and V-JEPA at 32, against (a)'s unwrapped steps at the global batch
-   under the same limits; each rank's launches the one-GPU step's.  (c)
+   cosine >= 0.9995 per parameter tensor), launches equal to the
+   unwrapped step's, clips/s of both (3 steps a turn), then the step's
+   collectives (27).  (b) Two ranks on the one card over gloo (two
+   processes, ``LOCAL_RANK`` 0 each): VideoMAE-B at 24 clips a rank and
+   V-JEPA at 32, against the unwrapped steps at the global batch under the
+   same limits; each rank's launches the one-GPU step's: run as
+   ``replicated`` in 24's ``data=2`` job.  (c)
    ``pretrain_simclr --mesh data=1`` (3 steps) and ``compute_embeddings
    --mesh data=1 --quantize int8`` (24 ``gemm_s8`` and 12 ``flash_fwd``)
    through ``main`` under torchrun's variables.  With more than one card
@@ -236,11 +237,14 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    ``model=1``): 23's VideoMAE-B and V-JEPA steps against the unwrapped
    step (loss within 1e-4 relative, every gradient, gathered whole, at
    cosine >= 0.9995 per tensor), launches equal to the unwrapped step's,
-   clips/s of every layout in turns.  (b) Two ranks on the one card over
-   gloo: ``tp`` at ``data=1,model=2`` (each rank the whole batch and half
-   the heads), ``zero1`` and ``fsdp`` at ``data=2``, against (a)'s
-   unwrapped steps under the same limits; each rank's launches the
-   one-GPU step's.  (c) The forward and backward kernels at ``tp``'s head
+   clips/s of every layout in turns (unwrapped, the modes, unwrapped; 2
+   steps a turn).  (b) Two ranks on the one card over gloo, two jobs: at
+   ``data=1,model=2`` (each rank the whole batch) ``tp`` (half the heads a
+   rank) and ``zero1`` and ``fsdp`` with the model ranks as replicas
+   (VideoMAE-B); at ``data=2`` ``replicated`` (23 (b)), ``zero1`` and
+   ``fsdp``; each against (a)'s unwrapped steps under the same limits,
+   each rank's launches the one-GPU step's, each step's collectives (27).
+   (c) The forward and backward kernels at ``tp``'s head
    counts (``[8,160,6,64]``, ``[8,1568,3,64]``; with a key bias
    ``[64,169,6,64]``, ``[256,199,6,32]``) against their plain versions.
    (d) Each rank's bytes of parameters, gradients and optimizer state
@@ -295,15 +299,31 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    --pipe_microbatches 4`` on two gloo ranks for 3 steps: each rank's
    launches its steps', and the checkpoint whole (it loads strictly into
    the whole model, and each rank's stage equals its part of it).  (e)
-   ``zero1`` and ``fsdp`` at ``data=1,model=2`` (the model ranks replicas)
-   on two gloo ranks against (b)'s one process.
+   ``zero1`` and ``fsdp`` beside ``model``: in 24 (b).  Each stage's
+   collectives in (b) (27).
+27. Communication accounting (slice 9, ``bvc_tpu_torch.parallel.
+   analysis``), folded into the jobs above: each step's ``comm_report``
+   (the step once more, under ``record_collectives()``, its state then
+   restored), printed as one ``{"comm": ...}`` line a layout and held to
+   the JAX package's contract (``tests/test_collectives_analysis.py``),
+   byte for byte where the port's counts are exact: DDP at world 1 (23 (a))
+   and at ``data=2`` all-reduces exactly the trainable parameters' bytes,
+   every bucket once, nothing in the accumulation loop, nothing gathered,
+   scattered or broadcast; ``zero1`` adds one broadcast of every
+   parameter; ``fsdp`` gathers and reduce-scatters (HSDP at
+   ``data=1,model=2`` all-reduces over ``model``); ``tp`` all-reduces over
+   ``model``; the seq step (25 (c)) sends the ring's bytes exactly and
+   all-reduces the gradients once; each pipe stage (26 (b)) sends its hops'
+   bytes exactly and all-reduces the edge's gradients.  A layout whose
+   recording is empty fails.
 
 Every path runs with every launch count set to 0 just before it and read
 just after, and fails if a kernel other than its own launched (no SimCLR
 path launches one: each kernel's ``launches_on_simclr_paths`` is the sum of
 the counts read over them).
-Prints the host's CUDA device and CPU core counts, one JSON
-``{"trainers": {...}}`` line (14-18 and 20-26), one JSON ``{"kernels":
+Prints each phase's seconds as it ends, the host's CUDA device and CPU
+core counts, one JSON ``{"trainers": {...}}`` line (14-18 and 20-27), one
+``{"phase_seconds": {...}}`` line, one JSON ``{"kernels":
 [...]}`` line (with each kernel's ``launches_per_cli_step``,
 ``launches_per_curriculum``, ``launches_per_artifact_call``,
 ``launches_per_vit_image_embed``, ``launches_per_ddp_step``,
@@ -318,6 +338,8 @@ fails.
 from __future__ import annotations
 
 import argparse
+import copy
+import functools
 import json
 import math
 import os
@@ -1178,7 +1200,6 @@ def phase_train(card: str, profile: str | None) -> tuple[dict[str, int], int]:
     import numpy as np
     import torch
 
-    from bvc_tpu_torch.models.videomae import VideoMAEPretrain
     from bvc_tpu_torch.training.state import TrainState
     from bvc_tpu_torch.training.steps import make_videomae_train_step
     from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig
@@ -1198,7 +1219,7 @@ def phase_train(card: str, profile: str | None) -> tuple[dict[str, int], int]:
     # plain attention path from the same weights, batch and mask (both
     # states draw the mask from generators of one seed).
     video = clips(8)
-    state = TrainState.create(VideoMAEPretrain(cfg, seed=0), optim, seed=1)
+    state = TrainState.create(copy.deepcopy(base_model("videomae")), optim, seed=1)
     step = make_videomae_train_step(cfg, mask_cfg)
     reset_launches()
     metrics = step(state, video)
@@ -1210,7 +1231,7 @@ def phase_train(card: str, profile: str | None) -> tuple[dict[str, int], int]:
                 "flash_bwd_prep": layers, "flash_bwd_post": layers}
     check(launches == expected, f"expected {expected} in one step, got {launches}")
 
-    plain = TrainState.create(VideoMAEPretrain(cfg, seed=0), optim, seed=1)
+    plain = TrainState.create(copy.deepcopy(base_model("videomae")), optim, seed=1)
     plain_metrics = make_videomae_train_step(cfg, mask_cfg, attn_impl="xla")(plain, video)
     loss, plain_loss = metrics["loss"].item(), plain_metrics["loss"].item()
     rel = abs(loss - plain_loss) / abs(plain_loss)
@@ -1246,7 +1267,7 @@ def phase_train(card: str, profile: str | None) -> tuple[dict[str, int], int]:
         try:
             video = clips(B)
             ms, losses, state = time_train_steps(
-                lambda: TrainState.create(VideoMAEPretrain(cfg, seed=0), optim, seed=1),
+                lambda: TrainState.create(copy.deepcopy(base_model("videomae")), optim, seed=1),
                 step, video)
             fits = True
         except torch.cuda.OutOfMemoryError:
@@ -2093,7 +2114,6 @@ def phase_jepa_train(card: str, profile: str | None) -> dict[str, int]:
     import torch
 
     from bvc_tpu_torch.masks.multiblock import mask_collate
-    from bvc_tpu_torch.models.jepa import JEPA
     from bvc_tpu_torch.ops.attention import multi_head_attention
     from bvc_tpu_torch.training.state import TrainState
     from bvc_tpu_torch.training.steps import make_jepa_train_step
@@ -2109,7 +2129,7 @@ def phase_jepa_train(card: str, profile: str | None) -> dict[str, int]:
                 for k, x in {"video": video, **collate(B, step)}.items()}
 
     def new_state():
-        model = JEPA(cfg, seed=0)
+        model = copy.deepcopy(base_model("jepa"))
         return TrainState.create(model, optim, seed=1, target=copy.deepcopy(model.encoder))
 
     def make_step(attn_impl="auto"):
@@ -2317,9 +2337,9 @@ def timed_steps(module, factory: str) -> dict:
 
 
 def loader_alone(ds, B: int, collate=None, want: str = "packed",
-                 checked: int = CLI_ITERS) -> tuple[float, int]:
+                 checked: int = CLI_ITERS, batches: int = CLI_ITERS) -> tuple[float, int]:
     """Clips/s of the port's ``DataLoader`` alone on the card (pinned
-    buffers, side-stream copies; no step), over batches 2 .. CLI_ITERS - 1
+    buffers, side-stream copies; no step), over batches 2 .. ``batches`` - 1
     of epoch 0, with the uint8 sum of each of the first ``checked`` batches
     taken on the device held against the sum of its samples on the host (a
     pinned buffer refilled before its copy finished would break it), and
@@ -2330,7 +2350,7 @@ def loader_alone(ds, B: int, collate=None, want: str = "packed",
 
     from bvc_tpu_torch.data.loader import DataLoader
 
-    loader = DataLoader(ds, B, seed=0, max_batches=CLI_ITERS, collate_fn=collate,
+    loader = DataLoader(ds, B, seed=0, max_batches=batches, collate_fn=collate,
                         device="cuda")
     sums = []
     for i, batch in enumerate(loader.epoch(0)):
@@ -3137,7 +3157,8 @@ def phase_pretrain_cli_simclr(card: str, B: int, root: Path) -> dict:
     ds = make_dataset("simclr", cfg.data)["train"]
     host = host_frame_ms(ds)
     # one batch's host check: each of its 512 frames is decoded and augmented again
-    loader_pairs_s = loader_alone(ds, B, want="python", checked=1)[0]
+    # 8 batches: at the host's 190-220 pairs/s each takes over a second
+    loader_pairs_s = loader_alone(ds, B, want="python", checked=1, batches=8)[0]
     result = {**report_cli("simclr cli", card, B, rec, loader_pairs_s, prof, unit="pairs"),
               "augs": cfg.data.augs, "decoder": decoder, **host}
     del rec
@@ -3695,7 +3716,7 @@ def phase_vit_image(card: str) -> dict:
 DDP_LOSS_RTOL = 1e-4  # the DDP step against the unwrapped step, same batch and masks
 DDP_TENSOR_COSINE_MIN = 0.9995  # per parameter tensor
 DDP_JEPA_B = 64
-DDP_TIMED_STEPS = 10
+DDP_TIMED_STEPS = 3  # steps a turn of (a)'s timing and of the N-card runs
 DDP_SIMCLR_B = 16  # pairs a step of the SimCLR CLI at --mesh data=1
 
 
@@ -3734,6 +3755,22 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+@functools.lru_cache(maxsize=None)
+def base_model(family: str, frames: int = 0):
+    """The full-width model of ``family`` from seed 0 on the host (VideoMAE-B,
+    at ``frames`` frames when given, or :func:`jepa_config`'s V-JEPA ViT-B),
+    built once a process: building one takes seconds, and every state of a
+    phase starts from a copy of the same weights."""
+    from bvc_tpu_torch.models.jepa import JEPA
+    from bvc_tpu_torch.models.videomae import VideoMAEPretrain
+    from bvc_tpu_torch.utils.config import ModelConfig
+
+    if family == "jepa":
+        return JEPA(jepa_config()[0], seed=0)
+    cfg = ModelConfig(num_frames=frames) if frames else ModelConfig()
+    return VideoMAEPretrain(cfg, seed=0)
+
+
 def ddp_family(family: str, B: int, grad_accum: int = 1):
     """``(new_state, step, args)`` of a family's full-width step at global
     batch ``B``: VideoMAE-B with a tube mask (0.9) drawn once from a CPU
@@ -3751,7 +3788,6 @@ def ddp_family(family: str, B: int, grad_accum: int = 1):
     rng = np.random.default_rng(0)
     if family == "videomae":
         from bvc_tpu_torch.masks.tube import tube_mask
-        from bvc_tpu_torch.models.videomae import VideoMAEPretrain
         from bvc_tpu_torch.training.steps import make_videomae_train_step
         from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig
 
@@ -3764,11 +3800,10 @@ def ddp_family(family: str, B: int, grad_accum: int = 1):
                 cfg.image_size // cfg.patch_size)
         mask = tube_mask(torch.Generator().manual_seed(0), B, grid, 0.9)
         return (lambda mode="replicated": TrainState.create(
-                    VideoMAEPretrain(cfg, seed=0), optim, seed=1, param_sharding=mode),
+                    copy.deepcopy(base_model("videomae")), optim, seed=1, param_sharding=mode),
                 make_videomae_train_step(cfg, mask_cfg, grad_accum=grad_accum),
                 {"video": torch.from_numpy(video), "mask": mask})
     from bvc_tpu_torch.masks.multiblock import mask_collate
-    from bvc_tpu_torch.models.jepa import JEPA
     from bvc_tpu_torch.training.steps import make_jepa_train_step
 
     cfg, mask_cfg, optim = jepa_config()
@@ -3778,7 +3813,7 @@ def ddp_family(family: str, B: int, grad_accum: int = 1):
              {"video": video, **mask_collate(cfg, mask_cfg, seed=0)(B, 0)}.items()}
 
     def new_state(mode="replicated"):
-        model = JEPA(cfg, seed=0)
+        model = copy.deepcopy(base_model("jepa"))
         return TrainState.create(model, optim, seed=1, target=copy.deepcopy(model.encoder),
                                  param_sharding=mode)
 
@@ -3800,22 +3835,11 @@ def rank_rows(args: dict, world: int, rank: int) -> dict:
     return {k: v[rank * b:(rank + 1) * b] for k, v in args.items()}
 
 
-def step_readings(family: str, step, state, args: dict) -> dict:
-    """One step with the launch counts set to 0 just before it: its loss,
-    the launches and every parameter's gradient, whole (on the card;
-    gathered from the ranks' parts under ``fsdp`` and ``tp``: a
-    collective)."""
-    import torch
-
-    from bvc_tpu_torch.parallel.sharding import full_tensor
-
-    reset_launches()
-    metrics = ddp_call(family, step, state, args)
-    torch.cuda.synchronize()
-    launches = read_launches()
-    return {"loss": metrics["loss"].item(), "launches": launches,
-            "grads": {n: full_tensor(p, p.grad).detach().flatten().clone()
-                      for n, p in state.model.named_parameters()}}
+def step_readings(family: str, step, state, args: dict, record: bool = False) -> dict:
+    """:func:`call_readings` of one step of ``family`` on ``args`` (its
+    collectives with ``record``)."""
+    return call_readings(lambda: ddp_call(family, step, state, args), state,
+                         step.computation if record else None)
 
 
 def check_ddp_against(what: str, got: dict, want: dict) -> dict:
@@ -3838,16 +3862,64 @@ def check_ddp_against(what: str, got: dict, want: dict) -> dict:
     return {"loss_rel": rel, "min_cosine": cos[0][0], "min_cosine_tensor": cos[0][1]}
 
 
-def bucket_hook(seen: list):
-    """A DDP comm hook noting the index of each bucket it all-reduces (into
-    the last list of ``seen``) before the default all-reduce."""
-    from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
+COMM_BIG = 1024  # bytes: scalar metrics' all-reduces are smaller, gradient buffers larger
+JAX_VIDEOMAE_GRAD_MB = 376.9  # SCALING.md:79-85, JAX's HLO count of VideoMAE-B's gradients
 
-    def hook(process_group, bucket):
-        seen[-1].append(bucket.index())
-        return default_hooks.allreduce_hook(process_group, bucket)
 
-    return hook
+def ddp_args(family: str, args: dict) -> tuple:
+    """A step's positional arguments after the state (the VideoMAE step
+    takes the video and the mask, the JEPA step the batch dict)."""
+    return (args["video"], args["mask"]) if family == "videomae" else (args,)
+
+
+def comm_ops(ops) -> list[dict]:
+    """Recorded ops as dicts (what a rank process hands back)."""
+    import dataclasses
+
+    return [dataclasses.asdict(op) for op in ops]
+
+
+def comm_record(what: str, card: str, ops: list[dict], **extra) -> tuple:
+    """``(report, record)`` of a recorded step's ops; prints the record as
+    one ``{"comm": ...}`` line and fails when the recorder found nothing
+    (every layout recorded here communicates)."""
+    from bvc_tpu_torch.parallel.analysis import CollectiveOp, CommReport
+
+    report = CommReport([CollectiveOp(**op) for op in ops])
+    check(bool(report.ops), f"{what}: the recorder found no collective")
+    s = report.summary()
+    big = {k: report.bytes_for(k, COMM_BIG) for k in report.by_kind}
+    rec = {"layout": what, "card": card, **s, "bytes_of_big_ops": big,
+           "big_ops_in_loop": sum(op.payload_bytes >= COMM_BIG for op in report.loop_ops),
+           **extra}
+    print(json.dumps({"comm": rec}), flush=True)
+    return report, rec
+
+
+def check_no_big(what: str, report, *kinds: str) -> None:
+    for kind in kinds:
+        check(report.bytes_for(kind, COMM_BIG) == 0,
+              f"{what}: {report.bytes_for(kind, COMM_BIG)} bytes of {kind} of "
+              f"{COMM_BIG} bytes or more, want none")
+
+
+def check_ddp_comm(what: str, report, grad_bytes: int) -> int:
+    """DDP's contract: the all-reduces of 1024 bytes or more are the
+    gradients' bytes, each bucket once (returns the bucket count), none of
+    them inside the accumulation loop, and nothing gathered, scattered or
+    broadcast."""
+    ar = report.bytes_for("all-reduce", COMM_BIG)
+    check(ar == grad_bytes, f"{what}: all-reduces of {ar} bytes, want the gradients' "
+                            f"{grad_bytes}")
+    loop = [(op.kind, op.payload_bytes, op.line) for op in report.loop_ops
+            if op.payload_bytes >= COMM_BIG]
+    check(not loop, f"{what}: collectives inside the accumulation loop: {loop}")
+    buckets = sorted(int(op.line.split()[-1]) for op in report.ops
+                     if op.line.startswith("ddp bucket"))
+    check(buckets and buckets == list(range(len(buckets))),
+          f"{what}: buckets all-reduced a step {buckets}: want each of the buckets once")
+    check_no_big(what, report, "all-gather", "reduce-scatter", "broadcast")
+    return len(buckets)
 
 
 def steps_ms(family: str, step, state, args: dict, steps: int = DDP_TIMED_STEPS) -> float:
@@ -3867,14 +3939,16 @@ def steps_ms(family: str, step, state, args: dict, steps: int = DDP_TIMED_STEPS)
 def ddp_world1(card: str, family: str, B: int, grad_accum: int) -> tuple[dict, dict]:
     """(a) The DDP-wrapped step at world 1 over NCCL (the port's
     ``distributed_init`` from torchrun's variables) against the unwrapped
-    step on the same batch and masks; its all-reduces a step (every bucket
-    once), its launches (the unwrapped step's) and both steps' clips/s.
-    Returns (the record, the unwrapped step's readings on the host)."""
+    step on the same batch and masks; its launches (the unwrapped step's)
+    and both steps' clips/s; then its collectives (``step.comm_report``):
+    the all-reduces of 1024 bytes or more exactly the trainable parameters'
+    bytes, every bucket once, none inside the accumulation loop.  Returns
+    (the record, the unwrapped step's readings on the host)."""
     import gc
 
     import torch
 
-    from bvc_tpu_torch.parallel import distributed_init
+    from bvc_tpu_torch.parallel import distributed_init, tree_bytes
 
     new_state, step, args = ddp_family(family, B, grad_accum)
     args = {k: v.cuda() for k, v in args.items()}
@@ -3888,45 +3962,36 @@ def ddp_world1(card: str, family: str, B: int, grad_accum: int) -> tuple[dict, d
               f"world 1 on cuda: backend {torch.distributed.get_backend()}")
         state = new_state()
         check(state.ddp is not None, "no DDP wrapper under a process group")
-        seen: list[list[int]] = [[]]
-        state.ddp.register_comm_hook(None, bucket_hook(seen))
         got = step_readings(family, step, state, args)
         what = f"ddp world 1 [{family}, B={B}, grad_accum {grad_accum}]"
         record = check_ddp_against(what, got, want)
         check(got["launches"] == want["launches"],
               f"{what}: launches {got['launches']} vs the unwrapped step's {want['launches']}")
-        # timed in turns, unwrapped, DDP, DDP, unwrapped; the hook notes each
-        # DDP step's buckets into the last list of ``seen``
+        # timed in turns, unwrapped, DDP, DDP, unwrapped, before any recording
         times: dict[str, list[float]] = {"plain": [], "ddp": []}
-        buckets = []
         for turn in ("plain", "ddp", "ddp", "plain"):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(DDP_TIMED_STEPS):
-                seen.append([])
-                ddp_call(family, step, plain if turn == "plain" else state, args)
-                if turn == "ddp":
-                    buckets.append(seen[-1])
-            end.record()
-            torch.cuda.synchronize()
-            times[turn].append(start.elapsed_time(end) / DDP_TIMED_STEPS)
-        n_buckets = len(buckets[-1])
-        check(n_buckets >= 1 and all(sorted(b) == list(range(n_buckets)) for b in buckets),
-              f"{what}: buckets all-reduced a step {buckets}: want each of the buckets once")
+            times[turn].append(steps_ms(family, step, plain if turn == "plain" else state,
+                                        args))
+        grad_bytes = tree_bytes(state.model)
+        report, comm = comm_record(what, card, comm_ops(step.comm_report(
+            state, *ddp_args(family, args)).ops), grad_bytes=grad_bytes,
+            jax_grad_mb=JAX_VIDEOMAE_GRAD_MB if family == "videomae" else None)
+        n_buckets = check_ddp_comm(what, report, grad_bytes)
         del state, plain
     gc.collect()
     torch.cuda.empty_cache()
     ddp_ms, plain_ms = (sum(times[k]) / 2 for k in ("ddp", "plain"))
     record.update({"B": B, "grad_accum": grad_accum, "allreduces_per_step": n_buckets,
-                   "launches": got["launches"], "ms": ddp_ms, "plain_ms": plain_ms,
-                   "ms_turns": times["ddp"], "plain_ms_turns": times["plain"],
-                   "clips_s": B / (ddp_ms / 1e3), "plain_clips_s": B / (plain_ms / 1e3)})
-    print(f"{what} [{card}]: {n_buckets} NCCL all-reduces a step (one a bucket); launches "
-          f"equal the unwrapped step's; {record['clips_s']:.1f} clips/s "
-          f"({ddp_ms:.3f} ms; turns {times['ddp']}) against the unwrapped step's "
-          f"{record['plain_clips_s']:.1f} ({plain_ms:.3f} ms; turns {times['plain']})",
-          flush=True)
+                   "grad_bytes": grad_bytes, "comm": comm, "launches": got["launches"],
+                   "ms": ddp_ms,
+                   "plain_ms": plain_ms, "ms_turns": times["ddp"],
+                   "plain_ms_turns": times["plain"], "clips_s": B / (ddp_ms / 1e3),
+                   "plain_clips_s": B / (plain_ms / 1e3)})
+    print(f"{what} [{card}]: {n_buckets} NCCL all-reduces a step (one a bucket, "
+          f"{grad_bytes / 1e6:.1f} MB in all); launches equal the unwrapped step's; "
+          f"{record['clips_s']:.1f} clips/s ({ddp_ms:.3f} ms; turns {times['ddp']}) against "
+          f"the unwrapped step's {record['plain_clips_s']:.1f} ({plain_ms:.3f} ms; turns "
+          f"{times['plain']})", flush=True)
     want["grads"] = {n: g.cpu() for n, g in want["grads"].items()}
     return record, want
 
@@ -4021,14 +4086,13 @@ def phase_ddp(card: str, train_B: int, root: Path, simclr_jpg: str) -> dict:
     """Data parallel on the card (slice 7a).  (a) World 1 over NCCL: the
     DDP-wrapped VideoMAE-B step at ``train_B`` with ``grad_accum=2`` and the
     V-JEPA step at B=64, each against the unwrapped step on the same batch
-    and masks (loss 1e-4 relative, gradient cosine 0.9995 per tensor), the
-    NCCL all-reduces a step (each bucket once, by a comm hook), launches
-    equal to the unwrapped step's, clips/s beside it (timed in turns:
-    unwrapped, DDP, DDP, unwrapped).  (b) Two ranks on the
-    one card over gloo: VideoMAE-B at ``train_B / 2`` clips a rank and
-    V-JEPA at 32, each against one process at the global batch ((a)'s
-    unwrapped steps), under the same limits; each rank's launches the
-    one-GPU step's.  (c) The entry points at ``--mesh data=1`` under
+    and masks (loss 1e-4 relative, gradient cosine 0.9995 per tensor),
+    launches equal to the unwrapped step's, clips/s beside it (timed in
+    turns: unwrapped, DDP, DDP, unwrapped), then its collectives
+    (``comm_report``: every bucket's all-reduce once a step, the gradients'
+    bytes in all, none in the accumulation loop).  (b) Two ranks on the
+    one card over gloo run as ``replicated`` in :func:`phase_sharding`'s
+    ``data=2`` job.  (c) The entry points at ``--mesh data=1`` under
     torchrun's variables (NCCL): ``pretrain_simclr`` for 3 steps over the
     JPEGs at ``simclr_jpg`` (no kernel) and
     ``compute_embeddings --quantize int8`` (24 ``gemm_s8`` and 12
@@ -4046,23 +4110,7 @@ def phase_ddp(card: str, train_B: int, root: Path, simclr_jpg: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (b): the references are (a)'s unwrapped steps at the global batch
-    per_rank = {"videomae": train_B // 2, "jepa": DDP_JEPA_B // 2}
-    ranks = run_ddp_ranks(root, 2, list(per_rank), list(per_rank.values()), "gloo",
-                          one_card=True)
-    gloo = {}
-    for family, ref, per_step in (("videomae", videomae_ref, videomae["launches"]),
-                                  ("jepa", jepa_ref, jepa["launches"])):
-        what = f"ddp world 2 over gloo on one card [{family}, {per_rank[family]} a rank]"
-        gloo[family] = check_ddp_against(what, ranks[0][family], ref)
-        # a rank's launches: the one-GPU step's (grad_accum 1: half (a)'s at grad_accum 2)
-        want = {k: v // (2 if family == "videomae" else 1) for k, v in per_step.items()}
-        for r, out in enumerate(ranks):
-            check(out[family]["launches"] == want,
-                  f"{what}: rank {r} launched {out[family]['launches']}, want {want}")
-        gloo[family].update({"B_per_rank": per_rank[family],
-                             "launches_per_rank": ranks[0][family]["launches"]})
-    del ranks, videomae_ref, jepa_ref
+    del videomae_ref, jepa_ref
     gc.collect()
 
     # (c): the entry points at --mesh data=1, NCCL from torchrun's variables
@@ -4099,7 +4147,7 @@ def phase_ddp(card: str, train_B: int, root: Path, simclr_jpg: str) -> dict:
     print(f"ddp: phase in {wall:.1f} s", flush=True)
     return {"world1": {"videomae": {k: v for k, v in videomae.items() if k != "launches"},
                        "jepa": {k: v for k, v in jepa.items() if k != "launches"}},
-            "gloo_two_ranks": gloo, "entry_points": entry, "multi_card": multi,
+            "entry_points": entry, "multi_card": multi,
             "wall_s": wall,
             "launches": {"videomae_step": videomae["launches"], "jepa_step": jepa["launches"],
                          "int8_call": int8_launches, "simclr_stage": simclr_launches}}
@@ -4144,7 +4192,7 @@ def ddp_multi_card(card: str, n: int, B: int, root: Path) -> dict:
 
 
 SHARD_MODES = ("zero1", "fsdp", "tp")
-SHARD_TIMED_STEPS = 3  # steps a turn of (a)'s timing
+SHARD_TIMED_STEPS = 2  # steps a turn of (a)'s timing
 SHARD_JEPA_B = 64
 # the attention shapes of a tp step at model=2: each rank's heads
 SHARD_TP_SHAPES = (("VideoMAE-B encoder", (8, 160, 6, 64), None),
@@ -4178,7 +4226,7 @@ def shard_world1(card: str, family: str, B: int, grad_accum: int) -> tuple[dict,
     """(a) Each of ``zero1``, ``fsdp`` and ``tp`` (at ``model=1``) at world 1
     over NCCL against the unwrapped step on the same batch and masks (loss,
     every whole gradient, launches), then every layout's clips/s in turns
-    (unwrapped, zero1, fsdp, tp, tp, fsdp, zero1, unwrapped; CUDA events over
+    (unwrapped, zero1, fsdp, tp, unwrapped; CUDA events over
     ``SHARD_TIMED_STEPS`` steps a turn).  Returns (the records, the unwrapped
     step's readings with its gradients on the host and its state's bytes)."""
     import gc
@@ -4209,7 +4257,7 @@ def shard_world1(card: str, family: str, B: int, grad_accum: int) -> tuple[dict,
                   f"{want['launches']}")
             records[mode]["launches"] = got["launches"]
         times: dict[str, list[float]] = {k: [] for k in states}
-        for turn in ("plain", *SHARD_MODES, *SHARD_MODES[::-1], "plain"):
+        for turn in ("plain", *SHARD_MODES, "plain"):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -4221,9 +4269,9 @@ def shard_world1(card: str, family: str, B: int, grad_accum: int) -> tuple[dict,
         del states
         gc.collect()
     torch.cuda.empty_cache()
-    plain_ms = sum(times["plain"]) / 2
+    plain_ms = sum(times["plain"]) / len(times["plain"])
     for mode in SHARD_MODES:
-        ms = sum(times[mode]) / 2
+        ms = sum(times[mode]) / len(times[mode])
         records[mode].update({"ms": ms, "ms_turns": times[mode], "clips_s": B / (ms / 1e3),
                               "of_unwrapped": plain_ms / ms})
         print(f"{mode} world 1 [{family}, B={B}] [{card}]: {records[mode]['clips_s']:.1f} clips/s "
@@ -4236,33 +4284,36 @@ def shard_world1(card: str, family: str, B: int, grad_accum: int) -> tuple[dict,
     return records, want
 
 
-def shard_rank_worker(out: str, job: str, backend: str) -> None:
+def shard_rank_worker(out: str, jobs: str, backend: str) -> None:
     """One rank of a sharded run started by :func:`run_shard_ranks`
-    (torchrun's variables in the environment): the job's mesh, then for each
-    mode and family one step on this rank's data block of the global batch
-    and ``timed`` timed ones; the loss, launches, step time and state bytes
-    of every rank, and rank 0's whole gradients, to ``out``."""
+    (torchrun's variables in the environment): for each job (name -> its
+    ``mesh``, ``runs`` of ``[mode, family, global batch, grad_accum]``,
+    ``timed`` and ``comm``) the job's mesh, then for each run one step on
+    this rank's data block of the global batch (with ``comm`` its
+    collectives recorded) and ``timed`` timed ones; the loss, launches,
+    step time, state bytes and collectives of every rank, and rank 0's
+    whole gradients, to ``out``, keyed ``(job, mode, family)``."""
     import gc
 
     import torch
 
-    from bvc_tpu_torch.parallel import distributed_init, make_mesh, rank
+    from bvc_tpu_torch.parallel import distributed_init, make_mesh, rank, tree_bytes
 
-    job = json.loads(job)
     distributed_init(backend=backend)
-    mesh = make_mesh(job["mesh"])
     result: dict = {}
-    for mode in job["modes"]:
-        for family, B, grad_accum in job["families"]:
+    for name, job in json.loads(jobs).items():
+        mesh = make_mesh(job["mesh"])
+        for mode, family, B, grad_accum in job["runs"]:
             new_state, step, args = ddp_family(family, B, grad_accum)
             args = {k: v.cuda() for k, v in rank_rows(args, mesh.axis_size("data"),
                                                       mesh.coord("data")).items()}
             state = new_state(mode)
-            readings = step_readings(family, step, state, args)
+            readings = step_readings(family, step, state, args, record=job.get("comm", False))
             ms = steps_ms(family, step, state, args, job["timed"]) if job["timed"] else None
-            result[mode, family] = {
+            result[name, mode, family] = {
                 "launches": readings["launches"], "ms": ms, "loss": readings["loss"],
-                "bytes": state_bytes(state),
+                "bytes": state_bytes(state), "comm": readings["comm"],
+                "held_bytes": tree_bytes(state.model),
                 "grads": ({n: g.cpu() for n, g in readings["grads"].items()}
                           if rank() == 0 else None)}
             del state, readings
@@ -4272,25 +4323,32 @@ def shard_rank_worker(out: str, job: str, backend: str) -> None:
     torch.distributed.destroy_process_group()
 
 
-def run_shard_ranks(out_dir: Path, world: int, job: dict, backend: str,
+def run_shard_ranks(out_dir: Path, world: int, jobs: dict, backend: str,
                     one_card: bool) -> list[dict]:
-    """``world`` processes of :func:`shard_rank_worker` on ``job`` (``mesh``,
-    ``modes``, ``families`` as ``[family, global batch, grad_accum]``,
-    ``timed``); their results in rank order."""
+    """``world`` processes of :func:`shard_rank_worker` on ``jobs`` (name ->
+    ``mesh``, ``runs`` as ``[mode, family, global batch, grad_accum]``,
+    ``timed``, ``comm``), one after the other in the same processes; their
+    results in rank order."""
     out = str(out_dir / "shard")
-    return run_rank_workers(world, f"shard_rank_worker({out!r}, {json.dumps(job)!r}, "
+    return run_rank_workers(world, f"shard_rank_worker({out!r}, {json.dumps(jobs)!r}, "
                                    f"{backend!r})", out, one_card)
 
 
 def shard_two_rank_jobs(train_B: int) -> dict[str, dict]:
-    """(b)'s jobs: ``tp`` at ``data=1,model=2`` (each rank on the whole
-    batch), ``zero1`` and ``fsdp`` at ``data=2``."""
-    return {"tp": {"mesh": {"data": 1, "model": 2}, "modes": ["tp"],
-                   "families": [["videomae", train_B, 2], ["jepa", SHARD_JEPA_B, 1]],
-                   "timed": 0},
-            "zero1_fsdp": {"mesh": {"data": 2}, "modes": ["zero1", "fsdp"],
-                           "families": [["videomae", train_B, 1], ["jepa", SHARD_JEPA_B, 1]],
-                           "timed": 0}}
+    """(b)'s jobs on two ranks: at ``data=1,model=2`` (each rank on the
+    whole batch) ``tp``, and ``zero1`` and ``fsdp`` with the model ranks as
+    replicas; at ``data=2`` ``replicated`` (DDP, slice 7a), ``zero1`` and
+    ``fsdp``.  VideoMAE-B at ``train_B`` (``grad_accum=2`` on the whole
+    batch at ``data=1``, one pass of half of it at ``data=2``) and V-JEPA
+    at ``SHARD_JEPA_B`` (``replicated``, ``zero1``, ``fsdp``, ``tp``)."""
+    jepa = ["jepa", SHARD_JEPA_B, 1]
+    return {"model2": {"mesh": {"data": 1, "model": 2}, "timed": 0, "comm": True,
+                       "runs": [["tp", "videomae", train_B, 2], ["tp", *jepa],
+                                ["zero1", "videomae", train_B, 2],
+                                ["fsdp", "videomae", train_B, 2]]},
+            "data2": {"mesh": {"data": 2}, "timed": 0, "comm": True,
+                      "runs": [[mode, *fam] for mode in ("replicated", "zero1", "fsdp")
+                               for fam in (["videomae", train_B, 1], jepa)]}}
 
 
 def repeat_shard_ranks(n: int, train_B: int, root: Path) -> None:
@@ -4303,7 +4361,7 @@ def repeat_shard_ranks(n: int, train_B: int, root: Path) -> None:
         for name, job in shard_two_rank_jobs(train_B).items():
             t0 = time.perf_counter()
             ended = rank_processes(2, f"shard_rank_worker({str(root / name)!r}, "
-                                      f"{json.dumps(job)!r}, 'gloo')", one_card=True)
+                                      f"{json.dumps({name: job})!r}, 'gloo')", one_card=True)
             codes = [code for code, _ in ended]
             print(f"repeat {i + 1}/{n} {name}: exit codes {codes} in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -4314,6 +4372,45 @@ def repeat_shard_ranks(n: int, train_B: int, root: Path) -> None:
     print(f"repeat: {failed} ranks failed in {n} runs of each job (two ranks a run)",
           flush=True)
     sys.exit(1 if failed else 0)
+
+
+def check_shard_comm(what: str, card: str, mode: str, res: dict, replicas: bool) -> dict:
+    """A two-rank step's collectives (rank 0's) against JAX's contract for
+    ``mode``: ``replicated`` is DDP's (:func:`check_ddp_comm`); ``zero1``
+    all-reduces the gradients (DDP) and broadcasts each parameter once from
+    its owner (JAX: one all-gather of the parameters); ``fsdp`` gathers the
+    parameters and reduce-scatters the gradients, its shards together at
+    least the gradients' bytes, or with ``replicas`` (``data=1,model=2``:
+    HSDP with one rank a shard) all-reduces the gradients over ``model``
+    and gathers nothing; ``tp`` all-reduces activations over the two
+    ``model`` ranks and the rank's parts of the gradients over ``data``
+    (DDP).  Returns the comm record."""
+    held = res["held_bytes"]
+    report, rec = comm_record(what, card, res["comm"], held_bytes=held)
+    if mode == "replicated":
+        check_ddp_comm(what, report, held)
+    elif mode == "fsdp" and replicas:
+        ar = report.bytes_for("all-reduce", COMM_BIG)
+        check(ar == held, f"{what}: HSDP all-reduced {ar} bytes, want the gradients' {held}")
+        check_no_big(what, report, "all-gather", "reduce-scatter")
+    elif mode == "zero1":
+        check(report.bytes_for("all-reduce", COMM_BIG) == held,
+              f"{what}: all-reduces {report.bytes_for('all-reduce', COMM_BIG)}, want {held}")
+        bc = report.bytes_for("broadcast")
+        check(bc == held, f"{what}: broadcast {bc} bytes, want the parameters' {held}")
+        check_no_big(what, report, "all-gather", "reduce-scatter")
+    elif mode == "fsdp":
+        check(report.bytes_for("all-gather", COMM_BIG) > 0, f"{what}: no parameter gathers")
+        rs = report.bytes_for("reduce-scatter", COMM_BIG)
+        check(rs * 2 >= held, f"{what}: reduce-scatters of {rs} bytes a rank for {held} "
+                              "bytes of gradients over two ranks")
+    else:
+        model = [op for op in report.ops if op.group_size == 2 and op.payload_bytes >= COMM_BIG]
+        check(bool(model), f"{what}: no all-reduce over the model ranks")
+        buckets = sum(op.payload_bytes for op in report.ops if op.line.startswith("ddp bucket"))
+        check(buckets == held, f"{what}: DDP all-reduced {buckets} bytes, want the rank's "
+                               f"parts' {held}")
+    return rec
 
 
 def phase_tp_kernels() -> dict:
@@ -4365,12 +4462,6 @@ def phase_tp_kernels() -> dict:
         del o_ref, lse_ref, refs, grads
     torch.cuda.empty_cache()
     return out
-
-
-def check_rank_launches(what: str, ranks: list[dict], key, want: dict) -> None:
-    for r, res in enumerate(ranks):
-        check(res[key]["launches"] == want,
-              f"{what}: rank {r} launched {res[key]['launches']}, want {want}")
 
 
 def sharding_entry_point(root: Path, corpus: tuple[str, str], per_step: dict) -> dict:
@@ -4447,32 +4538,36 @@ def phase_sharding(card: str, train_B: int, root: Path, corpus: tuple[str, str],
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (b): tp with each rank on the whole batch; zero1 and fsdp at data=2 (gloo
-    # carries FSDP2's all_gather_into_tensor and reduce_scatter_tensor on CUDA
-    # tensors too)
+    # (b): tp, and zero1 and fsdp beside it, with each rank on the whole
+    # batch; replicated, zero1 and fsdp at data=2 (gloo carries DDP, ZeRO and
+    # FSDP2's collectives on CUDA tensors too)
+    gloo, launches, nbytes, comm = {}, {}, {}, {}
     jobs = shard_two_rank_jobs(train_B)
-    two = {"tp": run_shard_ranks(root, 2, jobs["tp"], "gloo", one_card=True)}
-    ranks = run_shard_ranks(root, 2, jobs["zero1_fsdp"], "gloo", one_card=True)
-    two.update(zero1=ranks, fsdp=ranks)
-    gloo, launches, nbytes = {}, {}, {}
-    for mode, ranks in two.items():
-        for family in ("videomae", "jepa"):
+    ranks = run_shard_ranks(root, 2, jobs, "gloo", one_card=True)
+    for name, job in jobs.items():
+        for mode, family, _, accum in job["runs"]:
+            key = f"{mode}_{family}" if name == "data2" or mode == "tp" else \
+                f"{mode}_model2_{family}"
             what = (f"{mode} over gloo, two ranks on one card "
-                    f"[{family}, {'data=1,model=2' if mode == 'tp' else 'data=2'}]")
-            gloo[f"{mode}_{family}"] = check_ddp_against(what, ranks[0][mode, family],
-                                                         refs[family])
-            want = refs[family]["launches"]
-            if mode != "tp" and family == "videomae":  # half the batch in one pass
-                want = {k: v // 2 for k, v in want.items()}
-            check_rank_launches(what, ranks, (mode, family), want)
-            launches[f"{mode}_{family}_per_rank"] = ranks[0][mode, family]["launches"]
-        nbytes[mode] = [r[mode, "videomae"]["bytes"] for r in ranks]
-    nbytes["replicated"] = [refs["videomae"]["bytes"]]
+                    f"[{family}, {'data=1,model=2' if name == 'model2' else 'data=2'}]")
+            res = [r[name, mode, family] for r in ranks]
+            gloo[key] = check_ddp_against(what, res[0], refs[family])
+            # a rank's launches: the one-GPU step's (data=2: half the batch in one pass)
+            want = {k: v * accum // (2 if family == "videomae" else 1)
+                    for k, v in refs[family]["launches"].items()}
+            for r, got in enumerate(res):
+                check(got["launches"] == want,
+                      f"{what}: rank {r} launched {got['launches']}, want {want}")
+            launches[f"{key}_per_rank"] = res[0]["launches"]
+            comm[key] = check_shard_comm(what, card, mode, res[0], replicas=name == "model2")
+            if family == "videomae" and key == f"{mode}_{family}":
+                nbytes[mode] = [got["bytes"] for got in res]
+    del ranks
+    gc.collect()
+    nbytes["one_process"] = [refs["videomae"]["bytes"]]
     gib = {m: [b["total"] / 2**30 for b in v] for m, v in nbytes.items()}
     print(f"per-rank state of VideoMAE-B (parameters, gradients, optimizer state), GiB at "
           f"world 2 [{card}]: {json.dumps(gib)}", flush=True)
-    del two, ranks
-    gc.collect()
 
     tp_kernels = phase_tp_kernels()
     entry = sharding_entry_point(root, corpus, per_step)
@@ -4486,7 +4581,8 @@ def phase_sharding(card: str, train_B: int, root: Path, corpus: tuple[str, str],
         for mode in SHARD_MODES:
             launches[f"{mode}_{family}_world1"] = world1[family][mode].pop("launches")
     return {"world1": world1, "gloo_two_ranks": gloo, "bytes": nbytes, "tp_kernels": tp_kernels,
-            "entry_point": entry, "multi_card": multi, "wall_s": wall, "launches": launches}
+            "entry_point": entry, "multi_card": multi, "wall_s": wall, "launches": launches,
+            "comm": comm}
 
 
 def shard_multi_card(card: str, n: int, B: int, root: Path) -> dict:
@@ -4518,17 +4614,18 @@ def shard_multi_card(card: str, n: int, B: int, root: Path) -> dict:
         del ref_state, args
         gc.collect()
         torch.cuda.empty_cache()
-        ranks = run_shard_ranks(root, n, {"mesh": mesh, "modes": [mode],
-                                          "families": [["videomae", global_B, B // 24]],
-                                          "timed": DDP_TIMED_STEPS}, "nccl", one_card=False)
+        ranks = run_shard_ranks(root, n, {mode: {"mesh": mesh,
+                                                 "runs": [[mode, "videomae", global_B, B // 24]],
+                                                 "timed": DDP_TIMED_STEPS}}, "nccl",
+                                one_card=False)
         what = f"{mode} world {n} over NCCL, a card a rank [videomae, {mesh}]"
-        record = check_ddp_against(what, ranks[0][mode, "videomae"], ref)
-        ms = [r[mode, "videomae"]["ms"] for r in ranks]
+        record = check_ddp_against(what, ranks[0][mode, mode, "videomae"], ref)
+        ms = [r[mode, mode, "videomae"]["ms"] for r in ranks]
         per_card = global_B / n / (max(ms) / 1e3)
         record.update({"mesh": mesh, "global_B": global_B, "ms": ms,
                        "clips_s_per_card": per_card, "clips_s": per_card * n,
                        "scaling_efficiency": per_card / one_card,
-                       "bytes": [r[mode, "videomae"]["bytes"] for r in ranks]})
+                       "bytes": [r[mode, mode, "videomae"]["bytes"] for r in ranks]})
         print(f"{what} [{card}]: {per_card:.1f} clips/s a card ({n * per_card:.1f} in all) "
               f"against one card's {one_card:.1f}: scaling efficiency "
               f"{record['scaling_efficiency']:.3f}", flush=True)
@@ -4589,11 +4686,11 @@ def seq_batch(B: int, frames: int = SEQ_FRAMES):
 def seq_state(mode: str = "replicated", frames: int = SEQ_FRAMES):
     """VideoMAE-B from seed 0 on the card, laid out by ``mode`` over the
     process's mesh."""
-    from bvc_tpu_torch.models.videomae import VideoMAEPretrain
     from bvc_tpu_torch.training.state import TrainState
 
-    cfg, _, optim = seq_config(frames)
-    return TrainState.create(VideoMAEPretrain(cfg, seed=0), optim, seed=1, param_sharding=mode)
+    optim = seq_config(frames)[2]
+    return TrainState.create(copy.deepcopy(base_model("videomae", frames)), optim, seed=1,
+                             param_sharding=mode)
 
 
 def seq_step_for(mesh, frames: int = SEQ_FRAMES):
@@ -4608,18 +4705,26 @@ def seq_step_for(mesh, frames: int = SEQ_FRAMES):
     return "replicated", make_seq_videomae_train_step(cfg, mask_cfg, mesh=mesh)
 
 
-def call_readings(call, state) -> dict:
+def call_readings(call, state, record: str | None = None) -> dict:
     """``call()`` (one step) with the launch counts set to 0 just before it:
-    its loss, launches and every parameter's whole gradient on the card."""
+    its loss, launches and every parameter's whole gradient on the card
+    (gathered from the ranks' parts under ``fsdp`` and ``tp``: a
+    collective); with ``record`` (the step's name) also the collectives the
+    step issued, as dicts under ``"comm"`` (recorded around the call alone,
+    so the gathers of the gradients are not among them)."""
+    import contextlib
+
     import torch
 
+    from bvc_tpu_torch.parallel import record_collectives
     from bvc_tpu_torch.parallel.sharding import full_tensor
 
     reset_launches()
-    metrics = call()
+    with record_collectives(record) if record else contextlib.nullcontext([]) as ops:
+        metrics = call()
     torch.cuda.synchronize()
     launches = read_launches()
-    return {"loss": metrics["loss"].item(), "launches": launches,
+    return {"loss": metrics["loss"].item(), "launches": launches, "comm": comm_ops(ops),
             "grads": {n: full_tensor(p, p.grad).detach().flatten().clone()
                       for n, p in state.model.named_parameters()}}
 
@@ -4912,7 +5017,7 @@ def seq_rank_worker(out: str, job: str, backend: str) -> None:
     environment): the job's mesh; with ``train``, one step of VideoMAE-B on
     this rank's data block and time slice of :func:`seq_batch` (loss,
     launches, peak memory, the whole gradients on rank 0), ``timed`` timed
-    steps, and the transport time of the encoder's and decoder's K/V blocks
+    steps, with ``comm`` the step's collectives, and the transport time of the encoder's and decoder's K/V blocks
     over the ring; with ``embeds``, the VideoMAE-B and V-JEPA seq embeds of
     the clips (rows and launches of a call).  Writes its result to
     ``{out}.rank{r}``."""
@@ -4922,7 +5027,7 @@ def seq_rank_worker(out: str, job: str, backend: str) -> None:
 
     from bvc_tpu_torch.models.jepa import JEPAEncoder
     from bvc_tpu_torch.models.videomae import VideoMAEEncoder
-    from bvc_tpu_torch.parallel import distributed_init, make_mesh, rank
+    from bvc_tpu_torch.parallel import distributed_init, make_mesh, rank, tree_bytes
     from bvc_tpu_torch.parallel.seqpar import seq_embed, time_slice
 
     job = json.loads(job)
@@ -4939,7 +5044,8 @@ def seq_rank_worker(out: str, job: str, backend: str) -> None:
         local = video[:, step.time_slice].cuda()
         state = seq_state(layout)
         torch.cuda.reset_peak_memory_stats()
-        readings = call_readings(lambda: step(state, local, mask), state)
+        readings = call_readings(lambda: step(state, local, mask), state,
+                                 step.computation if job.get("comm") else None)
         result["peak_bytes"] = torch.cuda.max_memory_allocated()
         result["ms"] = result["dispatch_ms"] = None
         if job["timed"]:
@@ -4947,7 +5053,8 @@ def seq_rank_worker(out: str, job: str, backend: str) -> None:
             result["dispatch_ms"] = dispatch_ms(lambda: step(state, local, mask))
         result.update(loss=readings["loss"], launches=readings["launches"],
                       grads=({n: g.cpu() for n, g in readings["grads"].items()}
-                             if rank() == 0 else None))
+                             if rank() == 0 else None),
+                      comm=readings["comm"], held_bytes=tree_bytes(state.model))
         del state, readings
         gc.collect()
         torch.cuda.empty_cache()
@@ -5003,6 +5110,41 @@ def check_seq_ranks(what: str, ranks: list[dict], want: dict, per_rank: dict) ->
     print(f"{what}: peak memory a rank {rec['peak_gib_per_rank']} GiB against one process's "
           f"{rec['peak_gib_one_process']:.2f}; K/V shift over the ring {rec['shift_ms']} ms",
           flush=True)
+    return rec
+
+
+def ring_send_bytes(cfg, S: int, b: int, mask_ratio: float) -> int:
+    """Bytes a rank of a seq ring of ``S`` sends in a step of ``b`` clips:
+    in each attention layer its K and V blocks ``S - 1`` times forward and
+    ``S - 1`` times backward, and their f32 dK and dV ``S`` times
+    (``ops/ring_attention.py``); the encoder over the rank's visible
+    tokens, the decoder over its grid."""
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    space = (cfg.image_size // cfg.patch_size) ** 2
+    sheets = cfg.num_time_steps // S
+    visible = (space - int(mask_ratio * space)) * sheets
+    total = 0
+    for n, width, layers in ((visible, cfg.hidden_size, cfg.depth),
+                             (space * sheets, cfg.decoder_hidden_size, cfg.decoder_depth)):
+        block = b * n * width
+        total += layers * (2 * (S - 1) * 2 * block * item + S * 2 * block * 4)
+    return total
+
+
+def check_seq_comm(what: str, card: str, res: dict) -> dict:
+    """The seq step's collectives (rank 0's at ``seq=2``): one gradient
+    all-reduce of the parameters' bytes (DDP over the gradient group), the
+    ring's sends byte for byte (:func:`ring_send_bytes`), nothing
+    gathered or scattered.  Returns the comm record."""
+    held = res["held_bytes"]
+    cfg, mask_cfg, _ = seq_config()
+    sends = ring_send_bytes(cfg, 2, SEQ_B, mask_cfg.mask_ratio)
+    report, rec = comm_record(what, card, res["comm"], held_bytes=held, ring_send_bytes=sends)
+    check(report.bytes_for("all-reduce", COMM_BIG) == held,
+          f"{what}: all-reduces {report.bytes_for('all-reduce', COMM_BIG)}, want {held}")
+    got = report.bytes_for("collective-permute")
+    check(got == sends, f"{what}: the ring sent {got} bytes, want {sends}")
+    check_no_big(what, report, "all-gather", "reduce-scatter", "broadcast")
     return rec
 
 
@@ -5134,10 +5276,13 @@ def phase_seqpar(card: str, root: Path, corpus: tuple[str, str], per_step: dict)
     records, launches = {}, {"world1": world1["launches"]}
     for name, world, mesh, embeds in (("seq2", 2, {"data": 1, "seq": 2}, True),
                                       ("seq2_tp2", 4, {"data": 1, "seq": 2, "model": 2}, False)):
-        job = {"mesh": mesh, "B": SEQ_B, "train": True, "embeds": embeds, "timed": 0}
+        job = {"mesh": mesh, "B": SEQ_B, "train": True, "embeds": embeds, "timed": 0,
+               "comm": name == "seq2"}
         ranks = run_seq_ranks(root, world, job, "gloo", one_card=True)
         what = f"seq over gloo, {world} ranks on one card [{mesh}, B={SEQ_B}, {SEQ_FRAMES} frames]"
         records[name] = check_seq_ranks(what, ranks, want, seq_launches(want["launches"], 2))
+        if job["comm"]:
+            records[name]["comm"] = check_seq_comm(what, card, ranks[0])
         launches[f"{name}_per_rank"] = ranks[0]["launches"]
         if embeds:
             for family, ref in embeds_want.items():
@@ -5325,12 +5470,13 @@ def pipe_rank_worker(out: str, job: str, backend: str) -> None:
     mesh, one step of VideoMAE-B on this rank's data block of
     :func:`ddp_family`'s batch (loss, launches, the stage's gradients, peak
     memory, state bytes), then ``timed`` timed steps, one step with its
-    hops timed and, on a mesh of two stages or more, the hop times.
+    hops timed, with ``comm`` the step's collectives and, on a mesh of two
+    stages or more, the hop times.
     Writes its result to ``{out}.rank{r}``."""
     import torch
 
-    from bvc_tpu_torch.parallel import distributed_init, rank
-    from bvc_tpu_torch.parallel.pipeline import make_pipe_mesh
+    from bvc_tpu_torch.parallel import distributed_init, rank, tree_bytes
+    from bvc_tpu_torch.parallel.pipeline import _stack_layer, make_pipe_mesh
 
     job = json.loads(job)
     distributed_init(backend=backend)
@@ -5341,11 +5487,14 @@ def pipe_rank_worker(out: str, job: str, backend: str) -> None:
     step = pipe_step_for(mesh, job["M"])
     torch.cuda.reset_peak_memory_stats()
     state = new_state()
-    readings = step_readings("videomae", step, state, args)
+    readings = step_readings("videomae", step, state, args, record=job.get("comm", False))
     result = {"coords": mesh.coords, "loss": readings["loss"], "launches": readings["launches"],
               "grads": {n: g.cpu() for n, g in readings["grads"].items()},
               "peak_bytes": torch.cuda.max_memory_allocated(), "bytes": state_bytes(state),
-              "ms": None, "wait_share": None, "hop_ms": None}
+              "ms": None, "wait_share": None, "hop_ms": None, "comm": readings["comm"],
+              "held_bytes": tree_bytes(state.model),
+              "edge_bytes": tree_bytes(p for n, p in state.model.named_parameters()
+                                       if _stack_layer(n) is None)}
     if job["timed"]:
         result["ms"] = steps_ms("videomae", step, state, args, job["timed"])
         result["wait_share"], result["instrumented_ms"] = hop_wait_share(step, state, args)
@@ -5390,6 +5539,30 @@ def check_pipe_ranks(what: str, ranks: list[dict], want: dict, per_rank: dict) -
           f"{rec['peak_gib_one_process']:.3f}; state a rank {rec['state_gib_per_rank']} GiB "
           f"against one process's {rec['state_gib_one_process']:.3f}; a hop {rec['hop_ms']} "
           f"ms; share of a step waiting in hops {rec['wait_share_per_rank']}", flush=True)
+    return rec
+
+
+def check_pipe_comm(what: str, card: str, res: dict) -> dict:
+    """A stage's collectives at ``data=1,pipe=2``: its hops byte for byte
+    (the activations of each microbatch to the next stage, or their
+    gradients back, and the relay between the stacks: ``b (2 V D + N Dd)``
+    in bf16 either way), one all-reduce of the edge parameters' gradients
+    over ``pipe`` and none over ``data`` (one rank), nothing gathered or
+    scattered.  Returns the comm record."""
+    from bvc_tpu_torch.utils.config import ModelConfig
+
+    cfg = ModelConfig()
+    space = (cfg.image_size // cfg.patch_size) ** 2
+    visible = cfg.seq_len - int(0.9 * space) * cfg.num_time_steps
+    hops = PIPE_B * (2 * visible * cfg.hidden_size + cfg.seq_len * cfg.decoder_hidden_size) * 2
+    report, rec = comm_record(what, card, res["comm"], edge_bytes=res["edge_bytes"],
+                              held_bytes=res["held_bytes"], hop_bytes=hops)
+    got = report.bytes_for("collective-permute")
+    check(got == hops, f"{what}: the hops sent {got} bytes, want {hops}")
+    ar = report.bytes_for("all-reduce", COMM_BIG)
+    check(ar == res["edge_bytes"], f"{what}: all-reduces {ar}, want the edge's "
+                                   f"{res['edge_bytes']}")
+    check_no_big(what, report, "all-gather", "reduce-scatter", "broadcast")
     return rec
 
 
@@ -5504,32 +5677,8 @@ def pipe_entry_point(root: Path, corpus: tuple[str, str], per_step: dict) -> dic
     return {"losses": losses, "wall_s": wall}
 
 
-def pipe_replica_shards(root: Path, want: dict, B: int) -> dict:
-    """(e) ``zero1`` and ``fsdp`` at ``data=1,model=2`` on two gloo ranks
-    on the card (the model ranks replicas, each on the whole batch)
-    against the unwrapped step under the DDP limits, launches equal;
-    each rank's state bytes."""
-    job = {"mesh": {"data": 1, "model": 2}, "modes": ["zero1", "fsdp"],
-           "families": [["videomae", B, 1]], "timed": 0}
-    ranks = run_shard_ranks(root, 2, job, "gloo", one_card=True)
-    out = {}
-    for mode in job["modes"]:
-        what = f"{mode} beside model=2 over gloo, 2 ranks on one card [B={B}]"
-        got = ranks[0][mode, "videomae"]
-        rec = check_ddp_against(what, got, want)
-        for r, res in enumerate(ranks):
-            check(res[mode, "videomae"]["launches"] == want["launches"],
-                  f"{what}: rank {r} launched {res[mode, 'videomae']['launches']}")
-        rec.update(launches=got["launches"],
-                   state_gib_per_rank=[res[mode, "videomae"]["bytes"]["total"] / 2**30
-                                       for res in ranks])
-        print(f"{what}: state a rank {rec['state_gib_per_rank']} GiB", flush=True)
-        out[mode] = rec
-    return out
-
-
 def phase_pipeline(card: str, root: Path, corpus: tuple[str, str], per_step: dict) -> dict:
-    """Pipeline parallelism on the card (slice 7d), (a)-(e) of the module's
+    """Pipeline parallelism on the card (slice 7d), (a)-(d) of the module's
     item 26.  Returns the records and, under ``"launches"``, each run's
     counts."""
     import gc
@@ -5541,10 +5690,13 @@ def phase_pipeline(card: str, root: Path, corpus: tuple[str, str], per_step: dic
     check(want["launches"] == per_step,
           f"the unwrapped step at B={PIPE_B} launched {want['launches']}, want {per_step}")
     world1 = pipe_world1(card, want, PIPE_B)
-    job = {"data": 1, "pipe": 2, "B": PIPE_B, "M": PIPE_M, "timed": PIPE_TIMED_STEPS}
+    job = {"data": 1, "pipe": 2, "B": PIPE_B, "M": PIPE_M, "timed": PIPE_TIMED_STEPS,
+           "comm": True}
     ranks = run_pipe_ranks(root, 2, job, "gloo", one_card=True)
     what = f"pipe over gloo, 2 ranks on one card [data=1,pipe=2, B={PIPE_B}, M={PIPE_M}]"
     gloo = check_pipe_ranks(what, ranks, want, pipe_launches(per_step, PIPE_M, 2))
+    gloo["comm"] = [check_pipe_comm(f"{what}, stage {r}", card, res)
+                    for r, res in enumerate(ranks)]
     gloo["bubble"] = pipe_bubble(2, PIPE_M)
     print(f"{what} [{card}]: step {max(gloo['ms_per_rank']):.1f} ms on the slower rank "
           f"against one process's {want['ms']:.1f}; waiting in hops "
@@ -5553,20 +5705,17 @@ def phase_pipeline(card: str, root: Path, corpus: tuple[str, str], per_step: dic
     del ranks
     gc.collect()
     entry = pipe_entry_point(root, corpus, pipe_launches(per_step, PIPE_M, 2))
-    replicas = pipe_replica_shards(root, want, PIPE_B)
     multi = None
     n_cards = torch.cuda.device_count()
     if n_cards > 1:
         multi = pipe_multi_card(card, n_cards, root, want)
     wall = time.perf_counter() - t0
     print(f"pipeline: phase in {wall:.1f} s", flush=True)
-    return {"world1": world1, "gloo": gloo, "entry_point": entry, "replicas": replicas,
+    return {"world1": world1, "gloo": gloo, "entry_point": entry,
             "one_process": {"peak_gib": want["peak_bytes"] / 2**30,
                             "state_gib": want["bytes"]["total"] / 2**30, "ms": want["ms"]},
             "multi_card": multi, "wall_s": wall,
-            "launches": {"world1": world1["launches"], "pipe2_per_rank": gloo["launches_per_rank"],
-                         "zero1_model2": replicas["zero1"]["launches"],
-                         "fsdp_model2": replicas["fsdp"]["launches"]}}
+            "launches": {"world1": world1["launches"], "pipe2_per_rank": gloo["launches_per_rank"]}}
 
 
 def pipe_multi_card(card: str, n: int, root: Path, want16: dict | None = None) -> dict:
@@ -5604,6 +5753,22 @@ def pipe_multi_card(card: str, n: int, root: Path, want16: dict | None = None) -
         del ranks
         gc.collect()
     return out
+
+
+class PhaseClock:
+    """Calls a phase and notes its wall seconds under its name
+    (``seconds``, in call order)."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+
+    def __call__(self, name: str, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            self.seconds[name] = time.perf_counter() - t0
+            print(f"{name}: {self.seconds[name]:.1f} s", flush=True)
 
 
 def main() -> None:
@@ -5667,41 +5832,49 @@ def main() -> None:
               if ops else "not measured (no cuobjdump)"), flush=True)
     print(f"SM clock (clocks.max.sm) {sm_clock_mhz():.0f} MHz, "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs", flush=True)
-    phase_attn_tile()
-    phase_bwd_tile()
-    flash = phase_kernel()
-    bwd = phase_bwd_kernel()
-    bias = phase_bias_kernel()
-    gemm = phase_gemm_kernel()
-    probe = phase_softmax_probe_kernel()
-    int8_probe = probe_path("int8 dot", int8_dot.run, {"gemm_s8", "gemm_bf16"})
-    softmax_probe = probe_path("softmax dtype", softmax_dtype.run, {"softmax_probe_fwd"})
-    embed_launches, embed_B = phase_main_path(smi, args.profile)
-    w8a8_launches = phase_w8a8(smi, args.profile)
-    train_launches, train_B = phase_train(smi, args.profile)
-    jepa_embed_launches = phase_jepa_embed(smi)
-    jepa_launches = phase_jepa_train(smi, args.profile)
-    phase_entry_point()
+    phase = PhaseClock()
+    phase("phase_attn_tile", phase_attn_tile)
+    phase("phase_bwd_tile", phase_bwd_tile)
+    flash = phase("phase_kernel", phase_kernel)
+    bwd = phase("phase_bwd_kernel", phase_bwd_kernel)
+    bias = phase("phase_bias_kernel", phase_bias_kernel)
+    gemm = phase("phase_gemm_kernel", phase_gemm_kernel)
+    probe = phase("phase_softmax_probe_kernel", phase_softmax_probe_kernel)
+    int8_probe = phase("probe_path int8", probe_path, "int8 dot", int8_dot.run,
+                       {"gemm_s8", "gemm_bf16"})
+    softmax_probe = phase("probe_path softmax", probe_path, "softmax dtype", softmax_dtype.run,
+                          {"softmax_probe_fwd"})
+    embed_launches, embed_B = phase("phase_main_path", phase_main_path, smi, args.profile)
+    w8a8_launches = phase("phase_w8a8", phase_w8a8, smi, args.profile)
+    train_launches, train_B = phase("phase_train", phase_train, smi, args.profile)
+    jepa_embed_launches = phase("phase_jepa_embed", phase_jepa_embed, smi)
+    jepa_launches = phase("phase_jepa_train", phase_jepa_train, smi, args.profile)
+    phase("phase_entry_point", phase_entry_point)
     with tempfile.TemporaryDirectory() as d:
-        export = phase_export(smi, embed_B, Path(d))
-    vit_image = phase_vit_image(smi)
+        export = phase("phase_export", phase_export, smi, embed_B, Path(d))
+    vit_image = phase("phase_vit_image", phase_vit_image, smi)
     with tempfile.TemporaryDirectory() as d:
-        corpus = write_corpus(Path(d))
-        cli = phase_pretrain_cli_videomae(smi, corpus, train_B, train_launches)
-        jepa_cli = phase_pretrain_cli_jepa(smi, corpus, 64, jepa_launches)
-        sharding = phase_sharding(smi, train_B, Path(d), corpus, train_launches)
-        seqpar = phase_seqpar(smi, Path(d), corpus, train_launches)
-        pipeline = phase_pipeline(smi, Path(d), corpus, train_launches)
-    remat = phase_remat(smi, train_B)
-    simclr_step = phase_simclr_step(smi)
-    simclr_rate = phase_simclr_rate(smi)
-    simclr_embed = phase_simclr_embed(smi)
+        corpus = phase("write_corpus", write_corpus, Path(d))
+        cli = phase("phase_pretrain_cli_videomae", phase_pretrain_cli_videomae, smi, corpus,
+                    train_B, train_launches)
+        jepa_cli = phase("phase_pretrain_cli_jepa", phase_pretrain_cli_jepa, smi, corpus, 64,
+                         jepa_launches)
+        sharding = phase("phase_sharding", phase_sharding, smi, train_B, Path(d), corpus,
+                         train_launches)
+        seqpar = phase("phase_seqpar", phase_seqpar, smi, Path(d), corpus, train_launches)
+        pipeline = phase("phase_pipeline", phase_pipeline, smi, Path(d), corpus, train_launches)
+    remat = phase("phase_remat", phase_remat, smi, train_B)
+    simclr_step = phase("phase_simclr_step", phase_simclr_step, smi)
+    simclr_rate = phase("phase_simclr_rate", phase_simclr_rate, smi)
+    simclr_embed = phase("phase_simclr_embed", phase_simclr_embed, smi)
     with tempfile.TemporaryDirectory() as d:
-        simclr_cli = phase_pretrain_cli_simclr(smi, simclr_rate["B"], Path(d))
-        ddp = phase_ddp(smi, train_B, Path(d), str(Path(d) / "simclr_corpus"))
+        simclr_cli = phase("phase_pretrain_cli_simclr", phase_pretrain_cli_simclr, smi,
+                           simclr_rate["B"], Path(d))
+        ddp = phase("phase_ddp", phase_ddp, smi, train_B, Path(d),
+                    str(Path(d) / "simclr_corpus"))
     with tempfile.TemporaryDirectory() as d:
-        curriculum = phase_curriculum(smi, Path(d), train_launches, embed_launches,
-                                      jepa_launches, w8a8_launches["jepa"])
+        curriculum = phase("phase_curriculum", phase_curriculum, smi, Path(d), train_launches,
+                           embed_launches, jepa_launches, w8a8_launches["jepa"])
 
     # launches: per step of the path that runs the kernel most (VideoMAE
     # training for the unmasked kernels, JEPA training for the key-bias
@@ -5778,8 +5951,9 @@ def main() -> None:
         r["launches_per_ddp_step"] = {
             "videomae_world1_grad_accum2": ddp_launches["videomae_step"][r["name"]],
             "jepa_world1": ddp_launches["jepa_step"][r["name"]],
-            **{f"{k}_per_gloo_rank": v["launches_per_rank"][r["name"]]
-               for k, v in ddp["gloo_two_ranks"].items()},
+            **{f"{family}_per_gloo_rank":
+               shard_launches[f"replicated_{family}_per_rank"][r["name"]]
+               for family in ("videomae", "jepa")},
             "int8_call_mesh_data1": ddp_launches["int8_call"][r["name"]],
             "simclr_stage_mesh_data1": ddp_launches["simclr_stage"][r["name"]]}
         r["launches_per_sharded_step"] = {k: v[r["name"]] for k, v in shard_launches.items()}
@@ -5809,6 +5983,7 @@ def main() -> None:
                                **{k: {f: v for f, v in curriculum[k].items() if f != "launches"}
                                   for k in runs}}}
     print(json.dumps({"trainers": trainers}), flush=True)
+    print(json.dumps({"phase_seconds": phase.seconds}), flush=True)
     check(all(math.isfinite(r[k]) for r in records
               for k in ("max_abs_err", "ms", "plain_ms", "bound_ms"))
           and all(r["library_ms"] is None or math.isfinite(r["library_ms"]) for r in records),

@@ -14,8 +14,9 @@ import pytest
 import torch
 
 import bvc_tpu_torch
-from bvc_tpu_torch.cli import (compute_embeddings, export_serving, pretrain_jepa,
-                               pretrain_simclr, pretrain_videomae, run_curriculum)
+from bvc_tpu_torch.cli import (analyze_collectives, compute_embeddings, export_serving,
+                               pretrain_jepa, pretrain_simclr, pretrain_videomae,
+                               run_curriculum)
 from bvc_tpu_torch.data.loader import DataLoader
 from bvc_tpu_torch.evalbench import extract
 from bvc_tpu_torch.masks.multiblock import mask_collate
@@ -56,6 +57,8 @@ SLICE_7A = ["parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py
 SLICE_7C = ["ops/ring_attention.py", "parallel/seqpar.py", "ops/attention.py",
             "models/videomae.py", "models/jepa.py"]
 SLICE_7D = ["parallel/pipeline.py", "parallel/collectives.py", "cli/dryrun_multichip.py"]
+# communication accounting: the recorder and its CLI
+SLICE_9 = ["parallel/analysis.py", "cli/analyze_collectives.py"]
 
 
 def test_slice_8a_modules_are_checked():
@@ -76,6 +79,10 @@ def test_slice_7c_modules_are_checked():
 
 def test_slice_7d_modules_are_checked():
     assert {PACKAGE / name for name in SLICE_7D} <= set(PY_FILES)
+
+
+def test_slice_9_modules_are_checked():
+    assert {PACKAGE / name for name in SLICE_9} <= set(PY_FILES)
 
 
 def test_import_pulls_in_no_jax_and_no_bvc_tpu():
@@ -154,7 +161,8 @@ def test_no_silent_cpu_default_jepa(monkeypatch):
                                    "pretrain_jepa.main", "DataLoader", "run_simclr",
                                    "pretrain_simclr.main", "compute_embeddings.main",
                                    "run_curriculum.main", "export_serving.main",
-                                   "export_embed", "load_artifact"])
+                                   "export_embed", "load_artifact",
+                                   "analyze_collectives.main"])
 def test_no_silent_cpu_default_training_loop(entry, monkeypatch, tmp_path):
     """The training loop's and extraction's entry points refuse to fall back
     to the CPU: with no GPU and no device named they raise before any work."""
@@ -178,6 +186,7 @@ def test_no_silent_cpu_default_training_loop(entry, monkeypatch, tmp_path):
              "export_embed": lambda: export_embed(
                  "videomae", torch.nn.Linear(1, 1), ModelConfig()),
              "load_artifact": lambda: load_artifact(tmp_path / "art"),
+             "analyze_collectives.main": lambda: analyze_collectives.main(["--n", "2"]),
              "DataLoader": lambda: DataLoader(list(range(8)), 4, device=None)}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
