@@ -41,8 +41,9 @@ from bvc_tpu_torch.cli.common import run_local_ranks
 TINY = dict(image_size=32, patch_size=8, num_frames=4, tubelet_size=2, hidden_size=32,
             depth=2, num_heads=4, decoder_hidden_size=16, decoder_depth=1,
             decoder_num_heads=2, dtype="float32")
-# on the cards: bf16 and head width 64, the flash kernels' (the seq ring runs
-# them whatever the length)
+# on the cards: bf16 and head width 64, so that the seq ring's hops run the
+# flash kernels (the other layouts' sequences, at most 32 tokens, are below
+# FLASH_MIN_TOKENS and take plain attention either way)
 TINY_CARD = {**TINY, "hidden_size": 128, "num_heads": 2, "decoder_hidden_size": 64,
              "decoder_num_heads": 1, "dtype": "bfloat16"}
 

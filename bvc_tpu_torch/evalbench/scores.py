@@ -4,22 +4,27 @@ of :mod:`bvc_tpu.evalbench.scores`).
 The notebook's ``get_nn_score`` / ``get_separability_score``
 (``notebooks/EvaluateEmbeddings.ipynb`` cell 5): top-k in {1,5,10,20,50}
 retrieval accuracy under cosine/euclidean distance, and a StandardScaler +
-SGDClassifier probe with the reference's hyperparameters (hinge loss, L2
-alpha 1e-4, the 'optimal' learning rate, max_iter 5000, tol 1e-4, one
-binary classifier per class beyond two, shuffled each epoch, no
-``random_state``).
+linear classifier probe with the reference's hyperparameters:
+``method="sgd"`` an SGDClassifier (hinge loss, L2 alpha 1e-4, the 'optimal'
+learning rate, max_iter 5000, tol 1e-4, one binary classifier per class
+beyond two, shuffled each epoch, no ``random_state``), ``method="svm"`` a
+LinearSVC (squared hinge, L2, C 1, tol 1e-4, max_iter 1000, one-vs-rest,
+``random_state=0``).
 
 The JAX package calls scikit-learn for these.  The port carries the same
 algorithms, step for step, so that it scores where scikit-learn is not
 installed: LabelEncoder, StandardScaler, the pairwise distances and
-``train_test_split`` in numpy, and SGDClassifier's plain SGD (hinge loss,
-xorshift shuffle, scaled weight vector) in C++, ``native/sgd.cpp``, built
-with ``g++`` at first use.  The tests hold the results equal to the JAX
-package's.  As in scikit-learn the one-vs-rest fits run on ``n_jobs``
-threads, and their shuffle seeds are drawn from numpy's global generator
-when there is no ``random_state``: seed ``np.random`` before a call to repeat
-it.  ``method="svm"`` (liblinear's LinearSVC) is not carried: no evaluator
-calls it.
+``train_test_split`` in numpy; SGDClassifier's plain SGD (hinge loss,
+xorshift shuffle, scaled weight vector) in C++, ``native/sgd.cpp``; and
+liblinear's LinearSVC solvers (dual coordinate descent when there are fewer
+rows than features, else the primal trust-region Newton method) in C++,
+``native/linear_svc.cpp``; both built with ``g++`` at first use.  The
+primal solver sums with scipy's BLAS, as scikit-learn's does, so the 'svm'
+probe needs scipy.  The tests hold the results equal to the JAX package's.
+As in scikit-learn the SGD one-vs-rest fits run on ``n_jobs`` threads, and
+their shuffle seeds are drawn from numpy's global generator when there is
+no ``random_state``: seed ``np.random`` before a call to repeat it.  The SVM
+fit draws its seed from ``random_state=0`` and repeats without.
 """
 
 from __future__ import annotations
@@ -40,6 +45,13 @@ SGD_ALPHA = 1e-4
 SGD_MAX_ITER = 5000
 SGD_TOL = 1e-4
 SGD_N_ITER_NO_CHANGE = 5
+# LinearSVC(random_state=0, tol=1e-4) and the defaults it keeps
+SVM_C = 1.0
+SVM_TOL = 1e-4
+SVM_MAX_ITER = 1000
+SVM_INTERCEPT_SCALING = 1.0
+SVM_RANDOM_STATE = 0
+METHODS = ("sgd", "svm")
 _MAX_INT = np.iinfo(np.int32).max
 _EPS = np.finfo(np.float64).eps
 
@@ -135,23 +147,54 @@ class StandardScaler:
         return x
 
 
-_sgd_lib = None
+class ConvergenceWarning(UserWarning):
+    """scikit-learn's warning of a fit that reached ``max_iter``."""
 
 
-def _sgd_library() -> ctypes.CDLL:
-    """``native/sgd.cpp``, built at first use."""
-    global _sgd_lib
-    if _sgd_lib is None:
+_ENTRY_ARGS = {
+    "bvc_sgd": ("bvc_sgd_hinge", [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                                  ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int] + [ctypes.c_void_p] * 3),
+    "bvc_linear_svc": ("bvc_linear_svc", [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                          ctypes.c_void_p, ctypes.c_int32, ctypes.c_double,
+                                          ctypes.c_double, ctypes.c_int, ctypes.c_uint32,
+                                          ctypes.c_int, ctypes.c_double, ctypes.c_int]
+                       + [ctypes.c_void_p] * 3),
+}
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _native_fit(name: str):
+    """The fit function of ``native/``'s library ``name``, built at first
+    use."""
+    if name not in _libs:
         from bvc_tpu_torch.native.build import build
 
-        lib = ctypes.CDLL(str(build(verbose=False, name="bvc_sgd")))
-        lib.bvc_sgd_hinge.restype = ctypes.c_int
-        lib.bvc_sgd_hinge.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int64, ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int] + [ctypes.c_void_p] * 3)
-        _sgd_lib = lib
-    return _sgd_lib
+        lib = ctypes.CDLL(str(build(verbose=False, name=name)))
+        entry, argtypes = _ENTRY_ARGS[name]
+        fn = getattr(lib, entry)
+        fn.restype, fn.argtypes = ctypes.c_int, argtypes
+        _libs[name] = lib
+    return getattr(_libs[name], _ENTRY_ARGS[name][0])
+
+
+def _scipy_blas() -> ctypes.Array:
+    """The addresses of scipy's ddot, dnrm2, daxpy and dscal, the BLAS that
+    scikit-learn hands liblinear's TRON."""
+    try:
+        from scipy.linalg import cython_blas
+    except ImportError as e:
+        raise ImportError("the 'svm' probe needs scipy: its primal solver sums with "
+                          "scipy's BLAS, as scikit-learn's does") from e
+    name, pointer = ctypes.pythonapi.PyCapsule_GetName, ctypes.pythonapi.PyCapsule_GetPointer
+    name.restype, name.argtypes = ctypes.c_char_p, [ctypes.py_object]
+    pointer.restype, pointer.argtypes = ctypes.c_void_p, [ctypes.py_object, ctypes.c_char_p]
+    fns = (ctypes.c_void_p * 4)()
+    for i, fn in enumerate(("ddot", "dnrm2", "daxpy", "dscal")):
+        capsule = cython_blas.__pyx_capi__[fn]
+        fns[i] = pointer(capsule, name(capsule))
+    return fns
 
 
 def _threads(n_jobs: int | None) -> int:
@@ -162,7 +205,18 @@ def _threads(n_jobs: int | None) -> int:
     return max(1, (os.cpu_count() or 1) + 1 + n_jobs if n_jobs < 0 else n_jobs)
 
 
-class SGDClassifier:
+class _LinearClassifier:
+    """``coef_`` [k, d] and ``intercept_`` [k] (k = 1 for two classes) of
+    the sorted ``classes_``; the prediction is LinearClassifierMixin's."""
+
+    def predict(self, x: np.ndarray) -> np.ndarray:
+        scores = x @ self.coef_.T + self.intercept_
+        if scores.shape[1] == 1:
+            return self.classes_[(scores.reshape(-1) > 0).astype(int)]
+        return self.classes_[scores.argmax(axis=1)]
+
+
+class SGDClassifier(_LinearClassifier):
     """Linear SVM by plain SGD (``native/sgd.cpp``), one-vs-rest beyond two
     classes; the binary fits run on ``n_jobs`` threads."""
 
@@ -191,7 +245,7 @@ class SGDClassifier:
         seeds = np.asarray(seeds, dtype=np.uint32)
         coef, intercept = np.empty((k, d)), np.empty(k)
         epochs = np.empty(k, dtype=np.intc)
-        _sgd_library().bvc_sgd_hinge(
+        _native_fit("bvc_sgd")(
             x.ctypes.data, n, d, labels.ctypes.data, seeds.ctypes.data, k, SGD_ALPHA, SGD_TOL,
             SGD_MAX_ITER, SGD_N_ITER_NO_CHANGE, _threads(self.n_jobs), coef.ctypes.data,
             intercept.ctypes.data, epochs.ctypes.data)
@@ -204,22 +258,59 @@ class SGDClassifier:
             warnings.warn("Maximum number of iteration reached before convergence.")
         return self
 
-    def predict(self, x: np.ndarray) -> np.ndarray:
-        scores = x @ self.coef_.T + self.intercept_
-        if scores.shape[1] == 1:
-            return self.classes_[(scores.reshape(-1) > 0).astype(int)]
-        return self.classes_[scores.argmax(axis=1)]
 
-
-class LinearProbe:
-    """StandardScaler then SGDClassifier, as the reference's pipeline."""
+class LinearSVC(_LinearClassifier):
+    """liblinear's L2-regularised squared-hinge SVM (``native/
+    linear_svc.cpp``), one-vs-rest beyond two classes, the intercept a
+    regularised extra feature: the dual solver when there are fewer rows
+    than features (``dual="auto"``), else the primal one, whose binary fits
+    run on ``n_jobs`` threads and whose level-1 BLAS is scipy's, as
+    scikit-learn's is: without scipy the fit raises ImportError."""
 
     def __init__(self, n_jobs: int | None = None):
         self.n_jobs = n_jobs
 
+    def fit(self, x: np.ndarray, y: np.ndarray) -> "LinearSVC":
+        x = np.ascontiguousarray(x, dtype=np.float64)
+        self.classes_, codes = np.unique(y, return_inverse=True)
+        if len(self.classes_) < 2:
+            raise ValueError("This solver needs samples of at least 2 classes in the data, "
+                             f"but the data contains only one class: {self.classes_[0]!r}")
+        (n, d), k = x.shape, len(self.classes_)
+        self.dual_ = n < d
+        # _fit_liblinear's draw from check_random_state(random_state)
+        seed = np.random.RandomState(SVM_RANDOM_STATE).randint(np.iinfo("i").max)
+        problems = 1 if k == 2 else k
+        raw = np.empty((problems, d + 1))
+        n_iter = np.empty(problems, dtype=np.intc)
+        codes = np.ascontiguousarray(codes, dtype=np.int32)
+        _native_fit("bvc_linear_svc")(
+            x.ctypes.data, n, d, codes.ctypes.data, k, SVM_C, SVM_TOL, SVM_MAX_ITER, seed,
+            int(self.dual_), SVM_INTERCEPT_SCALING, _threads(self.n_jobs), _scipy_blas(),
+            raw.ctypes.data, n_iter.ctypes.data)
+        raw = np.asfortranarray(raw)  # liblinear's layout, which the prediction's product reads
+        self.coef_ = raw[:, :-1]
+        self.intercept_ = SVM_INTERCEPT_SCALING * raw[:, -1]
+        self.n_iter_ = int(n_iter.max())
+        if self.n_iter_ >= SVM_MAX_ITER:
+            warnings.warn("Liblinear failed to converge, increase the number of iterations.",
+                          ConvergenceWarning)
+        return self
+
+
+class LinearProbe:
+    """StandardScaler then SGDClassifier (``method="sgd"``) or LinearSVC
+    (``"svm"``), as the reference's pipelines."""
+
+    def __init__(self, n_jobs: int | None = None, method: str = "sgd"):
+        if method not in METHODS:
+            raise ValueError(f"unknown method {method!r}")
+        self.n_jobs, self.method = n_jobs, method
+
     def fit(self, x, y) -> "LinearProbe":
         self.scaler = StandardScaler().fit(x)
-        self.clf = SGDClassifier(self.n_jobs).fit(self.scaler.transform(x), y)
+        cls = SGDClassifier if self.method == "sgd" else LinearSVC
+        self.clf = cls(self.n_jobs).fit(self.scaler.transform(x), y)
         return self
 
     def predict(self, x) -> np.ndarray:
@@ -273,11 +364,10 @@ def get_separability_score(
     ret_preds: bool = False,
     n_jobs: int = 8,
 ):
-    """Linear-probe train/test accuracy (notebook cell 5); the one-vs-rest
-    fits run on ``n_jobs`` threads, as the reference's do."""
-    if method != "sgd":
-        raise ValueError(f"unknown method {method!r}: the port carries the 'sgd' probe "
-                         "only (no evaluator calls 'svm')")
+    """Linear-probe train/test accuracy (notebook cell 5), ``method``
+    "sgd" or "svm"; the one-vs-rest fits run on ``n_jobs`` threads, as the
+    reference's SGD fits do.  An unknown ``method`` raises once the labels
+    are encoded and split, as in the JAX package."""
     if df_test is not None:
         _, y_train, y_test = _label_encode(df_train[label], df_test[label])
     else:
@@ -291,7 +381,7 @@ def get_separability_score(
             x_train, y_train, test_size=0.33, random_state=42
         )
 
-    clf = LinearProbe(n_jobs).fit(x_train, y_train)
+    clf = LinearProbe(n_jobs, method).fit(x_train, y_train)
     train_score = clf.score(x_train, y_train)
     test_score = clf.score(x_test, y_test)
     if ret_preds:

@@ -216,3 +216,20 @@ class Blocks(nn.Module):
             else:
                 x = layer(x, attn_impl, bias, keep, keep_prob)
         return x
+
+
+def block_attention_probs(block: Block, x: torch.Tensor) -> torch.Tensor:
+    """Attention probabilities ``[B, h, N, N]`` (f32) of one block on ``x``
+    ``[B, N, D]``: the reference's ``Block.forward(return_attention=True)``
+    introspection path (``vision_transformer.py:225-228``), used for
+    attention-map visualisation.  LN1, ``qkv`` through :func:`_dense` (a
+    :class:`~bvc_tpu_torch.ops.quant.QuantLinear` through ``qdense``), f32
+    scores times ``d^-0.5`` and a softmax; plain torch, as the JAX package
+    computes it outside any kernel.  Not on the training path: it holds the
+    N^2 scores of every head."""
+    B, N, D = x.shape
+    heads, hd = block.num_heads // block.tp_size, D // block.num_heads
+    qkv = _dense(block.ln1(x), block.qkv).reshape(B, N, 3, heads, hd)
+    q, k = qkv[:, :, 0].float(), qkv[:, :, 1].float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * hd ** -0.5
+    return torch.softmax(logits, dim=-1)

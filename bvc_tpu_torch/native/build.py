@@ -11,6 +11,8 @@ source and the flags so an edited source builds anew:
   :mod:`bvc_tpu_torch.evalbench.scores`.  No fallback: without it the probe
   raises.  No floating-point contraction, so its sums round as
   scikit-learn's do.
+- ``bvc_linear_svc``: the 'svm' probe's fit, ``linear_svc.cpp`` (liblinear's
+  solvers for LinearSVC), built as ``bvc_sgd`` is.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ LIBRARIES = {
                    ("-ljpeg", "-pthread")),
     "bvc_sgd": ("sgd.cpp", ("-O2", "-ffp-contract=off", "-shared", "-fPIC", "-std=c++17"),
                 ("-pthread",)),
+    "bvc_linear_svc": ("linear_svc.cpp", ("-O3", "-ffp-contract=off", "-shared", "-fPIC",
+                                          "-std=c++17"), ("-pthread",)),
 }
 
 

@@ -20,8 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from bvc_tpu_torch.ops.flash_attention import (BIAS_HEAD_DIMS, HEAD_DIM, flash_attention,
-                                               resolve_bias)
+from bvc_tpu_torch.ops.flash_attention import flash_attention, kernel_route, resolve_bias
 from bvc_tpu_torch.ops.ring_attention import ring_attention
 from bvc_tpu_torch.parallel.mesh import SEQ_AXIS, current_mesh
 
@@ -47,13 +46,13 @@ def attention_route(device_type: str, dtype: torch.dtype, n: int, head_dim: int,
     JAX package's ``'auto'`` rule, re-derived for the H100.  On CUDA with
     bf16, unmasked attention of ``n >= FLASH_MIN_TOKENS`` at the unmasked
     kernels' width and masked attention of ``n >= FLASH_MIN_MASKED_TOKENS``
-    at a key-bias kernel's width go to the kernels; everything else is
-    plain math."""
+    at a key-bias kernel's width go to the kernels
+    (:func:`~bvc_tpu_torch.ops.flash_attention.kernel_route`); everything
+    else is plain math."""
     min_tokens = FLASH_MIN_MASKED_TOKENS if masked else FLASH_MIN_TOKENS
-    if device_type != "cuda" or dtype != torch.bfloat16 or n < min_tokens:
+    if n < min_tokens:
         return "xla"
-    widths = BIAS_HEAD_DIMS if masked else (HEAD_DIM,)
-    return "flash" if head_dim in widths else "xla"
+    return kernel_route(device_type, dtype, head_dim, masked)
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -97,8 +96,9 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       raises for anything but bf16 at a width the kernels take;
     - ``'ring:seq'`` (the JAX package's name): q, k, v are this rank's
       block of a sequence split over the ``seq`` ranks of the process's
-      mesh (a ring of one without them); every hop runs the kernels (their
-      plain versions on CPU tensors), whatever the block's length.
+      mesh (a ring of one without them); every hop runs the kernels where
+      they take the inputs, whatever the block's length, and plain math
+      otherwise (:func:`~bvc_tpu_torch.ops.flash_attention.kernel_route`).
 
     ``key_mask``: ``[B, N]`` bool, True = attendable; or ``bias``, that
     mask's f32 key bias already built (a stack of blocks builds it once,

@@ -67,6 +67,18 @@ BIAS_HEAD_DIMS = (64, 32)  # the key-bias kernels' head widths
 NEG_INF = -1e30  # the bias of a masked key
 
 
+def kernel_route(device_type: str, dtype: torch.dtype, head_dim: int, masked: bool) -> str:
+    """``'flash'`` where the kernels take an attention: CUDA, bf16, head
+    width :data:`HEAD_DIM`, or one of :data:`BIAS_HEAD_DIMS` with a key bias;
+    else ``'xla'`` (plain math).  The rule of
+    :func:`~bvc_tpu_torch.ops.attention.attention_route` apart from its token
+    thresholds, and the route of every hop of a ring
+    (:mod:`~bvc_tpu_torch.ops.ring_attention`)."""
+    if device_type != "cuda" or dtype != torch.bfloat16:
+        return "xla"
+    return "flash" if head_dim in (BIAS_HEAD_DIMS if masked else (HEAD_DIM,)) else "xla"
+
+
 def key_bias(key_mask: torch.Tensor) -> torch.Tensor:
     """``[B, N]`` f32 key bias from a bool key mask (True = attendable):
     0 where a key may be attended, :data:`NEG_INF` where it is masked.

@@ -5,15 +5,28 @@ Each rank holds one contiguous block of the global sequence, ``[B, n, h,
 d]`` q/k/v with ``n = N / S``.  The K/V blocks travel around the ring (S
 hops, a shift to the next rank after each), and every hop attends the
 rank's queries to the block it holds.  The JAX ring writes each hop's
-attention out in ``jnp``; here every hop runs the flash kernels through
-their custom operators (:mod:`bvc_tpu_torch.ops.flash_attention`): the
-kernels on CUDA tensors, their plain versions on CPU tensors.
+attention out in ``jnp``, for any dtype and head width.  Here the route of
+a ring is decided once, before its first hop, by
+:func:`~bvc_tpu_torch.ops.flash_attention.kernel_route`: the rule of one-card
+attention apart from its token thresholds, since a hop's block may be of
+any length:
+
+- **flash**, for CUDA bf16 blocks at a width the kernels take (64; 64 or
+  32 with a key mask): every hop runs the flash kernels through their
+  custom operators (:mod:`bvc_tpu_torch.ops.flash_attention`).  A kernel
+  that fails to build or launch raises; nothing falls back.
+- **plain**, for anything else (f32, other head widths, CPU tensors):
+  every hop computes its O and f32 LSE in plain torch, with the JAX ring's
+  ``_block_update`` math (f32 scores, f32 probabilities, f32 P.V), and its
+  backward from the same global O and LSE (:func:`plain_hop_fwd`,
+  :func:`plain_hop_bwd`).  The merge, the transport and the all-masked
+  rows' conventions are the same on both routes.
 
 - **Forward**: ``qs = q * scale`` once; each hop calls
-  ``torch.ops.bvc_tpu_torch.flash_fwd(qs, k_blk, v_blk, bias_blk)``, which
-  returns the hop's O and LSE, and merges them into f32 accumulators,
-  ``lse' = logaddexp(lse, lse_h)``, ``o' = o exp(lse - lse') + o_h exp(lse_h
-  - lse')``.  A hop in which a row's keys are all masked (the kernel's LSE
+  ``torch.ops.bvc_tpu_torch.flash_fwd(qs, k_blk, v_blk, bias_blk)`` (or
+  the plain hop), which returns the hop's O and LSE, and merges them into
+  f32 accumulators, ``lse' = logaddexp(lse, lse_h)``, ``o' = o exp(lse -
+  lse') + o_h exp(lse_h - lse')``.  A hop in which a row's keys are all masked (the kernel's LSE
   = +inf) gets weight 0; a row whose keys are masked in every hop gets the
   mean of the hops' outputs, uniform weights over every global key, as the
   JAX ring gives, and LSE = +inf.
@@ -42,8 +55,28 @@ import math
 
 import torch
 
-from bvc_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd, resolve_bias
+from bvc_tpu_torch.ops.flash_attention import (flash_attention_bwd_ref, flash_attention_fwd_ref,
+                                               flash_bwd, flash_fwd, kernel_route, resolve_bias)
 from bvc_tpu_torch.parallel.collectives import ring_shift_start
+
+
+def plain_hop_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One hop of the plain route: ``(o [B, n, h, d], lse [B, h, n])`` in
+    f32, from f32 scores and probabilities and an f32 P.V (the JAX ring's
+    ``_block_update``), with the kernels' +inf LSE on a row whose keys in
+    the hop are all masked."""
+    return flash_attention_fwd_ref(qs.float(), k.float(), v.float(), bias)
+
+
+def plain_hop_bwd(qs, k, v, o, lse, do, bias) -> tuple[torch.Tensor, ...]:
+    """One hop's ``(dqs, dk, dv)`` in f32 on the plain route, from the
+    global ``o`` and ``lse``."""
+    return flash_attention_bwd_ref(qs.float(), k.float(), v.float(), o.float(), lse,
+                                   do.float(), bias)
+
+
+HOPS = {"flash": (flash_fwd, flash_bwd), "xla": (plain_hop_fwd, plain_hop_bwd)}
 
 
 class Ring:
@@ -112,20 +145,22 @@ def merge_hop(o_acc: torch.Tensor, lse_acc: torch.Tensor, o_h: torch.Tensor,
 
 
 def ring_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor | None,
-             ring: Ring) -> tuple[torch.Tensor, torch.Tensor]:
+             ring: Ring, route: str = "flash") -> tuple[torch.Tensor, torch.Tensor]:
     """The merged ``(o, lse)`` of the held queries ``qs`` (pre-scaled)
-    against every block of the ring: ``o`` ``[B, n, h, d]`` in ``qs``'s
-    dtype, ``lse`` ``[B, h, n]`` f32 (+inf on a row with no attendable key
-    anywhere)."""
-    if ring.size == 1:  # one hop: the kernel's own O and LSE, nothing to merge
-        return flash_fwd(qs, k, v, bias)
+    against every block of the ring, each hop on ``route``: ``o`` ``[B, n,
+    h, d]`` in ``qs``'s dtype, ``lse`` ``[B, h, n]`` f32 (+inf on a row with
+    no attendable key anywhere)."""
+    hop_fwd = HOPS[route][0]
+    if ring.size == 1:  # one hop: its own O and LSE, nothing to merge
+        o, lse = hop_fwd(qs, k, v, bias)
+        return o.to(qs.dtype), lse
     B, n, h, d = qs.shape
     o_acc = torch.zeros((B, n, h, d), dtype=torch.float32, device=qs.device)
     lse_acc = torch.full((B, h, n), -math.inf, dtype=torch.float32, device=qs.device)
     k_blk, v_blk, b_blk = k, v, bias
     for hop in range(ring.size):
         pending = ring.start(_held(k_blk, v_blk, b_blk)) if hop < ring.size - 1 else None
-        o_acc, lse_acc = merge_hop(o_acc, lse_acc, *flash_fwd(qs, k_blk, v_blk, b_blk), hop)
+        o_acc, lse_acc = merge_hop(o_acc, lse_acc, *hop_fwd(qs, k_blk, v_blk, b_blk), hop)
         if pending is not None:
             k_blk, v_blk, *rest = pending.wait()
             b_blk = rest[0] if rest else None
@@ -133,20 +168,22 @@ def ring_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Ten
     return o_acc.to(qs.dtype), lse
 
 
-def ring_bwd(qs, k, v, o, lse, do, bias, ring: Ring
+def ring_bwd(qs, k, v, o, lse, do, bias, ring: Ring, route: str = "flash"
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dqs, dk, dv)`` of the held blocks (f32 sums over the hops; the
-    kernel's own outputs on a ring of one), from the global ``o`` and
-    ``lse`` of :func:`ring_fwd` and the output gradient ``do``."""
+    hop's own outputs on a ring of one), from the global ``o`` and ``lse``
+    of :func:`ring_fwd` and the output gradient ``do``, each hop on
+    ``route``."""
+    hop_bwd = HOPS[route][1]
     if ring.size == 1:
-        return flash_bwd(qs, k, v, o, lse, do, bias)
+        return hop_bwd(qs, k, v, o, lse, do, bias)
     f32 = {"dtype": torch.float32, "device": qs.device}
     dq = torch.zeros(qs.shape, **f32)
     dk, dv = torch.zeros(k.shape, **f32), torch.zeros(v.shape, **f32)
     k_blk, v_blk, b_blk = k, v, bias
     for hop in range(ring.size):
         pending = ring.start(_held(k_blk, v_blk, b_blk)) if hop < ring.size - 1 else None
-        dq_h, dk_h, dv_h = flash_bwd(qs, k_blk, v_blk, o, lse, do, b_blk)
+        dq_h, dk_h, dv_h = hop_bwd(qs, k_blk, v_blk, o, lse, do, b_blk)
         dq += dq_h.float()
         dk += dk_h.float()
         dv += dv_h.float()
@@ -161,16 +198,17 @@ class _RingAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, ring):
         qs = (q * scale).to(q.dtype)
-        o, lse = ring_fwd(qs, k, v, bias, ring)
+        route = kernel_route(q.device.type, q.dtype, q.shape[-1], bias is not None)
+        o, lse = ring_fwd(qs, k, v, bias, ring, route)
         ctx.save_for_backward(qs, k, v, o, lse, bias)
-        ctx.scale, ctx.ring = scale, ring
+        ctx.scale, ctx.ring, ctx.route = scale, ring, route
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
         qs, k, v, o, lse, bias = ctx.saved_tensors
-        dq, dk, dv = ring_bwd(qs, k, v, o, lse, do.contiguous(), bias, ctx.ring)
+        dq, dk, dv = ring_bwd(qs, k, v, o, lse, do.contiguous(), bias, ctx.ring, ctx.route)
         return ((dq * ctx.scale).to(qs.dtype), dk.to(k.dtype), dv.to(v.dtype),
                 None, None, None)
 

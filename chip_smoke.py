@@ -316,13 +316,28 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    all-reduces the gradients once; each pipe stage (26 (b)) sends its hops'
    bytes exactly and all-reduces the edge's gradients.  A layout whose
    recording is empty fails.
+28. The last parity gaps (slice 10).  (a) The 'svm' linear probe on the
+   card's host, which has no scikit-learn (``native/linear_svc.cpp``,
+   liblinear's LinearSVC solvers): twice over each of 20's sweep
+   checkpoints (finite scores, the same from both fits), and at a real
+   probe's width, 4000 rows of 768 in 12 seeded separable classes (the
+   primal solver): the same weights from two fits, held-out accuracy >=
+   0.9, each fit's seconds.  (b) The ring's plain route, which an f32 model
+   or one with 16-wide heads takes: ``ring_attention_chunks`` at S = 2
+   over ``[2,6272,12,64]`` in f32 (O and gradients within 1e-4 of max|ref|
+   of f32 attention over the whole sequence) and ``[2,6272,12,16]`` in
+   bf16 (the bf16 ring's limits), no kernel launched; the bf16 64-wide
+   ring's launches are 25 (a)'s.  (c) ``block_attention_probs`` of a ViT-B
+   block on ``[4,1568,768]`` against the CPU's: f32 within 1e-5, rows
+   summing to 1 within 1e-4, no launch; with a W8A8 ``qkv``, one
+   ``gemm_s8`` launch, within 1e-4.
 
 Every path runs with every launch count set to 0 just before it and read
 just after, and fails if a kernel other than its own launched (no SimCLR
 path launches one: each kernel's ``launches_on_simclr_paths`` is the sum of
 the counts read over them).
 Prints each phase's seconds as it ends, the host's CUDA device and CPU
-core counts, one JSON ``{"trainers": {...}}`` line (14-18 and 20-27), one
+core counts, one JSON ``{"trainers": {...}}`` line (14-18 and 20-28), one
 ``{"phase_seconds": {...}}`` line, one JSON ``{"kernels":
 [...]}`` line (with each kernel's ``launches_per_cli_step``,
 ``launches_per_curriculum``, ``launches_per_artifact_call``,
@@ -3313,7 +3328,39 @@ def score_curriculum(family: str, out: Path, ssv2: str, sweep_ids: list[str]) ->
         check(sorted(df["Stage"]) == sorted(int(r.split("_")[1]) for r in sweep_ids)
               and bool(np.isfinite(df[cols].to_numpy(dtype=float)).all()),
               f"curriculum {family}: {eval_type} scores\n{df}")
+    svm_sweep(family, out, ssv2, sweep_ids)
     return time.perf_counter() - t0
+
+
+def svm_sweep(family: str, out: Path, ssv2: str, sweep_ids: list[str]) -> None:
+    """The 'svm' probe (``get_separability_score(..., method="svm")``,
+    liblinear's LinearSVC in ``native/linear_svc.cpp``) twice over each
+    sweep checkpoint's train and test CSVs: finite scores, the same scores
+    and predictions from both fits; prints each fit's seconds."""
+    import numpy as np
+    import pandas as pd
+
+    from bvc_tpu_torch.evalbench.evaluators import SSv2Eval
+    from bvc_tpu_torch.evalbench.scores import get_separability_score
+
+    labels = SSv2Eval({"train": f"{ssv2}/train_labels.csv", "test": f"{ssv2}/val_labels.csv"})
+    emb, secs = out / "benchmarks" / "ssv2", []
+    for rid in sweep_ids:
+        train, test = (labels.add_labels_to_df(pd.read_csv(emb / sub / f"embeddings_{rid}.csv"),
+                                                phase)
+                       for phase, sub in (("train", ""), ("test", "test")))
+        fits = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fits.append(get_separability_score(train, test, "category", method="svm",
+                                               ret_preds=True))
+            secs.append(time.perf_counter() - t0)
+        check(bool(np.isfinite(fits[0][:2]).all()) and fits[0][:2] == fits[1][:2]
+              and np.array_equal(fits[0][2], fits[1][2]),
+              f"curriculum {family}: svm probe of {rid}: {fits[0][:2]} then {fits[1][:2]}")
+    print(f"curriculum {family}: svm probe of {len(sweep_ids)} checkpoints ({len(train)} "
+          f"train rows of {train.filter(like='dim').shape[1]}), twice each, same scores; fits "
+          + ", ".join(f"{t:.3f}" for t in secs) + " s", flush=True)
 
 
 def expected_launches(per_step: dict, steps: int, per_call: dict, calls: int) -> dict:
@@ -3756,18 +3803,19 @@ def free_port() -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def base_model(family: str, frames: int = 0):
+def base_model(family: str, frames: int = 0, dtype: str = "bfloat16"):
     """The full-width model of ``family`` from seed 0 on the host (VideoMAE-B,
-    at ``frames`` frames when given, or :func:`jepa_config`'s V-JEPA ViT-B),
-    built once a process: building one takes seconds, and every state of a
-    phase starts from a copy of the same weights."""
+    at ``frames`` frames when given and computing in ``dtype``, or
+    :func:`jepa_config`'s V-JEPA ViT-B), built once a process: building one
+    takes seconds, and every state of a phase starts from a copy of the same
+    weights."""
     from bvc_tpu_torch.models.jepa import JEPA
     from bvc_tpu_torch.models.videomae import VideoMAEPretrain
     from bvc_tpu_torch.utils.config import ModelConfig
 
     if family == "jepa":
         return JEPA(jepa_config()[0], seed=0)
-    cfg = ModelConfig(num_frames=frames) if frames else ModelConfig()
+    cfg = ModelConfig(num_frames=frames, dtype=dtype) if frames else ModelConfig(dtype=dtype)
     return VideoMAEPretrain(cfg, seed=0)
 
 
@@ -3842,10 +3890,11 @@ def step_readings(family: str, step, state, args: dict, record: bool = False) ->
                          step.computation if record else None)
 
 
-def check_ddp_against(what: str, got: dict, want: dict) -> dict:
-    """The loss within ``DDP_LOSS_RTOL`` relative and every parameter
-    tensor's gradient within cosine ``DDP_TENSOR_COSINE_MIN``; returns the
-    readings."""
+def check_ddp_against(what: str, got: dict, want: dict, loss_rtol: float = DDP_LOSS_RTOL,
+                      cosine_min: float = DDP_TENSOR_COSINE_MIN) -> dict:
+    """The loss within ``loss_rtol`` relative and every parameter tensor's
+    gradient within cosine ``cosine_min`` (the DDP limits unless given);
+    returns the readings."""
     import torch
 
     rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
@@ -3855,10 +3904,10 @@ def check_ddp_against(what: str, got: dict, want: dict) -> dict:
     print(f"{what}: loss {got['loss']:.6f} vs {want['loss']:.6f} (rel {rel:.2e}); gradient "
           f"cosine per tensor ({len(cos)} tensors), lowest {cos[0][1]} {cos[0][0]:.6f}",
           flush=True)
-    check(math.isfinite(got["loss"]) and rel <= DDP_LOSS_RTOL,
-          f"{what}: loss rel {rel} > {DDP_LOSS_RTOL}")
-    check(cos[0][0] >= DDP_TENSOR_COSINE_MIN,
-          f"{what}: gradient cosine of {cos[0][1]} {cos[0][0]} < {DDP_TENSOR_COSINE_MIN}")
+    check(math.isfinite(got["loss"]) and rel <= loss_rtol,
+          f"{what}: loss rel {rel} > {loss_rtol}")
+    check(cos[0][0] >= cosine_min,
+          f"{what}: gradient cosine of {cos[0][1]} {cos[0][0]} < {cosine_min}")
     return {"loss_rel": rel, "min_cosine": cos[0][0], "min_cosine_tensor": cos[0][1]}
 
 
@@ -4655,14 +4704,19 @@ SEQ_MASKED_CASE = (64, 200, 12, 32)  # 4 chunks of 50 keys, key bias at d = 32
 SEQ_HOP_SHAPES = ((8, 80, 12, 64), (8, 160, 12, 64))  # the encoder's visible block at S = 8, 4
 SEQ_TIMED_STEPS = 3
 SEQ_CLI_STEPS = 3
+# (c)'s f32 step at seq=2 (the ring's plain route, f32 K/V on the ring)
+# against the unwrapped f32 step: the same math summed in another order
+SEQ_F32_LOSS_RTOL = 1e-5
+SEQ_F32_COSINE_MIN = 0.99999  # per parameter tensor
 
 
-def seq_config(frames: int = SEQ_FRAMES):
-    """VideoMAE-B at ``frames`` frames (tubelet 2, 224 px, bf16), the tube
-    mask at 0.9 and SGD with momentum."""
+def seq_config(frames: int = SEQ_FRAMES, dtype: str = "bfloat16"):
+    """VideoMAE-B at ``frames`` frames (tubelet 2, 224 px, computing in
+    ``dtype``), the tube mask at 0.9 and SGD with momentum."""
     from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig
 
-    return (ModelConfig(num_frames=frames), MaskConfig(sampler="tube", mask_ratio=0.9),
+    return (ModelConfig(num_frames=frames, dtype=dtype),
+            MaskConfig(sampler="tube", mask_ratio=0.9),
             OptimConfig(name="sgd", lr=0.1, momentum=0.9))
 
 
@@ -4683,23 +4737,23 @@ def seq_batch(B: int, frames: int = SEQ_FRAMES):
     return torch.from_numpy(video), mask
 
 
-def seq_state(mode: str = "replicated", frames: int = SEQ_FRAMES):
-    """VideoMAE-B from seed 0 on the card, laid out by ``mode`` over the
-    process's mesh."""
+def seq_state(mode: str = "replicated", frames: int = SEQ_FRAMES, dtype: str = "bfloat16"):
+    """VideoMAE-B from seed 0 on the card, computing in ``dtype``, laid out
+    by ``mode`` over the process's mesh."""
     from bvc_tpu_torch.training.state import TrainState
 
     optim = seq_config(frames)[2]
-    return TrainState.create(copy.deepcopy(base_model("videomae", frames)), optim, seed=1,
-                             param_sharding=mode)
+    return TrainState.create(copy.deepcopy(base_model("videomae", frames, dtype)), optim,
+                             seed=1, param_sharding=mode)
 
 
-def seq_step_for(mesh, frames: int = SEQ_FRAMES):
+def seq_step_for(mesh, frames: int = SEQ_FRAMES, dtype: str = "bfloat16"):
     """``(layout, step)`` on ``mesh``: the seq x TP step (state ``tp``)
     where it has a ``model`` axis, else the seq step (``replicated``)."""
     from bvc_tpu_torch.parallel.seqpar import (make_seq_tp_videomae_train_step,
                                                make_seq_videomae_train_step)
 
-    cfg, mask_cfg, _ = seq_config(frames)
+    cfg, mask_cfg, _ = seq_config(frames, dtype)
     if "model" in mesh.axis_names:
         return "tp", make_seq_tp_videomae_train_step(cfg, mask_cfg, mesh=mesh)
     return "replicated", make_seq_videomae_train_step(cfg, mask_cfg, mesh=mesh)
@@ -4912,29 +4966,32 @@ def seq_ring_phase(card: str) -> dict:
     return out
 
 
-def seq_reference(B: int, frames: int = SEQ_FRAMES) -> dict:
+def seq_reference(B: int, frames: int = SEQ_FRAMES, dtype: str = "bfloat16",
+                  timed: bool = True) -> dict:
     """One process on the card, no process group: the unwrapped VideoMAE-B
-    step at ``B`` clips of ``frames`` frames on :func:`seq_batch`'s clips
-    and mask; its loss, launches, gradients (on the host), peak memory
-    (above what the process held before: earlier phases' tensors do not
-    count, as a rank's fresh process holds none) and step time (CUDA events
-    over ``SEQ_TIMED_STEPS`` further steps)."""
+    step in ``dtype`` at ``B`` clips of ``frames`` frames on
+    :func:`seq_batch`'s clips and mask; its loss, launches, gradients (on
+    the host), peak memory (above what the process held before: earlier
+    phases' tensors do not count, as a rank's fresh process holds none)
+    and, with ``timed``, step time (CUDA events over ``SEQ_TIMED_STEPS``
+    further steps) and dispatch time."""
     import gc
 
     import torch
 
     from bvc_tpu_torch.training.steps import make_videomae_train_step
 
-    cfg, mask_cfg, _ = seq_config(frames)
+    cfg, mask_cfg, _ = seq_config(frames, dtype)
     held = torch.cuda.memory_allocated()
     video, mask = (x.cuda() for x in seq_batch(B, frames))
-    state = seq_state(frames=frames)
+    state = seq_state(frames=frames, dtype=dtype)
     step = make_videomae_train_step(cfg, mask_cfg)
     torch.cuda.reset_peak_memory_stats()
     want = call_readings(lambda: step(state, video, mask), state)
     want["peak_bytes"] = torch.cuda.max_memory_allocated() - held
-    want["ms"] = events_ms(lambda: step(state, video, mask), SEQ_TIMED_STEPS)
-    want["dispatch_ms"] = dispatch_ms(lambda: step(state, video, mask))
+    if timed:
+        want["ms"] = events_ms(lambda: step(state, video, mask), SEQ_TIMED_STEPS)
+        want["dispatch_ms"] = dispatch_ms(lambda: step(state, video, mask))
     want["grads"] = {n: g.cpu() for n, g in want["grads"].items()}
     del state, video, mask
     gc.collect()
@@ -5017,8 +5074,11 @@ def seq_rank_worker(out: str, job: str, backend: str) -> None:
     environment): the job's mesh; with ``train``, one step of VideoMAE-B on
     this rank's data block and time slice of :func:`seq_batch` (loss,
     launches, peak memory, the whole gradients on rank 0), ``timed`` timed
-    steps, with ``comm`` the step's collectives, and the transport time of the encoder's and decoder's K/V blocks
-    over the ring; with ``embeds``, the VideoMAE-B and V-JEPA seq embeds of
+    steps, with ``comm`` the step's collectives, and the transport time of
+    the encoder's and decoder's K/V blocks over the ring; with ``f32``, one
+    step of the same model computing in f32 (the ring's plain route): its
+    loss, launches, collectives, peak memory and gradients on rank 0, under
+    ``"f32"``; with ``embeds``, the VideoMAE-B and V-JEPA seq embeds of
     the clips (rows and launches of a call).  Writes its result to
     ``{out}.rank{r}``."""
     import gc
@@ -5065,6 +5125,22 @@ def seq_rank_worker(out: str, job: str, backend: str) -> None:
         result["shift_ms"] = {
             k: shift_ms([torch.zeros(s, dtype=torch.bfloat16, device="cuda")] * 2,
                         mesh.group("seq")) for k, s in blocks.items()}
+    if job.get("f32"):
+        t0 = time.perf_counter()
+        _, step = seq_step_for(mesh, dtype="float32")
+        local = video[:, step.time_slice].cuda()
+        state = seq_state(dtype="float32")
+        torch.cuda.reset_peak_memory_stats()
+        readings = call_readings(lambda: step(state, local, mask), state, step.computation)
+        result["f32"] = {"loss": readings["loss"], "launches": readings["launches"],
+                         "comm": readings["comm"], "held_bytes": tree_bytes(state.model),
+                         "peak_bytes": torch.cuda.max_memory_allocated(),
+                         "grads": ({n: g.cpu() for n, g in readings["grads"].items()}
+                                   if rank() == 0 else None),
+                         "s": time.perf_counter() - t0}
+        del state, readings
+        gc.collect()
+        torch.cuda.empty_cache()
     if job["embeds"]:
         cfg = seq_config()[0]
         jcfg = jepa_config()[0]
@@ -5131,13 +5207,14 @@ def ring_send_bytes(cfg, S: int, b: int, mask_ratio: float) -> int:
     return total
 
 
-def check_seq_comm(what: str, card: str, res: dict) -> dict:
-    """The seq step's collectives (rank 0's at ``seq=2``): one gradient
-    all-reduce of the parameters' bytes (DDP over the gradient group), the
-    ring's sends byte for byte (:func:`ring_send_bytes`), nothing
-    gathered or scattered.  Returns the comm record."""
+def check_seq_comm(what: str, card: str, res: dict, dtype: str = "bfloat16") -> dict:
+    """The seq step's collectives (rank 0's at ``seq=2``, computing in
+    ``dtype``): one gradient all-reduce of the parameters' bytes (DDP over
+    the gradient group), the ring's sends byte for byte
+    (:func:`ring_send_bytes`), nothing gathered or scattered.  Returns the
+    comm record."""
     held = res["held_bytes"]
-    cfg, mask_cfg, _ = seq_config()
+    cfg, mask_cfg, _ = seq_config(dtype=dtype)
     sends = ring_send_bytes(cfg, 2, SEQ_B, mask_cfg.mask_ratio)
     report, rec = comm_record(what, card, res["comm"], held_bytes=held, ring_send_bytes=sends)
     check(report.bytes_for("all-reduce", COMM_BIG) == held,
@@ -5249,15 +5326,42 @@ def seq_one_process_embeds(video) -> dict:
     return out
 
 
+def check_seq_f32(what: str, card: str, ranks: list[dict], want: dict, ref_s: float) -> dict:
+    """The f32 step of the ``seq=2`` ranks (their ``"f32"`` readings)
+    against the unwrapped f32 step ``want`` (``ref_s`` seconds on the
+    card): within ``SEQ_F32_LOSS_RTOL`` and ``SEQ_F32_COSINE_MIN``, no
+    kernel launched by either, the ring's sends in f32 byte for byte;
+    returns the readings with the ranks' peak memory and seconds (the
+    model's build and the step)."""
+    got = [res["f32"] for res in ranks]
+    rec = check_ddp_against(what, got[0], want, SEQ_F32_LOSS_RTOL, SEQ_F32_COSINE_MIN)
+    for r, res in enumerate([want, *got]):
+        check(not any(res["launches"].values()),
+              f"{what}: {'the unwrapped step' if r == 0 else f'rank {r - 1}'} launched "
+              f"{res['launches']}")
+    rec["comm"] = check_seq_comm(what, card, got[0], dtype="float32")
+    rec.update(peak_gib_per_rank=[res["peak_bytes"] / 2**30 for res in got],
+               peak_gib_one_process=want["peak_bytes"] / 2**30, reference_s=ref_s,
+               rank_s=[res["s"] for res in got])
+    print(f"{what} [{card}]: no kernel launched; peak memory a rank "
+          f"{rec['peak_gib_per_rank']} GiB against one process's "
+          f"{rec['peak_gib_one_process']:.2f}; the unwrapped f32 step {ref_s:.1f} s, the "
+          f"ranks' f32 legs {max(rec['rank_s']):.1f} s", flush=True)
+    return rec
+
+
 def phase_seqpar(card: str, root: Path, corpus: tuple[str, str], per_step: dict) -> dict:
     """Sequence parallelism on the card (slice 7c).  (a) The ring's hop
     math at full width in one process, and the hop times.  (b) World 1
     over NCCL at ``data=1,seq=1`` against the unwrapped step.  (c) Two gloo
     ranks on the card at ``data=1,seq=2``, VideoMAE-B at 64 frames, B=4,
     against one process at the same batch (the DDP limits), per-rank peak
-    memory, launches and the K/V shift time; the VideoMAE-B (64 frames) and
-    V-JEPA (2 frames) seq embeds against one process's, cosine >= 0.999 per
-    row.  (d) Four gloo ranks at ``data=1,seq=2,model=2`` against the same
+    memory, launches and the K/V shift time; then the same step computing
+    in f32 (the ring's plain route: f32 K/V on the ring) against the
+    unwrapped f32 step, loss within ``SEQ_F32_LOSS_RTOL`` and gradient
+    cosine >= ``SEQ_F32_COSINE_MIN`` per tensor, no kernel launched, the
+    ring's sends byte for byte; the VideoMAE-B (64 frames) and V-JEPA (2
+    frames) seq embeds against one process's, cosine >= 0.999 per row.  (d) Four gloo ranks at ``data=1,seq=2,model=2`` against the same
     reference.  (e) The CLI at ``--mesh data=1,seq=2``.  With more than one
     card, :func:`seq_multi_card`.  Returns the records and, under
     ``"launches"``, each run's counts."""
@@ -5268,6 +5372,9 @@ def phase_seqpar(card: str, root: Path, corpus: tuple[str, str], per_step: dict)
     t0 = time.perf_counter()
     ring = seq_ring_phase(card)
     want = seq_reference(SEQ_B)
+    t32 = time.perf_counter()
+    want32 = seq_reference(SEQ_B, dtype="float32", timed=False)
+    f32_s = time.perf_counter() - t32
     world1 = seq_world1(card, want, SEQ_B)
     video, _ = seq_batch(SEQ_B)
     embeds_want = seq_one_process_embeds(video)
@@ -5277,13 +5384,16 @@ def phase_seqpar(card: str, root: Path, corpus: tuple[str, str], per_step: dict)
     for name, world, mesh, embeds in (("seq2", 2, {"data": 1, "seq": 2}, True),
                                       ("seq2_tp2", 4, {"data": 1, "seq": 2, "model": 2}, False)):
         job = {"mesh": mesh, "B": SEQ_B, "train": True, "embeds": embeds, "timed": 0,
-               "comm": name == "seq2"}
+               "comm": name == "seq2", "f32": name == "seq2"}
         ranks = run_seq_ranks(root, world, job, "gloo", one_card=True)
         what = f"seq over gloo, {world} ranks on one card [{mesh}, B={SEQ_B}, {SEQ_FRAMES} frames]"
         records[name] = check_seq_ranks(what, ranks, want, seq_launches(want["launches"], 2))
         if job["comm"]:
             records[name]["comm"] = check_seq_comm(what, card, ranks[0])
         launches[f"{name}_per_rank"] = ranks[0]["launches"]
+        if job["f32"]:
+            records[f"{name}_f32"] = check_seq_f32(what.replace("[", "[f32, "), card, ranks,
+                                                   want32, f32_s)
         if embeds:
             for family, ref in embeds_want.items():
                 rows = [res["embeds"][family]["rows"] for res in ranks]
@@ -5755,6 +5865,169 @@ def pipe_multi_card(card: str, n: int, root: Path, want16: dict | None = None) -
     return out
 
 
+SVM_PROBLEM = (4000, 768, 12, 0.5)  # rows, width, classes, spread of the class centres
+SVM_TEST_ROWS = 1200
+SVM_ACCURACY_MIN = 0.9  # held-out accuracy on the separable problem
+SVM_THREADS = 8  # get_separability_score's n_jobs
+RING_PLAIN_S = 2
+RING_F32_SHAPE = (2, 6272, 12, 64)  # the encoder's heads at 64 frames, in f32
+RING_W16_SHAPE = (2, 6272, 12, 16)  # bf16 at a head width no kernel takes
+RING_F32_TOL = 1e-4  # of max|ref|: O, dQ, dK, dV of the f32 ring against f32 attention
+# of max|ref|: O of the bf16 ring at width 16 against f32 attention, above one
+# bf16 ulp of max|ref| (3.9e-3) and far below a hop merged wrong (read:
+# 2.6-3.3e-3)
+RING_W16_O_TOL = 1e-2
+PROBS_SHAPE = (4, 1568, 768, 12)  # B, N, D, heads: ViT-B at 16 frames
+PROBS_TOL = 1e-5  # max|card - CPU| of f32 probabilities
+PROBS_INT8_TOL = 1e-4  # the same with a W8A8 qkv (per-token quantization of LN1's output)
+PROBS_ROW_TOL = 1e-4  # |row sum - 1|
+
+
+def phase_svm_probe(card: str) -> dict:
+    """(a) The 'svm' probe on the card's host, where scikit-learn is absent:
+    ``LinearProbe(method="svm")`` (StandardScaler, then liblinear's LinearSVC
+    carried in ``native/linear_svc.cpp``) at a real probe's width, 4000
+    rows of 768 in 12 seeded separable classes (rows >= features: the
+    primal trust-region solver, one-vs-rest on ``SVM_THREADS`` threads),
+    fitted twice: the same weights, iterations and scores, held-out accuracy
+    >= ``SVM_ACCURACY_MIN``; each fit's seconds, and the BLAS that the
+    primal solver summed with (scipy's, which the fit requires)."""
+    import importlib.util
+
+    import numpy as np
+    import scipy
+
+    from bvc_tpu_torch.evalbench.scores import LinearProbe
+
+    rows, width, classes, spread = SVM_PROBLEM
+    rng = np.random.default_rng(0)
+    centres = spread * rng.standard_normal((classes, width))
+    y, y_test = np.arange(rows) % classes, np.arange(SVM_TEST_ROWS) % classes
+    x = centres[y] + rng.standard_normal((rows, width))
+    x_test = centres[y_test] + rng.standard_normal((SVM_TEST_ROWS, width))
+    fits, secs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fits.append(LinearProbe(SVM_THREADS, "svm").fit(x, y))
+        secs.append(time.perf_counter() - t0)
+    a, b = (f.clf for f in fits)
+    check(not a.dual_, "svm probe: the dual solver at rows >= features")
+    check(np.array_equal(a.coef_, b.coef_) and np.array_equal(a.intercept_, b.intercept_)
+          and a.n_iter_ == b.n_iter_, "svm probe: two fits differ")
+    train, test = fits[0].score(x, y), fits[0].score(x_test, y_test)
+    check(math.isfinite(train) and math.isfinite(test) and test >= SVM_ACCURACY_MIN,
+          f"svm probe: train accuracy {train}, held-out {test}")
+    sklearn = importlib.util.find_spec("sklearn") is not None
+    blas = f"scipy {scipy.__version__}'s cython_blas"
+    print(f"svm probe [{card}]: {rows} x {width}, {classes} classes, primal, {a.n_iter_} "
+          f"iterations, train {train:.4f}, held-out {test:.4f}; fits {secs[0]:.2f} s and "
+          f"{secs[1]:.2f} s on {SVM_THREADS} threads, the same weights; BLAS {blas}; "
+          f"scikit-learn importable: {sklearn}", flush=True)
+    return {"fit_s": secs, "n_iter": a.n_iter_, "train": train, "test": test, "blas": blas,
+            "sklearn_importable": sklearn}
+
+
+def phase_ring_plain(card: str) -> dict:
+    """(b) The ring's plain route: ``ring_attention_chunks`` at S = 2 over
+    an f32 ``[2, 6272, 12, 64]`` sequence and a bf16 one at head width 16,
+    forward and backward, against plain attention over the whole sequence
+    in f32 math (``plain_attention`` on the inputs in f32): f32 O, dQ, dK
+    and dV within ``RING_F32_TOL`` of max|ref|, bf16 O within
+    ``RING_W16_O_TOL`` and gradients within ``BWD_TOL`` of max|ref|; no kernel
+    launched by either (the bf16 64-wide ring's launches: 25 (a))."""
+    import torch
+
+    from bvc_tpu_torch.ops.attention import plain_attention
+    from bvc_tpu_torch.ops.flash_attention import kernel_route
+    from bvc_tpu_torch.ops.ring_attention import ring_attention_chunks
+
+    out = {}
+    for label, dtype, (B, N, h, d) in (("f32", torch.float32, RING_F32_SHAPE),
+                                       ("bf16 d=16", torch.bfloat16, RING_W16_SHAPE)):
+        check(kernel_route("cuda", dtype, d, False) == "xla", f"ring {label}: not the plain route")
+        gen = torch.Generator(device="cuda").manual_seed(d)
+        q, k, v, do = (torch.randn((B, N, h, d), generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        reset_launches()
+        t0 = time.perf_counter()
+        o = ring_attention_chunks(*leaves, RING_PLAIN_S)
+        o.backward(do)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        check(not any(launches.values()), f"ring {label}: kernels launched {launches}")
+        refs = [x.float().clone().requires_grad_(True) for x in (q, k, v)]
+        o_ref = plain_attention(*refs, d ** -0.5)
+        o_ref.backward(do.float())
+        rec = {"shape": [B, N, h, d], "S": RING_PLAIN_S, "fwd_bwd_s": wall}
+        for name, x, ref in zip(("o", "dq", "dk", "dv"), [o, *(x.grad for x in leaves)],
+                                [o_ref, *(r.grad for r in refs)]):
+            err, scale, _ = rel_err(x, ref)
+            tol = (RING_F32_TOL if dtype == torch.float32 else
+                   RING_W16_O_TOL if name == "o" else BWD_TOL)
+            ok = err <= tol * scale
+            check(ok, f"ring {label}: {name} max {err} (max|ref| {scale})")
+            rec[name] = err
+            rec[f"{name}_max_ref"] = scale
+        del o, o_ref, leaves, refs
+        torch.cuda.empty_cache()
+        print(f"ring plain route {label} [{B},{N},{h},{d}] S={RING_PLAIN_S} [{card}]: max|err| "
+              "against f32 attention " + ", ".join(
+                  f"{n} {rec[n]:.3e} (max|ref| {rec[f'{n}_max_ref']:.3e})"
+                  for n in ("o", "dq", "dk", "dv"))
+              + f"; no kernel launched; forward and backward {wall:.3f} s", flush=True)
+        out[label] = rec
+    return out
+
+
+def phase_attention_probs(card: str) -> dict:
+    """(c) ``block_attention_probs`` of a ViT-B block (768 wide, 12 heads)
+    on ``[4, 1568, 768]`` f32 on the card against the CPU's on the same
+    weights and input: within ``PROBS_TOL``, rows summing to 1 within
+    ``PROBS_ROW_TOL``, no kernel launched; then with the block's ``qkv``
+    quantized (W8A8): one ``gemm_s8`` launch and nothing else, within
+    ``PROBS_INT8_TOL`` of the CPU's plain ``qdense``."""
+    import torch
+
+    from bvc_tpu_torch.models.vit import Block, block_attention_probs
+    from bvc_tpu_torch.ops.quant import quantize_linear
+
+    B, N, D, heads = PROBS_SHAPE
+    block = Block(D, heads, generator=torch.Generator().manual_seed(0))
+    x = torch.randn((B, N, D), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for label, tol, want_launches in (("f32", PROBS_TOL, {}), ("int8", PROBS_INT8_TOL,
+                                                               {"gemm_s8": 1})):
+        if label == "int8":
+            block.qkv = quantize_linear(block.qkv)
+        on_card = copy.deepcopy(block).cuda()
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            want = block_attention_probs(block, x)
+            cpu_s = time.perf_counter() - t0
+            reset_launches()
+            got = block_attention_probs(on_card, x.cuda())
+            torch.cuda.synchronize()
+            launches = read_launches()
+        want_launches = {**{name: 0 for name in launches}, **want_launches}
+        check(launches == want_launches, f"attention probs {label}: launches {launches}")
+        err = (got.cpu() - want).abs().max().item()
+        row = (got.sum(-1) - 1).abs().max().item()
+        check(got.shape == (B, heads, N, N) and got.dtype == torch.float32
+              and err <= tol and row <= PROBS_ROW_TOL,
+              f"attention probs {label}: {tuple(got.shape)} {got.dtype}, max|card - CPU| {err}, "
+              f"row sums off by {row}")
+        print(f"attention probs {label} [{B},{N},{D}], {heads} heads [{card}]: max|card - CPU| "
+              f"{err:.3e}, rows sum to 1 within {row:.3e}, launches "
+              f"{ {k: v for k, v in launches.items() if v} }; CPU {cpu_s:.2f} s", flush=True)
+        out[label] = {"max_abs_err": err, "row_sum_err": row, "cpu_s": cpu_s,
+                      "launches": launches}
+        del on_card, got
+        torch.cuda.empty_cache()
+    return out
+
+
 class PhaseClock:
     """Calls a phase and notes its wall seconds under its name
     (``seconds``, in call order)."""
@@ -5875,6 +6148,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as d:
         curriculum = phase("phase_curriculum", phase_curriculum, smi, Path(d), train_launches,
                            embed_launches, jepa_launches, w8a8_launches["jepa"])
+    svm_probe = phase("phase_svm_probe", phase_svm_probe, smi)
+    ring_plain = phase("phase_ring_plain", phase_ring_plain, smi)
+    attention_probs = phase("phase_attention_probs", phase_attention_probs, smi)
 
     # launches: per step of the path that runs the kernel most (VideoMAE
     # training for the unmasked kernels, JEPA training for the key-bias
@@ -5920,6 +6196,7 @@ def main() -> None:
          "launches_per_jepa_w8a8_embed": w8a8_launches["jepa"]["gemm_s8"],
          "launches_in_int8_probe": int8_probe["gemm_s8"],
          "launches_per_w8a8_artifact_call": export["videomae_w8a8"]["launches"]["gemm_s8"],
+         "launches_per_w8a8_attention_probs": attention_probs["int8"]["launches"]["gemm_s8"],
          **gemm["gemm_s8"]},
         {"name": "gemm_bf16", "route": "cuda", "source": "bvc_tpu_torch/csrc/gemm.cu",
          "replaces": "tools/probe_pallas_int8.py:42", "launches": int8_probe["gemm_bf16"],
@@ -5981,7 +6258,10 @@ def main() -> None:
                               for k, a in vit_image.items()},
                 "curriculum": {"wall_s": curriculum["wall_s"],
                                **{k: {f: v for f, v in curriculum[k].items() if f != "launches"}
-                                  for k in runs}}}
+                                  for k in runs}},
+                "svm_probe": svm_probe, "ring_plain": ring_plain,
+                "attention_probs": {k: {f: v for f, v in a.items() if f != "launches"}
+                                    for k, a in attention_probs.items()}}
     print(json.dumps({"trainers": trainers}), flush=True)
     print(json.dumps({"phase_seconds": phase.seconds}), flush=True)
     check(all(math.isfinite(r[k]) for r in records

@@ -15,6 +15,12 @@ configs are ``tests/torch_tiny_runs.py``'s, and the presets are cut to them:
 3 steps of 8 clips, mask ratio 0.75, a JEPA ViT 32 wide and 2 deep (as
 ``vit_micro``), SimCLR at lr 1e-4 then 1e-3 with pairs 5 then 3 frames
 apart, no augmentation.
+
+Both packages' sweeps decode the SSv2 frames with their native decode
+(DCT-scaled); the JAX package's load of that library is made steady first
+(``torch_jax_native``), because a load that hit another test worker's build
+of it falls back to the Python decode for the rest of the process and moves
+JAX's embeddings by about 2e-3 of their size (``torch_sweep_f64.py``).
 """
 
 import dataclasses
@@ -27,12 +33,14 @@ import pytest
 import torch
 import yaml
 
+from bvc_tpu import native as jax_native
 from bvc_tpu.cli import evaluate_embeddings as jax_evaluate
 from bvc_tpu.curriculum import presets as jax_presets
 from bvc_tpu.curriculum.driver import run_curriculum as jax_run_curriculum
 from bvc_tpu.masks.tube import tube_mask as jax_tube_mask
 from bvc_tpu.models import videomae as jax_videomae
 from bvc_tpu.utils.config import TrainConfig as JaxTrainConfig
+from bvc_tpu_torch import native
 from bvc_tpu_torch.cli import evaluate_embeddings
 from bvc_tpu_torch.curriculum import FAMILY_PRESETS, run_curriculum
 from bvc_tpu_torch.models.convert import videomae_pretrain_from_jax_params
@@ -41,6 +49,7 @@ from bvc_tpu_torch.training import steps, trainer_videomae
 from bvc_tpu_torch.training.checkpoint import load_meta
 from bvc_tpu_torch.utils import config as port_config
 from bvc_tpu_torch.utils.config import TrainConfig
+from torch_jax_native import steady_jax_native
 from torch_tiny_runs import tiny_cfg
 
 RTOL, ATOL = 5e-4, 1e-5
@@ -159,7 +168,10 @@ def _check_chain(results, savedir, run_ids):
 def videomae_runs(corpus, ssv2, tmp_path_factory):
     """The JAX curriculum, then the port's from JAX's initial weights and
     masks: each stage's step i draws JAX's mask i (both trainers start each
-    stage's mask stream at ``seed + 1``)."""
+    stage's mask stream at ``seed + 1``).  The two sweeps take the same
+    decode path."""
+    assert native.available() == (steady_jax_native() if native.available()
+                                  else jax_native.available())
     root = tmp_path_factory.mktemp("videomae_runs")
     jbase = _base(JaxTrainConfig, "videomae", corpus, root / "jax", batch_size=1)
     jax_results = jax_run_curriculum("dev", _preset(jax_presets.FAMILY_PRESETS, "videomae", 1),

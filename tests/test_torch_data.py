@@ -10,11 +10,8 @@ epochs, read by decode and through a packed corpus; the copies of the host
 functions give equal outputs on equal inputs.
 """
 
-import fcntl
 import json
 import random
-import tempfile
-import time
 from pathlib import Path
 
 import numpy as np
@@ -38,6 +35,7 @@ from bvc_tpu_torch.data.loader import DataLoader, EpochSampler
 from bvc_tpu_torch.data.packed import PackedCorpus, pack_corpus, write_shard
 from bvc_tpu_torch.training.trainer_jepa import make_mask_collate
 from bvc_tpu_torch.utils.config import DataConfig, TrainConfig
+from torch_jax_native import steady_jax_native
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -122,42 +120,10 @@ def test_loader_batches_match_jax(frame_corpus, pack_root, family, augs, packed)
     assert set(ds.served) == {want_path}
 
 
-def _jax_native_available(attempts: int = 40) -> bool:
-    """``bvc_tpu.native.available()``, steady against another process that
-    rebuilds the JAX package's decode library.
-
-    That package compiles its library with ``g++ -o`` straight onto the
-    final path, and rebuilds it whenever it is missing or older than
-    ``decode.cpp``, as it is in a fresh checkout; other test workers
-    (``test_native.py``, ``test_evalbench.py``, the JAX data tests) may be
-    writing it at this moment.  A load of the half-written file fails, and
-    the failure sticks (``_load_failed``).  So after a failure: take a
-    cross-process lock, wait until the file has stopped changing, reset the
-    loader and load again, at most ``attempts`` times."""
-    if jax_native.available():
-        return True
-    lib = jax_native._LIB_PATH
-    with open(Path(tempfile.gettempdir()) / "bvc_native_test.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        for _ in range(attempts):
-            seen = None
-            for _ in range(100):  # until unchanged over 0.3 s, at most 30 s
-                now = (lib.stat().st_size, lib.stat().st_mtime_ns) if lib.exists() else None
-                if now is not None and now == seen:
-                    break
-                seen = now
-                time.sleep(0.3)
-            jax_native._lib, jax_native._load_failed = None, False
-            if jax_native.available():
-                return True
-            time.sleep(0.5)
-    return False
-
-
 def test_native_decode_matches_jax(frame_corpus):
     # the port builds its own library atomically; the JAX package's load may
-    # have hit another worker's build of its library (_jax_native_available)
-    jax_available = _jax_native_available() if native.available() else jax_native.available()
+    # have hit another worker's build of its library (steady_jax_native)
+    jax_available = steady_jax_native() if native.available() else jax_native.available()
     assert native.available() == jax_available
     if not native.available():
         pytest.skip("no C++ compiler or libjpeg: both packages decode in Python")

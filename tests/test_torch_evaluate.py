@@ -5,7 +5,8 @@ and by transformation, with train/test pairs and in single-CSV mode) and the
 ``evaluate_embeddings`` CLI, on one set of synthetic embedding CSVs.
 
 The JAX package scores with scikit-learn, the port with its own copies of
-the same algorithms (numpy, and the SGD fit in ``native/sgd.cpp``).
+the same algorithms (numpy, and the SGD fit in ``native/sgd.cpp``; the
+LinearSVC fit has its own tests, ``test_torch_svm.py``).
 Tolerance: none.  Under the same
 ``np.random.seed`` (the probes draw their shuffle seeds from numpy's global
 generator, as the reference's do) the DataFrames are equal
@@ -214,12 +215,15 @@ def test_probe_threads_do_not_change_the_fit(classes):
 
 
 def test_unseen_label_and_svm_raise():
+    """An unseen test label raises, and so does an unknown probe method, with
+    the JAX package's message ('svm' is carried: ``test_torch_svm.py``)."""
     train = pd.DataFrame({"dim0": [0.0, 1.0], "cat": ["a", "b"]})
     test = pd.DataFrame({"dim0": [0.5], "cat": ["z"]})
     with pytest.raises(ValueError, match="previously unseen labels"):
         scores.get_nn_score(train, test, "cat")
-    with pytest.raises(ValueError, match="'sgd' probe only"):
-        scores.get_separability_score(train, train, "cat", method="svm")
+    for package in (scores, jax_scores):
+        with pytest.raises(ValueError, match="^unknown method 'lda'$"):
+            package.get_separability_score(train, train, "cat", method="lda")
 
 
 @pytest.mark.parametrize("fp", ["/x/embeddings_adev_1_g2_default_0_246.csv",

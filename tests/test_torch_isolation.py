@@ -1,10 +1,12 @@
 """The port stands alone: no JAX and nothing of ``bvc_tpu`` is imported (nor
 scikit-learn, which the card's host lacks: the evaluation scores with its
-own numpy probes), entry points never fall back to the CPU on their own, and
-``chip_smoke.py`` refuses to run without a card or outside a checkout."""
+own numpy probes and fits the 'svm' probe with liblinear's solvers), entry
+points never fall back to the CPU on their own, and ``chip_smoke.py``
+refuses to run without a card or outside a checkout."""
 
 import ast
 import copy
+import json
 import shutil
 import subprocess
 import sys
@@ -59,6 +61,9 @@ SLICE_7C = ["ops/ring_attention.py", "parallel/seqpar.py", "ops/attention.py",
 SLICE_7D = ["parallel/pipeline.py", "parallel/collectives.py", "cli/dryrun_multichip.py"]
 # communication accounting: the recorder and its CLI
 SLICE_9 = ["parallel/analysis.py", "cli/analyze_collectives.py"]
+# the last parity gaps: the 'svm' probe, attention probabilities, the ring's route
+SLICE_10 = ["evalbench/scores.py", "native/build.py", "models/vit.py",
+            "ops/ring_attention.py", "ops/flash_attention.py", "ops/attention.py"]
 
 
 def test_slice_8a_modules_are_checked():
@@ -83,6 +88,49 @@ def test_slice_7d_modules_are_checked():
 
 def test_slice_9_modules_are_checked():
     assert {PACKAGE / name for name in SLICE_9} <= set(PY_FILES)
+
+
+def test_slice_10_modules_are_checked():
+    assert {PACKAGE / name for name in SLICE_10} <= set(PY_FILES)
+
+
+@pytest.mark.parametrize("rows,width", [(45, 64), (150, 24)], ids=["dual", "primal"])
+def test_svm_probe_runs_without_sklearn(rows, width):
+    """``get_separability_score(method="svm")`` in a process where
+    scikit-learn cannot be imported, in each solver regime: the JAX
+    package's scores and predictions (which it gets from scikit-learn,
+    here), and no scikit-learn module loaded."""
+    import numpy as np
+    import pandas as pd
+
+    from bvc_tpu.evalbench import scores as jax_scores
+
+    code = (
+        "import json, sys\n"
+        "sys.modules['sklearn'] = None  # import raises ImportError\n"
+        "import numpy as np, pandas as pd\n"
+        "from bvc_tpu_torch.evalbench import scores\n"
+        f"rows, width = {rows}, {width}\n"
+        "rng = np.random.default_rng(rows)\n"
+        "labels = np.arange(rows) % 3\n"
+        "x = rng.standard_normal((3, width))[labels] + 1.5 * rng.standard_normal((rows, width))\n"
+        "df = pd.DataFrame(x, columns=[f'dim{i}' for i in range(width)]).assign(c=labels)\n"
+        "tr, te, pred, _ = scores.get_separability_score(df, None, 'c', method='svm',\n"
+        "                                                ret_preds=True)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] == 'sklearn' and sys.modules[k]]\n"
+        "print(json.dumps([tr, te, pred.tolist(), bad]))\n"
+    )
+    tr, te, pred, bad = json.loads(subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
+        check=True).stdout)
+    assert bad == []
+    rng = np.random.default_rng(rows)
+    labels = np.arange(rows) % 3
+    x = rng.standard_normal((3, width))[labels] + 1.5 * rng.standard_normal((rows, width))
+    df = pd.DataFrame(x, columns=[f"dim{i}" for i in range(width)]).assign(c=labels)
+    want = jax_scores.get_separability_score(df, None, "c", method="svm", ret_preds=True)
+    assert (tr, te) == want[:2]
+    assert pred == want[2].tolist()
 
 
 def test_import_pulls_in_no_jax_and_no_bvc_tpu():

@@ -1,5 +1,7 @@
 """The port's transformer block and stack against ``bvc_tpu.models.vit``
-in f32 (1e-5: the two differ only in summation order)."""
+in f32 (1e-5: the two differ only in summation order), and one block's
+attention probabilities (``block_attention_probs``) in f32, bf16 and with a
+W8A8 ``qkv``."""
 
 import jax
 import jax.numpy as jnp
@@ -7,8 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from bvc_tpu.models.vit import block_apply, init_blocks, run_blocks
-from bvc_tpu_torch.models.vit import Block, Blocks
+from bvc_tpu.models.vit import block_apply, block_attention_probs as jax_attention_probs
+from bvc_tpu.models.vit import init_blocks, run_blocks
+from bvc_tpu.ops import quant as jax_quant
+from bvc_tpu_torch.models.vit import Block, Blocks, block_attention_probs
+from bvc_tpu_torch.ops.quant import qdense, quantize_linear
 
 TOL = 1e-5
 
@@ -83,3 +88,38 @@ def test_block_bf16_activations_keep_f32_params():
     assert out.dtype == torch.bfloat16
     assert all(p.dtype == torch.float32 for p in block.parameters())
     torch.testing.assert_close(out.float(), ref, rtol=0.05, atol=0.05)
+
+
+# bf16: the port adds the qkv bias inside the bf16 product, the JAX package
+# after it, so an element of q or k may round one bf16 ulp apart (read:
+# 1.1e-4 on probabilities)
+PROBS_TOL = {"float32": TOL, "bfloat16": 1e-3, "int8": TOL}
+
+
+@pytest.mark.parametrize("dtype", list(PROBS_TOL))
+def test_block_attention_probs_matches_jax(dtype, monkeypatch):
+    """``[B, h, N, N]`` f32 probabilities against JAX's, rows summing to 1
+    (``test_vit_core.py``'s rtol 1e-5); ``int8``: the block's ``qkv``
+    quantized on both sides (JAX's ``qdense``, the port's through
+    ``qdense``)."""
+    dim, heads = 32, 2
+    tree = _jax_blocks(1, dim, seed=7)
+    block = Block(dim, heads, mlp_ratio=2.0)
+    block.load_state_dict(_layer_state(tree, 0))
+    if dtype == "int8":
+        tree = jax_quant.quantize_blocks(tree, ("attn.qkv",))
+        block.qkv = quantize_linear(block.qkv)
+        calls = []
+        monkeypatch.setattr("bvc_tpu_torch.models.vit.qdense",
+                            lambda *a: calls.append(1) or qdense(*a))
+    xdtype = "float32" if dtype == "int8" else dtype
+    x = np.random.default_rng(3).standard_normal((2, 20, dim)).astype(np.float32)
+    layer = jax.tree_util.tree_map(lambda l: jnp.asarray(l[0]), tree)
+    ref = np.asarray(jax_attention_probs(layer, jnp.asarray(x).astype(xdtype), heads))
+    with torch.no_grad():
+        out = block_attention_probs(block, torch.from_numpy(x).to(getattr(torch, xdtype)))
+    assert out.dtype == torch.float32 and out.shape == ref.shape == (2, heads, 20, 20)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=PROBS_TOL[dtype])
+    np.testing.assert_allclose(out.sum(-1).numpy(), 1.0, rtol=1e-5)
+    if dtype == "int8":
+        assert calls == [1]
