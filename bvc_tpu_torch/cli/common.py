@@ -74,7 +74,10 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="y: per-layer grad-norm stats table in the log lines")
     p.add_argument("--profile_dir", type=str, default="",
                    help="capture one torch.profiler trace of train steps 1-3 to "
-                        "this dir (Chrome/Perfetto timeline, summary.json)")
+                        "this dir (Chrome/Perfetto timeline; summary.json: busy, "
+                        "copy and idle time, host_ms_by_span and idle_ms_by_span a "
+                        "step by the program's spans; the profile records every "
+                        "operator, so a host-bound loop reads more idle than untraced)")
     # LR/WD schedules: the reference ships I-JEPA's warmup-cosine
     # schedulers disabled (predictive/helper.py:148-161); opt-in here
     p.add_argument("--lr_schedule", type=str, default="none",

@@ -20,9 +20,13 @@ copy has completed, so a batch in flight is never overwritten.  A dict
 batch (JEPA's ``video``, ``enc_idx``, ``pred_idx``) travels the same way,
 its small arrays through pinned copies of their own.
 
-``stall_ms`` is the host time the consumer spent waiting for a batch in
-the last epoch, ms a batch after the first (which fills the pipeline):
-above zero, the pipeline did not keep up.
+The consumer's wait for each batch is a ``loader.wait`` span (the
+program's span log, :mod:`bvc_tpu_torch.utils.profiling`), which feeds two
+cumulative counters, ``wait_s`` and ``batches_served``: any window
+differences them.  ``stall_ms`` is the mean wait of the last epoch's
+batches after the first (which fills the pipeline), derived from them:
+above zero, the pipeline did not keep up.  The threads' work on a batch is
+a ``loader.assemble`` span, the collator's inside it ``loader.collate``.
 
 Per-sample RNG: each (epoch, index) pair gets its own ``Generator`` seeded
 from (seed, epoch, index), so augmentations are reproducible and
@@ -49,7 +53,6 @@ import collections
 import concurrent.futures as cf
 import os
 import threading
-import time
 from typing import Any, Iterator
 
 import numpy as np
@@ -58,6 +61,7 @@ import torch
 from bvc_tpu_torch.parallel.sharding import host_local_batch_slice
 from bvc_tpu_torch.utils.device import resolve_device
 from bvc_tpu_torch.utils.logging import get_logger
+from bvc_tpu_torch.utils.profiling import span
 
 
 class EpochSampler:
@@ -177,8 +181,17 @@ class DataLoader:
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._send_lock = threading.Lock()
         self._sample_spec: tuple | None = None  # (shape, dtype) of one sample
-        self.stall_ms = 0.0
+        self.wait_s, self.batches_served = 0.0, 0  # cumulative, over every epoch
+        self._epoch_base = (0.0, 0)  # the counters after an epoch's first batch
         self._logger = get_logger("bvc_tpu_torch.loader")
+
+    @property
+    def stall_ms(self) -> float:
+        """Mean ms the consumer waited for each batch of the last epoch
+        after its first."""
+        wait_s, served = self._epoch_base
+        n = self.batches_served - served
+        return (self.wait_s - wait_s) * 1e3 / n if n > 0 else 0.0
 
     def __len__(self) -> int:
         n = self.sampler.n // self.sampler.global_batch
@@ -191,6 +204,11 @@ class DataLoader:
         return self.dataset[(int(idx), rng)]
 
     def _assemble(self, pool: cf.Executor, epoch: int, batch_idx: int, idxs: np.ndarray):
+        with span("loader.assemble"):
+            return self._assemble_batch(pool, epoch, batch_idx, idxs)
+
+    def _assemble_batch(self, pool: cf.Executor, epoch: int, batch_idx: int,
+                        idxs: np.ndarray):
         first = None
         if self._sample_spec is None:
             first = self._sample(epoch, idxs[0])
@@ -217,7 +235,8 @@ class DataLoader:
                 f.result()
             batch = host
             if self.collate_fn is not None:
-                batch = self.collate_fn(batch, epoch, batch_idx)
+                with span("loader.collate"):
+                    batch = self.collate_fn(batch, epoch, batch_idx)
             if not self.to_device:
                 return batch
             if not self._cuda:
@@ -258,7 +277,7 @@ class DataLoader:
         batches = self.sampler.batches(epoch)
         if self.max_batches:
             batches = batches[: self.max_batches]
-        stall, served, self.stall_ms = 0.0, 0, 0.0
+        self._epoch_base, first = (self.wait_s, self.batches_served), True
         with cf.ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             pending: collections.deque = collections.deque()
             it = iter(enumerate(batches))
@@ -275,13 +294,15 @@ class DataLoader:
                     for i, idxs in it:
                         pending.append(outer.submit(self._assemble, pool, epoch, i, idxs))
                         break
-                    t0 = time.perf_counter()
-                    batch = fut.result()
-                    if served:
-                        stall += time.perf_counter() - t0
-                        self.stall_ms = stall * 1e3 / served
-                    served += 1
-                    yield self._receive(batch) if self._cuda else batch
+                    with span("loader.wait") as waited:
+                        batch = fut.result()
+                        if self._cuda:
+                            batch = self._receive(batch)
+                    self.wait_s += waited.t1 - waited.t0
+                    self.batches_served += 1
+                    if first:  # it filled the pipeline: not a stall
+                        self._epoch_base, first = (self.wait_s, self.batches_served), False
+                    yield batch
             finally:
                 # wait for running assemblers: their buffers are reused next
                 outer.shutdown(wait=True, cancel_futures=True)

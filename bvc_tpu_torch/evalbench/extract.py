@@ -67,6 +67,7 @@ from bvc_tpu_torch.parallel.mesh import SEQ_AXIS, data_rank, data_size
 from bvc_tpu_torch.parallel.seqpar import seq_embed, time_slice
 from bvc_tpu_torch.utils.config import ModelConfig
 from bvc_tpu_torch.utils.device import resolve_device
+from bvc_tpu_torch.utils.profiling import span
 
 
 def make_task_dataset(ds_task: str, vid_root: str, frame_rate: int, sample_len: int,
@@ -143,7 +144,10 @@ def _embed_fn(model: VideoMAEEncoder | JEPAEncoder | ResNet, device: torch.devic
               seq: bool = False) -> Callable:
     """``fn(video_batch) -> [B, D]`` f32 numpy; ``fn.model`` is the module
     (in eval mode), ``fn.feature_dim`` the embedding width.  ``seq``: this
-    rank's time slice of the clips, embedded over the ``seq`` ring."""
+    rank's time slice of the clips, embedded over the ``seq`` ring.  A call
+    is an ``extract.call`` span holding ``extract.h2d`` (the copy to the
+    device), ``extract.forward`` and ``extract.d2h`` (the copy back, which
+    waits for the device)."""
     model = model.to(device).eval()
     # SimCLR reads the last frame only, a seq rank its time slice: the
     # others stay on the host
@@ -152,8 +156,13 @@ def _embed_fn(model: VideoMAEEncoder | JEPAEncoder | ResNet, device: torch.devic
 
     @torch.inference_mode()
     def fn(video) -> np.ndarray:
-        x = torch.as_tensor(np.asarray(video)[:, frames]).to(device)
-        return (seq_embed(model, x) if seq else model.embed(x)).cpu().numpy()
+        with span("extract.call"):
+            with span("extract.h2d"):
+                x = torch.as_tensor(np.asarray(video)[:, frames]).to(device)
+            with span("extract.forward"):
+                y = seq_embed(model, x) if seq else model.embed(x)
+            with span("extract.d2h"):
+                return y.cpu().numpy()
 
     fn.model = model
     fn.feature_dim = model.feature_dim if isinstance(model, ResNet) else model.cfg.hidden_size

@@ -45,6 +45,7 @@ from bvc_tpu_torch.ops.gelu import gelu
 from bvc_tpu_torch.ops.quant import QuantLinear, qdense
 from bvc_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
 from bvc_tpu_torch.parallel.sharding import TP_RULES, TPSplit
+from bvc_tpu_torch.utils.profiling import profiler_range
 
 
 def drop_path(x: torch.Tensor, keep: torch.Tensor | None, keep_prob: float = 1.0
@@ -64,14 +65,16 @@ def drop_path(x: torch.Tensor, keep: torch.Tensor | None, keep_prob: float = 1.0
 def layer_norm(x: torch.Tensor, weight: torch.Tensor | None,
                bias: torch.Tensor | None, eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis with f32 statistics, cast back to the
-    input dtype; ``weight``/``bias`` None is the unit affine."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    if weight is not None:
-        y = y * weight + bias
-    return y.to(x.dtype)
+    input dtype; ``weight``/``bias`` None is the unit affine.  A
+    ``bvc::layer_norm`` range while a profiler records."""
+    with profiler_range("layer_norm"):
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + eps)
+        if weight is not None:
+            y = y * weight + bias
+        return y.to(x.dtype)
 
 
 class LayerNorm(nn.Module):

@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from bvc_tpu_torch.utils.profiling import profiler_range
+
 # P(u) with u = x^2: erf(x / sqrt(2)) ~= x * P(x^2) on |x| <= 4.
 GELU_ERF_POLY_COEF: tuple[float, ...] = (
     7.9734678899e-01,
@@ -46,11 +48,11 @@ def gelu_poly(x: torch.Tensor) -> torch.Tensor:
 
 def gelu(x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """Erf-GELU.  ``impl``: ``'auto'`` (polynomial below f32, exact erf
-    otherwise), ``'exact'`` or ``'poly'``."""
+    otherwise), ``'exact'`` or ``'poly'``.  A ``bvc::gelu`` range while a
+    profiler records."""
     if impl == "auto":
         impl = "poly" if torch.finfo(x.dtype).bits < 32 else "exact"
-    if impl == "poly":
-        return gelu_poly(x)
-    if impl == "exact":
-        return F.gelu(x, approximate="none")
-    raise ValueError(f"unknown gelu impl {impl!r}")
+    if impl not in ("poly", "exact"):
+        raise ValueError(f"unknown gelu impl {impl!r}")
+    with profiler_range("gelu"):
+        return gelu_poly(x) if impl == "poly" else F.gelu(x, approximate="none")

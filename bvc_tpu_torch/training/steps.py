@@ -40,6 +40,12 @@ batch.  The eval steps call the model (``state.model``) rather than its
 methods, so that FSDP2's hooks gather its parameters.  Every step also has
 ``step.comm_report(state, *batch)``: the collectives one step issues
 (:mod:`bvc_tpu_torch.parallel.analysis`), the state left as it was.
+
+The VideoMAE and JEPA steps record their phases in the program's span log
+(:mod:`bvc_tpu_torch.utils.profiling`): ``step.inputs`` (the copies to the
+device, VideoMAE's mask draw), ``step.forward`` and ``step.backward`` (once
+a microbatch), ``step.update`` (the schedules, the optimizer, V-JEPA's
+EMA, the step count) and ``step.metrics`` (the gradient norms and probes).
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ from bvc_tpu_torch.training.probes import (jepa_grad_metrics, simclr_grad_metric
                                            videomae_grad_metrics)
 from bvc_tpu_torch.training.state import TrainState
 from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig
+from bvc_tpu_torch.utils.profiling import span
 
 
 def microbatches(x: torch.Tensor, k: int) -> list[torch.Tensor]:
@@ -187,23 +194,28 @@ def make_videomae_train_step(model_cfg: ModelConfig, mask_cfg: MaskConfig,
 
     def step(state: TrainState, video: torch.Tensor,
              mask: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
-        video = video.to(state.device, non_blocking=True)
-        if mask is None:
-            mask = global_rows(functools.partial(sampler, state.generator), video.shape[0])
-        mask = mask.to(state.device, non_blocking=True)
+        with span("step.inputs"):
+            video = video.to(state.device, non_blocking=True)
+            if mask is None:
+                mask = global_rows(functools.partial(sampler, state.generator), video.shape[0])
+            mask = mask.to(state.device, non_blocking=True)
         model, opt = state.model, state.optimizer
         opt.zero_grad(set_to_none=True)
         loss = torch.zeros((), device=state.device)
         for j, (v, m) in enumerate(zip(microbatches(video, grad_accum),
                                        microbatches(mask, grad_accum))):
             with _sync_unless(state, j == grad_accum - 1):
-                micro = state.forward(v, m, num_visible, attn_impl) / grad_accum
-                micro.backward()
+                with span("step.forward"):
+                    micro = state.forward(v, m, num_visible, attn_impl) / grad_accum
+                with span("step.backward"):
+                    micro.backward()
             loss += micro.detach()
-        apply_schedules(opt, state.step)
-        opt.step()
-        state.step += 1
-        return _probed({"loss": loss, **videomae_grad_metrics(model)}, model, grad_probes)
+        with span("step.update"):
+            apply_schedules(opt, state.step)
+            opt.step()
+            state.step += 1
+        with span("step.metrics"):
+            return _probed({"loss": loss, **videomae_grad_metrics(model)}, model, grad_probes)
 
     @torch.no_grad()
     def eval_step(state: TrainState, video: torch.Tensor, step_idx: int = 0,
@@ -287,29 +299,34 @@ def make_jepa_train_step(model_cfg: ModelConfig, total_steps: int,
                      for k in ("video", "enc_idx", "pred_idx"))
 
     def step(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
-        video, enc_idx, pred_idx = on_device(state, batch)
+        with span("step.inputs"):
+            video, enc_idx, pred_idx = on_device(state, batch)
         model, opt = state.model, state.optimizer
         opt.zero_grad(set_to_none=True)
         loss = torch.zeros((), device=state.device)
         for j, (v, e, p) in enumerate(zip(*(microbatches(x, grad_accum)
                                             for x in (video, enc_idx, pred_idx)))):
             with _sync_unless(state, j == grad_accum - 1):
-                micro = jepa_loss(state, v, e, p) / grad_accum
-                micro.backward()
+                with span("step.forward"):
+                    micro = jepa_loss(state, v, e, p) / grad_accum
+                with span("step.backward"):
+                    micro.backward()
             loss += micro.detach()
-        apply_schedules(opt, state.step)
-        opt.step()
-
-        i = state.step
-        m = (ema[0] + i * (ema[1] - ema[0]) / max(total_steps, 1)
-             if i < total_steps + 5 else ema_fallback)
-        state.ema_update(m)
-        state.step += 1
-        return _probed({"loss": loss, **jepa_grad_metrics(model),
-                        "mask_a": (enc_idx[0] >= 0).sum(),
-                        "mask_b": (pred_idx[0, 0] >= 0).sum(),
-                        # a fill on the device: a copy from the host would wait for it
-                        "ema_m": torch.full((), m, device=state.device)}, model, grad_probes)
+        with span("step.update"):
+            apply_schedules(opt, state.step)
+            opt.step()
+            i = state.step
+            m = (ema[0] + i * (ema[1] - ema[0]) / max(total_steps, 1)
+                 if i < total_steps + 5 else ema_fallback)
+            state.ema_update(m)
+            state.step += 1
+        with span("step.metrics"):
+            return _probed({"loss": loss, **jepa_grad_metrics(model),
+                            "mask_a": (enc_idx[0] >= 0).sum(),
+                            "mask_b": (pred_idx[0, 0] >= 0).sum(),
+                            # a fill on the device: a copy from the host would wait for it
+                            "ema_m": torch.full((), m, device=state.device)},
+                           model, grad_probes)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:

@@ -51,7 +51,7 @@ from bvc_tpu_torch.training.trainer_videomae import refuse_unported
 from bvc_tpu_torch.utils.config import TrainConfig
 from bvc_tpu_torch.utils.device import resolve_device
 from bvc_tpu_torch.utils.logging import AverageMeter, CSVLogger, get_logger, is_main_process
-from bvc_tpu_torch.utils.profiling import StepTraceWindow
+from bvc_tpu_torch.utils.profiling import StepTraceWindow, span
 
 
 def make_mask_collate(cfg: TrainConfig, batches_per_epoch: int):
@@ -254,8 +254,10 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
         pipe = MetricsPipe(log_fn, time_every=cfg.log_freq)
         for itr, batch in enumerate(loader.epoch(epoch)):
             tracer.step()
-            metrics = step(state, batch)
-            pipe_ms[0] = pipe.push(itr, metrics)
+            with span("trainer.step", ranged=False):
+                metrics = step(state, batch)
+            with span("trainer.metrics"):
+                pipe_ms[0] = pipe.push(itr, metrics)
         pipe.flush()
         logger.info("epoch %d avg loss %.4f", epoch + 1, loss_meter.avg)
         if cfg.save_every_epoch and epoch + 1 < chain_start + cfg.n_epoch:

@@ -40,7 +40,7 @@ from bvc_tpu_torch.training.trainer_videomae import refuse_unported
 from bvc_tpu_torch.utils.config import TrainConfig
 from bvc_tpu_torch.utils.device import resolve_device
 from bvc_tpu_torch.utils.logging import AverageMeter, CSVLogger, get_logger, is_main_process
-from bvc_tpu_torch.utils.profiling import StepTraceWindow
+from bvc_tpu_torch.utils.profiling import StepTraceWindow, span
 
 TEMPERATURE = 0.1  # hard-coded in the reference (pretrain_simclr.py:284)
 
@@ -167,8 +167,10 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
         pipe = MetricsPipe(log_fn, time_every=cfg.log_freq)
         for itr, batch in enumerate(loader.epoch(epoch)):
             tracer.step()
-            metrics = step(state, batch)
-            pipe_ms[0] = pipe.push(itr, metrics)
+            with span("trainer.step", ranged=False):
+                metrics = step(state, batch)
+            with span("trainer.metrics"):
+                pipe_ms[0] = pipe.push(itr, metrics)
         pipe.flush()
         logger.info("epoch %d avg loss %.4f", epoch + 1, loss_meter.avg)
         if cfg.save_every_epoch and epoch + 1 < cfg.n_epoch:

@@ -66,7 +66,7 @@ from bvc_tpu_torch.training.steps import make_videomae_train_step
 from bvc_tpu_torch.utils.config import ModelConfig, TrainConfig
 from bvc_tpu_torch.utils.device import resolve_device
 from bvc_tpu_torch.utils.logging import AverageMeter, CSVLogger, get_logger, is_main_process
-from bvc_tpu_torch.utils.profiling import StepTraceWindow, device_memory_stats
+from bvc_tpu_torch.utils.profiling import StepTraceWindow, device_memory_stats, span
 
 
 def refuse_unported(cfg: TrainConfig) -> Mesh:
@@ -266,10 +266,12 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
             for itr, batch in enumerate(loader.epoch(epoch)):
                 if phase == "train":
                     tracer.step()
-                    metrics = step(state, batch)
+                    with span("trainer.step", ranged=False):
+                        metrics = step(state, batch)
                 else:
                     metrics = step.eval_step(state, batch, itr)
-                pipe_ms[0] = pipe.push(itr, metrics)
+                with span("trainer.metrics"):
+                    pipe_ms[0] = pipe.push(itr, metrics)
             pipe.flush()
             logger.info("epoch %d %s avg loss %.4f", epoch + 1, phase, loss_meter[phase].avg)
         if cfg.save_every_epoch and epoch + 1 < cfg.n_epoch:
