@@ -13,8 +13,9 @@ families run through
 hand-written CUDA kernels (SimCLR's ResNet on cuDNN's convolutions, as on
 XLA's): the flash-attention forward (``csrc/flash_fwd.cu``) and backward
 (``csrc/flash_bwd_sm90.cu``), without a key mask or with a per-sample key
-bias, and the tensor-core GEMM (``csrc/gemm.cu``) whose int8 instantiation
-runs the W8A8 products, each reached through a ``torch.library`` custom
+bias, the tensor-core GEMM (``csrc/gemm.cu``) whose int8 instantiation
+runs the W8A8 products, and the MLP's GELU forward and backward on bf16
+(``csrc/gelu.cu``), each reached through a ``torch.library`` custom
 operator (``torch.ops.bvc_tpu_torch``).  ``probes`` holds the counterparts of the JAX
 package's two kernel probes (``csrc/gemm.cu`` in bf16,
 ``csrc/softmax_probe.cu``).

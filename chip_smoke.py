@@ -84,14 +84,24 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    so that a kernel which ignored the score dtype would fail; times by
    events and in a CUDA graph against the bound, the exponential roof, the
    plain version and SDPA's forward; the probe's readout max|O_bf16 - O_f32|.
+6b. The GELU kernels against the eager chain (``csrc/gelu.cu``) at the
+   extraction's ``[64,1568,3072]`` and the training step's ``[48,160,3072]``
+   (encoder) and ``[48,1568,1536]`` (decoder), on bf16 inputs with +-4,
+   +-inf, NaN and +-0 among them, at an odd size and on views that start
+   off 16 bytes: the forward bit for bit the eager ``gelu_poly`` on the
+   card, the backward within one bf16 ulp of autograd through the chain;
+   no launch for an empty tensor; a ``torch.cuda.synchronize()`` after each
+   launch; times (L2 flushed) against the bytes bound, the plain versions
+   and, as yardsticks, ``F.gelu`` and ``aten.gelu_backward``.  The forward
+   must reach 70% of the bytes bound at ``[64,1568,3072]``.
 7. The two probes as their own paths (``python -m
    bvc_tpu_torch.probes.int8_dot`` and ``.softmax_dtype``): launch counts
    set to 0, the probe run, its kernels and no other launched.
 8. Extraction at full width: VideoMAE-B (224 px, 16 frames, bf16) through
-   ``untrained_embed_fn``; 12 launches of the forward kernel in one embed
-   call, embeddings within cosine 0.999 per row of the plain attention path
-   on the same weights; then clips/s, frames/s and MFU at the largest batch
-   in {64, 32, 16} that fits.
+   ``untrained_embed_fn``; 12 launches of the forward kernel and of the
+   GELU forward in one embed call, embeddings within cosine 0.999 per row
+   of the plain attention path on the same weights; then clips/s, frames/s
+   and MFU at the largest batch in {64, 32, 16} that fits.
 9. W8A8 extraction at full width: VideoMAE-B and V-JEPA ViT-B through
    ``untrained_embed_fn(..., quantize="int8")``; at B=8 one embed call
    launches ``gemm_s8`` 24 times and ``flash_fwd`` 12 times and nothing
@@ -103,7 +113,8 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    steps (tube mask 0.9, 160 visible tokens, SGD-Nesterov) through
    ``VideoMAEPretrain``, ``TrainState.create`` and
    ``make_videomae_train_step``.  At B=8 one step launches the forward
-   kernel and each of the backward's three 16 times, and agrees with a step
+   kernel, each of the backward's three, the GELU forward and the GELU
+   backward 16 times, and agrees with a step
    through the plain attention path from the same weights, batch and mask (loss within 1e-4
    relative, gradient cosine >= 0.99 for every top-level group and >= 0.9995
    for every parameter tensor).  Then clips/s, MFU
@@ -984,9 +995,10 @@ def phase_bwd_kernel() -> dict:
     return result
 
 
-def phase_main_path(card: str, profile: str | None) -> tuple[int, int]:
-    """VideoMAE-B extraction on the card; returns the kernel's launches in
-    one embed call and the batch timed (the largest that fits)."""
+def phase_main_path(card: str, profile: str | None) -> tuple[int, int, int]:
+    """VideoMAE-B extraction on the card; returns the flash kernel's
+    launches in one embed call, the batch timed (the largest that fits) and
+    the GELU forward's launches in one embed call."""
     import numpy as np
     import torch
 
@@ -1001,11 +1013,13 @@ def phase_main_path(card: str, profile: str | None) -> tuple[int, int]:
 
     reset_launches()
     emb = fn(clips)
-    counts = read_launches()
+    counts, gelu = read_launches(), read_gelu_launches()
     launches = counts["flash_fwd"]
-    print(f"main path: one embed call at B=8 launched {counts}", flush=True)
+    print(f"main path: one embed call at B=8 launched {counts}, {gelu}", flush=True)
     check(counts == {**{k: 0 for k in counts}, "flash_fwd": cfg.depth},
           f"expected {cfg.depth} flash_fwd launches and no other, got {counts}")
+    check(gelu == {"gelu_poly": cfg.depth, "gelu_poly_bwd": 0},
+          f"expected {cfg.depth} GELU forward launches and no backward, got {gelu}")
     check(emb.shape == (8, cfg.hidden_size) and bool(np.isfinite(emb).all()),
           f"embeddings of shape {emb.shape} or not finite")
 
@@ -1044,7 +1058,7 @@ def phase_main_path(card: str, profile: str | None) -> tuple[int, int]:
         break
     else:
         fail("no batch size in {64, 32, 16} fits")
-    return launches, B
+    return launches, B, gelu["gelu_poly"]
 
 
 def profile_call(fn, what: str, out_file: str) -> float:
@@ -1204,12 +1218,12 @@ def time_train_steps(make_state, step, video, steps: int = 10) -> tuple:
     return start.elapsed_time(end) / steps, torch.stack(losses).tolist(), state
 
 
-def phase_train(card: str, profile: str | None) -> tuple[dict[str, int], int]:
+def phase_train(card: str, profile: str | None) -> tuple[dict[str, int], int, dict[str, int]]:
     """VideoMAE-B pretraining steps on the card through the port's entry
     points (``VideoMAEPretrain``, ``TrainState.create``,
     ``make_videomae_train_step``), as ``bench.py`` configures the JAX
-    flagship.  Returns each kernel's launches in one step at B=8, and the
-    batch timed."""
+    flagship.  Returns each attention kernel's launches in one step at B=8,
+    the batch timed and the GELU kernels' launches in that step."""
     import gc
 
     import numpy as np
@@ -1239,12 +1253,14 @@ def phase_train(card: str, profile: str | None) -> tuple[dict[str, int], int]:
     reset_launches()
     metrics = step(state, video)
     torch.cuda.synchronize()
-    launches = read_launches()
-    print(f"train: one step at B=8 launched {launches}", flush=True)
+    launches, gelu = read_launches(), read_gelu_launches()
+    print(f"train: one step at B=8 launched {launches}, {gelu}", flush=True)
     layers = cfg.depth + cfg.decoder_depth
     expected = {**{k: 0 for k in launches}, "flash_fwd": layers, "flash_bwd": layers,
                 "flash_bwd_prep": layers, "flash_bwd_post": layers}
     check(launches == expected, f"expected {expected} in one step, got {launches}")
+    check(gelu == {"gelu_poly": layers, "gelu_poly_bwd": layers},
+          f"expected {layers} GELU forward and backward launches in one step, got {gelu}")
 
     plain = TrainState.create(copy.deepcopy(base_model("videomae")), optim, seed=1)
     plain_metrics = make_videomae_train_step(cfg, mask_cfg, attn_impl="xla")(plain, video)
@@ -1308,7 +1324,7 @@ def phase_train(card: str, profile: str | None) -> tuple[dict[str, int], int]:
     del state, video
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, B
+    return launches, B, gelu
 
 
 def jepa_config():
@@ -1924,6 +1940,131 @@ def phase_softmax_probe_kernel() -> dict:
     return {**main, **records, "xla_attn_ms": times[f32], "xla_attn_ms_bf16_logits": times[bf16]}
 
 
+GELU_SHAPES = (("embed", (64, 1568, 3072)), ("encoder", (48, 160, 3072)),
+               ("decoder", (48, 1568, 1536)))
+# bf16 inputs put at the start of each GELU test tensor: the clamps, the
+# largest bf16 below and above them, non-finite values, signed zeros,
+# GELU's minimum and a value where P(u) overflows (NaN gradient, as autograd)
+GELU_SPECIALS = (4.0, -4.0, 3.984375, -3.984375, 4.03125, -4.03125, float("inf"),
+                 float("-inf"), float("nan"), 0.0, -0.0, 0.75, -0.75, 1e4, -1e4)
+
+
+def gelu_inputs(shape: tuple[int, ...], seed: int, offset: bool = False):
+    """bf16 ``x`` (normal, scaled by 2, :data:`GELU_SPECIALS` first) and
+    ``dy`` (normal) of ``shape`` on the card; with ``offset``, views that
+    start 2 bytes past a 16-byte boundary."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = math.prod(shape)
+    out = []
+    for scale in (2.0, 1.0):
+        buf = torch.empty(n + 1, dtype=torch.bfloat16, device="cuda")
+        t = buf[1:] if offset else buf[:n]
+        t.copy_(torch.randn(n, generator=gen, device="cuda") * scale)
+        out.append(t.view(shape))
+    out[0].view(-1)[:len(GELU_SPECIALS)] = torch.tensor(GELU_SPECIALS, dtype=torch.bfloat16)
+    return out
+
+
+def within_one_ulp(got, want) -> tuple[bool, float, float]:
+    """bf16 ``got`` against ``want``: every element equal, both NaN, or
+    within one bf16 ulp of ``want``; returns (ok, share bit-equal, largest
+    |difference| among the finite)."""
+    import torch
+
+    same = got.view(torch.int16) == want.view(torch.int16)
+    nan = got.isnan() & want.isnan()
+    diff = (got.float() - want.float()).abs()
+    close = diff <= bf16_ulp(want)
+    finite = got.isfinite() & want.isfinite()
+    ok = bool((same | nan | close).all())
+    worst = diff[finite].max().item() if bool(finite.any()) else 0.0
+    return ok, same.float().mean().item(), worst
+
+
+def phase_gelu_kernel() -> dict:
+    """The two kernels of ``csrc/gelu.cu`` against the eager chain on the
+    card (docstring item 6b).  Returns the forward's record at
+    ``[64,1568,3072]`` and the backward's at ``[48,1568,1536]``, with the
+    other shapes' readings under their labels."""
+    import torch
+    import torch.nn.functional as F
+
+    from bvc_tpu_torch.ops.gelu import (gelu_poly, gelu_poly_bwd_cuda, gelu_poly_bwd_ref,
+                                        gelu_poly_cuda)
+
+    def checked(what, x, dy):
+        y = gelu_poly_cuda(x)
+        torch.cuda.synchronize()
+        dx = gelu_poly_bwd_cuda(x, dy)
+        torch.cuda.synchronize()
+        want = gelu_poly(x)
+        mismatched = int((y.view(torch.int16) != want.view(torch.int16)).sum())
+        finite = y.isfinite() & want.isfinite()
+        fwd_err = (y.float() - want.float()).abs()[finite].max().item()
+        xr = x.detach().clone().requires_grad_()
+        gelu_poly(xr).backward(dy)
+        ok, equal_share, worst = within_one_ulp(dx, xr.grad)
+        print(f"gelu {what}: forward {mismatched} of {x.numel()} elements not bit-equal to "
+              f"the eager chain; backward bit-equal to autograd at {equal_share:.6f} of "
+              f"elements, largest finite |diff| {worst:.3e}, within one bf16 ulp: {ok}",
+              flush=True)
+        check(mismatched == 0, f"gelu {what}: the forward differs from the eager chain at "
+                               f"{mismatched} elements")
+        check(ok, f"gelu {what}: the backward is more than one bf16 ulp from autograd")
+        del xr, want
+        return {"max_abs_err": fwd_err, "mismatched": mismatched,
+                "bwd_equal_share": equal_share, "bwd_max_abs_err": worst}
+
+    fwd, bwd = {}, {}
+    for i, (label, shape) in enumerate(GELU_SHAPES):
+        x, dy = gelu_inputs(shape, seed=i)
+        rec = checked(f"{label} {list(shape)}", x, dy)
+        n = x.numel()
+        bound_fwd = 2 * n * 2 / PEAK_HBM_BYTES * 1e3  # read x, write y
+        bound_bwd = 3 * n * 2 / PEAK_HBM_BYTES * 1e3  # read x and dy, write dx
+        fwd[label] = {"at": list(shape), "max_abs_err": rec["max_abs_err"],
+                      "mismatched": rec["mismatched"],
+                      "ms": cold_ms(lambda: gelu_poly_cuda(x)),
+                      "plain_ms": time_ms(lambda: gelu_poly(x), iters=3, warmup=1),
+                      "library_ms": cold_ms(lambda: F.gelu(x)),
+                      "bound_ms": bound_fwd, "bound_by": "bytes"}
+        bwd[label] = {"at": list(shape), "max_abs_err": rec["bwd_max_abs_err"],
+                      "equal_share": rec["bwd_equal_share"],
+                      "ms": cold_ms(lambda: gelu_poly_bwd_cuda(x, dy)),
+                      "plain_ms": time_ms(lambda: gelu_poly_bwd_ref(x, dy), iters=3, warmup=1),
+                      "library_ms": cold_ms(lambda: torch.ops.aten.gelu_backward(dy, x)),
+                      "bound_ms": bound_bwd, "bound_by": "bytes"}
+        for name, r in (("forward", fwd[label]), ("backward", bwd[label])):
+            r["roofline"] = r["bound_ms"] / r["ms"]
+            print(f"gelu {name} {list(shape)}: kernel {r['ms']:.4f} ms (L2 flushed), bound "
+                  f"{r['bound_ms']:.4f} ms (bytes at 3.35 TB/s, {r['roofline']:.3f} of it), "
+                  f"plain {r['plain_ms']:.4f} ms, "
+                  f"{'F.gelu' if name == 'forward' else 'aten.gelu_backward'} "
+                  f"{r['library_ms']:.4f} ms", flush=True)
+        del x, dy
+        torch.cuda.empty_cache()
+    check(fwd["embed"]["roofline"] >= 0.7,
+          f"gelu forward at {fwd['embed']['at']}: {fwd['embed']['roofline']:.3f} of the bytes "
+          f"bound, under 0.7")
+    for what, shape, offset in (("odd size", (7, 1001), False),
+                                ("views off 16 bytes", (48, 160, 3072), True),
+                                ("odd views off 16 bytes", (5, 333), True)):
+        x, dy = gelu_inputs(shape, seed=9, offset=offset)
+        check(x.data_ptr() % 16 == (2 if offset else 0), f"gelu {what}: x at {x.data_ptr()}")
+        fwd[what.replace(" ", "_")] = checked(f"{what} {list(shape)}", x, dy)
+    before = (gelu_poly_cuda.launches, gelu_poly_cuda.launches_bwd)
+    empty = torch.empty((0, 3072), dtype=torch.bfloat16, device="cuda")
+    y, dx = gelu_poly_cuda(empty), gelu_poly_bwd_cuda(empty, empty)
+    torch.cuda.synchronize()
+    check(y.shape == dx.shape == empty.shape
+          and (gelu_poly_cuda.launches, gelu_poly_cuda.launches_bwd) == before,
+          "gelu: an empty tensor launched a kernel or came back in another shape")
+    main_fwd, main_bwd = fwd.pop("embed"), bwd.pop("decoder")
+    return {"forward": {**main_fwd, **fwd}, "backward": {**main_bwd, **bwd}}
+
+
 def probe_path(name: str, run, expected: set) -> dict[str, int]:
     """A probe's entry point as its own path: every launch count set to 0,
     ``run()``, then the counts read: only the kernels in ``expected`` may
@@ -2045,13 +2186,26 @@ def phase_w8a8(card: str, profile: str | None) -> dict:
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
-    for fn, attr in _launch_counters().values():
+    """Set every kernel's launch count to 0, the GELU kernels' too."""
+    for fn, attr in (*_launch_counters().values(), *_gelu_counters().values()):
         setattr(fn, attr, 0)
 
 
 def read_launches() -> dict[str, int]:
+    """The attention and GEMM kernels' launch counts (the GELU kernels',
+    which every bf16 ViT block launches, are :func:`read_gelu_launches`)."""
     return {name: getattr(fn, attr) for name, (fn, attr) in _launch_counters().items()}
+
+
+def read_gelu_launches() -> dict[str, int]:
+    return {name: getattr(fn, attr) for name, (fn, attr) in _gelu_counters().items()}
+
+
+def _gelu_counters() -> dict:
+    from bvc_tpu_torch.ops.gelu import gelu_poly_cuda
+
+    return {"gelu_poly": (gelu_poly_cuda, "launches"),
+            "gelu_poly_bwd": (gelu_poly_cuda, "launches_bwd")}
 
 
 def _launch_counters() -> dict:
@@ -2484,7 +2638,7 @@ def report_cli(what: str, card: str, B: int, rec: dict, loader_clips_s: float,
 
 
 def phase_pretrain_cli_videomae(card: str, corpus: tuple[str, str], B: int,
-                                per_step: dict) -> dict:
+                                per_step: dict, gelu_per_step: dict) -> dict:
     """``python -m bvc_tpu_torch.cli.pretrain_videomae`` on the card through
     ``main``, at full width (VideoMAE-B, 224 px, 16 frames, tube mask 0.9)
     and the batch ``phase_train`` picked: a 19-step stage from the packed
@@ -2492,7 +2646,8 @@ def phase_pretrain_cli_videomae(card: str, corpus: tuple[str, str], B: int,
     at steps 12-18), then a 3-step stage
     chained from its checkpoint, then ``--resume y`` of the finished first
     stage, which returns at once.  Each stage launches exactly
-    ``per_step`` (the step's own kernels, ``phase_train``) a step, its CSV
+    ``per_step`` (the step's own kernels, ``phase_train``) a step and stage
+    1 the GELU kernels ``gelu_per_step`` times a step, its CSV
     has a finite loss a step, and the first checkpoint embeds a batch
     through ``make_embed_fn`` at cosine >= 0.999 to the trained encoder.
     Both stages write their checkpoint by the async writer
@@ -2525,9 +2680,12 @@ def phase_pretrain_cli_videomae(card: str, corpus: tuple[str, str], B: int,
         finally:
             rec["restore"]()
             undo()
+        gelu = read_gelu_launches()
         rec["stall_ms"] = loaders[0].stall_ms
         check(rec["calls"] == CLI_ITERS, f"{rec['calls']} steps, want {CLI_ITERS}")
         check_cli_launches(launches, per_step, CLI_ITERS, "videomae cli stage 1")
+        check(gelu == {k: v * CLI_ITERS for k, v in gelu_per_step.items()},
+              f"videomae cli stage 1: GELU launches {gelu}, want {gelu_per_step} a step")
         losses = check_csv(out / "csvlog_dev_1_g0_default_0_0.csv", CLI_ITERS, 2,
                            "videomae cli stage 1")
         print(f"videomae cli stage 1: losses {losses[0]:.4f} .. {losses[-1]:.4f}", flush=True)
@@ -2565,7 +2723,8 @@ def phase_pretrain_cli_videomae(card: str, corpus: tuple[str, str], B: int,
                                              "videomae cli resume of the finished stage")
         check(s3["checkpoint"] == s1["checkpoint"] and not any(launches3.values()) and wall3 < 10,
               f"resume of a finished stage: {s3}, {launches3}, {wall3:.1f} s")
-    return {**result, "launches_per_cli_step": {k: v // CLI_ITERS for k, v in launches.items()}}
+    return {**result, "launches_per_cli_step": {k: v // CLI_ITERS for k, v in launches.items()},
+            "gelu_launches_per_cli_step": {k: v // CLI_ITERS for k, v in gelu.items()}}
 
 
 def phase_pretrain_cli_jepa(card: str, corpus: tuple[str, str], B: int, per_step: dict) -> dict:
@@ -3530,11 +3689,12 @@ def export_specs() -> list[tuple]:
 
 def artifact_kernels(family: str, cfg, quantize: str) -> dict[str, int]:
     """The kernel launches of one call of an artifact, which are its graph's
-    kernel nodes: a ``flash_fwd`` a ViT block, two ``gemm_s8`` a block in
-    W8A8 (qkv and fc1), none for SimCLR."""
+    kernel nodes: a ``flash_fwd`` and a ``gelu_poly`` a ViT block (bf16),
+    two ``gemm_s8`` a block in W8A8 (qkv and fc1), none for SimCLR."""
     if family == "simclr":
         return {}
-    return {"flash_fwd": cfg.depth, **({"gemm_s8": 2 * cfg.depth} if quantize == "int8" else {})}
+    return {"flash_fwd": cfg.depth, "gelu_poly": cfg.depth,
+            **({"gemm_s8": 2 * cfg.depth} if quantize == "int8" else {})}
 
 
 def timed_calls_s(fn, x) -> float:
@@ -3576,7 +3736,7 @@ def serve_artifacts(job: str) -> None:
         first_s = time.perf_counter() - t0
         reset_launches()
         outputs[art["name"] + "_B"] = fn(clips)
-        launches = read_launches()
+        launches = {**read_launches(), **read_gelu_launches()}
         readings[art["name"]] = {
             "load_s": load_s, "first_call_s": first_s, "launches": launches,
             "clips_s": len(clips) / timed_calls_s(fn, clips),
@@ -6077,7 +6237,7 @@ def main() -> None:
     print(f"host: {torch.cuda.device_count()} CUDA devices, {os.cpu_count()} CPU cores",
           flush=True)
     t0 = time.perf_counter()
-    kernels = ["flash_fwd", "flash_bwd_sm90", "gemm", "softmax_probe"]
+    kernels = ["flash_fwd", "flash_bwd_sm90", "gemm", "softmax_probe", "gelu"]
     _build.build_all(kernels)
     print(f"built {kernels} in {time.perf_counter() - t0:.1f} s", flush=True)
     if args.repeat_shard_ranks:
@@ -6113,13 +6273,15 @@ def main() -> None:
     bias = phase("phase_bias_kernel", phase_bias_kernel)
     gemm = phase("phase_gemm_kernel", phase_gemm_kernel)
     probe = phase("phase_softmax_probe_kernel", phase_softmax_probe_kernel)
+    gelu = phase("phase_gelu_kernel", phase_gelu_kernel)
     int8_probe = phase("probe_path int8", probe_path, "int8 dot", int8_dot.run,
                        {"gemm_s8", "gemm_bf16"})
     softmax_probe = phase("probe_path softmax", probe_path, "softmax dtype", softmax_dtype.run,
                           {"softmax_probe_fwd"})
-    embed_launches, embed_B = phase("phase_main_path", phase_main_path, smi, args.profile)
+    embed_launches, embed_B, embed_gelu = phase("phase_main_path", phase_main_path, smi,
+                                                args.profile)
     w8a8_launches = phase("phase_w8a8", phase_w8a8, smi, args.profile)
-    train_launches, train_B = phase("phase_train", phase_train, smi, args.profile)
+    train_launches, train_B, train_gelu = phase("phase_train", phase_train, smi, args.profile)
     jepa_embed_launches = phase("phase_jepa_embed", phase_jepa_embed, smi)
     jepa_launches = phase("phase_jepa_train", phase_jepa_train, smi, args.profile)
     phase("phase_entry_point", phase_entry_point)
@@ -6129,7 +6291,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as d:
         corpus = phase("write_corpus", write_corpus, Path(d))
         cli = phase("phase_pretrain_cli_videomae", phase_pretrain_cli_videomae, smi, corpus,
-                    train_B, train_launches)
+                    train_B, train_launches, train_gelu)
         jepa_cli = phase("phase_pretrain_cli_jepa", phase_pretrain_cli_jepa, smi, corpus, 64,
                          jepa_launches)
         sharding = phase("phase_sharding", phase_sharding, smi, train_B, Path(d), corpus,
@@ -6242,6 +6404,7 @@ def main() -> None:
                                            for k, a in export.items()}
         r["launches_per_vit_image_embed"] = {k: v["launches"][r["name"]]
                                              for k, v in vit_image.items()}
+    cli_gelu = cli.pop("gelu_launches_per_cli_step")
     trainers = {"videomae_cli": {k: v for k, v in cli.items() if k != "launches_per_cli_step"},
                 "jepa_cli": {k: v for k, v in jepa_cli.items() if k != "launches_per_cli_step"},
                 "remat": {"B": train_B, "peak_gib_without": remat["peak_gib"][False],
@@ -6262,6 +6425,19 @@ def main() -> None:
                 "svm_probe": svm_probe, "ring_plain": ring_plain,
                 "attention_probs": {k: {f: v for f, v in a.items() if f != "launches"}
                                     for k, a in attention_probs.items()}}
+    # the GELU kernels (no TPU counterpart: XLA fused the GELU there), after
+    # the per-path counts above, which read the attention and GEMM kernels'
+    gelu_src = "bvc_tpu_torch/csrc/gelu.cu"
+    records += [
+        {"name": "gelu_poly", "route": "cuda", "source": gelu_src,
+         "replaces": "none (bvc_tpu/ops/gelu.py gelu_poly, fused by XLA)",
+         "launches": train_gelu["gelu_poly"], "launches_per_embed": embed_gelu,
+         "launches_per_cli_step": cli_gelu["gelu_poly"], **gelu["forward"]},
+        {"name": "gelu_poly_bwd", "route": "cuda", "source": gelu_src,
+         "replaces": "none (the autodiff of bvc_tpu/ops/gelu.py gelu_poly, fused by XLA)",
+         "launches": train_gelu["gelu_poly_bwd"],
+         "launches_per_cli_step": cli_gelu["gelu_poly_bwd"], **gelu["backward"]},
+    ]
     print(json.dumps({"trainers": trainers}), flush=True)
     print(json.dumps({"phase_seconds": phase.seconds}), flush=True)
     check(all(math.isfinite(r[k]) for r in records
