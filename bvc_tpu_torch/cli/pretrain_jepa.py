@@ -5,7 +5,12 @@ of :mod:`bvc_tpu.cli.pretrain_jepa`, the same flags).
 
 Scale flags mirror the reference's squashed parameterisation:
 ``--pred_mask_scale p`` → (p, p+0.05), ``--enc_mask_scale e`` → (e, e+0.15)
-(``pretrain_jepa.py:186-189``).  Runs on ``cuda``;
+(``pretrain_jepa.py:186-189``).  V-JEPA 2's model and masks: ``--pos_embed
+rope3d`` (rotary positions, no tables), ``--num_heads``, ``--mlp_ratio``,
+``--pred_num_heads``, ``--pred_mlp_ratio`` (0: the preset's or the
+encoder's), ``--mask_sampler multiblock3d`` (the union of
+``--pred_num_blocks`` full-duration blocks of scale ``--pred_mask_scale``,
+fixed, as one prediction mask).  Runs on ``cuda``;
 ``main(argv, device="cpu")`` runs on the CPU.
 """
 
@@ -34,6 +39,15 @@ def build_parser():
     p.add_argument("--augs", type=str, default="n")
     p.add_argument("--pred_depth", type=int, default=6)
     p.add_argument("--pred_emb_dim", type=int, default=384)
+    p.add_argument("--pos_embed", type=str, default="sincos3d", choices=("sincos3d", "rope3d"))
+    p.add_argument("--num_heads", type=int, default=0, help="0: the architecture's")
+    p.add_argument("--mlp_ratio", type=float, default=0.0, help="0: 4.0")
+    p.add_argument("--pred_num_heads", type=int, default=0, help="0: the encoder's")
+    p.add_argument("--pred_mlp_ratio", type=float, default=0.0, help="0: the encoder's")
+    p.add_argument("--mask_sampler", type=str, default="multiblock",
+                   choices=("multiblock", "multiblock3d"))
+    p.add_argument("--pred_num_blocks", type=int, default=8,
+                   help="multiblock3d: blocks whose union is the prediction mask")
     p.add_argument("--save_every_epoch", type=str, default="n")
     p.add_argument("--resume", type=str, default="n",
                    help="y: pick up from this run's own checkpoint if present")
@@ -48,7 +62,7 @@ def config_from_args(args):
     cfg.model.architecture = name
     cfg.model.hidden_size = dim
     cfg.model.depth = depth
-    cfg.model.num_heads = heads
+    cfg.model.num_heads = args.num_heads or heads
     cfg.model.num_frames = args.num_frames
     cfg.model.tubelet_size = args.tubelet_size
     cfg.model.pred_depth = args.pred_depth
@@ -56,6 +70,15 @@ def config_from_args(args):
     cfg.mask.enc_mask_scale = (args.enc_mask_scale, args.enc_mask_scale + 0.15)
     cfg.mask.pred_mask_scale = (args.pred_mask_scale, args.pred_mask_scale + 0.05)
     cfg.mask.allow_overlap = args.allow_overlap == "y"
+    cfg.model.pos_embed = args.pos_embed
+    cfg.model.mlp_ratio = args.mlp_ratio or cfg.model.mlp_ratio
+    cfg.model.pred_num_heads = args.pred_num_heads
+    cfg.model.pred_mlp_ratio = args.pred_mlp_ratio
+    if args.mask_sampler == "multiblock3d":
+        cfg.mask.sampler = "multiblock3d"
+        cfg.mask.pred_mask_scale = (args.pred_mask_scale, args.pred_mask_scale)
+        cfg.mask.num_pred_masks = 1
+        cfg.mask.pred_num_blocks = args.pred_num_blocks
     cfg.optim.exclude_bias_and_norm_from_wd = True
     cfg.data.num_frames = args.num_frames
     cfg.data.tubelet_size = args.tubelet_size

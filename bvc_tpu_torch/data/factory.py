@@ -98,7 +98,8 @@ def make_generative_dataset(cfg: DataConfig) -> dict:
 
 def make_predictive_dataset(cfg: DataConfig) -> dict:
     """Pairs (tubelet 1) or two-tubelet sequences for JEPA
-    (``pretrain_jepa.py:51-82``)."""
+    (``pretrain_jepa.py:51-82``); clips of ``num_frames`` consecutive
+    frames when they are longer than two tubelets."""
     rng = _random.Random(cfg.seed)
     fps = _corpus(cfg, rng)
     if cfg.condition == "shuffle":
@@ -108,7 +109,14 @@ def make_predictive_dataset(cfg: DataConfig) -> dict:
         crop_size=cfg.image_size, crop_scale=(1.0, 1.0),
         output_uint8=cfg.feed_uint8,
     )
-    if cfg.tubelet_size == 1:
+    if cfg.num_frames > 2 * cfg.tubelet_size:
+        # a clip of consecutive frames (V-JEPA's 16-frame clips), sampled as
+        # the generative datasets sample theirs
+        train = ClipDataset(
+            get_fpathseqlist(fps, cfg.num_frames, ds_rate=1, n_samples=cfg.n_trainsamples),
+            transform,
+        )
+    elif cfg.tubelet_size == 1:
         train = PairDataset(
             get_fpath2framelist(fps, cfg.interval, n_samples=cfg.n_trainsamples),
             transform,

@@ -318,15 +318,21 @@ def _pos_table(cfg: ModelConfig, dim: int) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(table))[None]
 
 
+def _pos_entry(name: str, cfg: ModelConfig, dim: int) -> dict[str, torch.Tensor]:
+    """The fixed table under ``name``; none with rotary positions (V-JEPA
+    2's networks hold no table)."""
+    return {} if cfg.pos_embed == "rope3d" else {name: _pos_table(cfg, dim)}
+
+
 def jepa_encoder_to_reference(sd: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """Encoder state dict -> reference ``VisionTransformer.state_dict()``
-    layout, with the fixed ``pos_embed`` table."""
+    layout, with the fixed ``pos_embed`` table (none for ``rope3d``)."""
     w = _f32(sd["patch_embed.weight"])
     return {"patch_embed.proj.weight": w.reshape(w.shape[0], cfg.in_channels,
                                                  cfg.tubelet_size, cfg.patch_size,
                                                  cfg.patch_size).contiguous(),
             "patch_embed.proj.bias": _f32(sd["patch_embed.bias"]),
-            "pos_embed": _pos_table(cfg, w.shape[0]),
+            **_pos_entry("pos_embed", cfg, w.shape[0]),
             "norm.weight": _f32(sd["norm.weight"]), "norm.bias": _f32(sd["norm.bias"]),
             **_ref_blocks(sd, "blocks.layers.", "blocks.", cfg.depth, to_ref=True)}
 
@@ -334,9 +340,9 @@ def jepa_encoder_to_reference(sd: dict, cfg: ModelConfig) -> dict[str, torch.Ten
 def jepa_predictor_to_reference(sd: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """Predictor state dict -> reference
     ``VisionTransformerPredictor.state_dict()`` layout, with the fixed
-    ``predictor_pos_embed`` table."""
+    ``predictor_pos_embed`` table (none for ``rope3d``)."""
     out = {"mask_token": _f32(sd["mask_token"]),
-           "predictor_pos_embed": _pos_table(cfg, cfg.pred_emb_dim),
+           **_pos_entry("predictor_pos_embed", cfg, cfg.pred_emb_dim),
            **_ref_blocks(sd, "blocks.layers.", "predictor_blocks.", cfg.pred_depth,
                          to_ref=True)}
     for ours, theirs in (("embed", "predictor_embed"), ("norm", "predictor_norm"),

@@ -28,6 +28,14 @@ layout, flat patch order (c, dt, dh, dw)), ``blocks.layers.{i}.*`` and
 :mod:`bvc_tpu_torch.models.convert` fills them from JAX params, and the
 encoder also from the reference layout of a ``.pth.tar``.
 
+With ``cfg.pos_embed == 'rope3d'`` (V-JEPA 2, Assran et al. 2025) neither
+network has a table: every block rotates its queries and keys by the
+tokens' ids in the clip's grid (:mod:`bvc_tpu_torch.ops.rope`): the context
+encoder's kept ids, the target's ``0 .. N-1``, the predictor's context ids
+then its target ids; the mask tokens are the bare ``mask_token``.  The
+predictor takes ``cfg.pred_num_heads`` heads and ``cfg.pred_mlp_ratio``
+(each 0: the encoder's).
+
 Drop-path (``cfg.drop_path_rate``, the reference's per-layer
 ``linspace(0, rate, depth)``) runs when the caller passes a generator, as
 the JAX package's runs when it passes an rng: the training step passes its
@@ -47,12 +55,24 @@ from bvc_tpu_torch.models.posenc import interpolate_pos_table_3d, positional_enc
 from bvc_tpu_torch.models.videomae import _DTYPES, normalize_on_device
 from bvc_tpu_torch.models.vit import Blocks, LayerNorm, layer_norm
 from bvc_tpu_torch.ops.patchify import tubelet_patchify
+from bvc_tpu_torch.ops.rope import rope_positions
 from bvc_tpu_torch.utils.config import ModelConfig
 
 
 def _grid(cfg: ModelConfig) -> tuple[int, int, int]:
     g = cfg.image_size // cfg.patch_size
     return (cfg.num_frames // cfg.tubelet_size, g, g)
+
+
+POS_EMBEDS = ("sincos3d", "rope3d")
+
+
+def uses_rope(cfg: ModelConfig) -> bool:
+    """Whether the configuration's JEPA networks take rotary positions;
+    raises for an unknown ``pos_embed``."""
+    if cfg.pos_embed not in POS_EMBEDS:
+        raise ValueError(f"unknown pos_embed {cfg.pos_embed!r} (expected one of {POS_EMBEDS})")
+    return cfg.pos_embed == "rope3d"
 
 
 def safe_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -77,13 +97,16 @@ class JEPAEncoder(nn.Module):
         patch_dim = cfg.in_channels * cfg.tubelet_size * cfg.patch_size ** 2
         self.patch_embed = nn.Linear(patch_dim, cfg.hidden_size)
         init_linear(self.patch_embed, cfg.init_std, gen)
+        self.rope = uses_rope(cfg)
         self.blocks = Blocks(cfg.depth, cfg.hidden_size, cfg.num_heads, cfg.mlp_ratio,
-                             cfg.qkv_bias, cfg.layer_norm_eps, cfg.init_std, gen, cfg.remat)
+                             cfg.qkv_bias, cfg.layer_norm_eps, cfg.init_std, gen, cfg.remat,
+                             _grid(cfg) if self.rope else None)
         self.norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
-        self.register_buffer(
-            "pos_embed",
-            torch.from_numpy(positional_encoding_3d(*_grid(cfg), cfg.hidden_size)),
-            persistent=False)
+        if not self.rope:
+            self.register_buffer(
+                "pos_embed",
+                torch.from_numpy(positional_encoding_3d(*_grid(cfg), cfg.hidden_size)),
+                persistent=False)
 
     def forward(self, video: torch.Tensor, keep_idx: torch.Tensor | None = None,
                 attn_impl: str = "auto", generator: torch.Generator | None = None,
@@ -95,9 +118,18 @@ class JEPAEncoder(nn.Module):
         rank of a ``seq`` ring) whose first token sits there, and its
         tokens take the position table's rows from it; the slice must have
         the configured spatial size.  Returns ``[B, K, D]`` (``[B, N, D]``
-        without ``keep_idx``), final-normed, in the compute dtype."""
+        without ``keep_idx``), final-normed, in the compute dtype.  With
+        rotary positions the video must have the configured grid, and a
+        time slice is refused."""
         cfg = self.cfg
         dtype = _DTYPES[cfg.dtype]
+        pe = self.patch_embed
+        if self.rope:
+            self._check_rope_input(video, token_offset)
+            tokens = tubelet_patchify(normalize_on_device(video), pe.weight, pe.bias,
+                                      cfg.tubelet_size, cfg.patch_size, dtype)
+            ids = self.token_ids(keep_idx, tokens.shape[0], tokens.shape[1])
+            return self._encode(tokens, keep_idx, attn_impl, generator, rope_positions(ids))
         t, h, w = _grid(cfg)
         t_in = video.shape[1] // cfg.tubelet_size
         h_in, w_in = video.shape[2] // cfg.patch_size, video.shape[3] // cfg.patch_size
@@ -116,16 +148,40 @@ class JEPAEncoder(nn.Module):
             pos = torch.from_numpy(interpolate_pos_table_3d(
                 positional_encoding_3d(t, h, w, cfg.hidden_size), t, h, w, h_in, w_in)
             ).to(pos.device)
-        pe = self.patch_embed
         tokens = tubelet_patchify(normalize_on_device(video), pe.weight, pe.bias,
                                   cfg.tubelet_size, cfg.patch_size, dtype)
         tokens = tokens + pos.to(dtype)
+        return self._encode(tokens, keep_idx, attn_impl, generator)
+
+    def _encode(self, tokens: torch.Tensor, keep_idx: torch.Tensor | None, attn_impl: str,
+                generator: torch.Generator | None, pos: torch.Tensor | None = None
+                ) -> torch.Tensor:
         key_mask = None
         if keep_idx is not None:
             key_mask = keep_idx >= 0
             tokens = safe_gather(tokens, keep_idx)
-        return self.norm(self.blocks(tokens, attn_impl, key_mask, cfg.drop_path_rate,
-                                     generator))
+        return self.norm(self.blocks(tokens, attn_impl, key_mask, self.cfg.drop_path_rate,
+                                     generator, pos))
+
+    def token_ids(self, keep_idx: torch.Tensor | None, batch: int, n: int) -> torch.Tensor:
+        """The rotary positions' token ids ``[B, K]`` of an encode: the kept
+        ids, or ``0 .. n-1`` for every row without ``keep_idx``."""
+        if keep_idx is not None:
+            return keep_idx
+        return torch.arange(n, device=self.patch_embed.weight.device).expand(batch, n)
+
+    def _check_rope_input(self, video: torch.Tensor, token_offset: int | None) -> None:
+        cfg = self.cfg
+        if token_offset is not None:
+            raise ValueError("pos_embed='rope3d' on a 'seq' mesh: the sequence-parallel "
+                             "encoder passes its time slice a token offset into the position "
+                             "table, and the rotary path has no table to offset (it takes "
+                             "the clip's token ids); use a pure-data mesh")
+        got = (video.shape[1] // cfg.tubelet_size, video.shape[2] // cfg.patch_size,
+               video.shape[3] // cfg.patch_size)
+        if got != _grid(cfg):
+            raise ValueError(f"pos_embed='rope3d': the rotary tables are of the configured "
+                             f"{_grid(cfg)} token grid, the video gives {got}")
 
     def embed(self, video: torch.Tensor, attn_impl: str = "auto") -> torch.Tensor:
         """Mean over the tokens of the normed encoder output, ``[B, D]`` in
@@ -147,14 +203,18 @@ class JEPAPredictor(nn.Module):
         init_linear(self.embed, cfg.init_std, gen)
         self.mask_token = nn.Parameter(torch.empty(1, 1, d_pred))
         trunc_normal_(self.mask_token, cfg.init_std, gen)
-        self.blocks = Blocks(cfg.pred_depth, d_pred, cfg.num_heads, cfg.mlp_ratio,
-                             cfg.qkv_bias, cfg.layer_norm_eps, cfg.init_std, gen, cfg.remat)
+        self.rope = uses_rope(cfg)
+        self.blocks = Blocks(cfg.pred_depth, d_pred, cfg.pred_num_heads or cfg.num_heads,
+                             cfg.pred_mlp_ratio or cfg.mlp_ratio, cfg.qkv_bias,
+                             cfg.layer_norm_eps, cfg.init_std, gen, cfg.remat,
+                             _grid(cfg) if self.rope else None)
         self.norm = LayerNorm(d_pred, cfg.layer_norm_eps)
         self.proj = nn.Linear(d_pred, d_enc)
         init_linear(self.proj, cfg.init_std, gen)
-        self.register_buffer(
-            "pos_embed", torch.from_numpy(positional_encoding_3d(*_grid(cfg), d_pred)),
-            persistent=False)
+        if not self.rope:
+            self.register_buffer(
+                "pos_embed", torch.from_numpy(positional_encoding_3d(*_grid(cfg), d_pred)),
+                persistent=False)
 
     def forward(self, z: torch.Tensor, enc_idx: torch.Tensor, pred_idx: torch.Tensor,
                 attn_impl: str = "auto", generator: torch.Generator | None = None
@@ -166,18 +226,24 @@ class JEPAPredictor(nn.Module):
         dtype = z.dtype
         M, B, Kp = pred_idx.shape
         Ke = enc_idx.shape[1]
-        pos = self.pos_embed.to(dtype)
         x = F.linear(z, self.embed.weight.to(dtype), self.embed.bias.to(dtype))
-        x = x + pos[enc_idx.clamp(min=0)]
+        ids = None
+        if self.rope:
+            pred_tokens = self.mask_token.to(dtype).expand(M * B, Kp, -1)
+            ids = rope_positions(torch.cat([enc_idx[None].expand(M, -1, -1).reshape(M * B, Ke),
+                                            pred_idx.reshape(M * B, Kp)], dim=1))
+        else:
+            pos = self.pos_embed.to(dtype)
+            x = x + pos[enc_idx.clamp(min=0)]
+            pred_tokens = (self.mask_token.to(dtype)
+                           + pos[pred_idx.clamp(min=0)].reshape(M * B, Kp, -1))
         # m-major tiling of the context, as x.repeat(len(masks), 1, 1)
         x = x[None].expand(M, -1, -1, -1).reshape(M * B, Ke, -1)
         enc_valid = (enc_idx >= 0)[None].expand(M, -1, -1).reshape(M * B, Ke)
-        pred_tokens = (self.mask_token.to(dtype)
-                       + pos[pred_idx.clamp(min=0)].reshape(M * B, Kp, -1))
         pred_valid = (pred_idx >= 0).reshape(M * B, Kp)
         full = self.blocks(torch.cat([x, pred_tokens], dim=1), attn_impl,
                            torch.cat([enc_valid, pred_valid], dim=1),
-                           self.cfg.drop_path_rate, generator)
+                           self.cfg.drop_path_rate, generator, ids)
         out = self.norm(full[:, Ke:])
         out = F.linear(out, self.proj.weight.to(dtype), self.proj.bias.to(dtype))
         return out.reshape(M, B, Kp, -1)

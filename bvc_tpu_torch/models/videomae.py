@@ -73,6 +73,9 @@ class VideoMAEEncoder(nn.Module):
                 f"videomae architecture {cfg.architecture!r} is not defined; "
                 "only 'base' exists (set explicit hidden_size/depth/... for "
                 "custom sizes)")
+        if cfg.pos_embed != "sincos3d":
+            raise ValueError(f"pos_embed={cfg.pos_embed!r}: VideoMAE adds its fixed sinusoid "
+                             "table; rotary positions ('rope3d') are a JEPA option")
         self.cfg = cfg
         gen = generator if generator is not None else torch.Generator().manual_seed(seed)
         patch_dim = cfg.in_channels * cfg.tubelet_size * cfg.patch_size ** 2

@@ -24,6 +24,11 @@ collectives.reduce_from_model`) sums the row-parallel products over the
 model ranks, the biases of ``proj`` and ``fc2`` added once after the sum,
 as the JAX package's TP block adds them.
 
+Rotary positions (V-JEPA 2's 3-D RoPE, :mod:`bvc_tpu_torch.ops.rope`): a
+block built with a ``rope_grid`` and called with token ids ``pos`` rotates
+its queries and keys by them before the attention; called without, it runs
+as a block without positions.
+
 Stochastic depth (:func:`drop_path`, JEPA only, off in every reference
 config) and activation checkpointing (``remat``: each block's activations
 recomputed in the backward, as the JAX package's ``run_blocks(..., remat)``)
@@ -43,6 +48,7 @@ from bvc_tpu_torch.ops.attention import multi_head_attention
 from bvc_tpu_torch.ops.flash_attention import key_bias
 from bvc_tpu_torch.ops.gelu import gelu
 from bvc_tpu_torch.ops.quant import QuantLinear, qdense
+from bvc_tpu_torch.ops.rope import rope3d
 from bvc_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
 from bvc_tpu_torch.parallel.sharding import TP_RULES, TPSplit
 from bvc_tpu_torch.utils.profiling import profiler_range
@@ -111,10 +117,12 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, ln_eps: float = 1e-6,
-                 init_std: float = 0.02, generator: torch.Generator | None = None):
+                 init_std: float = 0.02, generator: torch.Generator | None = None,
+                 rope_grid: tuple[int, int, int] | None = None):
         super().__init__()
         hidden = int(dim * mlp_ratio)
         self.num_heads = num_heads
+        self.rope_grid = rope_grid  # the (T, H, W) grid of the ids ``pos`` names
         # the model ranks' group and count once split_heads split the block
         self.tp_group, self.tp_size = None, 1
         self.ln1 = LayerNorm(dim, ln_eps)
@@ -151,11 +159,13 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, attn_impl: str = "auto",
                 bias: torch.Tensor | None = None, drop_keep: torch.Tensor | None = None,
-                keep_prob: float = 1.0) -> torch.Tensor:
+                keep_prob: float = 1.0, pos: torch.Tensor | None = None) -> torch.Tensor:
         """``bias``: the ``[B, N]`` f32 key bias that :class:`Blocks` builds
         from its key mask, or None; ``drop_keep``: ``[2, B]`` bool drop-path
         draws (Bernoulli(``keep_prob``)) of the attention and MLP branches,
-        or None."""
+        or None; ``pos``: ``[B, N]`` int32 token ids in ``rope_grid``
+        (:func:`~bvc_tpu_torch.ops.rope.rope_positions`) that rotate q and
+        k, or None."""
         B, N, D = x.shape
         heads, hd = self.num_heads // self.tp_size, D // self.num_heads
         tp = self.tp_size > 1
@@ -164,6 +174,8 @@ class Block(nn.Module):
             h = copy_to_model(h, self.tp_group)
         qkv = _dense(h, self.qkv).reshape(B, N, 3, heads, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if pos is not None:
+            q, k = rope3d(q, k, pos, self.rope_grid)
         attn = multi_head_attention(q, k, v, impl=attn_impl, bias=bias).reshape(B, N, heads * hd)
         attn = _row_parallel(attn, self.proj, self.tp_group) if tp else _dense(attn, self.proj)
         x = x + drop_path(attn, None if drop_keep is None else drop_keep[0], keep_prob)
@@ -185,21 +197,25 @@ class Blocks(nn.Module):
 
     def __init__(self, depth: int, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, ln_eps: float = 1e-6, init_std: float = 0.02,
-                 generator: torch.Generator | None = None, remat: bool = False):
+                 generator: torch.Generator | None = None, remat: bool = False,
+                 rope_grid: tuple[int, int, int] | None = None):
         super().__init__()
         self.remat = remat
         self.layers = nn.ModuleList(
-            Block(dim, num_heads, mlp_ratio, qkv_bias, ln_eps, init_std, generator)
+            Block(dim, num_heads, mlp_ratio, qkv_bias, ln_eps, init_std, generator, rope_grid)
             for _ in range(depth))
 
     def forward(self, x: torch.Tensor, attn_impl: str = "auto",
                 key_mask: torch.Tensor | None = None, drop_path_rate: float = 0.0,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                pos: torch.Tensor | None = None) -> torch.Tensor:
         """``key_mask`` (``[B, N]`` bool, True = attendable) becomes its f32
         key bias once here, for every layer.  With ``drop_path_rate > 0``
         and a ``generator`` (training), layer i drops its branches per
         sample at the reference's rate ``linspace(0, drop_path_rate,
-        depth)[i]``, drawn from ``generator`` before the layer runs."""
+        depth)[i]``, drawn from ``generator`` before the layer runs.
+        ``pos``: the tokens' ids for every layer's rotary positions, or
+        None (see :meth:`Block.forward`)."""
         bias = None if key_mask is None else key_bias(key_mask)
         rates = (np.linspace(0.0, drop_path_rate, len(self.layers))
                  if drop_path_rate > 0 and generator is not None else None)
@@ -214,10 +230,10 @@ class Blocks(nn.Module):
                                   device=generator.device) < keep_prob
             if remat:
                 x = torch.utils.checkpoint.checkpoint(layer, x, attn_impl, bias, keep,
-                                                      keep_prob, use_reentrant=False,
+                                                      keep_prob, pos, use_reentrant=False,
                                                       preserve_rng_state=False)
             else:
-                x = layer(x, attn_impl, bias, keep, keep_prob)
+                x = layer(x, attn_impl, bias, keep, keep_prob, pos)
         return x
 
 
@@ -230,6 +246,9 @@ def block_attention_probs(block: Block, x: torch.Tensor) -> torch.Tensor:
     scores times ``d^-0.5`` and a softmax; plain torch, as the JAX package
     computes it outside any kernel.  Not on the training path: it holds the
     N^2 scores of every head."""
+    if block.rope_grid is not None:
+        raise ValueError("block_attention_probs: a block with rotary positions "
+                         "(rope_grid) needs its tokens' ids, which this path does not take")
     B, N, D = x.shape
     heads, hd = block.num_heads // block.tp_size, D // block.num_heads
     qkv = _dense(block.ln1(x), block.qkv).reshape(B, N, 3, heads, hd)

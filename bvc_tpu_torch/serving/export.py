@@ -107,6 +107,10 @@ def export_embed(family: str, model: nn.Module, cfg: ModelConfig, quantize: str 
 
     if family not in ("videomae", "jepa", "simclr"):
         raise ValueError(f"unknown family {family!r}")
+    if family != "simclr" and cfg.pos_embed == "rope3d":
+        raise ValueError("export_serving: pos_embed='rope3d' is not exported: a loaded "
+                         "artifact registers the flash, GELU and GEMM operators, not the "
+                         "bvc_tpu_torch::rope3d operator its blocks would call")
     quantized = _check_quantize(family, quantize)
     device = resolve_device(device)
     model = copy.deepcopy(model)

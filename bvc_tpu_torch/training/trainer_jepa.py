@@ -32,6 +32,7 @@ import torch
 from bvc_tpu_torch.data.factory import make_dataset
 from bvc_tpu_torch.data.loader import DataLoader
 from bvc_tpu_torch.masks.multiblock import MultiBlockMaskCollator, update_mask_indices
+from bvc_tpu_torch.masks.multiblock3d import mask_collate_3d
 from bvc_tpu_torch.models.convert import (jepa_encoder_from_reference_state_dict,
                                           jepa_encoder_to_reference,
                                           jepa_predictor_from_reference_state_dict,
@@ -58,8 +59,19 @@ def make_mask_collate(cfg: TrainConfig, batches_per_epoch: int):
     """``(collate_fn, collator)``: ``collate_fn(batch, epoch, batch_idx)``
     attaches the enc/pred mask indices of collator step ``epoch *
     batches_per_epoch + batch_idx`` to each batch: this rank's rows of the
-    indices drawn for the global batch of every data rank's block."""
+    indices drawn for the global batch of every data rank's block.  With
+    ``cfg.mask.sampler == 'multiblock3d'`` the masks are V-JEPA's 3-D ones
+    (:mod:`~bvc_tpu_torch.masks.multiblock3d`)."""
     m = cfg.model
+    if cfg.mask.sampler == "multiblock3d":
+        masks3d = mask_collate_3d(m, cfg.mask, cfg.seed)
+
+        def collate3d(batch: np.ndarray, epoch: int, batch_idx: int):
+            b, r = batch.shape[0], data_rank()
+            drawn = masks3d(b * data_size(), epoch * batches_per_epoch + batch_idx)
+            return {"video": batch, **{k: v[r * b:(r + 1) * b] for k, v in drawn.items()}}
+
+        return collate3d, masks3d.collator
     collator = MultiBlockMaskCollator(
         input_size=m.image_size,
         patch_size=m.patch_size,
@@ -107,6 +119,11 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
     path."""
     logger = get_logger("bvc_tpu_torch.jepa")
     for axis in ("seq", "pipe"):
+        if axis in cfg.mesh_shape and cfg.model.pos_embed == "rope3d":
+            raise ValueError(
+                f"pos_embed='rope3d' on a '{axis}' mesh: the {axis}-parallel steps split "
+                "the blocks' tokens or layers without the tokens' ids that the rotary "
+                "positions need -- use a pure-data mesh")
         if axis in cfg.mesh_shape:
             raise ValueError(
                 f"'{axis}' parallelism is videomae-only (this family's "

@@ -162,6 +162,13 @@ class ModelConfig:
     decoder_num_heads: int = 6
     pred_depth: int = 6
     pred_emb_dim: int = 384
+    # the JEPA predictor's heads and MLP ratio; 0 takes the encoder's
+    pred_num_heads: int = 0
+    pred_mlp_ratio: float = 0.0
+    # JEPA token positions: 'sincos3d' adds the fixed 3-D tables to the
+    # tokens; 'rope3d' adds none and rotates every attention's queries and
+    # keys by their grid position (V-JEPA 2's 3-D RoPE, ops/rope.py)
+    pos_embed: str = "sincos3d"
     norm_pix_loss: bool = True
     use_mean_pooling: bool = True
     init_std: float = 0.02
@@ -194,8 +201,9 @@ class ModelConfig:
 class MaskConfig:
     """Masking knobs for both mask families."""
 
-    # VideoMAE tube / random masking
-    sampler: str = "tube"  # 'tube' | 'random'
+    # VideoMAE tube / random masking; JEPA: 'multiblock3d' selects V-JEPA's
+    # 3-D collator (masks/multiblock3d.py), any other value the 2-D one
+    sampler: str = "tube"  # 'tube' | 'random' | 'multiblock3d'
     mask_ratio: float = 0.9
     # JEPA multi-block collator, read by masks.multiblock.mask_collate
     enc_mask_scale: tuple[float, float] = (0.85, 1.0)
@@ -205,6 +213,9 @@ class MaskConfig:
     num_pred_masks: int = 4
     min_keep: int = 10
     allow_overlap: bool = False
+    # multiblock3d: blocks of pred_mask_scale (spatial, full duration)
+    # whose union is the one prediction mask
+    pred_num_blocks: int = 8
 
 
 @dataclass

@@ -94,6 +94,15 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    launch; times (L2 flushed) against the bytes bound, the plain versions
    and, as yardsticks, ``F.gelu`` and ``aten.gelu_backward``.  The forward
    must reach 70% of the bytes bound at ``[64,1568,3072]``.
+6c. The RoPE kernels against the eager chain (``csrc/rope.cu``) at V-JEPA 2
+   ViT-g's ``[16,2048,22,64]`` (encoder) and ``[16,2048,12,32]``
+   (predictor), q and k read from a fused qkv tensor: the forward within
+   one bf16 ulp of ``rope_rotate`` (bit-equal where the order is kept), the
+   backward of autograd through it; times (L2 flushed) against the bytes
+   bound and the eager chain; the forward must reach 60% of the bound at
+   the encoder's shape.  Then one ViT-g step at 2 clips (``vjepa2_config``):
+   the flash launches (40 unmasked forwards, 52 key-bias forwards and
+   backwards) and the RoPE launches (92 forward, 52 backward).
 7. The two probes as their own paths (``python -m
    bvc_tpu_torch.probes.int8_dot`` and ``.softmax_dtype``): launch counts
    set to 0, the probe run, its kernels and no other launched.
@@ -2063,6 +2072,157 @@ def phase_gelu_kernel() -> dict:
           "gelu: an empty tensor launched a kernel or came back in another shape")
     main_fwd, main_bwd = fwd.pop("embed"), bwd.pop("decoder")
     return {"forward": {**main_fwd, **fwd}, "backward": {**main_bwd, **bwd}}
+
+
+ROPE_SHAPES = (("encoder", (16, 2048, 22, 64)), ("predictor", (16, 2048, 12, 32)))
+
+
+def rope_bound_ms(B: int, N: int, h: int, d: int, pairs: int, grid_tokens: int) -> float:
+    """Least time of one RoPE launch (either direction): q and k read and
+    written in bf16, the int32 positions and the f32 cos and sin tables read
+    once, at the HBM rate."""
+    nbytes = 4 * B * N * h * d * 2 + B * N * 4 + 2 * grid_tokens * pairs * 4
+    return nbytes / PEAK_HBM_BYTES * 1e3
+
+
+def phase_rope_kernel() -> dict:
+    """The two kernels of ``csrc/rope.cu`` against the eager chain on the
+    card (docstring item 6c), at V-JEPA 2 ViT-g's shapes, q and k read from
+    a fused ``[B, N, 3, h, d]`` qkv tensor as the blocks give them: the
+    forward bit-equal to ``rope_rotate`` (or within one bf16 ulp), the
+    backward to autograd's gradient through it; times (L2 flushed) against
+    the bytes bound, the eager chain's time; the forward at the encoder's
+    shape at 60% of its bound or more."""
+    import torch
+
+    from bvc_tpu_torch.ops.rope import (rope3d_bwd_cuda, rope3d_cuda, rope_pairs,
+                                        rope_positions, rope_rotate, rope_tables)
+
+    grid = (8, 16, 16)
+    out = {}
+    for i, (label, (B, N, h, d)) in enumerate(ROPE_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        qkv = torch.randn((B, N, 3, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        q, k = qkv[:, :, 0], qkv[:, :, 1]
+        dq, dk = (torch.randn((B, N, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        pos = rope_positions(torch.randint(-1, N, (B, N), generator=gen, device="cuda"))
+        cos, sin = rope_tables(grid, d, torch.device("cuda", 0))
+        qr, kr = rope3d_cuda(q, k, cos, sin, pos)
+        torch.cuda.synchronize()
+        gq, gk = rope3d_bwd_cuda(dq, dk, cos, sin, pos)
+        torch.cuda.synchronize()
+        rec = {"at": [B, N, h, d]}
+        for what, got, x in (("q", qr, q), ("k", kr, k)):
+            want = rope_rotate(x, cos, sin, pos)
+            ok, share, worst = within_one_ulp(got, want)
+            check(ok, f"rope {label} forward {what}: more than one bf16 ulp from the eager chain")
+            rec[f"fwd_equal_share_{what}"], rec["max_abs_err"] = share, worst
+        for what, got, x, g in (("q", gq, q, dq), ("k", gk, k, dk)):
+            xr = x.detach().clone().requires_grad_()
+            rope_rotate(xr, cos, sin, pos).backward(g)
+            ok, share, worst = within_one_ulp(got, xr.grad)
+            check(ok, f"rope {label} backward {what}: more than one bf16 ulp from autograd")
+            rec[f"bwd_equal_share_{what}"] = share
+            del xr
+        bound = rope_bound_ms(B, N, h, d, rope_pairs(d), grid[0] * grid[1] * grid[2])
+        rec.update(ms=cold_ms(lambda: rope3d_cuda(q, k, cos, sin, pos)),
+                   bwd_ms=cold_ms(lambda: rope3d_bwd_cuda(dq, dk, cos, sin, pos)),
+                   plain_ms=time_ms(lambda: (rope_rotate(q, cos, sin, pos),
+                                             rope_rotate(k, cos, sin, pos)), iters=3, warmup=1),
+                   library_ms=None, bound_ms=bound, bound_by="bytes")
+        rec["roofline"], rec["bwd_roofline"] = bound / rec["ms"], bound / rec["bwd_ms"]
+        print(f"rope {label} {[B, N, h, d]}: forward bit-equal at "
+              f"{rec['fwd_equal_share_q']:.6f} / {rec['fwd_equal_share_k']:.6f}, backward at "
+              f"{rec['bwd_equal_share_q']:.6f} / {rec['bwd_equal_share_k']:.6f} of elements; "
+              f"kernel {rec['ms']:.4f} ms forward, {rec['bwd_ms']:.4f} ms backward (L2 flushed), "
+              f"bound {bound:.4f} ms (bytes at 3.35 TB/s; {rec['roofline']:.3f} and "
+              f"{rec['bwd_roofline']:.3f} of it), eager chain {rec['plain_ms']:.4f} ms",
+              flush=True)
+        out[label] = rec
+        del qkv, q, k, dq, dk, qr, kr, gq, gk
+        torch.cuda.empty_cache()
+    check(out["encoder"]["roofline"] >= 0.6,
+          f"rope forward at {out['encoder']['at']}: {out['encoder']['roofline']:.3f} of the "
+          "bytes bound, under 0.6")
+    return out
+
+
+def vjepa2_config():
+    """V-JEPA 2 ViT-g/16 as ``portbench/configs/vjepa2_vit_g.json`` states
+    it: 16 x 256 x 256, tubelet 2 (2048 tokens), 1408 x 40, 22 heads, MLP
+    6144, RoPE; predictor 384 x 12, 12 heads, MLP 1536; the 3-D collator
+    (8 blocks of scale 0.15); SGD-Nesterov at lr 0.03."""
+    from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig
+
+    cfg = ModelConfig(family="jepa", architecture="vit_giant", image_size=256, num_frames=16,
+                      tubelet_size=2, hidden_size=1408, depth=40, num_heads=22,
+                      mlp_ratio=48 / 11, pred_depth=12, pred_emb_dim=384, pred_num_heads=12,
+                      pred_mlp_ratio=4.0, pos_embed="rope3d", target_score_bf16=False,
+                      autocast_scores=False)
+    mask_cfg = MaskConfig(sampler="multiblock3d", pred_mask_scale=(0.15, 0.15),
+                          aspect_ratio=(0.75, 1.5), num_pred_masks=1, pred_num_blocks=8)
+    optim = OptimConfig(name="sgd", lr=0.03, momentum=0.9, nesterov=True,
+                        exclude_bias_and_norm_from_wd=True)
+    return cfg, mask_cfg, optim
+
+
+def read_rope_launches() -> dict[str, int]:
+    from bvc_tpu_torch.ops.rope import rope3d_cuda
+
+    return {"rope3d": rope3d_cuda.launches, "rope3d_bwd": rope3d_cuda.launches_bwd}
+
+
+def phase_vjepa2_step(card: str) -> dict:
+    """One V-JEPA 2 ViT-g training step on the card at 2 clips: every
+    attention on the flash kernels (40 unmasked forwards for the target, 40
+    + 12 key-bias forwards and backwards for the context encoder and the
+    predictor, no unmasked backward, no softmax or einsum of materialised
+    scores in the step's profile) and RoPE launches of 40 + 40 + 12
+    forward and 40 + 12 backward; the loss finite."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from bvc_tpu_torch.masks.multiblock3d import mask_collate_3d
+    from bvc_tpu_torch.models.jepa import JEPA
+    from bvc_tpu_torch.ops.rope import rope3d_cuda
+    from bvc_tpu_torch.training.state import TrainState
+    from bvc_tpu_torch.training.steps import make_jepa_train_step
+
+    cfg, mask_cfg, optim = vjepa2_config()
+    model = JEPA(cfg, seed=0)
+    state = TrainState.create(model, optim, device="cuda", target=copy.deepcopy(model.encoder))
+    step = make_jepa_train_step(cfg, 100)
+    rng = np.random.default_rng(0)
+    batch = {"video": torch.from_numpy(rng.integers(0, 256, (2, 16, 256, 256, 3),
+                                                    dtype=np.uint8)),
+             **{k: torch.from_numpy(v) for k, v in mask_collate_3d(cfg, mask_cfg, 0)(2, 0).items()}}
+    step(state, batch)  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    rope3d_cuda.launches = rope3d_cuda.launches_bwd = 0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        loss = step(state, batch)["loss"].item()
+        torch.cuda.synchronize()
+    launches, rope = read_launches(), read_rope_launches()
+    scores = sum(e.name in ("aten::softmax", "aten::_softmax", "aten::einsum")
+                 for e in prof.events())
+    check(scores == 0, f"vjepa2 step: {scores} softmax or einsum calls (materialised scores)")
+    want = {"flash_fwd": 40, "flash_fwd_bias": 52, "flash_bwd_prep_bias": 52,
+            "flash_bwd_bias": 52, "flash_bwd_post_bias": 52, "flash_bwd": 0,
+            "flash_bwd_prep": 0, "flash_bwd_post": 0}
+    print(f"vjepa2 step ({card}): loss {loss:.5f}, Ke {batch['enc_idx'].shape[1]}, "
+          f"Kp {batch['pred_idx'].shape[2]}; launches {launches}, rope {rope}", flush=True)
+    check(math.isfinite(loss), f"vjepa2 step: loss {loss}")
+    check(all(launches[k] == v for k, v in want.items()),
+          f"vjepa2 step: flash launches {launches}, want {want}")
+    check(rope == {"rope3d": 92, "rope3d_bwd": 52}, f"vjepa2 step: rope launches {rope}")
+    out = {"launches": launches, "rope_launches": rope, "loss": loss}
+    del state, model, step
+    torch.cuda.empty_cache()
+    return out
 
 
 def probe_path(name: str, run, expected: set) -> dict[str, int]:
@@ -6237,7 +6397,7 @@ def main() -> None:
     print(f"host: {torch.cuda.device_count()} CUDA devices, {os.cpu_count()} CPU cores",
           flush=True)
     t0 = time.perf_counter()
-    kernels = ["flash_fwd", "flash_bwd_sm90", "gemm", "softmax_probe", "gelu"]
+    kernels = ["flash_fwd", "flash_bwd_sm90", "gemm", "softmax_probe", "gelu", "rope"]
     _build.build_all(kernels)
     print(f"built {kernels} in {time.perf_counter() - t0:.1f} s", flush=True)
     if args.repeat_shard_ranks:
@@ -6274,6 +6434,8 @@ def main() -> None:
     gemm = phase("phase_gemm_kernel", phase_gemm_kernel)
     probe = phase("phase_softmax_probe_kernel", phase_softmax_probe_kernel)
     gelu = phase("phase_gelu_kernel", phase_gelu_kernel)
+    rope = phase("phase_rope_kernel", phase_rope_kernel)
+    vjepa2 = phase("phase_vjepa2_step", phase_vjepa2_step, smi)
     int8_probe = phase("probe_path int8", probe_path, "int8 dot", int8_dot.run,
                        {"gemm_s8", "gemm_bf16"})
     softmax_probe = phase("probe_path softmax", probe_path, "softmax dtype", softmax_dtype.run,
@@ -6438,6 +6600,20 @@ def main() -> None:
          "launches": train_gelu["gelu_poly_bwd"],
          "launches_per_cli_step": cli_gelu["gelu_poly_bwd"], **gelu["backward"]},
     ]
+    # the RoPE kernels (no TPU counterpart: the JAX package has no rotary
+    # positions), launches a V-JEPA 2 ViT-g step
+    rope_src = "bvc_tpu_torch/csrc/rope.cu"
+    for name, key, direction in (("rope3d", "rope3d", ""), ("rope3d_bwd", "rope3d_bwd", "bwd_")):
+        enc, pred = rope["encoder"], rope["predictor"]
+        records.append({
+            "name": name, "route": "cuda", "source": rope_src,
+            "replaces": "none (3-D RoPE of V-JEPA 2; the JAX package has none)",
+            "launches": vjepa2["rope_launches"][key], "at": enc["at"],
+            "ms": enc[direction + "ms"], "bound_ms": enc["bound_ms"], "bound_by": "bytes",
+            "plain_ms": enc["plain_ms"], "library_ms": None, "max_abs_err": enc["max_abs_err"],
+            "predictor": {"at": pred["at"], "ms": pred[direction + "ms"],
+                          "bound_ms": pred["bound_ms"]}})
+    trainers["vjepa2_step"] = {"loss": vjepa2["loss"], "flash_launches": vjepa2["launches"]}
     print(json.dumps({"trainers": trainers}), flush=True)
     print(json.dumps({"phase_seconds": phase.seconds}), flush=True)
     check(all(math.isfinite(r[k]) for r in records
