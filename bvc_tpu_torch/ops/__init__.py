@@ -1,1 +1,2 @@
-"""Attention, GELU, patchify and W8A8 ops, and the CUDA kernel wrappers and build."""
+"""Attention, GELU, LayerNorm, patchify and W8A8 ops, and the CUDA kernel wrappers and
+build."""

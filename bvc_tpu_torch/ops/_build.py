@@ -87,16 +87,17 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def load_library(name: str, signatures: dict[str, tuple[int, int]]) -> ctypes.CDLL:
+def load_library(name: str, signatures: dict[str, tuple[int, ...]]) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed, load it, and type each entry
-    point of ``signatures`` (``{fn_name: (pointers, longs)}``): ``pointers``
-    arguments as ``void*``, then ``longs`` as ``long long``, then the stream
-    as ``void*``; every entry point returns its ``cudaError_t`` as an int."""
+    point of ``signatures`` (``{fn_name: (pointers, longs[, doubles])}``):
+    ``pointers`` arguments as ``void*``, then ``longs`` as ``long long``,
+    then ``doubles`` (none if not given) as ``double``, then the stream as
+    ``void*``; every entry point returns its ``cudaError_t`` as an int."""
     lib = ctypes.CDLL(str(build_all([name])[name]))
-    for fn_name, (pointers, longs) in signatures.items():
+    for fn_name, (pointers, longs, *doubles) in signatures.items():
         fn = getattr(lib, fn_name)
         fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_longlong] * longs
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_double] * sum(doubles) + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 

@@ -13,9 +13,11 @@ conversion (clients send raw uint8 frames, a quarter of f32's bytes), the
 family's pooling, and optionally the W8A8 path (:mod:`bvc_tpu_torch.ops.quant`)
 with its int8 weights.  It holds the same aten operators as eager
 extraction (no decompositions are run) and the port's kernels as the custom
-operators ``bvc_tpu_torch::flash_fwd``, ``::gelu_poly`` and ``::gemm_s8``, so
-loading it needs those operators registered (:func:`load_artifact` imports
-:mod:`bvc_tpu_torch.ops.flash_attention`, :mod:`bvc_tpu_torch.ops.gelu` and
+operators ``bvc_tpu_torch::flash_fwd``, ``::gelu_poly``, ``::layer_norm``
+(a bf16 ViT's two a block, and a JEPA encoder's final norm; on ``cuda``)
+and ``::gemm_s8``, so loading it needs those operators registered
+(:func:`load_artifact` imports :mod:`bvc_tpu_torch.ops.flash_attention`,
+:mod:`bvc_tpu_torch.ops.gelu`, :mod:`bvc_tpu_torch.ops.layer_norm` and
 :mod:`bvc_tpu_torch.ops.gemm`, and no model module) and, on ``cuda``, the
 kernels built.
 
@@ -166,7 +168,7 @@ def load_artifact(path: str | Path, device: str | torch.device | None = None) ->
     at another batch raises.  ``fn.feature_dim`` and ``fn.meta`` carry the
     sidecar.
     """
-    from bvc_tpu_torch.ops import _build, flash_attention, gelu, gemm
+    from bvc_tpu_torch.ops import _build, flash_attention, gelu, gemm, layer_norm
 
     device = resolve_device(device)
     p = Path(path)
@@ -176,7 +178,8 @@ def load_artifact(path: str | Path, device: str | torch.device | None = None) ->
                          f"only, not on {device}: an artifact is traced for one device")
     exported = torch.export.load(p / _MODULE)
     if device.type == "cuda":
-        libraries = {**flash_attention.OP_LIBRARIES, **gelu.OP_LIBRARIES, **gemm.OP_LIBRARIES}
+        libraries = {**flash_attention.OP_LIBRARIES, **gelu.OP_LIBRARIES, **gemm.OP_LIBRARIES,
+                     **layer_norm.OP_LIBRARIES}
         _build.build_all(sorted({libraries[op] for op in kernel_ops(exported)}))
     module = exported.module()
 

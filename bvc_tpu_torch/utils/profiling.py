@@ -26,7 +26,8 @@ loops), ``loader.wait``, ``loader.assemble`` and ``loader.collate``
 ``step.backward``, ``step.update`` and ``step.metrics`` (the VideoMAE and
 JEPA steps), ``extract.call`` holding ``extract.h2d``, ``extract.forward``
 and ``extract.d2h`` (:mod:`bvc_tpu_torch.evalbench.extract`); ranges alone:
-``layer_norm`` and ``gelu``.
+``layer_norm`` (around both of its routes, the kernel's operator and the
+eager chain) and ``gelu``.
 """
 
 from __future__ import annotations

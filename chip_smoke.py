@@ -102,14 +102,32 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    bound and the eager chain; the forward must reach 60% of the bound at
    the encoder's shape.  Then one ViT-g step at 2 clips (``vjepa2_config``):
    the flash launches (40 unmasked forwards, 52 key-bias forwards and
-   backwards) and the RoPE launches (92 forward, 52 backward).
+   backwards), the RoPE launches (92 forward, 52 backward) and the LayerNorm
+   launches (188 forward, 106 backward).
+6d. The LayerNorm kernels (``csrc/layer_norm.cu``) at extraction's
+   ``[64,1568,768]``, VideoMAE-B training's ``[48,160,768]`` and
+   ``[48,1568,384]`` and V-JEPA 2 ViT-g's ``[16,2048,1408]``,
+   ``[16,560,1408]`` and ``[16,2048,384]``, rows shifted far from 0, a
+   constant row and a row of zeros among them; also the unit affine, widths
+   8 to 8192 at 1001 rows (every launch shape) and views off 16 bytes.  The
+   forward's y bit for bit the chain's arithmetic on the kernel's own
+   statistics, off the eager chain at under 0.1% of the elements, each by
+   one bf16 ulp and what the two sets of statistics' difference moves it
+   (near y = 0 that is more than one ulp); mean and rstd at least as close
+   to f64 statistics as the chain's; dx within one bf16 ulp of autograd through the chain (or 1e-5 of its
+   largest), dweight and dbias within 1e-4 of autograd's largest, all three
+   the same bit for bit in a second run; wrong widths raise, an empty tensor
+   launches nothing; times (L2 flushed) against the bytes bound, the eager
+   chain and, as yardsticks, ``F.layer_norm`` and
+   ``aten.native_layer_norm_backward``.  The forward must reach 75% of the
+   bytes bound at ``[64,1568,768]``.
 7. The two probes as their own paths (``python -m
    bvc_tpu_torch.probes.int8_dot`` and ``.softmax_dtype``): launch counts
    set to 0, the probe run, its kernels and no other launched.
 8. Extraction at full width: VideoMAE-B (224 px, 16 frames, bf16) through
    ``untrained_embed_fn``; 12 launches of the forward kernel and of the
-   GELU forward in one embed call, embeddings within cosine 0.999 per row
-   of the plain attention path on the same weights; then clips/s, frames/s
+   GELU forward and 24 of the LayerNorm forward in one embed call,
+   embeddings within cosine 0.999 per row of the plain attention path on the same weights; then clips/s, frames/s
    and MFU at the largest batch in {64, 32, 16} that fits.
 9. W8A8 extraction at full width: VideoMAE-B and V-JEPA ViT-B through
    ``untrained_embed_fn(..., quantize="int8")``; at B=8 one embed call
@@ -123,8 +141,8 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    ``VideoMAEPretrain``, ``TrainState.create`` and
    ``make_videomae_train_step``.  At B=8 one step launches the forward
    kernel, each of the backward's three, the GELU forward and the GELU
-   backward 16 times, and agrees with a step
-   through the plain attention path from the same weights, batch and mask (loss within 1e-4
+   backward 16 times and the LayerNorm forward and backward 33 times, and
+   agrees with a step through the plain attention path from the same weights, batch and mask (loss within 1e-4
    relative, gradient cosine >= 0.99 for every top-level group and >= 0.9995
    for every parameter tensor).  Then clips/s, MFU
    and peak memory at the largest batch in {48, 32, 16} that fits.
@@ -1004,10 +1022,10 @@ def phase_bwd_kernel() -> dict:
     return result
 
 
-def phase_main_path(card: str, profile: str | None) -> tuple[int, int, int]:
+def phase_main_path(card: str, profile: str | None) -> tuple[int, int, int, int]:
     """VideoMAE-B extraction on the card; returns the flash kernel's
     launches in one embed call, the batch timed (the largest that fits) and
-    the GELU forward's launches in one embed call."""
+    the GELU and LayerNorm forwards' launches in one embed call."""
     import numpy as np
     import torch
 
@@ -1022,13 +1040,16 @@ def phase_main_path(card: str, profile: str | None) -> tuple[int, int, int]:
 
     reset_launches()
     emb = fn(clips)
-    counts, gelu = read_launches(), read_gelu_launches()
+    counts, gelu, norms = read_launches(), read_gelu_launches(), read_layer_norm_launches()
     launches = counts["flash_fwd"]
-    print(f"main path: one embed call at B=8 launched {counts}, {gelu}", flush=True)
+    print(f"main path: one embed call at B=8 launched {counts}, {gelu}, {norms}", flush=True)
     check(counts == {**{k: 0 for k in counts}, "flash_fwd": cfg.depth},
           f"expected {cfg.depth} flash_fwd launches and no other, got {counts}")
     check(gelu == {"gelu_poly": cfg.depth, "gelu_poly_bwd": 0},
           f"expected {cfg.depth} GELU forward launches and no backward, got {gelu}")
+    # two a block; the pooled norm of the f32 features takes the eager chain
+    check(norms == {"layer_norm": 2 * cfg.depth, "layer_norm_bwd": 0},
+          f"expected {2 * cfg.depth} LayerNorm forward launches and no backward, got {norms}")
     check(emb.shape == (8, cfg.hidden_size) and bool(np.isfinite(emb).all()),
           f"embeddings of shape {emb.shape} or not finite")
 
@@ -1067,7 +1088,7 @@ def phase_main_path(card: str, profile: str | None) -> tuple[int, int, int]:
         break
     else:
         fail("no batch size in {64, 32, 16} fits")
-    return launches, B, gelu["gelu_poly"]
+    return launches, B, gelu["gelu_poly"], norms["layer_norm"]
 
 
 def profile_call(fn, what: str, out_file: str) -> float:
@@ -1227,12 +1248,14 @@ def time_train_steps(make_state, step, video, steps: int = 10) -> tuple:
     return start.elapsed_time(end) / steps, torch.stack(losses).tolist(), state
 
 
-def phase_train(card: str, profile: str | None) -> tuple[dict[str, int], int, dict[str, int]]:
+def phase_train(card: str, profile: str | None
+                ) -> tuple[dict[str, int], int, dict[str, int], dict[str, int]]:
     """VideoMAE-B pretraining steps on the card through the port's entry
     points (``VideoMAEPretrain``, ``TrainState.create``,
     ``make_videomae_train_step``), as ``bench.py`` configures the JAX
     flagship.  Returns each attention kernel's launches in one step at B=8,
-    the batch timed and the GELU kernels' launches in that step."""
+    the batch timed and the GELU and LayerNorm kernels' launches in that
+    step."""
     import gc
 
     import numpy as np
@@ -1262,14 +1285,17 @@ def phase_train(card: str, profile: str | None) -> tuple[dict[str, int], int, di
     reset_launches()
     metrics = step(state, video)
     torch.cuda.synchronize()
-    launches, gelu = read_launches(), read_gelu_launches()
-    print(f"train: one step at B=8 launched {launches}, {gelu}", flush=True)
+    launches, gelu, norms = read_launches(), read_gelu_launches(), read_layer_norm_launches()
+    print(f"train: one step at B=8 launched {launches}, {gelu}, {norms}", flush=True)
     layers = cfg.depth + cfg.decoder_depth
     expected = {**{k: 0 for k in launches}, "flash_fwd": layers, "flash_bwd": layers,
                 "flash_bwd_prep": layers, "flash_bwd_post": layers}
     check(launches == expected, f"expected {expected} in one step, got {launches}")
     check(gelu == {"gelu_poly": layers, "gelu_poly_bwd": layers},
           f"expected {layers} GELU forward and backward launches in one step, got {gelu}")
+    ln = 2 * layers + 1  # two a block and the decoder's norm
+    check(norms == {"layer_norm": ln, "layer_norm_bwd": ln},
+          f"expected {ln} LayerNorm forward and backward launches in one step, got {norms}")
 
     plain = TrainState.create(copy.deepcopy(base_model("videomae")), optim, seed=1)
     plain_metrics = make_videomae_train_step(cfg, mask_cfg, attn_impl="xla")(plain, video)
@@ -1333,7 +1359,7 @@ def phase_train(card: str, profile: str | None) -> tuple[dict[str, int], int, di
     del state, video
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, B, gelu
+    return launches, B, gelu, norms
 
 
 def jepa_config():
@@ -2167,6 +2193,211 @@ def vjepa2_config():
     return cfg, mask_cfg, optim
 
 
+LN_SHAPES = (("embed", (64, 1568, 768)), ("encoder", (48, 160, 768)),
+             ("decoder", (48, 1568, 384)), ("vitg_target", (16, 2048, 1408)),
+             ("vitg_context", (16, 560, 1408)), ("vitg_predictor", (16, 2048, 384)))
+# widths that take every launch shape of csrc/layer_norm.cu (1 to 4 pieces a
+# lane, 1 to 8 warps a row), at an odd row count
+LN_WIDTHS = (8, 40, 392, 1024, 2048, 4096, 8192)
+LN_Y_MISMATCH_MAX = 1e-3  # share of y's elements off the chain's (read: 7.9e-5)
+LN_DX_ATOL = 1e-5  # of max|dx|, where dx's closed form cancels below one bf16 ulp
+LN_PARAM_RTOL = 1e-4  # of max|dweight|, max|dbias|: f32 sums over every row
+
+
+def layer_norm_inputs(shape: tuple[int, ...], seed: int, offset: bool = False):
+    """bf16 ``x`` (normal, scale 2, each row shifted by a normal draw of
+    scale 4, so the statistics must subtract the mean; a constant row and a
+    row of zeros first) and ``dy`` (normal) of ``shape``, f32 ``weight``
+    (normal around 1) and ``bias``, on the card; with ``offset``, ``x`` and
+    ``dy`` start 2 bytes past a 16-byte boundary."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n, d = math.prod(shape), shape[-1]
+    out = []
+    for scale in (2.0, 1.0):
+        buf = torch.empty(n + 1, dtype=torch.bfloat16, device="cuda")
+        t = (buf[1:] if offset else buf[:n]).view(shape)
+        t.copy_(torch.randn(shape, generator=gen, device="cuda") * scale)
+        out.append(t)
+    x = out[0].view(-1, d)
+    x += 4 * torch.randn((x.shape[0], 1), generator=gen, device="cuda").to(torch.bfloat16)
+    x[0] = 1.5
+    if x.shape[0] > 1:
+        x[1] = 0.0
+    weight = 1 + 0.5 * torch.randn(d, generator=gen, device="cuda")
+    bias = 0.5 * torch.randn(d, generator=gen, device="cuda")
+    return out[0], out[1], weight, bias
+
+
+def phase_layer_norm_kernel() -> dict:
+    """The two kernels of ``csrc/layer_norm.cu`` against the eager chain
+    and an f64 reference on the card (docstring item 6d).  Returns the
+    forward's record at ``[64,1568,768]`` and the backward's at
+    ``[48,1568,384]``, with the other shapes' readings under their labels."""
+    import torch
+    import torch.nn.functional as F
+
+    from bvc_tpu_torch.ops.layer_norm import (layer_norm_bwd_cuda, layer_norm_bwd_ref,
+                                              layer_norm_chain, layer_norm_cuda)
+
+    eps = 1e-6
+
+    def checked(what, x, dy, w, b):
+        """The kernels against the chain, autograd through it and f64."""
+        d = x.shape[-1]
+        y, mean, rstd = layer_norm_cuda(x, w, b, eps)
+        torch.cuda.synchronize()
+        dx, dw, db = layer_norm_bwd_cuda(dy, x, w, mean, rstd)
+        torch.cuda.synchronize()
+        dx2, dw2, db2 = layer_norm_bwd_cuda(dy, x, w, mean, rstd)
+        torch.cuda.synchronize()
+        repeat = torch.equal(dx, dx2) and (w is None or (torch.equal(dw, dw2)
+                                                         and torch.equal(db, db2)))
+        rows = x.reshape(-1, d)
+        x64 = rows.double()
+        mean64 = x64.mean(-1)
+        rstd64 = torch.rsqrt(((x64 - mean64[:, None]) ** 2).mean(-1) + eps)
+        xr = x.detach().clone().requires_grad_()
+        params = [] if w is None else [p.detach().clone().requires_grad_() for p in (w, b)]
+        chain = layer_norm_chain(xr, *(params or (None, None)), eps)
+        chain.backward(dy)
+        with torch.no_grad():
+            xf = rows.float()
+            cmean = xf.mean(-1)
+            crstd = torch.rsqrt((xf - cmean[:, None]).square().mean(-1) + eps)
+        err = {"mean": (mean.double() - mean64).abs().max().item(),
+               "mean_chain": (cmean.double() - mean64).abs().max().item(),
+               "rstd": ((rstd.double() - rstd64) / rstd64).abs().max().item(),
+               "rstd_chain": ((crstd.double() - rstd64) / rstd64).abs().max().item()}
+        with torch.no_grad():
+            # the chain's arithmetic on the kernel's own statistics: the kernel's y bit for bit
+            own = (xf - mean[:, None]) * rstd[:, None]
+            scale = torch.ones_like(own) if w is None else w.abs().expand_as(own)
+            # what the two sets of statistics' difference moves y by, to first
+            # order, with f32 rounding of the terms and one bf16 ulp beside it
+            explained = (2 * scale * ((rstd * (mean - cmean).abs())[:, None]
+                                      + own.abs() * ((rstd - crstd) / rstd).abs()[:, None])
+                         + 2.0 ** -21 * (own.abs() * scale + (0 if b is None else b.abs())))
+            own = (own if w is None else own * w + b).to(torch.bfloat16).view(x.shape)
+            cy = chain.detach()
+            ydiff = (y.float() - cy.float()).abs()
+            ulp = torch.maximum(bf16_ulp(cy), bf16_ulp(y))
+            beyond_ulp = ydiff > ulp
+            unexplained = (ydiff - ulp - explained.view(x.shape)).max().item()
+        mismatched = y.view(torch.int16) != cy.view(torch.int16)
+        share = mismatched.float().mean().item()
+        want = xr.grad
+        diff = (dx.float() - want.float()).abs()
+        dx_ok = bool(((diff <= bf16_ulp(want)) | (diff <= LN_DX_ATOL * want.float().abs().max()))
+                     .all())
+        rec = {"y_mismatch_share": share, "y_beyond_one_ulp": int(beyond_ulp.sum()),
+               "y_unexplained": unexplained,
+               "y_max_abs_err": ydiff.max().item(),
+               "dx_max_abs_err": diff.max().item(),
+               "dx_equal_share": (diff == 0).float().mean().item(), "repeats": repeat, **err}
+        ok = {"y bit for bit the chain's arithmetic on the kernel's statistics":
+              torch.equal(own.view(torch.int16), y.view(torch.int16)),
+              "y off the chain at a few elements": share <= LN_Y_MISMATCH_MAX,
+              "y off the chain by one bf16 ulp and what the statistics' difference moves it":
+              unexplained <= 0,
+              "dx within one bf16 ulp of autograd": dx_ok, "the backward repeats": repeat,
+              "mean as close to f64 as the chain's": err["mean"] <= err["mean_chain"],
+              "rstd as close to f64 as the chain's": err["rstd"] <= err["rstd_chain"]}
+        if w is not None:
+            for name, got, ref in (("dweight", dw, params[0].grad), ("dbias", db, params[1].grad)):
+                rel = ((got - ref).abs().max() / ref.abs().max()).item()
+                rec[f"{name}_rel_err"] = rel
+                ok[f"{name} within f32 rounding of autograd"] = rel <= LN_PARAM_RTOL
+        print(f"layer_norm {what}: y off the chain at {share:.2e} of elements "
+              f"({rec['y_beyond_one_ulp']} beyond one bf16 ulp, where y is near 0; beyond what "
+              f"the statistics explain: {unexplained:.2e}); |mean - f64| {err['mean']:.3e} "
+              f"(chain {err['mean_chain']:.3e}), rstd rel {err['rstd']:.3e} (chain {err['rstd_chain']:.3e}); dx max|diff| to "
+              f"autograd {rec['dx_max_abs_err']:.3e}, bit-equal at {rec['dx_equal_share']:.4f}"
+              + ("" if w is None else f"; dweight rel {rec['dweight_rel_err']:.2e}, dbias rel "
+                 f"{rec['dbias_rel_err']:.2e}")
+              + f"; repeats bit for bit: {repeat}", flush=True)
+        check(all(ok.values()), f"layer_norm {what}: failed "
+                                f"{[k for k, v in ok.items() if not v]}: {rec}")
+        del xr, params, chain, want
+        return rec
+
+    fwd, bwd = {}, {}
+    for i, (label, shape) in enumerate(LN_SHAPES):
+        x, dy, w, b = layer_norm_inputs(shape, seed=i)
+        rec = checked(f"{label} {list(shape)}", x, dy, w, b)
+        n, d = x.numel(), shape[-1]
+        rows = n // d
+        y, mean, rstd = layer_norm_cuda(x, w, b, eps)
+        w16, b16 = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        _, lib_mean, lib_rstd = torch.ops.aten.native_layer_norm(x, [d], w16, b16, eps)
+        mask = [True, True, True]
+        fwd[label] = {"at": list(shape), "max_abs_err": rec["y_max_abs_err"], **rec,
+                      "ms": cold_ms(lambda: layer_norm_cuda(x, w, b, eps)),
+                      "plain_ms": time_ms(lambda: layer_norm_chain(x, w, b, eps), iters=3,
+                                          warmup=1),
+                      "library_ms": cold_ms(lambda: F.layer_norm(x, (d,), w16, b16, eps)),
+                      "bound_ms": (4 * n + 8 * rows + 8 * d) / PEAK_HBM_BYTES * 1e3,
+                      "bound_by": "bytes"}
+        bwd[label] = {"at": list(shape), "max_abs_err": rec["dx_max_abs_err"],
+                      "ms": cold_ms(lambda: layer_norm_bwd_cuda(dy, x, w, mean, rstd)),
+                      "plain_ms": time_ms(lambda: layer_norm_bwd_ref(dy, x, w, mean, rstd),
+                                          iters=3, warmup=1),
+                      "library_ms": cold_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                          dy, x, [d], lib_mean, lib_rstd, w16, b16, mask)),
+                      "bound_ms": (6 * n + 8 * rows + 12 * d) / PEAK_HBM_BYTES * 1e3,
+                      "bound_by": "bytes"}
+        for name, r in (("forward", fwd[label]), ("backward", bwd[label])):
+            r["roofline"] = r["bound_ms"] / r["ms"]
+            print(f"layer_norm {name} {list(shape)}: kernel {r['ms']:.4f} ms (L2 flushed), "
+                  f"bound {r['bound_ms']:.4f} ms (bytes at 3.35 TB/s, {r['roofline']:.3f} of "
+                  f"it), plain {r['plain_ms']:.4f} ms, "
+                  f"{'F.layer_norm' if name == 'forward' else 'aten.native_layer_norm_backward'}"
+                  f" {r['library_ms']:.4f} ms", flush=True)
+        del x, dy, w, b, y, mean, rstd, lib_mean, lib_rstd
+        torch.cuda.empty_cache()
+    check(fwd["embed"]["roofline"] >= 0.75,
+          f"layer_norm forward at {fwd['embed']['at']}: {fwd['embed']['roofline']:.3f} of the "
+          f"bytes bound, under 0.75")
+    x, dy, _, _ = layer_norm_inputs((16, 2048, 1408), seed=7)
+    fwd["unit_affine"] = checked("unit affine [16,2048,1408]", x, dy, None, None)
+    for d in LN_WIDTHS:
+        x, dy, w, b = layer_norm_inputs((1001, d), seed=d)
+        fwd[f"width_{d}"] = checked(f"width {d} [1001,{d}]", x, dy, w, b)
+    x, dy, w, b = layer_norm_inputs((48, 160, 768), seed=9, offset=True)
+    check(x.data_ptr() % 16 == 2, f"layer_norm: x at {x.data_ptr()}")
+    fwd["views_off_16_bytes"] = checked("views off 16 bytes [48,160,768]", x, dy, w, b)
+    for bad in ((4, 12), (4, 8200)):
+        try:
+            layer_norm_cuda(torch.zeros(bad, dtype=torch.bfloat16, device="cuda"), None, None,
+                            eps)
+        except ValueError:
+            continue
+        fail(f"layer_norm_cuda took width {bad[-1]} instead of raising")
+    before = (layer_norm_cuda.launches, layer_norm_cuda.launches_bwd)
+    empty = torch.empty((0, 768), dtype=torch.bfloat16, device="cuda")
+    y, mean, rstd = layer_norm_cuda(empty, w[:768], b[:768], eps)
+    dx, dw, db = layer_norm_bwd_cuda(empty, empty, w[:768], mean, rstd)
+    torch.cuda.synchronize()
+    check(y.shape == dx.shape == empty.shape and mean.shape == (0,)
+          and (layer_norm_cuda.launches, layer_norm_cuda.launches_bwd) == before
+          and not bool(dw.any()) and not bool(db.any()),
+          "layer_norm: an empty tensor launched a kernel or came back wrong")
+    main_fwd, main_bwd = fwd.pop("embed"), bwd.pop("decoder")
+    return {"forward": {**main_fwd, **fwd}, "backward": {**main_bwd, **bwd}}
+
+
+def read_layer_norm_launches() -> dict[str, int]:
+    return {name: getattr(fn, attr) for name, (fn, attr) in _layer_norm_counters().items()}
+
+
+def _layer_norm_counters() -> dict:
+    from bvc_tpu_torch.ops.layer_norm import layer_norm_cuda
+
+    return {"layer_norm": (layer_norm_cuda, "launches"),
+            "layer_norm_bwd": (layer_norm_cuda, "launches_bwd")}
+
+
 def read_rope_launches() -> dict[str, int]:
     from bvc_tpu_torch.ops.rope import rope3d_cuda
 
@@ -2179,7 +2410,10 @@ def phase_vjepa2_step(card: str) -> dict:
     + 12 key-bias forwards and backwards for the context encoder and the
     predictor, no unmasked backward, no softmax or einsum of materialised
     scores in the step's profile) and RoPE launches of 40 + 40 + 12
-    forward and 40 + 12 backward; the loss finite."""
+    forward and 40 + 12 backward; LayerNorm launches of 2 a block and a
+    final norm in each network, and the target features' unit norm, forward,
+    and the context encoder's and the predictor's backward; the loss
+    finite."""
     import copy
 
     import numpy as np
@@ -2206,7 +2440,7 @@ def phase_vjepa2_step(card: str) -> dict:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         loss = step(state, batch)["loss"].item()
         torch.cuda.synchronize()
-    launches, rope = read_launches(), read_rope_launches()
+    launches, rope, norms = read_launches(), read_rope_launches(), read_layer_norm_launches()
     scores = sum(e.name in ("aten::softmax", "aten::_softmax", "aten::einsum")
                  for e in prof.events())
     check(scores == 0, f"vjepa2 step: {scores} softmax or einsum calls (materialised scores)")
@@ -2219,7 +2453,12 @@ def phase_vjepa2_step(card: str) -> dict:
     check(all(launches[k] == v for k, v in want.items()),
           f"vjepa2 step: flash launches {launches}, want {want}")
     check(rope == {"rope3d": 92, "rope3d_bwd": 52}, f"vjepa2 step: rope launches {rope}")
-    out = {"launches": launches, "rope_launches": rope, "loss": loss}
+    context, predictor = 2 * cfg.depth + 1, 2 * cfg.pred_depth + 1
+    want_norms = {"layer_norm": 2 * context + 1 + predictor, "layer_norm_bwd": context + predictor}
+    print(f"vjepa2 step: LayerNorm launches {norms}", flush=True)
+    check(norms == want_norms, f"vjepa2 step: LayerNorm launches {norms}, want {want_norms}")
+    out = {"launches": launches, "rope_launches": rope, "layer_norm_launches": norms,
+           "loss": loss}
     del state, model, step
     torch.cuda.empty_cache()
     return out
@@ -2346,14 +2585,17 @@ def phase_w8a8(card: str, profile: str | None) -> dict:
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0, the GELU kernels' too."""
-    for fn, attr in (*_launch_counters().values(), *_gelu_counters().values()):
+    """Set every kernel's launch count to 0, the GELU and LayerNorm kernels'
+    too."""
+    for fn, attr in (*_launch_counters().values(), *_gelu_counters().values(),
+                     *_layer_norm_counters().values()):
         setattr(fn, attr, 0)
 
 
 def read_launches() -> dict[str, int]:
-    """The attention and GEMM kernels' launch counts (the GELU kernels',
-    which every bf16 ViT block launches, are :func:`read_gelu_launches`)."""
+    """The attention and GEMM kernels' launch counts (the GELU and
+    LayerNorm kernels', which every bf16 ViT block launches, are
+    :func:`read_gelu_launches` and :func:`read_layer_norm_launches`)."""
     return {name: getattr(fn, attr) for name, (fn, attr) in _launch_counters().items()}
 
 
@@ -3849,11 +4091,13 @@ def export_specs() -> list[tuple]:
 
 def artifact_kernels(family: str, cfg, quantize: str) -> dict[str, int]:
     """The kernel launches of one call of an artifact, which are its graph's
-    kernel nodes: a ``flash_fwd`` and a ``gelu_poly`` a ViT block (bf16),
-    two ``gemm_s8`` a block in W8A8 (qkv and fc1), none for SimCLR."""
+    kernel nodes: a ``flash_fwd``, a ``gelu_poly`` and two ``layer_norm`` a
+    ViT block (bf16), and the JEPA encoder's final ``layer_norm``, two
+    ``gemm_s8`` a block in W8A8 (qkv and fc1), none for SimCLR."""
     if family == "simclr":
         return {}
     return {"flash_fwd": cfg.depth, "gelu_poly": cfg.depth,
+            "layer_norm": 2 * cfg.depth + (family == "jepa"),
             **({"gemm_s8": 2 * cfg.depth} if quantize == "int8" else {})}
 
 
@@ -3896,7 +4140,7 @@ def serve_artifacts(job: str) -> None:
         first_s = time.perf_counter() - t0
         reset_launches()
         outputs[art["name"] + "_B"] = fn(clips)
-        launches = {**read_launches(), **read_gelu_launches()}
+        launches = {**read_launches(), **read_gelu_launches(), **read_layer_norm_launches()}
         readings[art["name"]] = {
             "load_s": load_s, "first_call_s": first_s, "launches": launches,
             "clips_s": len(clips) / timed_calls_s(fn, clips),
@@ -6397,7 +6641,8 @@ def main() -> None:
     print(f"host: {torch.cuda.device_count()} CUDA devices, {os.cpu_count()} CPU cores",
           flush=True)
     t0 = time.perf_counter()
-    kernels = ["flash_fwd", "flash_bwd_sm90", "gemm", "softmax_probe", "gelu", "rope"]
+    kernels = ["flash_fwd", "flash_bwd_sm90", "gemm", "softmax_probe", "gelu", "rope",
+               "layer_norm"]
     _build.build_all(kernels)
     print(f"built {kernels} in {time.perf_counter() - t0:.1f} s", flush=True)
     if args.repeat_shard_ranks:
@@ -6435,15 +6680,17 @@ def main() -> None:
     probe = phase("phase_softmax_probe_kernel", phase_softmax_probe_kernel)
     gelu = phase("phase_gelu_kernel", phase_gelu_kernel)
     rope = phase("phase_rope_kernel", phase_rope_kernel)
+    norm = phase("phase_layer_norm_kernel", phase_layer_norm_kernel)
     vjepa2 = phase("phase_vjepa2_step", phase_vjepa2_step, smi)
     int8_probe = phase("probe_path int8", probe_path, "int8 dot", int8_dot.run,
                        {"gemm_s8", "gemm_bf16"})
     softmax_probe = phase("probe_path softmax", probe_path, "softmax dtype", softmax_dtype.run,
                           {"softmax_probe_fwd"})
-    embed_launches, embed_B, embed_gelu = phase("phase_main_path", phase_main_path, smi,
-                                                args.profile)
+    embed_launches, embed_B, embed_gelu, embed_norms = phase("phase_main_path", phase_main_path,
+                                                             smi, args.profile)
     w8a8_launches = phase("phase_w8a8", phase_w8a8, smi, args.profile)
-    train_launches, train_B, train_gelu = phase("phase_train", phase_train, smi, args.profile)
+    train_launches, train_B, train_gelu, train_norms = phase("phase_train", phase_train, smi,
+                                                             args.profile)
     jepa_embed_launches = phase("phase_jepa_embed", phase_jepa_embed, smi)
     jepa_launches = phase("phase_jepa_train", phase_jepa_train, smi, args.profile)
     phase("phase_entry_point", phase_entry_point)
@@ -6613,6 +6860,18 @@ def main() -> None:
             "plain_ms": enc["plain_ms"], "library_ms": None, "max_abs_err": enc["max_abs_err"],
             "predictor": {"at": pred["at"], "ms": pred[direction + "ms"],
                           "bound_ms": pred["bound_ms"]}})
+    # the LayerNorm kernels (no TPU counterpart: XLA fused LayerNorm there),
+    # launches a VideoMAE-B step, an embed call and a V-JEPA 2 ViT-g step
+    norm_src = "bvc_tpu_torch/csrc/layer_norm.cu"
+    for key, direction in (("layer_norm", "forward"), ("layer_norm_bwd", "backward")):
+        records.append({
+            "name": key, "route": "cuda", "source": norm_src,
+            "replaces": "none (bvc_tpu/models/vit.py layer_norm"
+                        + ("" if key == "layer_norm" else "'s autodiff") + ", fused by XLA)",
+            "launches": train_norms[key],
+            "launches_per_vitg_step": vjepa2["layer_norm_launches"][key],
+            **({"launches_per_embed": embed_norms} if key == "layer_norm" else {}),
+            **norm[direction]})
     trainers["vjepa2_step"] = {"loss": vjepa2["loss"], "flash_launches": vjepa2["launches"]}
     print(json.dumps({"trainers": trainers}), flush=True)
     print(json.dumps({"phase_seconds": phase.seconds}), flush=True)
