@@ -39,7 +39,6 @@ N > 1 ranks.
 from __future__ import annotations
 
 import copy
-import dataclasses
 import json
 import math
 import shlex
@@ -56,7 +55,7 @@ from bvc_tpu_torch.curriculum.presets import (
     FamilyPreset,
 )
 from bvc_tpu_torch.parallel.mesh import check_axes
-from bvc_tpu_torch.training.trainer_videomae import refuse_unported
+from bvc_tpu_torch.training.stage import run_mesh
 from bvc_tpu_torch.utils.config import VIT_DIMS, RunId, TrainConfig
 from bvc_tpu_torch.utils.device import resolve_device
 from bvc_tpu_torch.utils.logging import get_logger, is_main_process
@@ -439,7 +438,7 @@ def run_curriculum(
         preset = FAMILY_PRESETS[preset]
     # before any stage trains: a layout the mesh cannot take would reach the
     # trainers (which refuse it) only after the untrained baseline ran
-    refuse_unported(base)
+    run_mesh(base, preset.family)
     device = resolve_device(device)
     base = copy.deepcopy(base)
     base.data.condition = condition

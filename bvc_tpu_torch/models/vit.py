@@ -47,12 +47,11 @@ from bvc_tpu_torch.models.initializers import init_linear
 from bvc_tpu_torch.ops.attention import multi_head_attention
 from bvc_tpu_torch.ops.flash_attention import key_bias
 from bvc_tpu_torch.ops.gelu import gelu
-from bvc_tpu_torch.ops.layer_norm import layer_norm_chain, layer_norm_op, layer_norm_route
+from bvc_tpu_torch.ops.layer_norm import layer_norm
 from bvc_tpu_torch.ops.quant import QuantLinear, qdense
 from bvc_tpu_torch.ops.rope import rope3d
 from bvc_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
 from bvc_tpu_torch.parallel.sharding import TP_RULES, TPSplit
-from bvc_tpu_torch.utils.profiling import profiler_range
 
 
 def drop_path(x: torch.Tensor, keep: torch.Tensor | None, keep_prob: float = 1.0
@@ -69,22 +68,8 @@ def drop_path(x: torch.Tensor, keep: torch.Tensor | None, keep_prob: float = 1.0
     return x * scale.reshape((-1,) + (1,) * (x.ndim - 1))
 
 
-def layer_norm(x: torch.Tensor, weight: torch.Tensor | None,
-               bias: torch.Tensor | None, eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm over the last axis with f32 statistics, cast back to the
-    input dtype; ``weight``/``bias`` None is the unit affine.  An input that
-    :func:`~bvc_tpu_torch.ops.layer_norm.layer_norm_route` gives the kernel
-    (CUDA bf16 of a width it takes) goes through the operator
-    ``bvc_tpu_torch::layer_norm``, every other (CPU, f32, f16) through the
-    eager chain.  A ``bvc::layer_norm`` range while a profiler records."""
-    with profiler_range("layer_norm"):
-        if layer_norm_route(x.device.type, x.dtype, x.shape[-1]) == "kernel":
-            return layer_norm_op(x, weight, bias, eps)[0]
-        return layer_norm_chain(x, weight, bias, eps)
-
-
 class LayerNorm(nn.Module):
-    """f32 affine parameters; see :func:`layer_norm`."""
+    """f32 affine parameters; see :func:`~bvc_tpu_torch.ops.layer_norm.layer_norm`."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()

@@ -1,9 +1,9 @@
 """LayerNorm over the last axis with f32 statistics, as an operator with a
 kernel for bf16 activations on the card.
 
-:func:`layer_norm_chain` is the eager chain of
-:func:`bvc_tpu_torch.models.vit.layer_norm` (the counterpart of the JAX
-package's ``layer_norm`` in :mod:`bvc_tpu.models.vit`)::
+:func:`layer_norm` (the models' LayerNorm, :func:`bvc_tpu_torch.models.vit.layer_norm`;
+the counterpart of the JAX package's ``layer_norm`` in :mod:`bvc_tpu.models.vit`)
+chooses between the operator and :func:`layer_norm_chain`, the eager chain::
 
     mean = mean(x);  var = mean((x - mean)^2);  rstd = rsqrt(var + eps)
     y = (x - mean) * rstd;  y = y * weight + bias   (weight/bias None: unit affine)
@@ -34,7 +34,7 @@ On CPU tensors the forward is the eager chain bit for bit and the backward
 
 :func:`layer_norm_route` says which inputs the kernel takes: CUDA bf16
 tensors whose width is a multiple of 8 up to :data:`LAYER_NORM_MAX_WIDTH`;
-``models/vit.py`` sends every other input down the eager chain.
+:func:`layer_norm` sends every other input down the eager chain.
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ import math
 import torch
 
 from bvc_tpu_torch.ops._build import launch, load_library
+from bvc_tpu_torch.utils.profiling import profiler_range
 
 # the widest row the kernels take: 8 warps x 32 lanes x 4 pieces of 8 bf16
 LAYER_NORM_MAX_WIDTH = 8192
@@ -269,3 +270,17 @@ def _layer_norm_grad(ctx, dy, _dmean, _drstd):
 
 
 layer_norm_op.register_autograd(_layer_norm_grad, setup_context=_save)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor | None,
+               bias: torch.Tensor | None, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis with f32 statistics, cast back to the
+    input dtype; ``weight``/``bias`` None is the unit affine.  An input that
+    :func:`layer_norm_route` gives the kernel (CUDA bf16 of a width it
+    takes) goes through :data:`layer_norm_op`, every other (CPU, f32, f16)
+    through :func:`layer_norm_chain`.  A ``bvc::layer_norm`` range while a
+    profiler records."""
+    with profiler_range("layer_norm"):
+        if layer_norm_route(x.device.type, x.dtype, x.shape[-1]) == "kernel":
+            return layer_norm_op(x, weight, bias, eps)[0]
+        return layer_norm_chain(x, weight, bias, eps)

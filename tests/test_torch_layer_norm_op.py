@@ -232,7 +232,7 @@ def test_the_operator_runs_inside_the_layer_norm_range(monkeypatch):
     gradient is the backward operator."""
     from torch.profiler import ProfilerActivity, profile
 
-    monkeypatch.setattr(vit, "layer_norm_route", lambda *a: "kernel")
+    monkeypatch.setattr(ln, "layer_norm_route", lambda *a: "kernel")
     x, dy, w, b = _inputs(torch.bfloat16, True)
     x.requires_grad_()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -265,7 +265,7 @@ def test_the_operator_saves_only_x_and_the_row_vectors(monkeypatch, affine):
 
     chain_saved, chain_dx = saved_by(vit.layer_norm)
     assert any(t.dtype == torch.float32 and t.shape == x.shape for t in chain_saved)
-    monkeypatch.setattr(vit, "layer_norm_route", lambda *a: "kernel")
+    monkeypatch.setattr(ln, "layer_norm_route", lambda *a: "kernel")
     saved, dx = saved_by(vit.layer_norm)
     activations = [t for t in saved if not any(t is p for p in params)]
     assert len(activations) == 3 and len(saved) == 3 + bool(params)
@@ -322,7 +322,7 @@ def test_bf16_artifact_holds_two_layer_norms_a_block(tmp_path, monkeypatch, fami
     cfg = ModelConfig(image_size=32, patch_size=8, num_frames=4, tubelet_size=2,
                       hidden_size=32, depth=3, num_heads=4, dtype="bfloat16")
     model = VideoMAEEncoder(cfg) if family == "videomae" else JEPAEncoder(cfg)
-    monkeypatch.setattr(vit, "layer_norm_route", lambda device, dtype, width: (
+    monkeypatch.setattr(ln, "layer_norm_route", lambda device, dtype, width: (
         "kernel" if dtype == torch.bfloat16 else "chain"))
     exported, meta = export_embed(family, model, cfg, device="cpu")
     monkeypatch.undo()

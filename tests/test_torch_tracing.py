@@ -1,8 +1,8 @@
 """The port's span log (``bvc_tpu_torch.utils.profiling``): nesting,
 threads and the ring's bound; ``record_function`` ranges only under a
 profiler; the spans of the loader, the VideoMAE and JEPA steps, the
-extraction entry and the trainer loop; ``--profile_dir``'s summary by span;
-and the benchmark's clock match (``portbench/program_spans.py``), which puts
+extraction entry and the three trainers' loop; ``--profile_dir``'s summary
+by span; and the benchmark's clock match (``portbench/program_spans.py``), which puts
 the log on a profile's clock."""
 
 import copy
@@ -18,7 +18,7 @@ from bvc_tpu_torch.evalbench.extract import untrained_embed_fn
 from bvc_tpu_torch.masks.multiblock import mask_collate
 from bvc_tpu_torch.models.jepa import JEPA
 from bvc_tpu_torch.models.videomae import VideoMAEPretrain
-from bvc_tpu_torch.training import trainer_videomae
+from bvc_tpu_torch.training import trainer_jepa, trainer_simclr, trainer_videomae
 from bvc_tpu_torch.training.state import TrainState
 from bvc_tpu_torch.training.steps import make_jepa_train_step, make_videomae_train_step
 from bvc_tpu_torch.utils import profiling
@@ -346,34 +346,50 @@ def test_the_benchmarks_idle_attribution_is_complete(monkeypatch):
     assert program_spans.idle_ms(_View(trace), "step.forward") is None
 
 
-@pytest.fixture(scope="module")
-def traced_stage(frame_corpus, tmp_path_factory):
-    """A 3-step VideoMAE stage with ``--profile_dir``, the spans it logged."""
-    tmp = tmp_path_factory.mktemp("stage")
-    cfg = tiny_cfg(TrainConfig, "videomae", frame_corpus, tmp, "dev_1_g0_default_0_0",
+TRAINERS = {"videomae": trainer_videomae, "jepa": trainer_jepa, "simclr": trainer_simclr}
+
+
+@pytest.fixture(scope="module", params=sorted(TRAINERS))
+def traced_stage(request, frame_corpus, tmp_path_factory):
+    """A 3-step stage of each family with ``--profile_dir``: the spans it
+    logged, the profile's folder, the family and its step count."""
+    family = request.param
+    tmp = tmp_path_factory.mktemp(f"stage_{family}")
+    cfg = tiny_cfg(TrainConfig, family, frame_corpus, tmp, "dev_1_g0_default_0_0",
                    batch_size=4)
     cfg.profile_dir = str(tmp / "prof")
     mark = _mark()
-    trainer_videomae.run_pretraining(cfg, device="cpu")
-    return _since(mark, threading.get_ident()), tmp / "prof"
+    TRAINERS[family].run_pretraining(cfg, device="cpu")
+    return _since(mark, threading.get_ident()), tmp / "prof", family, cfg.max_epoch_iters
+
+
+def _step_phases(family: str) -> list[str]:
+    """The spans inside a ``trainer.step``: SimCLR's step records none."""
+    return [] if family == "simclr" else PHASES
 
 
 def test_the_trainer_loop_logs_each_step_and_its_metric_read(traced_stage):
-    recs, _ = traced_stage
+    recs, _, family, steps = traced_stage
     names = [r["name"] for r in sorted(recs, key=lambda r: r["t0"]) if r["parent"] == 0]
-    assert names == ["loader.wait", "trainer.step", "trainer.metrics"] * 3
+    assert names == ["loader.wait", "trainer.step", "trainer.metrics"] * steps
     for top in (r for r in recs if r["name"] == "trainer.step"):
-        assert _children(recs, top) == PHASES
+        assert _children(recs, top) == _step_phases(family)
 
 
 def test_profile_dir_summary_has_host_and_idle_time_by_span(traced_stage):
-    _, prof = traced_stage
+    _, prof, family, steps = traced_stage
     summary = json.loads((prof / "summary.json").read_text())
-    assert summary["steps"] == 2
+    assert summary["steps"] == steps - 1  # from the second step; the stage ends first
     host = summary["host_ms_by_span"]
-    assert set(PHASES) | {"trainer.step", "trainer.metrics", "loader.wait"} <= set(host)
+    loop = {"trainer.step", "trainer.metrics", "loader.wait"}
+    assert set(_step_phases(family)) | loop <= set(host)
     assert all(v >= 0 for v in host.values())
     assert summary["idle_ms_by_span"] == {}  # no kernels on the CPU
     names = {e["name"] for e in json.loads((prof / "trace.json").read_text())["traceEvents"]}
-    assert {"bvc::trainer.metrics", "bvc::step.forward", "bvc::layer_norm", "bvc::gelu"} <= names
+    assert "bvc::trainer.metrics" in names
     assert "bvc::trainer.step" not in names  # a caller may trace from inside the step
+    vit = {"bvc::step.forward", "bvc::layer_norm", "bvc::gelu"}
+    if family == "simclr":  # a ResNet: no LayerNorm or GELU, and no phase spans
+        assert not {n for n in names if n.startswith("bvc::step.")} and not vit & names
+    else:
+        assert vit <= names

@@ -3,7 +3,7 @@ three steps of one stage on
 the same corpus, from the same initial weights, with the same global batch
 (the port at ``batch_size=8`` on one device, the JAX trainer at 1 x 8 CPU
 devices), and the stage logic alone (chaining, resume, accumulation,
-schedules).
+schedules, the trainer module's names the benchmark swaps).
 
 The JEPA masks come from the same collator code, so they match by
 construction.  The VideoMAE masks are the ones the JAX step draws from its
@@ -277,3 +277,30 @@ def test_val_phase_and_async_save(frame_corpus, tmp_path):
     val_rows = [r for r in rows if float(r.split(",")[2]) == 0.0]
     assert val_rows and all(float(r.split(",")[3]) > 0 for r in val_rows)
     assert load_meta(summary["checkpoint"])["val_loss"] == summary["val_loss"]
+
+
+@pytest.mark.parametrize("family", ["videomae", "jepa", "simclr"])
+def test_the_stage_takes_the_trainer_modules_loader_and_pipe(family, frame_corpus, tmp_path,
+                                                             monkeypatch):
+    """The benchmark's train window swaps ``DataLoader`` and ``MetricsPipe``
+    on the trainer module for the length of a run (``portbench/drivers/train.py``):
+    the stage serves its batches from the swapped loader and reads its
+    metrics through the swapped pipe."""
+    module, used = MODULES[family][0], {"epochs": 0, "pushes": 0}
+
+    class Loader(module.DataLoader):
+        def epoch(self, epoch):
+            used["epochs"] += 1
+            return super().epoch(epoch)
+
+    class Pipe(module.MetricsPipe):
+        def push(self, *args, **kw):
+            used["pushes"] += 1
+            return super().push(*args, **kw)
+
+    monkeypatch.setattr(module, "DataLoader", Loader)
+    monkeypatch.setattr(module, "MetricsPipe", Pipe)
+    cfg = tiny_cfg(TrainConfig, family, frame_corpus, tmp_path, "dev_1_g0_default_0_0",
+                   batch_size=4)
+    module.run_pretraining(cfg, device="cpu")
+    assert used == {"epochs": 1, "pushes": cfg.max_epoch_iters}
