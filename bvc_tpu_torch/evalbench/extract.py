@@ -35,6 +35,14 @@ whole model on its own GPU and embeds its strided slice of the dataset,
 :func:`~bvc_tpu_torch.parallel.all_gather_objects`, and the callers write
 them on rank 0.
 
+A call takes its batch in chunks of whole clips (:func:`chunk_bounds`, from
+the batch's clips and host bytes): on a CUDA device each chunk passes
+through a ring of two pinned host slots and is copied on a side stream
+while the device embeds the chunk before it (:class:`_PinnedCopies`); the
+rows come back in one copy at the end.  A ``seq`` rank runs its batch as one chunk (the ring
+collective inside the forward, and ranks whose batches differ in size),
+through the same pinned copy.
+
 Sequence parallel (a mesh with ``seq``, :mod:`bvc_tpu_torch.parallel.seqpar`):
 the ranks of a ring embed the same clips, each its time slice (cut on the
 host before the copy to the card), the attention over the ring, and the
@@ -47,7 +55,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 from pathlib import Path
-from typing import Callable
+from typing import Callable, Iterator
 
 import numpy as np
 import pandas as pd
@@ -140,32 +148,120 @@ def _require_videomae_for_seq(family: str, mesh_shape: dict[str, int] | None) ->
             "pure-data mesh for simclr.")
 
 
+# The least clips and input bytes of a chunk, from chip_smoke.py phase 8's
+# sweep of 1, 2, 3, 4 and 8 chunks of a [64,16,224,224,3] batch on an H100:
+# nothing hides the first chunk's copy, so the smaller the better, but the
+# host spends 9-16 ms launching a ViT-B forward whatever its batch, and
+# stages each chunk, so a chunk's forward must hold clips enough to outlast
+# both (uint8: 2 and 3 chunks alike, 4 and 8 slower; float32, four times the
+# bytes to stage: 2 and 3 well ahead of 1 and 4, 14 over twice 1's time)
+CHUNK_CLIPS = 32
+CHUNK_BYTES = 40 << 20
+
+
+def chunk_bounds(batch: int, nbytes: int) -> list[tuple[int, int]]:
+    """``[start, stop)`` of each chunk of whole clips that a call of
+    ``batch`` clips, ``nbytes`` on the host, runs in: near-equal chunks of
+    at least :data:`CHUNK_CLIPS` clips and :data:`CHUNK_BYTES` bytes, as
+    many as both allow (one for a batch under two chunks' worth)."""
+    n = max(1, min(batch // CHUNK_CLIPS, nbytes // CHUNK_BYTES))
+    edges = [batch * i // n for i in range(n + 1)]
+    return list(zip(edges[:-1], edges[1:]))
+
+
+class _PinnedCopies:
+    """The copies of a call's chunks to a CUDA device.  The device input
+    of the whole batch is the call's own, allocated on the compute stream;
+    each chunk is copied from the caller's array into one of two pinned
+    host slots (kept across calls, grown when a chunk outgrows them, and
+    written before every read; the host waits for the copy that last read a
+    slot before it writes there), then sent with ``non_blocking`` on a side
+    stream, and the compute stream waits for that copy's event.  The slots
+    serve one call at a time."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.slots: list[torch.Tensor | None] = [None, None]
+        self.events: list[torch.cuda.Event | None] = [None, None]
+
+    def __call__(self, a: np.ndarray, bounds: list[tuple[int, int]]) -> Iterator[torch.Tensor]:
+        """Yield each chunk of ``a`` on the device, ready on the compute
+        stream; a chunk is sent when the one before it has been taken."""
+        host = torch.from_numpy(a)
+        rows = max(e - s for s, e in bounds)
+        compute = torch.cuda.current_stream(self.device)
+        x = torch.empty(host.shape, dtype=host.dtype, device=self.device)
+        x.record_stream(self.stream)  # its memory is not reused before the copies end
+        self.stream.wait_stream(compute)
+        for k, (s, e) in enumerate(bounds):
+            i = k % 2
+            if self.events[i] is not None:
+                self.events[i].synchronize()
+            slot = self.slots[i]
+            if (slot is None or slot.dtype != host.dtype or slot.shape[1:] != host.shape[1:]
+                    or len(slot) < rows):
+                slot = self.slots[i] = torch.empty((rows, *host.shape[1:]), dtype=host.dtype,
+                                                   pin_memory=True)
+            slot[:e - s].copy_(host[s:e])  # releases the GIL
+            with torch.cuda.stream(self.stream):
+                x[s:e].copy_(slot[:e - s], non_blocking=True)
+                self.events[i] = torch.cuda.Event()
+                self.events[i].record(self.stream)
+            compute.wait_event(self.events[i])
+            yield x[s:e]
+
+
 def _embed_fn(model: VideoMAEEncoder | JEPAEncoder | ResNet, device: torch.device,
               seq: bool = False) -> Callable:
     """``fn(video_batch) -> [B, D]`` f32 numpy; ``fn.model`` is the module
     (in eval mode), ``fn.feature_dim`` the embedding width.  ``seq``: this
-    rank's time slice of the clips, embedded over the ``seq`` ring.  A call
-    is an ``extract.call`` span holding ``extract.h2d`` (the copy to the
-    device), ``extract.forward`` and ``extract.d2h`` (the copy back, which
-    waits for the device)."""
+    rank's time slice of the clips, embedded over the ``seq`` ring, as one
+    chunk.  A call runs its batch in the chunks of :func:`chunk_bounds`
+    (the rows of each chunk the same bit for bit as that chunk's own call);
+    ``fn.chunks`` counts the chunks run, ``fn.calls_chunked`` the calls of
+    more than one.  Calls from two threads at once would share the pinned
+    slots (:class:`_PinnedCopies`): make one at a time.  A call is an
+    ``extract.call`` span holding ``extract.h2d`` (the first chunk's copy
+    to the device), ``extract.forward`` (every chunk's forward, and each
+    later chunk's copy in an ``extract.stage`` span) and ``extract.d2h``
+    (the copy back, which waits for the device)."""
     model = model.to(device).eval()
     # SimCLR reads the last frame only, a seq rank its time slice: the
     # others stay on the host
     frames = (slice(-1, None) if isinstance(model, ResNet)
               else time_slice(model.cfg) if seq else slice(None))
+    if device.type == "cuda":
+        copies = _PinnedCopies(device)
+    else:
+        def copies(a, bounds):
+            return (torch.as_tensor(a[s:e]).to(device) for s, e in bounds)
+
+    def embed(x: torch.Tensor) -> torch.Tensor:
+        return seq_embed(model, x) if seq else model.embed(x)
 
     @torch.inference_mode()
     def fn(video) -> np.ndarray:
         with span("extract.call"):
+            a = np.asarray(video)[:, frames]
+            bounds = [(0, len(a))] if seq else chunk_bounds(len(a), a.nbytes)
+            fn.chunks += len(bounds)
+            fn.calls_chunked += int(len(bounds) > 1)
             with span("extract.h2d"):
-                x = torch.as_tensor(np.asarray(video)[:, frames]).to(device)
+                chunks = copies(a, bounds)
+                x = next(chunks)
             with span("extract.forward"):
-                y = seq_embed(model, x) if seq else model.embed(x)
+                ys = [embed(x)]
+                for _ in bounds[1:]:
+                    with span("extract.stage"):
+                        x = next(chunks)
+                    ys.append(embed(x))
             with span("extract.d2h"):
-                return y.cpu().numpy()
+                return torch.cat(ys).cpu().numpy()
 
     fn.model = model
     fn.feature_dim = model.feature_dim if isinstance(model, ResNet) else model.cfg.hidden_size
+    fn.chunks = fn.calls_chunked = 0
     return fn
 
 

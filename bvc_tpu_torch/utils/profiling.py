@@ -25,7 +25,8 @@ loops), ``loader.wait``, ``loader.assemble`` and ``loader.collate``
 (:mod:`bvc_tpu_torch.data.loader`), ``step.inputs``, ``step.forward``,
 ``step.backward``, ``step.update`` and ``step.metrics`` (the VideoMAE and
 JEPA steps), ``extract.call`` holding ``extract.h2d``, ``extract.forward``
-and ``extract.d2h`` (:mod:`bvc_tpu_torch.evalbench.extract`); ranges alone:
+(each later chunk's copy in an ``extract.stage`` inside it) and
+``extract.d2h`` (:mod:`bvc_tpu_torch.evalbench.extract`); ranges alone:
 ``layer_norm`` (around both of its routes, the kernel's operator and the
 eager chain) and ``gelu``.
 """

@@ -126,9 +126,17 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    set to 0, the probe run, its kernels and no other launched.
 8. Extraction at full width: VideoMAE-B (224 px, 16 frames, bf16) through
    ``untrained_embed_fn``; 12 launches of the forward kernel and of the
-   GELU forward and 24 of the LayerNorm forward in one embed call,
-   embeddings within cosine 0.999 per row of the plain attention path on the same weights; then clips/s, frames/s
-   and MFU at the largest batch in {64, 32, 16} that fits.
+   GELU forward and 24 of the LayerNorm forward in one embed call at B=8
+   (one chunk), embeddings within cosine 0.999 per row of the plain attention path on the same weights; then clips/s, frames/s
+   and MFU at the largest batch in {64, 32, 16} that fits.  At that batch
+   the chunk sweep, on the uint8 batch and on its float32 normalised copy
+   (``CHUNK_CLIPS`` and ``CHUNK_BYTES`` set to 1, 2, 3, 4 and 8 chunks'
+   worth, in turn): each count's embeddings within cosine 0.99999 per row
+   of one chunk's, the counters ``fn.chunks`` and ``fn.calls_chunked``, and
+   the call's ms and its exposed copy (the ``extract.h2d`` span) beside the
+   forward's device ms; the module's own targets must chunk both as
+   planned, and a profile of the device then gives its idle share and how
+   much of the ``extract.h2d`` and ``extract.stage`` spans kernels cover.
 9. W8A8 extraction at full width: VideoMAE-B and V-JEPA ViT-B through
    ``untrained_embed_fn(..., quantize="int8")``; at B=8 one embed call
    launches ``gemm_s8`` 24 times and ``flash_fwd`` 12 times and nothing
@@ -397,6 +405,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1043,6 +1052,8 @@ def phase_main_path(card: str, profile: str | None) -> tuple[int, int, int, int]
     counts, gelu, norms = read_launches(), read_gelu_launches(), read_layer_norm_launches()
     launches = counts["flash_fwd"]
     print(f"main path: one embed call at B=8 launched {counts}, {gelu}, {norms}", flush=True)
+    check((fn.chunks, fn.calls_chunked) == (1, 0),
+          f"B=8 ran {fn.chunks} chunks in {fn.calls_chunked} chunked calls, expected one chunk")
     check(counts == {**{k: 0 for k in counts}, "flash_fwd": cfg.depth},
           f"expected {cfg.depth} flash_fwd launches and no other, got {counts}")
     check(gelu == {"gelu_poly": cfg.depth, "gelu_poly_bwd": 0},
@@ -1085,10 +1096,111 @@ def phase_main_path(card: str, profile: str | None) -> tuple[int, int, int, int]
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
         if profile is not None:
             profile_embed(fn.model, x, profile)
+        chunk_sweep(fn, batch, dev_ms, card)
         break
     else:
         fail("no batch size in {64, 32, 16} fits")
     return launches, B, gelu["gelu_poly"], norms["layer_norm"]
+
+
+def chunk_sweep(fn, batch, dev_ms: float, card: str, rounds: int = 3, calls: int = 4) -> None:
+    """The extraction call at 1, 2, 3, 4 and 8 chunks of ``batch`` (uint8)
+    and of its float32 normalised copy, the readers' clips (``CHUNK_CLIPS``
+    and ``CHUNK_BYTES`` set to that share of its clips and bytes), the
+    counts taken in turn for ``rounds`` rounds of ``calls`` timed calls:
+    embeddings against one chunk's by per-row cosine, the counters, and the
+    call's host ms (median and least) and its exposed copy (median
+    ``extract.h2d`` span, the first chunk's staging and copy) beside
+    ``dev_ms``, the forward's device ms on the uint8 batch already on the
+    card.  Then the module's own targets must plan the chunks they run."""
+    import numpy as np
+
+    from bvc_tpu_torch.evalbench import extract
+    from bvc_tpu_torch.utils.profiling import spans
+
+    targets, counts = (extract.CHUNK_CLIPS, extract.CHUNK_BYTES), (1, 2, 3, 4, 8)
+    batches = {"uint8": batch, "float32": ((batch / 255.0 - 0.45) / 0.225).astype(np.float32)}
+    for label, clips in batches.items():
+        ms, h2d, embs = ({n: [] for n in counts} for _ in range(3))
+        try:
+            for _ in range(rounds):
+                for n in counts:
+                    extract.CHUNK_CLIPS, extract.CHUNK_BYTES = len(clips) // n, clips.nbytes // n
+                    chunks, chunked = fn.chunks, fn.calls_chunked
+                    embs[n].append(fn(clips))
+                    t0 = time.perf_counter()
+                    for _ in range(calls):
+                        t = time.perf_counter()
+                        fn(clips)
+                        ms[n].append((time.perf_counter() - t) * 1e3)
+                    h2d[n] += [(s["t1"] - s["t0"]) * 1e3 for s in spans()
+                               if s["name"] == "extract.h2d" and s["t0"] >= t0]
+                    check((fn.chunks - chunks, fn.calls_chunked - chunked)
+                          == (n * (calls + 1), (calls + 1) * (n > 1)),
+                          f"{n} chunks: counters moved by {fn.chunks - chunks}, "
+                          f"{fn.calls_chunked - chunked} in {calls + 1} calls")
+        finally:
+            extract.CHUNK_CLIPS, extract.CHUNK_BYTES = targets
+        one = embs[1][0]
+        for n in counts:
+            emb = np.stack(embs[n])
+            cos = (emb * one).sum(-1) / (np.linalg.norm(emb, axis=-1)
+                                         * np.linalg.norm(one, axis=-1))
+            call = statistics.median(ms[n])
+            print(f"main path [{card}]: B={len(clips)} {label} in {n} chunks: call {call:.2f} ms "
+                  f"(least {min(ms[n]):.2f}; {len(clips) / call * 1e3:.1f} clips/s), exposed "
+                  f"copy (extract.h2d) {statistics.median(h2d[n]):.2f} ms, uint8 forward on "
+                  f"the device {dev_ms:.2f} ms; cosine to one chunk min {cos.min():.7f}, "
+                  f"max|diff| {np.abs(emb - one).max():.3e}", flush=True)
+            check(bool(cos.min() >= 0.99999), f"{n} chunks: cosine {cos.min()} to one chunk")
+        planned = len(extract.chunk_bounds(len(clips), clips.nbytes))
+        chunks = fn.chunks
+        fn(clips)
+        check(fn.chunks - chunks == planned,
+              f"{label}: CHUNK_CLIPS {targets[0]}, CHUNK_BYTES {targets[1]} ran "
+              f"{fn.chunks - chunks} chunks, planned {planned}")
+        print(f"main path: CHUNK_CLIPS {targets[0]}, CHUNK_BYTES {targets[1]} run "
+              f"B={len(clips)} {label} in {planned} chunks", flush=True)
+        copies_under_kernels(fn, clips, f"B={len(clips)} {label}")
+
+
+def copies_under_kernels(fn, clips, what: str, calls: int = 4) -> None:
+    """A profile of the device alone over ``calls`` extraction calls, the
+    program's span log put on its clock by a marker kernel
+    (``portbench.trace``): the device's idle share, and the share of the
+    ``extract.h2d`` (exposed) and ``extract.stage`` (meant to be hidden)
+    spans during which a kernel ran."""
+    import torch
+
+    from bvc_tpu_torch.utils.profiling import spans
+    from portbench import arith
+    from portbench.trace import TraceView, start_device_trace
+
+    fn(clips)
+    # the marker kernel's first launch in a process loads its module (CUDA's
+    # lazy loading) and starts milliseconds late, which would place every
+    # span that much late: launch it once before
+    torch.ones(1, device="cuda")
+    prof, marker_s = start_device_trace(torch.device("cuda"))
+    for _ in range(calls):
+        fn(clips)
+    wall = time.perf_counter() - marker_s
+    prof.__exit__(None, None, None)
+    names = ("extract.h2d", "extract.stage")
+    view = TraceView(prof, wall, calls, {n: [(s["t0"], s["t1"]) for s in spans()
+                                             if s["name"] == n and s["t0"] >= marker_s]
+                                         for n in names}, marker_s)
+    kernels = [(lo, hi) for _, lo, hi in view.kernels]
+    shares = []
+    for name in names:
+        placed = [(lo, hi) for n, lo, hi in view.spans if n == name]
+        total = sum(hi - lo for lo, hi in placed)
+        busy = 1 - arith.uncovered_us(placed, kernels) / total if total else float("nan")
+        shares.append(f"{name} {len(placed)} spans, {total / 1e3 / calls:.2f} ms a call, "
+                      f"{100 * busy:.1f}% under kernels")
+    print(f"main path: {what}, {calls} calls profiled: device idle "
+          f"{100 * view.idle_share():.1f}% of {wall * 1e3 / calls:.2f} ms a call; "
+          + "; ".join(shares), flush=True)
 
 
 def profile_call(fn, what: str, out_file: str) -> float:
