@@ -37,6 +37,7 @@ from bvc_tpu_torch.cli.common import parse_mesh
 from bvc_tpu_torch.evalbench.extract import (extract_embeddings, make_embed_fn,
                                              make_task_dataset, save_results,
                                              untrained_embed_fn)
+from bvc_tpu_torch.models.hiera import HIERA_H
 from bvc_tpu_torch.parallel.collectives import all_gather_objects
 from bvc_tpu_torch.parallel.mesh import distributed_init, make_mesh
 from bvc_tpu_torch.utils.config import VIT_DIMS, ModelConfig, run_id_from_checkpoint
@@ -84,7 +85,12 @@ def build_parser():
 def model_config_from_args(args) -> ModelConfig:
     cfg = ModelConfig(family=args.family, num_frames=args.num_frames,
                       tubelet_size=args.tubelet_size, image_size=args.image_size)
-    if args.family == "videomae":
+    if args.family == "videomae" and args.architecture == "hiera":
+        cfg.architecture = "hiera"  # Hiera-H's layout, eps 1e-6
+        for k, v in HIERA_H.items():
+            if k != "tubelet_size":
+                setattr(cfg, k, v)
+    elif args.family == "videomae":
         cfg.architecture = args.architecture or "base"
         cfg.layer_norm_eps = 1e-12
     elif args.family == "jepa":

@@ -1,8 +1,8 @@
 // The Hopper (sm_90a) attention mainloop's pieces, shared by the flash
 // forwards (flash_fwd.cu: unmasked, and with a key bias) and the softmax
 // probe's forward (softmax_probe.cu): bf16 pre-scaled queries, keys and
-// values at head width 64 (and 32 for the key-bias kernels, templated on
-// the width D), read through 4-D TMA tensor maps, products on wgmma.  The
+// values at head width 64 or 32 (the kernels templated on the width D),
+// read through 4-D TMA tensor maps, products on wgmma.  The
 // backward (flash_bwd_sm90.cu) takes its tensor maps, helpers and
 // accumulator layout from here, with a loop of its own.
 //

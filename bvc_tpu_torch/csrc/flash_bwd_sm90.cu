@@ -810,7 +810,8 @@ extern "C" int bvc_flash_bwd_prep(const void* o, const void* dout, const void* l
 }
 
 // The five products: dK and dV stored, dQs added into dq_acc.  A null bias
-// selects the unmasked kernel (d = 64); with a [B, N] key bias, d = 64 or 32.
+// selects the unmasked kernel, a [B, N] key bias the key-bias one; each at
+// d = 64 or 32.
 extern "C" int bvc_flash_bwd_sm90(const void* q, const void* k, const void* v, const void* dout,
                                   const void* stats, const void* bias, void* dk, void* dv,
                                   void* dq_acc, long long batch, long long n, long long heads,
@@ -830,6 +831,9 @@ extern "C" int bvc_flash_bwd_sm90(const void* q, const void* k, const void* v, c
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bias == nullptr && head_dim == 64) {
     return launch_fused<64, false>(ptrs, st, stats, bias, dq_acc, batch, n, heads, np, s);
+  }
+  if (bias == nullptr && head_dim == 32) {
+    return launch_fused<32, false>(ptrs, st, stats, bias, dq_acc, batch, n, heads, np, s);
   }
   if (bias != nullptr && head_dim == 64) {
     return launch_fused<64, true>(ptrs, st, stats, bias, dq_acc, batch, n, heads, np, s);

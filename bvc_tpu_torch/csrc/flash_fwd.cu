@@ -1,6 +1,6 @@
 // Forward flash attention for Hopper (sm_90a): bf16 queries, keys and values,
-// bf16 output and f32 log-sum-exp; without a key mask at head width 64, and
-// with a per-sample key bias at head widths 64 and 32.
+// bf16 output and f32 log-sum-exp; without a key mask and with a per-sample
+// key bias, each at head widths 64 and 32.
 //
 // Replaces bvc_tpu/ops/flash_attention.py::_fwd_kernel (no key mask) and
 // ::_fwd_kernel_bias (key bias), both launched from _fwd.  Same arithmetic:
@@ -34,14 +34,17 @@
 // byte fall with N: bound by bytes, of which a key tile whose every key is
 // masked need not move any.
 //
-// Design, unmasked (d = 64): the warp-specialised Hopper mainloop of
+// Design, unmasked: the warp-specialised Hopper mainloop of
 // attn_sm90.cuh, persistent CTAs of four warpgroups walking tiles of 192
 // queries of a (head, batch element): a TMA producer, three consumer
 // warpgroups on wgmma taking turns at the tensor cores (at d = 64 each K
 // and V tile does little work, so a taller query tile pulls less of them
 // from L2 a query; 160 registers a consumer thread), the softmax of one
 // key tile overlapping the P V product of the one before, and the rescale
-// of O to a new running max overlapping the next S product.  exp2 is the
+// of O to a new running max overlapping the next S product.  At d = 32
+// (flash_fwd32_sm90, the same body templated on the width: Hiera's MAE
+// decoder, [B, 1568, 16, 32]) the tiles and turns are the same; rows are 64
+// bytes under the 64-byte swizzle and P V is m64n32.  exp2 is the
 // SFU's ex2.approx.ftz (exp2f's own instruction without its subnormal
 // fixup), so one instruction a score sits on the 16-a-clock pipe.
 //
@@ -72,22 +75,30 @@
 
 namespace {
 
-// ---- unmasked, d = 64: Hopper -------------------------------------------
+// ---- unmasked, d = 64 and 32: Hopper ----------------------------------
 
 // Three consumer warpgroups: 192-query tiles pull 1.5x less K and V from L2
-// a query than 128-query ones.
-using FwdCta = attn::Cta<3>;
+// a query than 128-query ones.  At d = 32 the same tiles: each score costs
+// half the products, so the exponentials weigh the more, and three
+// consumers keep two of them on exponentials while one runs products.
+template <int D>
+using FwdCtaOf = attn::Cta<3, D>;
+using FwdCta = FwdCtaOf<64>;
 
-__global__ void __launch_bounds__(FwdCta::kThreads, 1)
-flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
-               const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_o,
-               float* __restrict__ lse, int n, int heads, int batches) {
+// The unmasked forward at head width D, the body of flash_fwd_sm90 (d = 64)
+// and flash_fwd32_sm90 (d = 32): one kernel name a width, so that the
+// d = 64 kernel keeps its name and code.
+template <int D>
+__device__ __forceinline__ void unmasked_fwd(const CUtensorMap* map_q, const CUtensorMap* map_k,
+                                             const CUtensorMap* map_v, const CUtensorMap* map_o,
+                                             float* __restrict__ lse, int n, int heads,
+                                             int batches) {
   using namespace attn;
-  using C = FwdCta;
+  using C = FwdCtaOf<D>;
   extern __shared__ unsigned char smem_raw[];
-  C::Smem& sm = C::smem_of(smem_raw);
+  typename C::Smem& sm = C::smem_of(smem_raw);
   const int n_tiles = (n + kBlockN - 1) / kBlockN;  // key tiles
-  const C::Work work = C::work(n, heads, batches);
+  const typename C::Work work = C::work(n, heads, batches);
   // warp-uniform by construction, so that ptxas sees each role's wgmma on a
   // path no warp diverges into
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
@@ -97,7 +108,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
 
   if (wg == 0) {
     hopper::setmaxnreg_dec<C::kProducerRegs>();
-    if (threadIdx.x == 0) C::produce(sm, &map_q, &map_k, &map_v, work, n_tiles, 1);
+    if (threadIdx.x == 0) C::produce(sm, map_q, map_k, map_v, work, n_tiles, 1);
     return;
   }
   hopper::setmaxnreg_inc<C::kConsumerRegs>();
@@ -105,9 +116,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
   const int warp = __shfl_sync(0xffffffffu, (threadIdx.x >> 5) & 3, 0);
   const int lane = threadIdx.x & 31;
   const int t = lane & 3;
-  const uint32_t q_addr = hopper::smem_addr(sm.q) + c * kHalfBytes;
+  const uint32_t q_addr = hopper::smem_addr(sm.q) + c * C::kHalfBytes;
 
-  float s[64], o[32];
+  float s[64], o[D / 2];
   uint32_t p[32];
   float m[2], l[2], alpha[2];
 #pragma unroll
@@ -135,9 +146,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + (sum[r][0] + sum[r][1]);
   };
 
-  auto rescale = [](float (&acc)[32], const float (&a)[2]) {
+  auto rescale = [](float (&acc)[D / 2], const float (&a)[2]) {
 #pragma unroll
-    for (int j = 0; j < 32; ++j) acc[j] *= a[half_of(j)];
+    for (int j = 0; j < D / 2; ++j) acc[j] *= a[half_of(j)];
   };
 
   Ring kr, vr;
@@ -148,7 +159,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
     m[0] = m[1] = kNegInf;
     l[0] = l[1] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     hopper::fence_operands(o);
     hopper::mbar_wait(&sm.q_full, q_phase);
     q_phase ^= 1;
@@ -157,7 +168,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
     hopper::mbar_wait(&sm.k_full[kr.stage], kr.phase);
     C::turn_wait(c);
     hopper::wgmma_fence();
-    issue_s(s, q_addr, hopper::smem_addr(sm.k[kr.stage]));
+    issue_s<D>(s, q_addr, hopper::smem_addr(sm.k[kr.stage]));
     hopper::wgmma_commit();
     C::turn_pass_if(c, true);
     hopper::wgmma_wait<0>();
@@ -173,11 +184,11 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
       hopper::mbar_wait(&sm.v_full[vr.stage], vr.phase);
       C::turn_wait(c);
       hopper::wgmma_fence();
-      issue_s(s, q_addr, hopper::smem_addr(sm.k[kr.stage]));
+      issue_s<D>(s, q_addr, hopper::smem_addr(sm.k[kr.stage]));
       hopper::wgmma_commit();
       rescale(o, alpha);  // to the max of the tile before, while S runs
       hopper::wgmma_fence();
-      issue_pv(o, p, hopper::smem_addr(sm.v[vr.stage]));
+      issue_pv<D>(o, p, hopper::smem_addr(sm.v[vr.stage]));
       hopper::wgmma_commit();
       C::turn_pass_if(c, true);
       hopper::wgmma_wait<1>();  // S has landed; P V of the tile before runs on
@@ -200,7 +211,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
     C::turn_wait(c);
     rescale(o, alpha);
     hopper::wgmma_fence();
-    issue_pv(o, p, hopper::smem_addr(sm.v[vr.stage]));
+    issue_pv<D>(o, p, hopper::smem_addr(sm.v[vr.stage]));
     hopper::wgmma_commit();
     C::turn_pass_if(c, c != C::kLast || !last);
     hopper::wgmma_wait<0>();
@@ -217,7 +228,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
     for (int r = 0; r < 2; ++r) {
       const float inv_l = 1.f / l[r];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < D / 8; ++j) {
         o[4 * j + 2 * r] *= inv_l;
         o[4 * j + 2 * r + 1] *= inv_l;
       }
@@ -226,9 +237,26 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
         lse[(static_cast<long long>(batch) * heads + head) * n + row] = m[r] + logf(l[r]);
       }
     }
-    C::store_o(sm.o[c], o, &map_o, row0 + 64 * c, head, batch, c, warp, lane);
+    C::store_o(sm.o[c], o, map_o, row0 + 64 * c, head, batch, c, warp, lane);
   }
   hopper::bulk_wait_all();  // the stores read shared memory that lives as long as the CTA
+}
+
+
+__global__ void __launch_bounds__(FwdCta::kThreads, 1)
+flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_o,
+               float* __restrict__ lse, int n, int heads, int batches) {
+  unmasked_fwd<64>(&map_q, &map_k, &map_v, &map_o, lse, n, heads, batches);
+}
+
+__global__ void __launch_bounds__(FwdCtaOf<32>::kThreads, 1)
+flash_fwd32_sm90(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 const __grid_constant__ CUtensorMap map_o, float* __restrict__ lse, int n,
+                 int heads, int batches) {
+  unmasked_fwd<32>(&map_q, &map_k, &map_v, &map_o, lse, n, heads, batches);
 }
 
 // One warpgroup at head width D: S [64 x 128] = Q K^T from TMA-loaded
@@ -614,21 +642,25 @@ int launch_bias(const void* q, const void* k, const void* v, const void* bias, v
   return static_cast<int>(cudaGetLastError());
 }
 
-// Encodes the four tensor maps and launches the Hopper kernel; returns a
-// cudaError_t, or the CUresult of a map that cuTensorMapEncodeTiled refused.
+// Encodes the four tensor maps and launches the unmasked kernel at head
+// width D; returns a cudaError_t, or the CUresult of a map that
+// cuTensorMapEncodeTiled refused.
+template <int D>
 int launch_unmasked(const void* q, const void* k, const void* v, void* o, void* lse,
                     long long batch, long long n, long long heads, const long long (&s)[12],
                     cudaStream_t stream) {
-  if (!FwdCta::shape_ok(batch, n, heads)) return static_cast<int>(cudaErrorInvalidValue);
+  using C = FwdCtaOf<D>;
+  const auto kernel = D == 64 ? flash_fwd_sm90 : flash_fwd32_sm90;
+  if (!C::shape_ok(batch, n, heads)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap maps[4];
   const attn::Strides st[4] = {{s[0], s[1], s[2]}, {s[3], s[4], s[5]},
                                {s[6], s[7], s[8]}, {s[9], s[10], s[11]}};
-  const CUresult r = FwdCta::encode_qkvo(maps, q, k, v, o, batch, n, heads, st);
+  const CUresult r = C::encode_qkvo(maps, q, k, v, o, batch, n, heads, st);
   if (r != CUDA_SUCCESS) return static_cast<int>(r);
   int grid = 0;
-  cudaError_t err = FwdCta::prepare(flash_fwd_sm90, batch, n, heads, &grid);
+  cudaError_t err = C::prepare(kernel, batch, n, heads, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_sm90<<<grid, FwdCta::kThreads, FwdCta::kSmemBytes, stream>>>(
+  kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<float*>(lse), static_cast<int>(n),
       static_cast<int>(heads), static_cast<int>(batch));
   return static_cast<int>(cudaGetLastError());
@@ -636,8 +668,8 @@ int launch_unmasked(const void* q, const void* k, const void* v, void* o, void* 
 
 }  // namespace
 
-// bias == nullptr: the unmasked kernel (head_dim 64); otherwise the
-// key-bias kernel (head_dim 64 or 32).  Any other width is refused with
+// bias == nullptr: the unmasked kernel; otherwise the key-bias kernel; each
+// at head_dim 64 or 32.  Any other width is refused with
 // cudaErrorInvalidValue before anything launches.
 extern "C" int bvc_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
                              void* o, void* lse, long long batch, long long n,
@@ -651,7 +683,10 @@ extern "C" int bvc_flash_fwd(const void* q, const void* k, const void* v, const 
                            v_sb, v_sn, v_sh, o_sb, o_sn, o_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bias == nullptr && head_dim == 64) {
-    return launch_unmasked(q, k, v, o, lse, batch, n, heads, s, st);
+    return launch_unmasked<64>(q, k, v, o, lse, batch, n, heads, s, st);
+  }
+  if (bias == nullptr && head_dim == 32) {
+    return launch_unmasked<32>(q, k, v, o, lse, batch, n, heads, s, st);
   }
   if (bias != nullptr && head_dim == 64) {
     return launch_bias<64>(q, k, v, bias, o, lse, batch, n, heads, s, st);

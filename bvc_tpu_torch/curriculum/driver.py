@@ -111,7 +111,8 @@ def build_stage_config(
     m.family = preset.family
     m.num_frames = preset.num_frames
     m.tubelet_size = preset.tubelet_size
-    if preset.family == "videomae":
+    hiera = preset.family == "videomae" and m.architecture == "hiera"
+    if preset.family == "videomae" and not hiera:  # Hiera keeps its own eps
         m.layer_norm_eps = 1e-12
     if preset.family == "jepa":
         name = "vit_" + preset.architecture if not preset.architecture.startswith("vit_") else preset.architecture
@@ -122,7 +123,7 @@ def build_stage_config(
         m.architecture = preset.architecture
         m.pred_emb_dim = preset.pred_emb_dim
 
-    cfg.mask.sampler = preset.mask_sampler
+    cfg.mask.sampler = "mask_unit" if hiera else preset.mask_sampler
     cfg.mask.mask_ratio = preset.mask_ratio
     cfg.mask.enc_mask_scale = (preset.enc_mask_scale, preset.enc_mask_scale + 0.15)
     cfg.mask.pred_mask_scale = (preset.pred_mask_scale, preset.pred_mask_scale + 0.05)

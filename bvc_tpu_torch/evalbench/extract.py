@@ -66,6 +66,7 @@ from bvc_tpu_torch.evalbench.datasets import (Cifar10Dataset, SSv2Dataset, Toybo
 from bvc_tpu_torch.models.convert import (jepa_encoder_from_reference_state_dict,
                                           resnet_from_torchvision_state_dict,
                                           videomae_from_hf_state_dict)
+from bvc_tpu_torch.models.hiera import HieraEncoder
 from bvc_tpu_torch.models.jepa import JEPAEncoder
 from bvc_tpu_torch.models.resnet import ResNet
 from bvc_tpu_torch.models.videomae import VideoMAEEncoder
@@ -107,10 +108,24 @@ def _simclr_model(cfg: ModelConfig, head_dim: int = 512, seed: int = 0) -> ResNe
 _ENCODERS = {"videomae": VideoMAEEncoder, "jepa": JEPAEncoder}
 
 
-def _encoder_class(family: str) -> type[torch.nn.Module]:
+def _encoder_class(family: str, cfg: ModelConfig) -> type[torch.nn.Module]:
     if family not in _ENCODERS:
         raise ValueError(f"unknown family {family!r}")
+    if family == "videomae" and cfg.architecture == "hiera":
+        return HieraEncoder
     return _ENCODERS[family]
+
+
+def _refuse_hiera(cfg: ModelConfig, quantized: bool, seq: bool) -> None:
+    """Hiera's encoder has no int8 blocks and no sequence-parallel embed."""
+    if cfg.architecture != "hiera":
+        return
+    if quantized:
+        raise ValueError("quantize='int8' quantizes the ViT blocks; Hiera's blocks have no "
+                         "W8A8 path -- use quantize='none'")
+    if seq:
+        raise ValueError("architecture 'hiera' on a 'seq' mesh: there is no "
+                         "sequence-parallel Hiera embed -- use a pure-data mesh")
 
 
 def _check_quantize(family: str, quantize: str | None,
@@ -260,7 +275,7 @@ def _embed_fn(model: VideoMAEEncoder | JEPAEncoder | ResNet, device: torch.devic
                 return torch.cat(ys).cpu().numpy()
 
     fn.model = model
-    fn.feature_dim = model.feature_dim if isinstance(model, ResNet) else model.cfg.hidden_size
+    fn.feature_dim = getattr(model, "feature_dim", None) or model.cfg.hidden_size
     fn.chunks = fn.calls_chunked = 0
     return fn
 
@@ -270,7 +285,8 @@ def load_family_model(family: str, ckpt_path: str, cfg: ModelConfig) -> torch.nn
     of a ``.pth.tar`` checkpoint: one account of each family's checkpoint
     keys, shared by :func:`make_embed_fn` and the serving exporter
     (:mod:`bvc_tpu_torch.serving`).  VideoMAE: ``model_state_dict`` in HF
-    names; JEPA: the online ``encoder`` in the reference layout, else
+    names (Hiera's: the pretraining model's own, its ``encoder.`` entries);
+    JEPA: the online ``encoder`` in the reference layout, else
     ``target_encoder`` (as the JAX package reads it); SimCLR:
     ``model_state_dict`` in torchvision names, running statistics
     included."""
@@ -279,10 +295,13 @@ def load_family_model(family: str, ckpt_path: str, cfg: ModelConfig) -> torch.nn
         sd = resnet_from_torchvision_state_dict(ckpt["model_state_dict"])
         model = _simclr_model(cfg, head_dim=sd["fc.0.weight"].shape[0])
     else:
-        model = _encoder_class(family)(cfg)
+        model = _encoder_class(family, cfg)(cfg)
         if family == "jepa":
             enc = ckpt["encoder"] if "encoder" in ckpt else ckpt["target_encoder"]
             sd = jepa_encoder_from_reference_state_dict(enc, cfg)
+        elif cfg.architecture == "hiera":
+            sd = {k[len("encoder."):]: v for k, v in ckpt["model_state_dict"].items()
+                  if k.startswith("encoder.")}
         else:
             sd = videomae_from_hf_state_dict(ckpt["model_state_dict"], cfg)
     model.load_state_dict(sd)
@@ -293,7 +312,7 @@ def init_family_model(family: str, cfg: ModelConfig, seed: int = 0) -> torch.nn.
     """The model a family embeds with, random from ``seed``, on the CPU."""
     if family == "simclr":
         return _simclr_model(cfg, seed=seed)
-    return _encoder_class(family)(cfg, seed=seed)
+    return _encoder_class(family, cfg)(cfg, seed=seed)
 
 
 def make_embed_fn(family: str, ckpt_path: str, cfg: ModelConfig,
@@ -308,6 +327,7 @@ def make_embed_fn(family: str, ckpt_path: str, cfg: ModelConfig,
     slice of each clip over the ring (VideoMAE and V-JEPA)."""
     q = _check_quantize(family, quantize, mesh_shape)
     _require_videomae_for_seq(family, mesh_shape)
+    _refuse_hiera(cfg, q, _is_seq_mesh(mesh_shape))
     device = resolve_device(device)
     model = load_family_model(family, ckpt_path, cfg)
     return _embed_fn(quantize_encoder(model) if q else model, device, _is_seq_mesh(mesh_shape))
@@ -321,6 +341,7 @@ def untrained_embed_fn(family: str, cfg: ModelConfig, seed: int = 0,
     ``quantize="int8"`` quantizes its blocks."""
     q = _check_quantize(family, quantize, mesh_shape)
     _require_videomae_for_seq(family, mesh_shape)
+    _refuse_hiera(cfg, q, _is_seq_mesh(mesh_shape))
     device = resolve_device(device)
     model = init_family_model(family, cfg, seed)
     return _embed_fn(quantize_encoder(model) if q else model, device, _is_seq_mesh(mesh_shape))

@@ -9,9 +9,12 @@ tests that compare the two packages hand both the same mask.
 - tube: ``int(mask_ratio * H*W)`` of the ``H*W`` spatial patches of each
   sample, the same ones in every one of the T temporal sheets;
 - random: ``int(mask_ratio * T*H*W)`` patches drawn uniformly over the
-  whole token grid.
+  whole token grid;
+- mask unit (Hiera): of the ``n`` units of a unit grid, ``int(n * (1 -
+  mask_ratio))`` kept, drawn uniformly (Hiera's count: 39 of 392 at 0.9,
+  where the tube rule would keep 40).
 
-Both give every sample the same masked count, so the encoder's visible
+Each gives every sample the same masked count, so the encoder's visible
 token count is fixed.
 """
 
@@ -45,6 +48,14 @@ def random_mask(generator: torch.Generator, batch_size: int, grid: tuple[int, in
     t, h, w = grid
     n = t * h * w
     return _first_of_permutations(generator, batch_size, n, int(mask_ratio * n))
+
+
+def mask_unit_mask(generator: torch.Generator, batch_size: int, unit_grid: tuple[int, int, int],
+                   mask_ratio: float) -> torch.Tensor:
+    """``[B, units]`` bool mask (True = masked) over a ``(T, H, W)`` grid of
+    mask units: ``int(n * (1 - mask_ratio))`` kept a row."""
+    n = unit_grid[0] * unit_grid[1] * unit_grid[2]
+    return _first_of_permutations(generator, batch_size, n, n - int(n * (1 - mask_ratio)))
 
 
 def mask_partition(mask: torch.Tensor, num_visible: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,7 +1,9 @@
 """Multi-head attention for the ViT stacks.
 
 Counterpart of :mod:`bvc_tpu.ops.attention`.  Callers pass projected q, k,
-v of shape ``[B, N, h, d]``.  Two implementations:
+v of shape ``[B, N, h, d]``; q may hold fewer tokens than k and v (Hiera's
+pooled queries, ``[B, Nq, h, d]``), which only the plain math takes.  Two
+implementations:
 
 - :func:`plain_attention`, the counterpart of ``_xla_attention``: the
   attention written out in PyTorch, with the same dtype steps, f32 or
@@ -27,10 +29,13 @@ from bvc_tpu_torch.parallel.mesh import SEQ_AXIS, current_mesh
 # The flash kernels take an attention of at least this many tokens.  Set
 # from the H100 timing of the unmasked kernels against plain_attention at
 # [8, N, 12, 64], N in {160, 392, 784, 1568}, forward alone and forward
-# plus backward (chip_smoke.py, PERF.md): the kernels won at every N
-# measured, so the threshold is the smallest of them; shorter sequences
-# stay unmeasured.
-FLASH_MIN_TOKENS = 160
+# plus backward, where the kernels won at every N, and at Hiera-H's shapes
+# (chip_smoke.py phase_hiera_routes, PERF.md): the kernels took 0.73 ms
+# against 2.24 for the 64-token windows [1872, 64, 4, 64] and 0.90 and 0.96
+# against 1.19 and 2.05 at 156 tokens [48, 156, 16|32, 64]; at 16 tokens
+# [1872, 16, 8, 64] 1.11 against 1.22 by events but 1.10 against 0.82 in a
+# CUDA graph, so those stay plain.
+FLASH_MIN_TOKENS = 64
 # The same for masked attention, from the key-bias kernels' forward plus
 # backward against plain_attention at B=64, 12 heads, about 60% of the keys
 # kept, N in {128, 160, 256} at head widths 64 and 32, and at JEPA's own
@@ -40,17 +45,18 @@ FLASH_MIN_MASKED_TOKENS = 128
 
 
 def attention_route(device_type: str, dtype: torch.dtype, n: int, head_dim: int,
-                    masked: bool) -> str:
+                    masked: bool, n_q: int | None = None) -> str:
     """``'flash'`` or ``'xla'`` (plain) for an attention of ``n`` tokens of
     head width ``head_dim``: the counterpart of ``masked_auto_impl`` and the
     JAX package's ``'auto'`` rule, re-derived for the H100.  On CUDA with
-    bf16, unmasked attention of ``n >= FLASH_MIN_TOKENS`` at the unmasked
-    kernels' width and masked attention of ``n >= FLASH_MIN_MASKED_TOKENS``
+    bf16, unmasked attention of ``n >= FLASH_MIN_TOKENS`` at an unmasked
+    kernel's width and masked attention of ``n >= FLASH_MIN_MASKED_TOKENS``
     at a key-bias kernel's width go to the kernels
     (:func:`~bvc_tpu_torch.ops.flash_attention.kernel_route`); everything
-    else is plain math."""
+    else is plain math, and so is an attention whose ``n_q`` queries are
+    fewer than its keys (the kernels take as many of each)."""
     min_tokens = FLASH_MIN_MASKED_TOKENS if masked else FLASH_MIN_TOKENS
-    if n < min_tokens:
+    if n < min_tokens or (n_q is not None and n_q != n):
         return "xla"
     return kernel_route(device_type, dtype, head_dim, masked)
 
@@ -116,8 +122,8 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl in ("auto", "xla_bf16"):
         if impl == "xla_bf16":
             score_dtype = torch.bfloat16
-        impl = attention_route(q.device.type, q.dtype, q.shape[1], q.shape[-1],
-                               bias is not None)
+        impl = attention_route(q.device.type, q.dtype, k.shape[1], q.shape[-1],
+                               bias is not None, q.shape[1])
     if impl == "flash":
         return flash_attention(q, k, v, scale=scale, bias=bias)
     if impl == "xla":

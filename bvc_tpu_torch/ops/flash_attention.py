@@ -26,13 +26,16 @@ with a per-sample key bias.
   it no gradient; masked keys get dK = dV = 0 exactly.  The bias gets no
   gradient.
 
-The unmasked kernels take head width 64 (:data:`HEAD_DIM`), the key-bias
-kernels 64 and 32 (:data:`BIAS_HEAD_DIMS`).  :func:`flash_fwd_cuda` and
-:func:`flash_bwd_cuda` launch the kernels for CUDA tensors and count their
-launches: ``flash_fwd_cuda.launches`` and ``.launches_bias``,
-``flash_bwd_cuda.launches_prep``, ``.launches_fused``, ``.launches_post``
-without a bias and ``.launches_prep_bias``, ``.launches_fused_bias``,
-``.launches_post_bias`` with one.
+The kernels take head widths 64 and 32, without a key mask
+(:data:`HEAD_DIMS`) and with a key bias (:data:`BIAS_HEAD_DIMS`).
+:func:`flash_fwd_cuda` and :func:`flash_bwd_cuda` launch the kernels for
+CUDA tensors and count their launches: ``flash_fwd_cuda.launches`` and
+``.launches_bias``, ``flash_bwd_cuda.launches_prep``, ``.launches_fused``,
+``.launches_post`` without a bias and ``.launches_prep_bias``,
+``.launches_fused_bias``, ``.launches_post_bias`` with one, every width
+together; the unmasked launches at d = 32 also count apart, in
+``flash_fwd_cuda.launches_d32`` and ``flash_bwd_cuda.launches_prep_d32``,
+``.launches_fused_d32``, ``.launches_post_d32``.
 :func:`flash_attention_fwd_ref` and :func:`flash_attention_bwd_ref` are the
 plain PyTorch versions of the same arithmetic: the CPU tests use them, and
 ``chip_smoke.py`` holds the kernels against them on the card.
@@ -62,21 +65,22 @@ import torch
 
 from bvc_tpu_torch.ops._build import kernel_layout, launch, load_library
 
-HEAD_DIM = 64  # the unmasked kernels' only head width
+HEAD_DIM = 64  # the tile checks' default head width
+HEAD_DIMS = (64, 32)  # the unmasked kernels' head widths
 BIAS_HEAD_DIMS = (64, 32)  # the key-bias kernels' head widths
 NEG_INF = -1e30  # the bias of a masked key
 
 
 def kernel_route(device_type: str, dtype: torch.dtype, head_dim: int, masked: bool) -> str:
-    """``'flash'`` where the kernels take an attention: CUDA, bf16, head
-    width :data:`HEAD_DIM`, or one of :data:`BIAS_HEAD_DIMS` with a key bias;
+    """``'flash'`` where the kernels take an attention: CUDA, bf16, a head
+    width of :data:`HEAD_DIMS`, or of :data:`BIAS_HEAD_DIMS` with a key bias;
     else ``'xla'`` (plain math).  The rule of
     :func:`~bvc_tpu_torch.ops.attention.attention_route` apart from its token
     thresholds, and the route of every hop of a ring
     (:mod:`~bvc_tpu_torch.ops.ring_attention`)."""
     if device_type != "cuda" or dtype != torch.bfloat16:
         return "xla"
-    return "flash" if head_dim in (BIAS_HEAD_DIMS if masked else (HEAD_DIM,)) else "xla"
+    return "flash" if head_dim in (BIAS_HEAD_DIMS if masked else HEAD_DIMS) else "xla"
 
 
 def key_bias(key_mask: torch.Tensor) -> torch.Tensor:
@@ -172,8 +176,8 @@ def _library(name: str) -> ctypes.CDLL:
 def _check_kernel_inputs(caller: str, bias: torch.Tensor | None,
                          **tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a 4-D CUDA bf16 ``[B, N, h, d]`` tensor
-    of one shape on one device, with d = 64 (or, with a key bias, d in
-    :data:`BIAS_HEAD_DIMS`), and ``bias``, if given, a contiguous CUDA f32
+    of one shape on one device, with d in :data:`HEAD_DIMS` (with a key
+    bias, in :data:`BIAS_HEAD_DIMS`), and ``bias``, if given, a contiguous CUDA f32
     ``[B, N]`` tensor on that device."""
     first = next(iter(tensors.values()))
     for name, x in tensors.items():
@@ -182,7 +186,7 @@ def _check_kernel_inputs(caller: str, bias: torch.Tensor | None,
                              f"tensor, got {x.dtype} {tuple(x.shape)} on {x.device}")
         if x.shape != first.shape or x.device != first.device:
             raise ValueError(f"{caller}: {', '.join(tensors)} differ in shape or device")
-    widths = (HEAD_DIM,) if bias is None else BIAS_HEAD_DIMS
+    widths = HEAD_DIMS if bias is None else BIAS_HEAD_DIMS
     if first.shape[-1] not in widths:
         kind = "key-bias kernels" if bias is not None else "kernels without a key mask"
         raise ValueError(f"{caller}: head width {first.shape[-1]} is not supported "
@@ -206,11 +210,12 @@ def _ptr(x: torch.Tensor | None) -> int | None:
 def flash_fwd_cuda(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    bias: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/flash_fwd.cu`` on CUDA bf16 ``[B, N, h, d]`` tensors
-    (``qs`` pre-scaled; d = 64, or 64 or 32 with a key ``bias``) on the
-    current stream; returns ``(o, lse)`` like :func:`flash_attention_fwd_ref`.
-    Raises on anything the kernels do not take, and if the launch fails.
-    Counts launches of the unmasked kernel in ``.launches`` and of the
-    key-bias kernel in ``.launches_bias``."""
+    (``qs`` pre-scaled; d = 64 or 32, with or without a key ``bias``) on
+    the current stream; returns ``(o, lse)`` like
+    :func:`flash_attention_fwd_ref`.  Raises on anything the kernels do not
+    take, and if the launch fails.  Counts launches of the unmasked kernels
+    in ``.launches`` (those at d = 32 also in ``.launches_d32``) and of the
+    key-bias kernels in ``.launches_bias``."""
     _check_kernel_inputs("flash_fwd_cuda", bias, qs=qs, k=k, v=v)
     B, N, h, d = qs.shape
     o = torch.empty((B, N, h, d), dtype=qs.dtype, device=qs.device)
@@ -223,6 +228,7 @@ def flash_fwd_cuda(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            lse.data_ptr(), B, N, h, d, *_strides(qs, k, v, o))
     if bias is None:
         flash_fwd_cuda.launches += 1
+        flash_fwd_cuda.launches_d32 += d == 32
     else:
         flash_fwd_cuda.launches_bias += 1
     return o, lse
@@ -230,6 +236,7 @@ def flash_fwd_cuda(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.launches_bias = 0
+flash_fwd_cuda.launches_d32 = 0
 
 
 def _check_tile_inputs(caller: str, head_dim: int, shapes: dict[str, tuple[int, int]],
@@ -304,6 +311,8 @@ def _dims(w: dict[str, torch.Tensor]) -> tuple[int, int, int, int, int]:
 def _count(w: dict[str, torch.Tensor | None], counter: str) -> None:
     if w["bias"] is not None:
         counter += "_bias"
+    elif w["qs"].shape[-1] == 32:
+        setattr(flash_bwd_cuda, counter + "_d32", getattr(flash_bwd_cuda, counter + "_d32") + 1)
     setattr(flash_bwd_cuda, counter, getattr(flash_bwd_cuda, counter) + 1)
 
 
@@ -343,10 +352,11 @@ def flash_bwd_cuda(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.
     stream; returns ``(dqs, dk, dv)`` like :func:`flash_attention_bwd_ref`.
     qs/k/v, O and dO are read through their strides, copied only where their
     layout needs it.  Raises on anything the kernels do not take, and if a
-    launch fails.  Without a bias (d = 64) the launches count in
-    ``.launches_prep``, ``.launches_fused`` and ``.launches_post``; with a
-    key ``bias`` (d = 64 or 32) in ``.launches_prep_bias``,
-    ``.launches_fused_bias`` and ``.launches_post_bias``."""
+    launch fails.  Without a bias the launches count in ``.launches_prep``,
+    ``.launches_fused`` and ``.launches_post`` (those at d = 32 also in
+    ``.launches_prep_d32``, ``.launches_fused_d32``, ``.launches_post_d32``);
+    with a key ``bias`` in ``.launches_prep_bias``, ``.launches_fused_bias``
+    and ``.launches_post_bias``; d = 64 or 32 either way."""
     w = bwd_operands(qs, k, v, o, lse, do, bias)
     if qs.numel() == 0:
         return w["dq"], w["dk"], w["dv"]
@@ -362,6 +372,9 @@ flash_bwd_cuda.launches_post = 0
 flash_bwd_cuda.launches_prep_bias = 0
 flash_bwd_cuda.launches_fused_bias = 0
 flash_bwd_cuda.launches_post_bias = 0
+flash_bwd_cuda.launches_prep_d32 = 0
+flash_bwd_cuda.launches_fused_d32 = 0
+flash_bwd_cuda.launches_post_d32 = 0
 
 
 def bwd_tile_check(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,

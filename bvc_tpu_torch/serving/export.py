@@ -109,6 +109,10 @@ def export_embed(family: str, model: nn.Module, cfg: ModelConfig, quantize: str 
 
     if family not in ("videomae", "jepa", "simclr"):
         raise ValueError(f"unknown family {family!r}")
+    if family != "simclr" and cfg.architecture == "hiera":
+        raise ValueError("export_serving: architecture 'hiera' is not exported: the serving "
+                         "entry embeds a VideoMAE encoder, and no artifact path is built for "
+                         "Hiera's unrolled stages")
     if family != "simclr" and cfg.pos_embed == "rope3d":
         raise ValueError("export_serving: pos_embed='rope3d' is not exported: a loaded "
                          "artifact registers the flash, GELU and GEMM operators, not the "

@@ -85,7 +85,8 @@ def videomae_grad_sumsqs(model: torch.nn.Module,
     """The squares of :func:`videomae_grad_metrics`' norms over the
     selected parameters with a gradient (a pipeline stage adds its own to
     the other stages', :mod:`bvc_tpu_torch.parallel.pipeline`)."""
-    last = f"encoder.blocks.layers.{model.cfg.depth - 1}."
+    depth = sum(model.cfg.stage_depths) or model.cfg.depth  # Hiera's blocks, or the ViT's
+    last = f"encoder.blocks.layers.{depth - 1}."
     parts = {"grad_norm": [], "grad_efl": [], "grad_ell": [], "grad_dll": []}
     for name, s in _grad_sumsqs(model, select):
         parts["grad_norm"].append(s)
@@ -104,7 +105,8 @@ def videomae_grad_metrics(model: torch.nn.Module) -> dict[str, torch.Tensor]:
     """``grad_norm`` over every parameter with a gradient, and the norms of
     the patch embedding (``grad_efl``), the last encoder layer
     (``grad_ell``) and the decoder head (``grad_dll``) of a
-    :class:`~bvc_tpu_torch.models.videomae.VideoMAEPretrain`."""
+    :class:`~bvc_tpu_torch.models.videomae.VideoMAEPretrain` or a
+    :class:`~bvc_tpu_torch.models.hiera.HieraMAE`."""
     return {k: v.sqrt() for k, v in videomae_grad_sumsqs(model).items()}
 
 

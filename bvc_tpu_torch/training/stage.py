@@ -49,9 +49,12 @@ def run_mesh(cfg: TrainConfig, family: str) -> Mesh:
     with ``seq`` by the sequence-parallel steps' rules, :func:`seq_layout`;
     on a mesh with ``pipe``, where the flag must stay ``replicated``).
     Raises for a layout the run cannot take: ``seq`` or ``pipe`` for any
-    ``family`` but ``videomae`` (first for 3-D rotary positions), axes
+    ``family`` but ``videomae`` (first for 3-D rotary positions), ``seq``,
+    ``pipe`` or ``tp`` for a Hiera model, axes
     whose sizes do not multiply to the world's, a ``pipe`` axis beside
     ``seq`` or ``model``, a flag the mesh refuses."""
+    if cfg.model.architecture == "hiera":
+        refuse_hiera_layout(cfg)
     for axis in (SEQ_AXIS, PIPE_AXIS):
         if family == "videomae" or axis not in cfg.mesh_shape:
             continue
@@ -71,6 +74,21 @@ def run_mesh(cfg: TrainConfig, family: str) -> Mesh:
     else:
         param_shardings(cfg.param_sharding, mesh)
     return mesh
+
+
+def refuse_hiera_layout(cfg: TrainConfig) -> None:
+    """Raise for the layouts a Hiera model has no piece for: the ``seq``
+    and ``pipe`` steps and ``tp`` split the ViT's isotropic blocks."""
+    for axis, piece in ((SEQ_AXIS, "a sequence-parallel Hiera step (its windows and pooled "
+                                   "stages over a ring)"),
+                        (PIPE_AXIS, "a pipeline split of Hiera's stages of unequal width")):
+        if axis in cfg.mesh_shape:
+            raise ValueError(f"architecture 'hiera' on a '{axis}' mesh: there is no {piece} "
+                             "-- use a pure-data mesh (replicated, zero1 or fsdp)")
+    if cfg.param_sharding == "tp":
+        raise ValueError("architecture 'hiera' with --param_sharding tp: HieraBlock has no "
+                         "split of its heads over the model ranks -- use replicated, zero1 "
+                         "or fsdp")
 
 
 def seq_layout(cfg: TrainConfig, mesh: Mesh, seq_step: Callable,

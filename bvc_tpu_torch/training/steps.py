@@ -5,9 +5,10 @@
 ``eval_step``, unsharded).
 
 A VideoMAE step: normalize the uint8 clips on the device, draw the tube (or
-random) mask from the state's generator, take the masked-reconstruction
-loss of :class:`~bvc_tpu_torch.models.videomae.VideoMAEPretrain` and its
-gradients, take the optimizer's update, and read the gradient probes.
+random, or Hiera's mask-unit) mask from the state's generator, take the
+masked-reconstruction loss of
+:class:`~bvc_tpu_torch.models.videomae.VideoMAEPretrain` (or of
+:class:`~bvc_tpu_torch.models.hiera.HieraMAE`) and its gradients, take the optimizer's update, and read the gradient probes.
 A JEPA step: the EMA target's features at the prediction positions (no
 gradient), the context encoder and the predictor, the smooth-L1 loss over
 the valid prediction rows, the update, then the EMA of the target encoder.  A SimCLR step: the
@@ -56,7 +57,7 @@ from typing import Callable
 
 import torch
 
-from bvc_tpu_torch.masks.tube import random_mask, tube_mask
+from bvc_tpu_torch.masks.tube import mask_unit_mask, random_mask, tube_mask
 from bvc_tpu_torch.models.jepa import target_features
 from bvc_tpu_torch.models.videomae import normalize_on_device
 from bvc_tpu_torch.objectives.contrastive import (global_info_nce, info_nce_loss,
@@ -139,11 +140,18 @@ def global_rows(draw: Callable[[int], torch.Tensor], local_batch: int) -> torch.
 def mask_sampler(model_cfg: ModelConfig, mask_cfg: MaskConfig
                  ) -> tuple[Callable[[torch.Generator, int], torch.Tensor], int]:
     """``(draw, num_visible)``: ``draw(generator, batch)`` samples the
-    ``[batch, N]`` tube or random masks of ``mask_cfg``, each row with
+    ``[batch, N]`` tube or random masks of ``mask_cfg``, or the ``[batch,
+    units]`` masks of Hiera's mask units (``mask_unit``), each row with
     ``num_visible`` False entries."""
     grid = (model_cfg.num_time_steps, model_cfg.image_size // model_cfg.patch_size,
             model_cfg.image_size // model_cfg.patch_size)
     n_space = grid[1] * grid[2]
+    if mask_cfg.sampler == "mask_unit":
+        units = tuple(g // u for g, u in zip(grid, model_cfg.mask_unit_size))
+        n = units[0] * units[1] * units[2]
+        sampler = functools.partial(mask_unit_mask, unit_grid=units,
+                                    mask_ratio=mask_cfg.mask_ratio)
+        return sampler, int(n * (1 - mask_cfg.mask_ratio))
     if mask_cfg.sampler == "tube":
         n_masked = int(mask_cfg.mask_ratio * n_space) * grid[0]
         sampler = functools.partial(tube_mask, grid=grid, mask_ratio=mask_cfg.mask_ratio)

@@ -10,7 +10,10 @@ itr, train loss, val loss, grad-EFL, grad-ELL, grad-DLL),
 decoder, as ``bvc_tpu/cli/export_torch.py`` exports), ``qkv_k_bias`` (the k
 thirds of the qkv biases, which HF's layout drops), the export's
 ``train_loss`` and ``val_loss``, and the stage's keys (``rng``: the mask
-generator's state).
+generator's state).  A Hiera model (``architecture`` ``'hiera'``,
+:class:`~bvc_tpu_torch.models.hiera.HieraMAE`, mask units from the
+``mask_unit`` sampler) has no HF layout: its ``model_state_dict`` holds the
+port's own names, and no ``qkv_k_bias``.
 
 Over several ranks (:mod:`~bvc_tpu_torch.training.stage`) VideoMAE also
 runs on a mesh with ``seq`` (``data=D,seq=S[,model=M]``,
@@ -33,6 +36,7 @@ from bvc_tpu_torch.models.convert import (qkv_key_biases,
                                           videomae_pretrain_from_hf_state_dict,
                                           videomae_pretrain_to_hf_state_dict,
                                           with_qkv_key_biases)
+from bvc_tpu_torch.models.hiera import HieraMAE
 from bvc_tpu_torch.models.videomae import VideoMAEPretrain
 from bvc_tpu_torch.parallel.mesh import DATA_AXIS, PIPE_AXIS, SEQ_AXIS
 from bvc_tpu_torch.parallel.pipeline import make_pipe_videomae_train_step
@@ -54,7 +58,10 @@ COLUMNS = (("%d", "epoch"), ("%d", "itr"), ("%.5f", "train loss"), ("%.5f", "val
 
 def videomae_model_state(ckpt: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """A checkpoint's ``model_state_dict`` (HF names) as the pretraining
-    model's state dict, with its ``qkv_k_bias`` entries where it has them."""
+    model's state dict, with its ``qkv_k_bias`` entries where it has them; a
+    Hiera checkpoint's as it is."""
+    if cfg.architecture == "hiera":
+        return ckpt["model_state_dict"]
     sd = videomae_pretrain_from_hf_state_dict(ckpt["model_state_dict"], cfg)
     return with_qkv_key_biases(sd, ckpt.get("qkv_k_bias", {}))
 
@@ -73,7 +80,8 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
     batch_ranks = mesh.axis_size(DATA_AXIS) if seq or pipe else mesh.size
 
     # model / optimizer / state ------------------------------------------------
-    model = VideoMAEPretrain(cfg.model, seed=cfg.seed)
+    hiera = cfg.model.architecture == "hiera"
+    model = (HieraMAE if hiera else VideoMAEPretrain)(cfg.model, seed=cfg.seed)
     if cfg.init_checkpoint_path != "na":
         logger.info("init from checkpoint %s", cfg.init_checkpoint_path)
         model.load_state_dict(videomae_model_state(load_checkpoint(cfg.init_checkpoint_path),
@@ -130,6 +138,8 @@ def run_pretraining(cfg: TrainConfig, device: str | torch.device | None = None) 
 
     def checkpoint():
         model_sd = state.model_state_dict()
+        if hiera:
+            return {"model_state_dict": model_sd}, {}
         return {"model_state_dict": videomae_pretrain_to_hf_state_dict(model_sd, cfg.model),
                 "qkv_k_bias": qkv_key_biases(model_sd)}, {}
 

@@ -169,6 +169,24 @@ class ModelConfig:
     # tokens; 'rope3d' adds none and rotates every attention's queries and
     # keys by their grid position (V-JEPA 2's 3-D RoPE, ops/rope.py)
     pos_embed: str = "sincos3d"
+    # Hiera (architecture 'hiera', models/hiera.py), read by nothing else:
+    # hidden_size is the first stage's width, the patch embedding a Conv3d
+    # of kernel patch_kernel, stride (tubelet_size, patch_size, patch_size)
+    # and padding patch_padding; stage i holds stage_depths[i] blocks of
+    # stage_heads[i] heads at dim_mul^i times the width; queries pool by
+    # q_stride at the first block of stages 2 .. q_pool + 1; masks drop
+    # whole units of mask_unit_size tokens, and the stages named in
+    # mask_unit_attn attend within a unit (the next stage's first block
+    # too). The decoder takes decoder_hidden_size, decoder_depth, decoder_num_heads
+    stage_depths: tuple[int, ...] = ()
+    stage_heads: tuple[int, ...] = ()
+    dim_mul: float = 2.0
+    q_pool: int = 2
+    q_stride: tuple[int, int, int] = (1, 2, 2)
+    mask_unit_size: tuple[int, int, int] = (1, 8, 8)
+    mask_unit_attn: tuple[bool, ...] = (True, True, False, False)
+    patch_kernel: tuple[int, int, int] = (3, 7, 7)
+    patch_padding: tuple[int, int, int] = (1, 3, 3)
     norm_pix_loss: bool = True
     use_mean_pooling: bool = True
     init_std: float = 0.02
@@ -201,9 +219,10 @@ class ModelConfig:
 class MaskConfig:
     """Masking knobs for both mask families."""
 
-    # VideoMAE tube / random masking; JEPA: 'multiblock3d' selects V-JEPA's
-    # 3-D collator (masks/multiblock3d.py), any other value the 2-D one
-    sampler: str = "tube"  # 'tube' | 'random' | 'multiblock3d'
+    # VideoMAE tube / random masking, Hiera's whole mask units; JEPA:
+    # 'multiblock3d' selects V-JEPA's 3-D collator (masks/multiblock3d.py),
+    # any other value the 2-D one
+    sampler: str = "tube"  # 'tube' | 'random' | 'mask_unit' | 'multiblock3d'
     mask_ratio: float = 0.9
     # JEPA multi-block collator, read by masks.multiblock.mask_collate
     enc_mask_scale: tuple[float, float] = (0.85, 1.0)

@@ -121,6 +121,18 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``::
    chain and, as yardsticks, ``F.layer_norm`` and
    ``aten.native_layer_norm_backward``.  The forward must reach 75% of the
    bytes bound at ``[64,1568,768]``.
+6e. The unmasked kernels at head width 32 (``flash_fwd32_sm90``,
+   ``flash_bwd_sm90<32, false>``) at Hiera-H's decoder shape
+   ``[48,1568,16,32]`` and an odd N: the limits of 2 and 3 against the
+   plain versions (eight batch rows at a time), one launch of each kernel a
+   call on the d = 32 counters; times by events and in a CUDA graph against
+   the bounds, the plain versions and cuDNN's or FlashAttention's SDPA
+   pinned.  Then the routes of Hiera-H's other attentions at 48 clips
+   (``HIERA_ROUTE_SHAPES``: the mask-unit windows, the pooled-query
+   windows, the global blocks at 156 tokens), plain math against the
+   kernels, forward plus backward; then one Hiera-H step at 4 clips
+   (``hiera_config``): 8 d = 32 launches of each kernel, no softmax over
+   1568 keys, 9 x 39 mask-unit windows a clip.
 7. The two probes as their own paths (``python -m
    bvc_tpu_torch.probes.int8_dot`` and ``.softmax_dtype``): launch counts
    set to 0, the probe run, its kernels and no other launched.
@@ -739,8 +751,8 @@ def phase_kernel() -> dict:
                        ("key mask at head width 48", lambda: multi_head_attention(
                            q[..., :48], k[..., :48], v[..., :48], impl="flash",
                            key_mask=mask)),
-                       ("head width 32", lambda: flash_fwd_cuda(q[..., :32], k[..., :32],
-                                                                v[..., :32]))):
+                       ("head width 16", lambda: flash_fwd_cuda(q[..., :16], k[..., :16],
+                                                                v[..., :16]))):
         try:
             call()
         except (ValueError, NotImplementedError):
@@ -1018,9 +1030,9 @@ def phase_bwd_kernel() -> dict:
     o, lse = flash_fwd_cuda(qs, k, v)
     for what, call in (("f32", lambda: flash_bwd_cuda(qs.float(), k.float(), v.float(),
                                                       o.float(), lse, o.float())),
-                       ("head width 32", lambda: flash_bwd_cuda(
-                           qs[..., :32], k[..., :32], v[..., :32], o[..., :32], lse,
-                           o[..., :32])),
+                       ("head width 16", lambda: flash_bwd_cuda(
+                           qs[..., :16], k[..., :16], v[..., :16], o[..., :16], lse,
+                           o[..., :16])),
                        ("lse of another shape", lambda: flash_bwd_cuda(
                            qs, k, v, o, lse[:, :1], o))):
         try:
@@ -2576,6 +2588,228 @@ def phase_vjepa2_step(card: str) -> dict:
     return out
 
 
+# Hiera-H's decoder attention, [48, 1568, 16, 32], and an odd N at the same
+# heads and width: the unmasked d = 32 kernels
+FLASH32_SHAPES = (("decoder", (48, 1568, 16, 32)), ("odd N", (4, 197, 16, 32)))
+FLASH32_REF_ROWS = 8  # batch rows a plain-version call holds (its scores: 1.3 GB at 1568)
+# Hiera-H's attentions at 48 clips (39 kept units each): (B, queries, keys,
+# heads, width) of the mask-unit windows, the pooled-query windows and the
+# global blocks
+HIERA_ROUTE_SHAPES = (("stage 1 windows", (1872, 64, 64, 4, 64)),
+                      ("stage 2 first block", (1872, 16, 64, 8, 64)),
+                      ("stage 2 windows", (1872, 16, 16, 8, 64)),
+                      ("stage 3 first block", (1872, 4, 16, 16, 64)),
+                      ("stage 3 global", (48, 156, 156, 16, 64)),
+                      ("stage 4 global", (48, 156, 156, 32, 64)))
+
+
+def read_flash32_launches() -> dict[str, int]:
+    """The unmasked d = 32 kernels' launch counts (also counted, with every
+    width, in :func:`read_launches`)."""
+    return {name: getattr(fn, attr) for name, (fn, attr) in _flash32_counters().items()}
+
+
+def _flash32_counters() -> dict:
+    from bvc_tpu_torch.ops.flash_attention import flash_bwd_cuda, flash_fwd_cuda
+
+    return {"flash_fwd_d32": (flash_fwd_cuda, "launches_d32"),
+            "flash_bwd_prep_d32": (flash_bwd_cuda, "launches_prep_d32"),
+            "flash_bwd_d32": (flash_bwd_cuda, "launches_fused_d32"),
+            "flash_bwd_post_d32": (flash_bwd_cuda, "launches_post_d32")}
+
+
+def phase_flash32_kernel() -> dict:
+    """The unmasked kernels at head width 32 (``flash_fwd32_sm90``,
+    ``flash_bwd_sm90<32, false>`` with its pre- and post-pass) against
+    their plain versions on the card, at Hiera-H's decoder shape ``[48,
+    1568, 16, 32]`` and an odd N: O within O_TOL and LSE within LSE_TOL
+    (absolute and relative);
+    dQ, dK, dV within BWD_TOL x max|ref| and BWD_REL_TOL in |err|/|ref|, a
+    second run within BWD_REL_TOL of the first; O and LSE as phase 2 holds
+    them (``allclose``, absolute and relative); one forward and one of each
+    backward kernel counted a call.  At the decoder shape: times by events
+    and in a CUDA graph beside the bounds (``attention_bound_ms``,
+    ``bwd_bound_ms``), the plain versions (the backward's over 8 rows,
+    times 6) and cuDNN's or FlashAttention's SDPA pinned (``library_ms``)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    from bvc_tpu_torch.ops.flash_attention import (flash_attention_bwd_ref,
+                                                   flash_attention_fwd_ref, flash_bwd_cuda,
+                                                   flash_fwd_cuda)
+
+    out = {}
+    for label, (B, N, h, d) in FLASH32_SHAPES:
+        _, qs, k, v = qkv_inputs(B, N, h, d, seed=3 * N + h)
+        gen = torch.Generator(device="cuda").manual_seed(N + 1)
+        do = torch.randn((B, N, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        for fn, attr in _flash32_counters().values():
+            setattr(fn, attr, 0)
+        o, lse = flash_fwd_cuda(qs, k, v)
+        grads = flash_bwd_cuda(qs, k, v, o, lse, do)
+        again = flash_bwd_cuda(qs, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        launches = read_flash32_launches()
+        check(launches == {"flash_fwd_d32": 1, "flash_bwd_prep_d32": 2, "flash_bwd_d32": 2,
+                           "flash_bwd_post_d32": 2}, f"flash d32 {label}: launches {launches}")
+        o_err = lse_err = 0.0
+        o_ok = lse_ok = True
+        worst = {"dq": [0.0, 0.0, 0.0, 0.0], "dk": [0.0, 0.0, 0.0, 0.0],
+                 "dv": [0.0, 0.0, 0.0, 0.0]}  # max err, max|ref|, sum err^2, sum ref^2
+        rerun = [0.0, 0.0, 0.0]
+        for lo in range(0, B, FLASH32_REF_ROWS):
+            r = slice(lo, lo + FLASH32_REF_ROWS)
+            ro, rl = flash_attention_fwd_ref(qs[r], k[r], v[r])
+            o_err = max(o_err, (o[r].float() - ro.float()).abs().max().item())
+            lse_err = max(lse_err, (lse[r] - rl).abs().max().item())
+            o_ok &= torch.allclose(o[r].float(), ro.float(), atol=O_TOL, rtol=O_TOL)
+            lse_ok &= torch.allclose(lse[r], rl, atol=LSE_TOL, rtol=LSE_TOL)
+            refs = flash_attention_bwd_ref(qs[r], k[r], v[r], o[r], lse[r], do[r])
+            for i, (name, got, ref) in enumerate(zip(("dq", "dk", "dv"), grads, refs)):
+                diff = got[r].float() - ref.float()
+                w = worst[name]
+                w[0] = max(w[0], diff.abs().max().item())
+                w[1] = max(w[1], ref.float().abs().max().item())
+                w[2] += diff.square().sum().item()
+                w[3] += ref.float().square().sum().item()
+                rerun[i] += (got[r].float() - again[i][r].float()).square().sum().item()
+            del ro, rl, refs
+        print(f"flash d32 [{B},{N},{h},{d}] ({label}): O max abs err {o_err:.3e}, LSE "
+              f"{lse_err:.3e} (within {O_TOL} and {LSE_TOL}, absolute and relative, as "
+              f"phase 2 holds d = 64: {o_ok}, {lse_ok})", flush=True)
+        check(o_ok and lse_ok, f"flash d32 forward at {label}")
+        for i, (name, (err, scale, e2, r2)) in enumerate(worst.items()):
+            rel, again_rel = math.sqrt(e2 / r2), math.sqrt(rerun[i] / r2)
+            print(f"flash d32 [{B},{N},{h},{d}] ({label}) {name}: max abs err {err:.3e} "
+                  f"(bound {BWD_TOL * scale:.3e}), |err|/|ref| {rel:.3e}, second run "
+                  f"{again_rel:.3e} (bounds {BWD_REL_TOL})", flush=True)
+            check(err <= BWD_TOL * scale and rel <= BWD_REL_TOL and again_rel <= BWD_REL_TOL,
+                  f"flash d32 backward {name} at {label}")
+        rec = {"at": [B, N, h, d], "max_abs_err": o_err, "lse_err": lse_err,
+               "bwd_max_abs_err": max(w[0] for w in worst.values()), "launches": launches}
+        if label == "decoder":
+            fwd = lambda: flash_fwd_cuda(qs, k, v)  # noqa: E731
+            entry = bwd_entry_ms(qs, k, v, o, lse, do)
+            lib, lib_graph, backend = sdpa_fwd_ms(qs, k, v, (SDPBackend.CUDNN_ATTENTION,
+                                                             SDPBackend.FLASH_ATTENTION))
+            rows = slice(0, FLASH32_REF_ROWS)
+            scale_rows = B / FLASH32_REF_ROWS
+            plain_fwd = scale_rows * time_ms(
+                lambda: flash_attention_fwd_ref(qs[rows], k[rows], v[rows]), iters=3, warmup=1)
+            plain_bwd = scale_rows * time_ms(
+                lambda: flash_attention_bwd_ref(qs[rows], k[rows], v[rows], o[rows], lse[rows],
+                                                do[rows]), iters=3, warmup=1)
+            bound, bound_by = attention_bound_ms(B, N, h, d)
+            bbound, bbound_by = bwd_bound_ms(B, N, h, d, 5, 3)
+            rec.update(ms=time_ms(fwd), graph_ms=graph_ms(fwd), bound_ms=bound,
+                       bound_by=bound_by, plain_ms=plain_fwd, library_ms=lib,
+                       library_graph_ms=lib_graph, library_backend=backend,
+                       bwd={**entry, "bound_ms": bbound, "bound_by": bbound_by,
+                            "plain_ms": plain_bwd})
+            print(f"flash d32 [{B},{N},{h},{d}]: forward {rec['ms']:.4f} ms, graph "
+                  f"{rec['graph_ms']:.4f} (bound {bound:.4f}, {bound_by}: "
+                  f"{bound / rec['graph_ms']:.3f} of it), plain {plain_fwd:.2f} ms, sdpa "
+                  f"({backend}) {ms_text(lib)} / graph {ms_text(lib_graph)}; backward "
+                  f"{entry['whole_ms']:.4f} ms, graph {entry['whole_graph_ms']:.4f} (bound "
+                  f"{bbound:.4f}, {bbound_by}: {bbound / entry['whole_graph_ms']:.3f} of it), "
+                  f"plain {plain_bwd:.2f} ms, sdpa ({entry['library_backend']}) "
+                  f"{ms_text(entry['library_ms'])} / graph "
+                  f"{ms_text(entry['library_graph_ms'])}", flush=True)
+        out[label] = rec
+        del qs, k, v, o, lse, do, grads, again
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_hiera_routes() -> dict:
+    """The routes of Hiera-H's attentions at 48 clips (HIERA_ROUTE_SHAPES):
+    forward plus backward of the plain math (``plain_attention``, f32
+    scores, as ``multi_head_attention`` runs it) and, where the queries are
+    as many as the keys, of the flash kernels (``flash_attention``), by
+    events and in a CUDA graph.  The kernels take equal lengths only, so
+    the pooled-query windows have one route."""
+    import torch
+
+    from bvc_tpu_torch.ops.attention import plain_attention
+    from bvc_tpu_torch.ops.flash_attention import flash_attention
+
+    out = {}
+    for i, (label, (B, nq, nk, h, d)) in enumerate(HIERA_ROUTE_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(700 + i)
+        q = torch.randn((B, nq, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((B, nk, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        do = torch.randn((B, nq, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        leaves = [x.requires_grad_() for x in (q, k, v)]
+        rec = {"at": [B, nq, nk, h, d]}
+        routes = {"plain": lambda: plain_attention(*leaves, d ** -0.5)}
+        if nq == nk:
+            routes["flash"] = lambda: flash_attention(*leaves)
+        for name, attn in routes.items():
+            def fwd_bwd(attn=attn):
+                return torch.autograd.grad(attn(), leaves, do)
+
+            rec[name] = {"ms": time_ms(fwd_bwd), "graph_ms": graph_ms(fwd_bwd)}
+        print(f"hiera route {label} [{B}, q {nq}, kv {nk}, {h}, {d}]: "
+              + "; ".join(f"{n} {r['ms']:.4f} ms, graph {r['graph_ms']:.4f}"
+                          for n, r in rec.items() if n != "at"), flush=True)
+        out[label] = rec
+        del q, k, v, do, leaves
+        torch.cuda.empty_cache()
+    return out
+
+
+def hiera_config():
+    """Hiera-H video MAE as ``portbench/configs/hiera_h_mae.json`` states it."""
+    from bvc_tpu_torch.models.hiera import HIERA_H
+    from bvc_tpu_torch.utils.config import MaskConfig, ModelConfig, OptimConfig
+
+    cfg = ModelConfig(architecture="hiera", image_size=224, num_frames=16, depth=48,
+                      **HIERA_H)
+    return cfg, MaskConfig(sampler="mask_unit", mask_ratio=0.9), OptimConfig(lr=0.1)
+
+
+def phase_hiera_step(card: str, B: int = 4) -> dict:
+    """One Hiera-H MAE training step on the card at ``B`` clips: the 8
+    decoder attentions on the d = 32 kernels, forward and backward; no
+    softmax over the decoder's 1568 tokens in the step's profile; 9
+    mask-unit attentions of 39 windows a clip; the loss finite."""
+    import numpy as np
+    import torch
+
+    from bvc_tpu_torch.models.hiera import HieraMAE, mask_unit_attention
+    from bvc_tpu_torch.training.state import TrainState
+    from bvc_tpu_torch.training.steps import make_videomae_train_step
+
+    cfg, mask_cfg, optim = hiera_config()
+    model = HieraMAE(cfg, seed=0)
+    state = TrainState.create(model, optim, device="cuda")
+    step = make_videomae_train_step(cfg, mask_cfg)
+    video = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (B, 16, 224, 224, 3),
+                                                               dtype=np.uint8))
+    step(state, video)  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    windows = mask_unit_attention.windows
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                record_shapes=True) as prof:
+        loss = step(state, video)["loss"].item()
+        torch.cuda.synchronize()
+    d32, launches = read_flash32_launches(), read_launches()
+    windows = mask_unit_attention.windows - windows
+    wide = sum(e.name in ("aten::softmax", "aten::_softmax") and any(
+        s and s[-1] == 1568 for s in (e.input_shapes or [])) for e in prof.events())
+    print(f"hiera step ({card}) at {B} clips: loss {loss:.5f}; d32 launches {d32}; "
+          f"all flash launches {launches}; mask-unit windows {windows}", flush=True)
+    check(math.isfinite(loss), f"hiera step: loss {loss}")
+    check(d32 == {k: 8 for k in d32}, f"hiera step: d32 launches {d32}, want 8 each")
+    check(wide == 0, f"hiera step: {wide} softmax calls over 1568 keys (materialised scores)")
+    check(windows == 9 * 39 * B, f"hiera step: {windows} windows, want {9 * 39 * B}")
+    out = {"loss": loss, "launches_d32": d32, "launches": launches, "windows": windows}
+    del state, model, step
+    torch.cuda.empty_cache()
+    return out
+
 def probe_path(name: str, run, expected: set) -> dict[str, int]:
     """A probe's entry point as its own path: every launch count set to 0,
     ``run()``, then the counts read: only the kernels in ``expected`` may
@@ -2698,9 +2932,9 @@ def phase_w8a8(card: str, profile: str | None) -> dict:
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0, the GELU and LayerNorm kernels'
-    too."""
+    and the unmasked d = 32 ones' too."""
     for fn, attr in (*_launch_counters().values(), *_gelu_counters().values(),
-                     *_layer_norm_counters().values()):
+                     *_layer_norm_counters().values(), *_flash32_counters().values()):
         setattr(fn, attr, 0)
 
 
@@ -6767,8 +7001,10 @@ def main() -> None:
     for name, kernel, template_args in (("flash_bwd_sm90", "flash_bwd_sm90", "ILi64ELb0EE"),
                                         ("flash_bwd_sm90", "flash_bwd_sm90", "ILi64ELb1EE"),
                                         ("flash_bwd_sm90", "flash_bwd_sm90", "ILi32ELb1EE"),
+                                        ("flash_bwd_sm90", "flash_bwd_sm90", "ILi32ELb0EE"),
                                         ("flash_fwd", "flash_fwd_bias_sm90", "ILi64EE"),
-                                        ("flash_fwd", "flash_fwd_bias_sm90", "ILi32EE")):
+                                        ("flash_fwd", "flash_fwd_bias_sm90", "ILi32EE"),
+                                        ("flash_fwd", "flash_fwd32_sm90", "")):
         check_no_spills_or_serialisation(name, kernel, template_args)
 
     from bvc_tpu_torch.probes import int8_dot, softmax_dtype
@@ -6794,6 +7030,9 @@ def main() -> None:
     rope = phase("phase_rope_kernel", phase_rope_kernel)
     norm = phase("phase_layer_norm_kernel", phase_layer_norm_kernel)
     vjepa2 = phase("phase_vjepa2_step", phase_vjepa2_step, smi)
+    flash32 = phase("phase_flash32_kernel", phase_flash32_kernel)
+    routes = phase("phase_hiera_routes", phase_hiera_routes)
+    hiera = phase("phase_hiera_step", phase_hiera_step, smi)
     int8_probe = phase("probe_path int8", probe_path, "int8 dot", int8_dot.run,
                        {"gemm_s8", "gemm_bf16"})
     softmax_probe = phase("probe_path softmax", probe_path, "softmax dtype", softmax_dtype.run,
@@ -6985,6 +7224,23 @@ def main() -> None:
             **({"launches_per_embed": embed_norms} if key == "layer_norm" else {}),
             **norm[direction]})
     trainers["vjepa2_step"] = {"loss": vjepa2["loss"], "flash_launches": vjepa2["launches"]}
+    # the unmasked kernels at d = 32 (Hiera's decoder), launches a Hiera-H
+    # step at 4 clips; the routes of its other attentions
+    dec = flash32["decoder"]
+    records += [
+        {"name": "flash_fwd_d32", "route": "cuda", "source": fwd_src,
+         "replaces": f"none (the unmasked {replaces}:109 at head width 32)",
+         "launches": hiera["launches_d32"]["flash_fwd_d32"], "at": dec["at"],
+         **{k: dec[k] for k in ("max_abs_err", "ms", "graph_ms", "bound_ms", "bound_by",
+                                "plain_ms", "library_ms", "library_backend")}},
+        {"name": "flash_bwd_d32", "route": "cuda", "source": bwd_sm90_src,
+         "replaces": f"none (the unmasked {replaces}:250 and :278 at head width 32)",
+         "launches": hiera["launches_d32"]["flash_bwd_d32"], "at": dec["at"],
+         "max_abs_err": dec["bwd_max_abs_err"], "ms": dec["bwd"]["whole_ms"],
+         **{k: dec["bwd"][k] for k in ("whole_graph_ms", "bound_ms", "bound_by", "plain_ms",
+                                       "library_ms", "library_backend")}}]
+    trainers["hiera_step"] = {"loss": hiera["loss"], "flash_launches": hiera["launches"],
+                              "windows": hiera["windows"], "routes": routes}
     print(json.dumps({"trainers": trainers}), flush=True)
     print(json.dumps({"phase_seconds": phase.seconds}), flush=True)
     check(all(math.isfinite(r[k]) for r in records

@@ -155,3 +155,49 @@ def test_key_mask_matches_jax():
     out = multi_head_attention(*(torch.from_numpy(x) for x in (q, k, v)),
                                key_mask=torch.from_numpy(mask))
     np.testing.assert_allclose(out.numpy(), ref, rtol=TOL, atol=TOL)
+
+
+# -- unmasked attention at head width 32 (Hiera's decoder) --------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unmasked_d32_operator_matches_the_plain_versions(dtype):
+    """The operator's CPU side at d = 32 without a key mask: the forward is
+    ``flash_attention_fwd_ref``, its gradient ``flash_attention_bwd_ref``."""
+    from bvc_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_bwd_ref
+
+    q, k, v, do = (torch.from_numpy(x).to(dtype) for x in _qkv(2, 100, 4, 32, seed=31)
+                   + [_qkv(2, 100, 4, 32, seed=32)[0]])
+    qs = (q * 32 ** -0.5).to(dtype)
+    o, lse = flash_attention_fwd(qs, k, v)
+    o_ref, lse_ref = flash_attention_fwd_ref(qs, k, v)
+    assert torch.equal(o, o_ref) and torch.equal(lse, lse_ref)
+    leaves = [x.clone().requires_grad_() for x in (qs, k, v)]
+    grads = torch.autograd.grad(flash_attention_fwd(*leaves)[0], leaves, do)
+    for got, want, op in zip(grads, flash_attention_bwd_ref(qs, k, v, o, lse, do),
+                             flash_attention_bwd(qs, k, v, o, lse, do)):
+        assert torch.equal(got, want) and torch.equal(op, want)
+
+
+def test_unmasked_d32_routes_to_the_kernels():
+    from bvc_tpu_torch.ops.attention import FLASH_MIN_TOKENS, attention_route
+    from bvc_tpu_torch.ops.flash_attention import HEAD_DIMS, kernel_route
+
+    assert HEAD_DIMS == (64, 32)
+    assert kernel_route("cuda", torch.bfloat16, 32, False) == "flash"
+    assert attention_route("cuda", torch.bfloat16, 1568, 32, False) == "flash"
+    assert attention_route("cuda", torch.bfloat16, FLASH_MIN_TOKENS - 1, 32, False) == "xla"
+    assert kernel_route("cuda", torch.bfloat16, 16, False) == "xla"
+
+
+def test_pooled_queries_take_the_plain_math():
+    """Fewer queries than keys (Hiera's pooled queries): plain math on every
+    device, which the kernels (as many queries as keys) never see."""
+    from bvc_tpu_torch.ops.attention import attention_route
+
+    assert attention_route("cuda", torch.bfloat16, 1568, 64, False, n_q=392) == "xla"
+    assert attention_route("cuda", torch.bfloat16, 1568, 64, False, n_q=1568) == "flash"
+    q = torch.from_numpy(_qkv(3, 16, 2, 8, seed=41)[0])
+    k, v = (torch.from_numpy(x) for x in _qkv(3, 64, 2, 8, seed=42)[:2])
+    torch.testing.assert_close(multi_head_attention(q, k, v), plain_attention(q, k, v, 8 ** -0.5),
+                               rtol=0, atol=0)

@@ -138,7 +138,7 @@ def test_key_bias_and_plain_versions():
     ("cuda", torch.bfloat16, 392, 64, False, "flash"),    # JEPA target encoder
     ("cuda", torch.bfloat16, 169, 64, True, "flash"),     # JEPA context encoder
     ("cuda", torch.bfloat16, 199, 32, True, "flash"),     # JEPA predictor
-    ("cuda", torch.bfloat16, 392, 32, False, "xla"),      # no unmasked d=32 kernel
+    ("cuda", torch.bfloat16, 1568, 32, False, "flash"),   # Hiera's decoder: unmasked d=32
     ("cuda", torch.bfloat16, 1568, 80, False, "xla"),     # ViT-H: d=80
     ("cuda", torch.bfloat16, 1568, 88, True, "xla"),      # ViT-g: d=88
     ("cuda", torch.bfloat16, FLASH_MIN_TOKENS - 1, 64, False, "xla"),

@@ -204,13 +204,14 @@ def test_plain_route_bf16_width16_matches_jax_ring(mask, S):
 
 def test_ring_route_rule(monkeypatch):
     """The route on a mocked ``cuda`` device type: the kernels for bf16 at 64
-    (and at 32 with a key mask), plain for f32, for other widths, for an
-    unmasked 32 and off CUDA; decided once a ring call, before its first
-    hop, from the blocks' device, dtype and width."""
+    and 32, with or without a key mask, plain for f32, for other widths and
+    off CUDA; decided once a ring call, before its first hop, from the
+    blocks' device, dtype and width."""
     bf16, f32 = torch.bfloat16, torch.float32
-    for args in (("cuda", bf16, 64, False), ("cuda", bf16, 64, True), ("cuda", bf16, 32, True)):
+    for args in (("cuda", bf16, 64, False), ("cuda", bf16, 64, True), ("cuda", bf16, 32, True),
+                 ("cuda", bf16, 32, False)):
         assert kernel_route(*args) == "flash", args
-    for args in (("cuda", bf16, 32, False), ("cuda", bf16, 16, False), ("cuda", bf16, 16, True),
+    for args in (("cuda", bf16, 16, False), ("cuda", bf16, 16, True),
                  ("cuda", f32, 64, False), ("cuda", f32, 32, True), ("cpu", bf16, 64, False),
                  ("cuda", torch.float16, 64, False)):
         assert kernel_route(*args) == "xla", args
